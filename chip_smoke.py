@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (roadvision_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+  1. print the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from roadvision_tpu_torch/csrc (one nvcc per
+     source, started together) and print the build time;
+  3. hold every kernel against its plain PyTorch version on the card, at
+     the main path's shapes (8 x 1080p luma for CLAHE in both blend
+     modes plus a ragged 1079 x 1917 plane; 3 x 8 planes of 1080p for the
+     median at k = 3, and k = 5, 7, 9 at a smaller shape): bit-equality,
+     times by CUDA events, and the bound (the larger of bytes read once
+     and written once over 3.35 TB/s and scalar operations over 67 T/s);
+  4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
+     CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
+     PipelineEngine.process_batch: one batch in float32 with TF32 off
+     against the CPU plain path (processed frames bit-equal, detections
+     within the tests' tolerance, identical track ids), then the default
+     bfloat16 path with the kernels' launch counters reset just before
+     and read just after (each kernel once per batch), timed in
+     frames/s, and sanity-checked: on the first batch it tracks as many
+     distinct objects as the float32 run;
+  5. print the kernels' JSON line, the card line, and last the ok line.
+
+Options: ``--kernels-only`` stops after phase 3; ``--profile`` adds a
+torch.profiler pass over one bfloat16 batch (device busy share, kernel
+launches, top kernels; tables in chiprun_out/profile.txt).
+
+Exits non-zero without a result when no CUDA device is present.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# H100 SXM float32 rate outside the tensor cores; the kernels' integer
+# compares and adds are counted against it too (no faster scalar rate)
+SCALAR_OPS_PER_S = 67e12
+# scalar operations per element, as the kernels compute them
+K1_OPS_PER_PIXEL = 1               # one histogram increment
+K1_OPS_PER_BIN = 14                # clip, redistribute, 8-step scan, scale
+K2_OPS_PER_PIXEL = 16              # 4 converts, 6 mul, 3 add, rint, clamp
+K3_OPS_PER_PIXEL = 38              # 19 compare-exchanges of min and max
+BATCH, HEIGHT, WIDTH = 8, 1080, 1920
+BOX_TOL, CONF_TOL = 0.05, 2e-3     # as tests/test_torch_pipeline.py
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: int, nops: int) -> dict:
+    """The least time for the work: the larger of bytes over the memory
+    rate and scalar operations over the scalar rate, and which one it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def pipeline_cfg(model: str):
+    """bench.py::_cfg(1080, 1920, 8) with the demo checkpoint."""
+    from roadvision_tpu_torch.config import DEFAULTS, merge
+    h, w = HEIGHT, WIDTH
+    return merge(DEFAULTS, {
+        "preprocess": {"enabled": True, "chain": [
+            {"name": "CLAHEDehaze",
+             "params": {"space": "YCrCb", "clip_limit": 2.0, "tile_grid": 8}},
+            {"name": "MedianDerain", "params": {"ksize": 3}},
+        ]},
+        "detect": {"enabled": True, "model": model, "conf_thres": 0.25,
+                   "iou_thres": 0.7, "max_det": 100,
+                   "classes_keep": [0, 2, 3, 5, 7]},
+        "tracking": {"enabled": True, "max_staleness": 1.2, "min_hits": 3,
+                     "iou_threshold": 0.35, "speed_window": 0.8},
+        "geometry": {"enabled": True, "projector": {
+            "type": "homography",
+            "image_points": [[0, h], [w, h], [0, int(0.4 * h)],
+                             [w, int(0.4 * h)]],
+            "world_points": [[0, 0], [20, 0], [0, 120], [20, 120]],
+            "origin": [10.0, 0.0], "max_distance": 1000.0}},
+        "tpu": {"batch_size": BATCH},
+    })
+
+
+def render_batches(n: int, seed: int = 0):
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    src = SyntheticRoadSource(WIDTH, HEIGHT, num_vehicles=6, seed=seed)
+    out = []
+    for k in range(n):
+        frames = np.stack([src.render(k * BATCH + i) for i in range(BATCH)])
+        ts = 1000.0 + (k * BATCH + np.arange(BATCH)) / 30.0
+        out.append((frames, ts))
+    return out
+
+
+def check_kernels(frames: np.ndarray):
+    """Phase 3: every kernel against its plain version on the card."""
+    import torch
+    from roadvision_tpu_torch.ops import clahe as C
+    from roadvision_tpu_torch.ops import color
+    from roadvision_tpu_torch.ops import median as M
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(frames).to(dev)
+    y = color.bgr_planes_to_ycrcb_i32(x[..., 0], x[..., 1], x[..., 2])[0] \
+        .contiguous()                                     # (8, 1080, 1920)
+    rng = np.random.RandomState(0)
+    noise = torch.from_numpy(
+        rng.randint(0, 256, (BATCH, 1079, 1917)).astype(np.uint8)).to(dev)
+    rows = {}
+
+    errs = {"clahe_tile_luts": 0, "clahe_apply": 0, "median_k": 0}
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        err = int((a.int() - b.int()).abs().max())
+        name = what.split()[0]
+        errs[name] = max(errs[name], err)
+        if err != 0:
+            fail(f"{what}: kernel differs from its plain version "
+                 f"(max |err| {err})")
+
+    # K1 + K2 on the main-path plane, and on a ragged plane
+    cases = {}
+    for name, plane in (("main", y), ("ragged", noise)):
+        n, h, w = plane.shape
+        pad_h, pad_w, th, tw = C.pad_plan(h, w, 8, 8)
+        xe = C._reflect_pad_101(plane, pad_h, pad_w)
+        clip, scale = C.clip_count(2.0, th * tw), C.lut_scale(th * tw)
+        k_luts = C.clahe_tile_luts(xe, 8, 8, clip, scale)
+        p_luts = C.tile_luts_plain(xe, 8, 8, clip, scale)
+        same(k_luts, p_luts, f"clahe_tile_luts ({name})")
+        for blend in C.BLENDS:
+            same(C.clahe_apply(plane, k_luts, th, tw, blend),
+                 C.apply_plain(plane, k_luts, th, tw, blend),
+                 f"clahe_apply {blend} ({name})")
+        cases[name] = (plane, xe, k_luts, th, tw, clip, scale)
+        print(f"[kernels] CLAHE {name} {tuple(plane.shape)}: K1 and K2 "
+              f"(cv2, fixed) bit-equal to plain", flush=True)
+
+    plane, xe, luts, th, tw, clip, scale = cases["main"]
+    n, h, w = plane.shape
+    rows["clahe_tile_luts"] = dict(
+        ms=cuda_ms(lambda: C.clahe_tile_luts(xe, 8, 8, clip, scale), 50),
+        plain_ms=cuda_ms(lambda: C.tile_luts_plain(xe, 8, 8, clip, scale),
+                         5, 1),
+        **bound(xe.numel() + luts.numel(),
+                K1_OPS_PER_PIXEL * xe.numel()
+                + K1_OPS_PER_BIN * luts.numel()))
+    rows["clahe_apply"] = dict(
+        ms=cuda_ms(lambda: C.clahe_apply(plane, luts, th, tw, "cv2"), 50),
+        plain_ms=cuda_ms(lambda: C.apply_plain(plane, luts, th, tw, "cv2"),
+                         5, 1),
+        fixed_ms=cuda_ms(lambda: C.clahe_apply(plane, luts, th, tw,
+                                               "fixed"), 50),
+        **bound(2 * plane.numel() + luts.numel() + 20 * (h + w),
+                K2_OPS_PER_PIXEL * plane.numel()))
+
+    # K3 at the main path's shape: 3 planes x 8 frames of 1080p, k = 3
+    planes = torch.stack([x[..., c] for c in range(3)]) \
+        .reshape(3 * BATCH, HEIGHT, WIDTH).contiguous()
+    same(M.median_planes(planes, 3), M.median_plain(planes, 3),
+         "median_k k=3 (main)")
+    small = torch.from_numpy(
+        rng.randint(0, 256, (3, 270, 481)).astype(np.uint8)).to(dev)
+    for k in (3, 5, 7, 9):
+        same(M.median_planes(small, k), M.median_plain(small, k),
+             f"median_k k={k} (small)")
+    print("[kernels] median: K3 bit-equal to plain at k=3 (24 x 1080p) and "
+          "k=3,5,7,9 (3 x 270 x 481)", flush=True)
+    rows["median_k"] = dict(
+        ms=cuda_ms(lambda: M.median_planes(planes, 3), 50),
+        plain_ms=cuda_ms(lambda: M.median_plain(planes, 3), 5, 1),
+        **bound(2 * planes.numel(), K3_OPS_PER_PIXEL * planes.numel()))
+    for name, r in rows.items():
+        r["max_abs_err"] = errs[name]
+        print(f"[kernels] {name}: {r['ms']:.4f} ms kernel, "
+              f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})"
+              + (f", fixed blend {r['fixed_ms']:.4f} ms"
+                 if "fixed_ms" in r else ""), flush=True)
+    return rows
+
+
+def compare_results(cpu, gpu) -> float:
+    """Per-frame Detection lists: same count, class, track id; box and
+    conf within the stated tolerance. Returns the max box error."""
+    worst = 0.0
+    for fi, (a, b) in enumerate(zip(cpu, gpu)):
+        if not np.array_equal(a.proc, b.proc):
+            fail(f"frame {fi}: processed frame differs from the CPU path")
+        if len(a.detections) != len(b.detections):
+            fail(f"frame {fi}: {len(a.detections)} CPU detections vs "
+                 f"{len(b.detections)} on the card")
+        for da, db in zip(a.detections, b.detections):
+            if da.cls_id != db.cls_id or da.track_id != db.track_id:
+                fail(f"frame {fi}: class/track id differ "
+                     f"({da.cls_id},{da.track_id}) vs "
+                     f"({db.cls_id},{db.track_id})")
+            box = max(abs(p - q) for p, q in zip(
+                (da.x1, da.y1, da.x2, da.y2), (db.x1, db.y1, db.x2, db.y2)))
+            worst = max(worst, box)
+            if box > BOX_TOL or abs(da.conf - db.conf) > CONF_TOL:
+                fail(f"frame {fi}: box err {box} / conf err "
+                     f"{abs(da.conf - db.conf)} over tolerance")
+    return worst
+
+
+def stage_breakdown(engine, frames, ts):
+    """Host-clock ms of each stage of one step, synchronised between."""
+    import torch
+    dev = engine.device
+    out = {}
+    x = torch.from_numpy(frames).to(dev)
+    tsd = torch.from_numpy(((ts - ts[0]).astype(np.float32))).to(dev)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    from roadvision_tpu_torch.ops.letterbox import scale_boxes
+    det = engine.detector
+    with torch.inference_mode():
+        proc = timed("preprocess", lambda: engine.pipeline.apply_batch(x))
+        imgs, ratio, pad = timed("letterbox", lambda: det.letterbox(proc))
+        raw = timed("forward", lambda: det.forward(imgs))
+        from roadvision_tpu_torch.ops.nms import nms_batch
+        b, c, k, v = timed("nms", lambda: nms_batch(
+            *raw, conf_thres=det.conf, iou_thres=det.iou,
+            max_det=det.max_det, pre_topk=300,
+            classes_keep=det.keep or None))
+        b = scale_boxes(b, ratio, pad, (HEIGHT, WIDTH))
+        timed("sort_geometry",
+              lambda: engine._dets_tail(BATCH, b, c, k, v, tsd))
+    return out
+
+
+def profile_batch(engine, frames, ts) -> dict:
+    """torch.profiler over one bf16 batch: device busy share, kernel
+    launches, and the top kernels and host ops (full tables to
+    chiprun_out/profile.txt)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.process_batch(frames, ts, want_proc=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.process_batch(frames, ts + 1.0, want_proc=False)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "kernel_launches": sum(e.count for e in kern),
+           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top}}
+    Path("chiprun_out").mkdir(exist_ok=True)
+    Path("chiprun_out/profile.txt").write_text(
+        events.table(sort_by="self_cpu_time_total", row_limit=60) + "\n\n"
+        + events.table(sort_by="self_device_time_total", row_limit=40))
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.runtime import PipelineEngine
+
+    card = card_line()
+    print(f"[card] {card}", flush=True)
+
+    t0 = time.perf_counter()
+    kernels.build_all(verbose=True)
+    print(f"[build] kernels built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    batches = render_batches(6)
+    rows = check_kernels(batches[0][0])
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
+
+    model = str(Path(__file__).resolve().parent / "assets"
+                / "yolov8n_synthetic_256.npz")
+
+    # one batch in float32, TF32 off for cuDNN and matmul, vs the CPU path
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = pipeline_cfg(model)
+    cfg32["tpu"]["compute_dtype"] = "float32"
+    frames, ts = batches[0]
+    gpu32 = PipelineEngine(cfg32, device="cuda")
+    cpu32 = PipelineEngine(cfg32, device="cpu")
+    r_gpu = gpu32.process_batch(frames, ts)
+    t_cpu = time.perf_counter()
+    r_cpu = cpu32.process_batch(frames, ts)
+    t_cpu = time.perf_counter() - t_cpu
+    n_dets = sum(len(r.detections) for r in r_cpu)
+    worst = compare_results(r_cpu, r_gpu)
+    print(f"[e2e] float32 batch: processed frames bit-equal, {n_dets} "
+          f"detections match the CPU path (max box err {worst:.2e} px), "
+          f"track ids identical; CPU path {t_cpu:.2f} s", flush=True)
+    for r in r_gpu:
+        for d in r.detections:
+            if not all(np.isfinite(v) for v in (d.x1, d.y1, d.x2, d.y2,
+                                                 d.conf)):
+                fail("non-finite detection")
+
+    # the default bfloat16 path: counters from 0 around the main-path run
+    torch.backends.cudnn.benchmark = True
+    engine = PipelineEngine(pipeline_cfg(model), device="cuda")
+    engine.process_batch(*batches[0], want_proc=False)     # warm-up
+    engine.reset()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    n_timed = 0
+    t0 = time.perf_counter()
+    results = []
+    for rep in range(4):
+        for frames, ts in batches:
+            shift = rep * len(batches) * BATCH / 30.0
+            results.append(engine.process_batch(frames, ts + shift,
+                                                want_proc=False))
+            n_timed += 1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    fps = n_timed * BATCH / elapsed
+    for name, c in counts.items():
+        if c != n_timed:       # one launch of each kernel per batch
+            fail(f"kernel {name} launched {c} times in {n_timed} batches")
+        print(f"[kernels] {name}: {c / n_timed:g} launches per 1080p batch "
+              f"on the main path", flush=True)
+    n16 = [len(r.detections) for r in results[0]]
+    n32 = [len(r.detections) for r in r_gpu]
+    tracks16 = len({d.track_id for r in results[0] for d in r.detections})
+    tracks32 = len({d.track_id for r in r_gpu for d in r.detections})
+    print(f"[e2e] bfloat16: {n_timed} batches of {BATCH} x {WIDTH}x{HEIGHT} "
+          f"through process_batch in {elapsed:.3f} s = {fps:.1f} frames/s "
+          f"({card}); launches {counts}", flush=True)
+    print(f"[e2e] first batch: detections per frame bf16 {n16} vs f32 "
+          f"{n32}; distinct tracks bf16 {tracks16} vs f32 {tracks32}",
+          flush=True)
+    if tracks16 != tracks32 or tracks32 == 0:
+        fail("bf16 and f32 track a different number of objects")
+    stages = stage_breakdown(engine, *batches[1])
+    print("[e2e] stage ms (one batch, host clock, synchronised): "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+    if "--profile" in sys.argv[1:]:
+        print("[profile] " + json.dumps(profile_batch(engine, *batches[2])),
+              flush=True)
+
+    replaces = {
+        "clahe_tile_luts": ("roadvision_tpu_torch/csrc/clahe.cu",
+                            "roadvision_tpu/ops/clahe.py:222"),
+        "clahe_apply": ("roadvision_tpu_torch/csrc/clahe.cu",
+                        "roadvision_tpu/ops/pallas_clahe.py:64"),
+        "median_k": ("roadvision_tpu_torch/csrc/median.cu",
+                     "roadvision_tpu/ops/pallas_median.py:87"),
+    }
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": replaces[name][0],
+         "replaces": replaces[name][1], "launches": counts[name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for name, r in rows.items()],
+        "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages}
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))
+    print(json.dumps(line), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

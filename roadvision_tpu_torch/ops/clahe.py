@@ -1,0 +1,317 @@
+"""CLAHE on uint8 luma planes: plain PyTorch plus two CUDA kernels.
+
+Port of ``roadvision_tpu/ops/clahe.py:125-434``: OpenCV's CLAHE step for
+step — reflect-101 pad of the ragged edge, 256-bin histogram per tile,
+clip at ``max(int(clip·area/256), 1)`` with OpenCV's excess
+redistribution, LUT = round-half-even(cdf·255/area), then the bilinear
+blend of the four neighbouring tile LUTs with OpenCV's half-tile offset,
+in one of two modes:
+
+  * "cv2" (default) — float32 with every multiply and add rounded on its
+    own, as OpenCV's SSE path does;
+  * "fixed" — exact uint32 rationals over ``4·th·tw``, half-even division.
+
+Two stages, two kernels (``csrc/clahe.cu``):
+
+  * :func:`clahe_tile_luts` — K1, the histogram→clip→CDF stage
+    (``_luts_for_plane``; XLA-only in the JAX package);
+  * :func:`clahe_apply` — K2, the LUT apply and blend (``sweep_pallas`` +
+    the blend of ``_apply_band_sweep``).
+
+Each wrapper runs its plain version for a tensor on the CPU and launches
+its kernel for a CUDA tensor; there is no other route. The per-row and
+per-column interpolation tables are host numpy, exactly as the JAX
+package builds them at trace time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+
+BLENDS = ("cv2", "fixed")
+
+
+# ---------------------------------------------------------------------------
+# host-side geometry (numpy, shared by the plain path and the kernels)
+# ---------------------------------------------------------------------------
+
+def pad_plan(h: int, w: int, gy: int, gx: int) -> Tuple[int, int, int, int]:
+    """(pad_h, pad_w, th, tw). OpenCV quirk kept from clahe.py:225-235:
+    when EITHER dimension is ragged, BOTH are padded by
+    ``tiles - size % tiles`` (a dimension that divides gains a full tile)."""
+    if h % gy == 0 and w % gx == 0:
+        pad_h = pad_w = 0
+    else:
+        pad_h = gy - h % gy
+        pad_w = gx - w % gx
+    return pad_h, pad_w, (h + pad_h) // gy, (w + pad_w) // gx
+
+
+def clip_count(clip_limit: float, tile_area: int) -> int:
+    """Integer clip limit as at clahe.py:240 (0 = no clipping)."""
+    if clip_limit > 0:
+        return max(int(clip_limit * tile_area / 256.0), 1)
+    return 0
+
+
+def lut_scale(tile_area: int) -> np.float32:
+    return np.float32(255.0 / tile_area)
+
+
+def _interp_coords(size: int, tile: int, tiles: int):
+    """Tile indices and float blend weight along one axis (clahe.py:185-197)."""
+    pos = (np.arange(size, dtype=np.float32) + 0.0) \
+        * (1.0 / np.float32(tile)) - 0.5
+    i1_raw = np.floor(pos).astype(np.int32)
+    frac = (pos - i1_raw).astype(np.float32)
+    i1 = np.maximum(i1_raw, 0)
+    i2 = np.minimum(i1_raw + 1, tiles - 1)
+    return i1, i2, frac
+
+
+def _interp_weight_num(size: int, tile: int) -> np.ndarray:
+    """Exact numerator of the blend weight over 2·tile (clahe.py:200-208)."""
+    x = np.arange(size, dtype=np.int64)
+    return (2 * x - tile) % (2 * tile)
+
+
+@functools.lru_cache(maxsize=64)
+def interp_tables(size: int, tile: int, tiles: int):
+    """(size, 3) int32 [i1, i2, num] and (size, 2) float32 [frac, 1-frac]."""
+    i1, i2, frac = _interp_coords(size, tile, tiles)
+    num = _interp_weight_num(size, tile)
+    ti = np.stack([i1, i2, num.astype(np.int32)], axis=1).astype(np.int32)
+    tf = np.stack([frac, np.float32(1.0) - frac], axis=1).astype(np.float32)
+    return ti, tf
+
+
+_dev_tables: Dict[tuple, tuple] = {}
+
+
+def _tables_on(device: torch.device, h: int, w: int, th: int, tw: int,
+               gy: int, gx: int):
+    key = (str(device), h, w, th, tw, gy, gx)
+    got = _dev_tables.get(key)
+    if got is None:
+        ri, rf = interp_tables(h, th, gy)
+        ci, cf = interp_tables(w, tw, gx)
+        got = tuple(torch.from_numpy(a).to(device) for a in (ri, rf, ci, cf))
+        _dev_tables[key] = got
+    return got
+
+
+def _reflect_pad_101(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """BORDER_REFLECT_101 on bottom/right (numpy's "reflect"), by index."""
+    if pad_h == 0 and pad_w == 0:
+        return x
+    h, w = x.shape[-2], x.shape[-1]
+    iy = torch.from_numpy(np.pad(np.arange(h), (0, pad_h), mode="reflect"))
+    ix = torch.from_numpy(np.pad(np.arange(w), (0, pad_w), mode="reflect"))
+    return x.index_select(-2, iy.to(x.device)) \
+        .index_select(-1, ix.to(x.device)).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K1 — tile LUTs
+# ---------------------------------------------------------------------------
+
+def tile_luts_plain(xe: torch.Tensor, gy: int, gx: int, clip: int,
+                    scale: np.float32) -> torch.Tensor:
+    """(N, Hp, Wp) uint8 padded plane → (N, gy, gx, 256) uint8 LUTs."""
+    n, hp, wp = xe.shape
+    th, tw = hp // gy, wp // gx
+    dev = xe.device
+    tile_id = (torch.arange(n, device=dev).view(n, 1, 1, 1, 1) * (gy * gx)
+               + torch.arange(gy, device=dev).view(1, gy, 1, 1, 1) * gx
+               + torch.arange(gx, device=dev).view(1, 1, 1, gx, 1))
+    idx = tile_id * 256 + xe.view(n, gy, th, gx, tw).long()
+    hist = torch.bincount(idx.reshape(-1), minlength=n * gy * gx * 256)
+    hist = hist.view(n, gy, gx, 256)
+    if clip > 0:
+        clipped = torch.clamp(hist, max=clip)
+        excess = (hist - clipped).sum(dim=-1, keepdim=True)
+        redist = torch.div(excess, 256, rounding_mode="floor")
+        residual = excess - redist * 256
+        b = torch.arange(256, device=dev)
+        step = torch.clamp(256 // torch.clamp(residual, min=1), min=1)
+        bump = (b % step == 0) & (torch.div(b, step, rounding_mode="floor")
+                                  < residual)
+        hist = clipped + redist + bump.long()
+    cdf = torch.cumsum(hist, dim=-1)
+    lut = torch.round(cdf.to(torch.float32)
+                      * torch.tensor(scale, dtype=torch.float32, device=dev))
+    return lut.clamp_(0, 255).to(torch.uint8)
+
+
+def _tile_luts_cuda(xe: torch.Tensor, gy: int, gx: int, clip: int,
+                    scale: np.float32) -> torch.Tensor:
+    n, hp, wp = xe.shape
+    th, tw = hp // gy, wp // gx
+    out = torch.empty((n, gy, gx, 256), dtype=torch.uint8, device=xe.device)
+    lib = _build.load("clahe")
+    with torch.cuda.device(xe.device):
+        code = lib.rvt_clahe_tile_luts(
+            xe.data_ptr(), out.data_ptr(), n, hp, wp, gy, gx, th, tw, clip,
+            ctypes.c_float(float(scale)), _build.stream_ptr(xe))
+    _build.launch_counts["clahe_tile_luts"] += 1
+    _build.check(code, "clahe_tile_luts")
+    return out
+
+
+def clahe_tile_luts(xe: torch.Tensor, gy: int, gx: int, clip: int,
+                    scale: np.float32) -> torch.Tensor:
+    """K1 wrapper: CPU tensor → plain version, CUDA tensor → kernel."""
+    if xe.dtype != torch.uint8 or xe.dim() != 3:
+        raise ValueError(f"expected (N, H, W) uint8, got {tuple(xe.shape)} "
+                         f"{xe.dtype}")
+    n, hp, wp = xe.shape
+    if hp % gy or wp % gx:
+        raise ValueError(f"padded plane {hp}x{wp} does not divide the "
+                         f"{gy}x{gx} grid")
+    if xe.device.type == "cpu":
+        return tile_luts_plain(xe, gy, gx, clip, scale)
+    if xe.device.type != "cuda":
+        raise ValueError(f"unsupported device {xe.device}")
+    if n > 65535:
+        raise ValueError("at most 65535 planes per launch")
+    return _tile_luts_cuda(xe.contiguous(), gy, gx, clip, scale)
+
+
+# ---------------------------------------------------------------------------
+# K2 — LUT apply + bilinear blend
+# ---------------------------------------------------------------------------
+
+def lut_taps(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int):
+    """The four LUT taps (l11, l12, l21, l22) at every pixel, uint8 —
+    what ``sweep_pallas`` reads out of its packed table."""
+    n, h, w = x.shape
+    gy, gx = luts.shape[1], luts.shape[2]
+    ri, _, ci, _ = _tables_on(x.device, h, w, th, tw, gy, gx)
+    flat = luts.reshape(-1)
+    v = x.long()
+    nbase = torch.arange(n, device=x.device).view(n, 1, 1) * (gy * gx)
+    r1 = (nbase + ri[:, 0].long().view(1, h, 1) * gx) * 256
+    r2 = (nbase + ri[:, 1].long().view(1, h, 1) * gx) * 256
+    c1 = (ci[:, 0].long() * 256).view(1, 1, w) + v
+    c2 = (ci[:, 1].long() * 256).view(1, 1, w) + v
+    return flat[r1 + c1], flat[r1 + c2], flat[r2 + c1], flat[r2 + c2]
+
+
+def apply_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
+                blend: str = "cv2") -> torch.Tensor:
+    """(N, H, W) uint8 + (N, gy, gx, 256) uint8 LUTs → (N, H, W) uint8.
+
+    One eager op per arithmetic step, so no multiply and add fuse."""
+    n, h, w = x.shape
+    gy, gx = luts.shape[1], luts.shape[2]
+    ri, rf, ci, cf = _tables_on(x.device, h, w, th, tw, gy, gx)
+    l11, l12, l21, l22 = lut_taps(x, luts, th, tw)
+    if blend == "fixed":
+        twn, thn = 2 * tw, 2 * th
+        den = 4 * th * tw
+        xan = ci[:, 2].long().view(1, 1, w)
+        yan = ri[:, 2].long().view(1, h, 1)
+        top = l11.long() * (twn - xan) + l12.long() * xan
+        bot = l21.long() * (twn - xan) + l22.long() * xan
+        num = top * (thn - yan) + bot * yan
+        q = torch.div(num, den, rounding_mode="floor")
+        rem = num - q * den
+        up = (2 * rem > den) | ((2 * rem == den) & (q % 2 == 1))
+        return (q + up.long()).to(torch.uint8)
+    if blend != "cv2":
+        raise ValueError(f"blend must be one of {BLENDS}, got {blend!r}")
+    xa, xa1 = cf[:, 0].view(1, 1, w), cf[:, 1].view(1, 1, w)
+    ya, ya1 = rf[:, 0].view(1, h, 1), rf[:, 1].view(1, h, 1)
+    top = torch.add(torch.mul(l11.float(), xa1), torch.mul(l12.float(), xa))
+    bot = torch.add(torch.mul(l21.float(), xa1), torch.mul(l22.float(), xa))
+    res = torch.add(torch.mul(top, ya1), torch.mul(bot, ya))
+    return torch.round(res).clamp_(0, 255).to(torch.uint8)
+
+
+def _apply_cuda(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
+                blend: str) -> torch.Tensor:
+    n, h, w = x.shape
+    gy, gx = luts.shape[1], luts.shape[2]
+    ri, rf, ci, cf = _tables_on(x.device, h, w, th, tw, gy, gx)
+    out = torch.empty_like(x)
+    lib = _build.load("clahe")
+    with torch.cuda.device(x.device):
+        code = lib.rvt_clahe_apply(
+            x.data_ptr(), luts.data_ptr(), ri.data_ptr(), rf.data_ptr(),
+            ci.data_ptr(), cf.data_ptr(), out.data_ptr(), n, h, w, gy, gx,
+            th, tw, int(blend == "fixed"), _build.stream_ptr(x))
+    _build.launch_counts["clahe_apply"] += 1
+    _build.check(code, "clahe_apply")
+    return out
+
+
+def clahe_apply(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
+                blend: str = "cv2") -> torch.Tensor:
+    """K2 wrapper: CPU tensor → plain version, CUDA tensor → kernel."""
+    if blend not in BLENDS:
+        raise ValueError(f"blend must be one of {BLENDS}, got {blend!r}")
+    if x.dtype != torch.uint8 or x.dim() != 3:
+        raise ValueError(f"expected (N, H, W) uint8, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if luts.dtype != torch.uint8 or luts.dim() != 4 \
+            or luts.shape[0] != x.shape[0] or luts.shape[3] != 256:
+        raise ValueError(f"expected (N, gy, gx, 256) uint8 LUTs, got "
+                         f"{tuple(luts.shape)} {luts.dtype}")
+    if x.device != luts.device:
+        raise ValueError("plane and LUTs must be on one device")
+    if x.device.type == "cpu":
+        return apply_plain(x, luts, th, tw, blend)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    gy, gx = luts.shape[1], luts.shape[2]
+    if gy * gx * 256 > 227 * 1024:
+        raise ValueError(f"a {gy}x{gx} grid's LUTs exceed one block's "
+                         f"shared memory")
+    if x.shape[0] > 65535:
+        raise ValueError("at most 65535 planes per launch")
+    return _apply_cuda(x.contiguous(), luts.contiguous(), th, tw, blend)
+
+
+# ---------------------------------------------------------------------------
+# public functions (the JAX package's names)
+# ---------------------------------------------------------------------------
+
+def _planes_u8(plane: torch.Tensor) -> torch.Tensor:
+    h, w = plane.shape[-2], plane.shape[-1]
+    x = plane.reshape((-1, h, w))
+    return x if x.dtype == torch.uint8 else x.to(torch.uint8)
+
+
+def _luts_for_plane(x: torch.Tensor, clip_limit: float, gy: int, gx: int):
+    n, h, w = x.shape
+    pad_h, pad_w, th, tw = pad_plan(h, w, gy, gx)
+    xe = _reflect_pad_101(x, pad_h, pad_w)
+    area = th * tw
+    luts = clahe_tile_luts(xe, gy, gx, clip_count(clip_limit, area),
+                           lut_scale(area))
+    return luts, th, tw
+
+
+def compute_tile_luts(plane: torch.Tensor, clip_limit: float = 2.0,
+                      grid: tuple = (8, 8)) -> torch.Tensor:
+    """(..., H, W) u8-domain plane → (..., gy, gx, 256) uint8 tile LUTs."""
+    gy, gx = int(grid[0]), int(grid[1])
+    luts, _, _ = _luts_for_plane(_planes_u8(plane), clip_limit, gy, gx)
+    return luts.reshape(plane.shape[:-2] + (gy, gx, 256))
+
+
+def clahe_planar(plane: torch.Tensor, clip_limit: float = 2.0,
+                 grid: tuple = (8, 8), blend: str = "cv2") -> torch.Tensor:
+    """CLAHE on a (..., H, W) plane with values in [0, 255]; the output
+    keeps the input dtype (the counterpart of ``clahe_planar_i32``)."""
+    gy, gx = int(grid[0]), int(grid[1])
+    x = _planes_u8(plane)
+    luts, th, tw = _luts_for_plane(x, clip_limit, gy, gx)
+    out = clahe_apply(x, luts, th, tw, blend)
+    return out.reshape(plane.shape).to(plane.dtype)

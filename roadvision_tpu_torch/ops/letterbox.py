@@ -1,0 +1,138 @@
+"""Letterbox resize and the inverse box mapping — the port of
+``roadvision_tpu/ops/letterbox.py:19-215``.
+
+Half-pixel bilinear resize without antialias (cv2 INTER_LINEAR, what
+ultralytics letterboxes with), BGR→RGB, gray-114 pad, /255, NHWC float32
+out. An exact integer downscale with an odd stride is a strided slice of
+the uint8 frame (1080p → 360×640 is stride 3), an even stride a 2-tap
+average; anything else ("general") contracts each axis with the weight
+matrix ``jax.image.resize(method="linear", antialias=False)`` builds,
+computed here in numpy float32 the same way.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+_INV_255 = float(np.float32(1.0 / 255.0))
+
+
+def axis_plan(src: int, dst: int):
+    """("id",) | ("slice", s, off) | ("avg2", s, off) | ("general",)."""
+    if src == dst:
+        return ("id",)
+    if src % dst == 0:
+        s = src // dst
+        if s % 2 == 1:
+            return ("slice", s, (s - 1) // 2)
+        return ("avg2", s, s // 2 - 1)
+    return ("general",)
+
+
+def linear_weight_matrix(src: int, dst: int) -> np.ndarray:
+    """(src, dst) float32 weights of jax's linear resize, antialias off:
+    triangle kernel at half-pixel sample points, columns renormalised,
+    samples outside [-0.5, src-0.5] zeroed."""
+    scale = np.float32(dst) / np.float32(src)
+    inv = np.float32(1.0) / scale
+    sample = ((np.arange(dst, dtype=np.float32) + np.float32(0.5)) * inv
+              - np.float32(0.5)).astype(np.float32)
+    x = np.abs(sample[None, :] - np.arange(src, dtype=np.float32)[:, None])
+    wts = np.maximum(np.float32(0.0), np.float32(1.0) - x).astype(np.float32)
+    total = wts.sum(axis=0, keepdims=True, dtype=np.float32)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    wts = np.where(np.abs(total) > eps,
+                   wts / np.where(total != 0, total, np.float32(1.0)),
+                   np.float32(0.0)).astype(np.float32)
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return np.where(inside[None, :], wts, np.float32(0.0)).astype(np.float32)
+
+
+def _bilinear_resize(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """(B, H, W, C) uint8 → (B, new_h, new_w, C) float32."""
+    h, w = x.shape[1], x.shape[2]
+    py, px = axis_plan(h, new_h), axis_plan(w, new_w)
+    if "general" in (py[0], px[0]):
+        out = x.to(torch.float32)
+        if h != new_h:
+            wy = torch.from_numpy(linear_weight_matrix(h, new_h)).to(x.device)
+            out = torch.einsum("bhwc,hH->bHwc", out, wy)
+        if w != new_w:
+            wx = torch.from_numpy(linear_weight_matrix(w, new_w)).to(x.device)
+            out = torch.einsum("bhwc,wW->bhWc", out, wx)
+        return out
+
+    def apply(v, plan, axis):
+        if plan[0] == "id":
+            return v
+        s, off = plan[1], plan[2]
+        n = new_h if axis == 1 else new_w
+        idx = torch.arange(off, off + s * n, s, device=v.device)
+        if plan[0] == "slice":
+            return v.index_select(axis, idx)
+        a = v.index_select(axis, idx).to(torch.float32)
+        b = v.index_select(axis, idx + 1).to(torch.float32)
+        return (a + b) * 0.5
+
+    plans = sorted(((py, 1), (px, 2)), key=lambda p: p[0][0] != "slice")
+    for plan, axis in plans:
+        x = apply(x, plan, axis)
+    return x.to(torch.float32)
+
+
+def rect_target_hw(h: int, w: int, size: int = 640,
+                   stride: int = 32) -> Tuple[int, int]:
+    """Minimal stride-aligned canvas, e.g. 1080p → (384, 640)."""
+    r = min(size / h, size / w)
+    new_h, new_w = round(h * r), round(w * r)
+    return new_h + (-new_h) % stride, new_w + (-new_w) % stride
+
+
+def _letterbox(frames: torch.Tensor, size: int, th: int, tw: int):
+    if frames.dim() == 3:
+        frames = frames[None]
+    h, w = frames.shape[1], frames.shape[2]
+    r = min(size / h, size / w)
+    new_h, new_w = round(h * r), round(w * r)
+    dw, dh = (tw - new_w) / 2, (th - new_h) / 2
+    # resize first, then BGR → RGB: the channel flip commutes with the
+    # per-channel resize and touches only the small canvas
+    x = _bilinear_resize(frames, new_h, new_w).flip(-1)
+    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+    bottom, right = th - new_h - top, tw - new_w - left
+    x = F.pad(x, (0, 0, left, right, top, bottom), value=114.0)
+    ratio = torch.tensor(r, dtype=torch.float32, device=frames.device)
+    pad = torch.tensor([left, top], dtype=torch.float32, device=frames.device)
+    # x * float32(1/255): XLA rewrites the JAX package's ``x / 255.0``
+    # into this multiply, so the canvas is bit-equal to the reference's
+    return x * _INV_255, ratio, pad
+
+
+def letterbox_u8(frames: torch.Tensor, size: int = 640):
+    """(B, H, W, 3) uint8 BGR → ((B, size, size, 3) float32 RGB in [0, 1],
+    ratio, pad (left, top))."""
+    return _letterbox(frames, size, size, size)
+
+
+def letterbox_rect_u8(frames: torch.Tensor, size: int = 640,
+                      stride: int = 32):
+    """Rect variant: the canvas is the minimal stride-aligned rectangle
+    (ultralytics' predict-time ``LetterBox(auto=True)``)."""
+    h, w = frames.shape[-3], frames.shape[-2]
+    th, tw = rect_target_hw(h, w, size, stride)
+    return _letterbox(frames, size, th, tw)
+
+
+def scale_boxes(boxes: torch.Tensor, ratio, pad,
+                orig_hw: Tuple[int, int]) -> torch.Tensor:
+    """Boxes in letterbox space → source-image space, clipped."""
+    h, w = orig_hw
+    x1 = ((boxes[..., 0] - pad[0]) / ratio).clamp(0, w)
+    y1 = ((boxes[..., 1] - pad[1]) / ratio).clamp(0, h)
+    x2 = ((boxes[..., 2] - pad[0]) / ratio).clamp(0, w)
+    y2 = ((boxes[..., 3] - pad[1]) / ratio).clamp(0, h)
+    return torch.stack([x1, y1, x2, y2], dim=-1)

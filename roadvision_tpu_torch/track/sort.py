@@ -1,0 +1,413 @@
+"""SORT multi-object tracking on tensors — the port of
+``roadvision_tpu/track/sort_tpu.py:79-466`` (greedy association).
+
+A fixed-capacity slot array (:class:`SortState`) carries every track;
+one :func:`make_sort_step` call runs a frame: Kalman predict of alive
+tracks, IoU of predicted boxes against detections, greedy association,
+Joseph-form Kalman update, ground-plane metrics with the speed-history
+window, staleness pruning, and new tracks for unmatched detections. The
+reference's quirks, as listed in the docstring at sort_tpu.py:10-41, are
+kept:
+
+  * z = [cx, cy, s=w·h, r=w/h] with w/h floored at 1e-3; inverse with
+    1e-6 floors; R = diag(1,1,10,10); P₀ = diag(10,10,10,10,1e4,1e4,1e4);
+  * real-timestamp dt ≥ 1e-3, F[0,4]=F[1,5]=F[2,6]=dt,
+    Q = diag(.04dt², .04dt², .04dt², 0, dt, dt, dt);
+  * greedy global-argmax association with first-flat-index ties, accept
+    while max ≥ iou_threshold (computed as mutual-maximum rounds, which
+    give the sequential result exactly);
+  * every unmatched detection gets a track and an id at once, ids from 1
+    in detection order; min_hits never gates output;
+  * unmatched tracks only reset hit_streak; prune when
+    ts − last_update_ts > max_staleness (before creation);
+  * metrics from the DET box's bottom centre, distance clamped, a
+    32-entry history windowed by speed_window seconds, speed =
+    first→last displacement / elapsed (≥ 1e-3 s) × 3.6 km/h;
+  * overflow beyond the slot count keeps id assignment but drops tracks.
+
+The association rounds read one flag back to the host per round (JAX
+runs them as a device ``while_loop``). The observation and appearance
+memories the other trackers need wait for their ports.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+HISTORY = 32
+STATE_DIM = 7
+MEAS_DIM = 4
+
+_R_DIAG = (1.0, 1.0, 10.0, 10.0)
+_P0_DIAG = (10.0, 10.0, 10.0, 10.0, 1e4, 1e4, 1e4)
+
+
+class SortState(NamedTuple):
+    mean: torch.Tensor        # (T, 7) f32
+    cov: torch.Tensor         # (T, 7, 7) f32
+    alive: torch.Tensor       # (T,) bool
+    ids: torch.Tensor         # (T,) i32
+    last_predict_ts: torch.Tensor   # (T,) f32
+    last_update_ts: torch.Tensor    # (T,) f32
+    hits: torch.Tensor        # (T,) i32
+    hit_streak: torch.Tensor  # (T,) i32
+    cls_id: torch.Tensor      # (T,) i32
+    conf: torch.Tensor        # (T,) f32
+    dist: torch.Tensor        # (T,) f32 (NaN = None)
+    speed: torch.Tensor       # (T,) f32 m/s (NaN = None)
+    hist_ts: torch.Tensor     # (T, 32) f32 ring buffer
+    hist_x: torch.Tensor      # (T, 32) f32
+    hist_y: torch.Tensor      # (T, 32) f32
+    hist_head: torch.Tensor   # (T,) i32
+    hist_len: torch.Tensor    # (T,) i32
+    next_id: torch.Tensor     # () i32
+
+
+class SortOutput(NamedTuple):
+    track_id: torch.Tensor    # (D,) i32 (0 = no id / invalid det)
+    distance_m: torch.Tensor  # (D,) f32 (NaN = None)
+    speed_kmh: torch.Tensor   # (D,) f32 (NaN = None)
+
+
+def _p0(device) -> torch.Tensor:
+    return torch.diag(torch.tensor(_P0_DIAG, dtype=torch.float32,
+                                   device=device))
+
+
+def init_state(num_slots: int, device="cpu") -> SortState:
+    t = num_slots
+    f32, i32 = torch.float32, torch.int32
+
+    def z(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    nan = torch.full((t,), float("nan"), dtype=f32, device=device)
+    return SortState(
+        mean=z(t, STATE_DIM), cov=_p0(device).repeat(t, 1, 1),
+        alive=z(t, dtype=torch.bool), ids=z(t, dtype=i32),
+        last_predict_ts=z(t), last_update_ts=z(t),
+        hits=z(t, dtype=i32), hit_streak=z(t, dtype=i32),
+        cls_id=z(t, dtype=i32), conf=z(t), dist=nan.clone(), speed=nan,
+        hist_ts=z(t, HISTORY), hist_x=z(t, HISTORY), hist_y=z(t, HISTORY),
+        hist_head=z(t, dtype=i32), hist_len=z(t, dtype=i32),
+        next_id=torch.ones((), dtype=i32, device=device))
+
+
+def bbox_to_z(boxes: torch.Tensor) -> torch.Tensor:
+    w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=1e-3)
+    h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=1e-3)
+    cx = boxes[..., 0] + 0.5 * w
+    cy = boxes[..., 1] + 0.5 * h
+    return torch.stack([cx, cy, w * h, w / h], dim=-1)
+
+
+def x_to_bbox(mean: torch.Tensor) -> torch.Tensor:
+    cx, cy, s, r = mean[..., 0], mean[..., 1], mean[..., 2], mean[..., 3]
+    w = torch.sqrt(torch.clamp(s * r, min=1e-6))
+    h = s / torch.clamp(w, min=1e-6)
+    return torch.stack([cx - 0.5 * w, cy - 0.5 * h,
+                        cx + 0.5 * w, cy + 0.5 * h], dim=-1)
+
+
+def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU (Ta, 4) × (Db, 4) → (Ta, Db); degenerate → 0."""
+    ax1, ay1, ax2, ay2 = (a[:, None, i] for i in range(4))
+    bx1, by1, bx2, by2 = (b[None, :, i] for i in range(4))
+    iw = (torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1)).clamp(min=0.0)
+    ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1)).clamp(min=0.0)
+    inter = iw * ih
+    area_a = (ax2 - ax1).clamp(min=0.0) * (ay2 - ay1).clamp(min=0.0)
+    area_b = (bx2 - bx1).clamp(min=0.0) * (by2 - by1).clamp(min=0.0)
+    denom = area_a + area_b - inter
+    ok = denom > 0.0
+    return torch.where(ok, inter / torch.where(ok, denom,
+                                               torch.ones_like(denom)),
+                       torch.zeros_like(denom))
+
+
+def greedy_associate(iou: torch.Tensor, alive: torch.Tensor,
+                     dvalid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """Greedy global-argmax matching → det→track (D,) int32, -1 unmatched,
+    by mutual-maximum rounds (sort_tpu.py:186-230)."""
+    num_t, num_d = iou.shape
+    dev = iou.device
+    mat = torch.where(alive[:, None] & dvalid[None, :], iou,
+                      torch.full_like(iou, -1.0))
+    t_ids = torch.arange(num_t, dtype=torch.int32, device=dev)
+    det2trk = torch.full((num_d,), -1, dtype=torch.int32, device=dev)
+    for _ in range(min(num_t, num_d) + 1):
+        rbest = mat.argmax(dim=1)
+        cbest = mat.argmax(dim=0)
+        rval = mat.max(dim=1).values
+        mutual = (cbest[rbest].to(torch.int32) == t_ids) \
+            & (rval >= thresh) & (rval > -0.5)
+        if not bool(mutual.any()):
+            break
+        t_for_d = torch.full((num_d,), -1, dtype=torch.int32, device=dev) \
+            .scatter_reduce(0, rbest, torch.where(mutual, t_ids, -1),
+                            reduce="amax")
+        taken_d = torch.zeros((num_d,), dtype=torch.int32, device=dev) \
+            .scatter_reduce(0, rbest, mutual.to(torch.int32),
+                            reduce="amax") > 0
+        det2trk = torch.where(taken_d & (det2trk < 0), t_for_d, det2trk)
+        mat = torch.where(mutual[:, None] | taken_d[None, :],
+                          torch.full_like(mat, -1.0), mat)
+    return det2trk
+
+
+def _kf_predict(mean, cov, dt):
+    t = mean.shape[0]
+    dev = mean.device
+    f = torch.eye(STATE_DIM, device=dev).repeat(t, 1, 1)
+    for i, j in ((0, 4), (1, 5), (2, 6)):
+        f[:, i, j] = dt
+    q = 0.04 * dt * dt
+    zero = torch.zeros_like(dt)
+    q_diag = torch.stack([q, q, q, zero, dt, dt, dt], dim=-1)
+    new_mean = torch.einsum("tij,tj->ti", f, mean)
+    new_cov = torch.einsum("tij,tjk,tlk->til", f, cov, f) \
+        + torch.diag_embed(q_diag)
+    return new_mean, new_cov
+
+
+def _kf_update(mean, cov, z):
+    """Batched KF update, H = [I4 0], Joseph-form covariance (filterpy)."""
+    t = mean.shape[0]
+    dev = mean.device
+    r = torch.diag(torch.tensor(_R_DIAG, dtype=torch.float32, device=dev))
+    r = r.expand(t, MEAS_DIM, MEAS_DIM)
+    ph = cov[:, :, :MEAS_DIM]
+    s = cov[:, :MEAS_DIM, :MEAS_DIM] + r
+    k = torch.linalg.solve(s, ph.transpose(1, 2)).transpose(1, 2)
+    innov = z - mean[:, :MEAS_DIM]
+    new_mean = mean + torch.einsum("tij,tj->ti", k, innov)
+    kh = torch.zeros_like(cov)
+    kh[:, :, :MEAS_DIM] = k
+    i_kh = torch.eye(STATE_DIM, device=dev)[None] - kh
+    new_cov = torch.einsum("tij,tjk,tlk->til", i_kh, cov, i_kh) \
+        + torch.einsum("tij,tjk,tlk->til", k, r, k)
+    return new_mean, new_cov
+
+
+def _history_append_and_window(state: SortState, sel, ts, gx, gy, window):
+    t_slots = state.hist_ts.shape[0]
+    dev = sel.device
+    head, length = state.hist_head, state.hist_len
+    full = length >= HISTORY
+    write_pos = ((head + length) % HISTORY).long()
+    head_after = torch.where(sel & full, (head + 1) % HISTORY, head)
+    len_after = torch.where(sel & ~full, length + 1, length)
+
+    rows = torch.arange(t_slots, device=dev)
+
+    def put(buf, val):
+        buf = buf.clone()
+        buf[rows, write_pos] = torch.where(sel, val, buf[rows, write_pos])
+        return buf
+
+    hist_ts = put(state.hist_ts, ts.expand(t_slots))
+    hist_x = put(state.hist_x, gx)
+    hist_y = put(state.hist_y, gy)
+
+    slot = torch.arange(HISTORY, device=dev)[None, :]
+    order = (slot - head_after[:, None]) % HISTORY
+    in_buf = order < len_after[:, None]
+    expired = in_buf & ((ts - hist_ts) > window)
+    n_exp = expired.sum(dim=-1).to(torch.int32)
+    head_new = torch.where(sel, (head_after + n_exp) % HISTORY, head_after)
+    len_new = torch.where(sel, len_after - n_exp, len_after)
+
+    first = head_new.long()
+    last = ((head_new + torch.clamp(len_new - 1, min=0)) % HISTORY).long()
+    t0 = hist_ts[rows, first]
+    t1 = hist_ts[rows, last]
+    dx = hist_x[rows, last] - hist_x[rows, first]
+    dy = hist_y[rows, last] - hist_y[rows, first]
+    spd = torch.hypot(dx, dy) / torch.clamp(t1 - t0, min=1e-3)
+    speed = torch.where(len_new >= 2, spd, torch.full_like(spd, float("nan")))
+    return state._replace(hist_ts=hist_ts, hist_x=hist_x, hist_y=hist_y,
+                          hist_head=head_new.to(torch.int32),
+                          hist_len=len_new.to(torch.int32)), speed
+
+
+def _put_rows(buf: torch.Tensor, index: torch.Tensor, values) -> torch.Tensor:
+    """``buf.at[index].set(values, mode="drop")`` for index in [0, T]: row
+    T is a scratch row that takes the dropped writes, then goes away."""
+    ext = torch.cat([buf, buf[:1]], dim=0)
+    ext[index] = values if torch.is_tensor(values) else \
+        torch.as_tensor(values, dtype=buf.dtype, device=buf.device)
+    return ext[:-1]
+
+
+def make_sort_step(iou_threshold: float, max_staleness: float,
+                   speed_window: float, min_hits: int = 3,
+                   association: str = "greedy"):
+    """``step(state, boxes (D,4), cls (D,), conf (D,), dvalid (D,), ts (),
+    proj) -> (state', SortOutput)``; proj is None or (H, origin, maxd)."""
+    if association != "greedy":
+        raise NotImplementedError(
+            f"tracking.association {association!r} is not ported to "
+            f"roadvision_tpu_torch yet (greedy only)")
+    thresh = float(iou_threshold)
+    staleness = float(max_staleness)
+    window = max(0.05, float(speed_window))
+    del min_hits   # tracked by the reference but never gates output
+
+    from ..geometry.projector import project_boxes_device
+
+    def step(state: SortState, boxes, cls_id, conf, dvalid, ts, proj=None):
+        num_t = state.mean.shape[0]
+        num_d = boxes.shape[0]
+        dev = boxes.device
+        nan_t = torch.full((num_t,), float("nan"), device=dev)
+
+        # 1. predict all alive tracks at ts
+        dt = torch.clamp(ts - state.last_predict_ts, min=1e-3)
+        pmean, pcov = _kf_predict(state.mean, state.cov, dt)
+        alive = state.alive
+        state = state._replace(
+            mean=torch.where(alive[:, None], pmean, state.mean),
+            cov=torch.where(alive[:, None, None], pcov, state.cov),
+            last_predict_ts=torch.where(alive, ts, state.last_predict_ts))
+
+        # 2. greedy association on IoU of predicted vs detected boxes
+        det2trk = greedy_associate(iou_matrix(x_to_bbox(state.mean), boxes),
+                                   state.alive, dvalid, thresh)
+        matched_d = det2trk >= 0
+        trk2det = _put_rows(
+            torch.full((num_t,), -1, dtype=torch.int32, device=dev),
+            torch.where(matched_d, det2trk, num_t).long(),
+            torch.arange(num_d, dtype=torch.int32, device=dev))
+        matched_t = trk2det >= 0
+
+        # 3. measurement update for matched tracks
+        det_idx = trk2det.clamp(0, num_d - 1).long()
+        umean, ucov = _kf_update(state.mean, state.cov,
+                                 bbox_to_z(boxes)[det_idx])
+        state = state._replace(
+            mean=torch.where(matched_t[:, None], umean, state.mean),
+            cov=torch.where(matched_t[:, None, None], ucov, state.cov),
+            last_update_ts=torch.where(matched_t, ts, state.last_update_ts),
+            hits=state.hits + matched_t.to(torch.int32),
+            hit_streak=torch.where(
+                matched_t, state.hit_streak + 1,
+                torch.where(state.alive, torch.zeros_like(state.hit_streak),
+                            state.hit_streak)),
+            cls_id=torch.where(matched_t, cls_id[det_idx], state.cls_id),
+            conf=torch.where(matched_t, conf[det_idx], state.conf))
+
+        # 4. metrics for matched tracks from the DET box
+        if proj is not None:
+            h_mat, origin, maxd = proj
+            ground, gvalid = project_boxes_device(h_mat, boxes[det_idx])
+            ok = matched_t & gvalid
+            gdist = torch.minimum(torch.hypot(ground[:, 0] - origin[0],
+                                              ground[:, 1] - origin[1]), maxd)
+            new_dist = torch.where(ok, gdist,
+                                   torch.where(matched_t, nan_t, state.dist))
+            state, w_speed = _history_append_and_window(
+                state, ok, ts, ground[:, 0], ground[:, 1], window)
+            new_speed = torch.where(ok, w_speed,
+                                    torch.where(matched_t, nan_t,
+                                                state.speed))
+            state = state._replace(dist=new_dist, speed=new_speed)
+
+        # 5. prune stale tracks (before creation: freed slots are reusable)
+        state = state._replace(
+            alive=state.alive & ((ts - state.last_update_ts) <= staleness))
+
+        # 6. new tracks for unmatched valid dets, ids in det order
+        is_new = dvalid & ~matched_d
+        rank = torch.cumsum(is_new.to(torch.int32), dim=0) - 1
+        new_ids = state.next_id + rank
+        free_order = torch.argsort(state.alive.to(torch.int32), stable=True)
+        n_free = (~state.alive).sum()
+        fits = is_new & (rank < n_free)
+        slot = torch.where(fits, free_order[rank.clamp(0, num_t - 1)],
+                           num_t).long()
+        znew = bbox_to_z(boxes)
+        init_mean = torch.cat([znew, torch.zeros((num_d, 3), device=dev)],
+                              dim=-1)
+        p0 = _p0(dev).expand(num_d, STATE_DIM, STATE_DIM)
+        ts_d = ts.expand(num_d)
+        state = state._replace(
+            mean=_put_rows(state.mean, slot, init_mean),
+            cov=_put_rows(state.cov, slot, p0),
+            alive=_put_rows(state.alive, slot, True),
+            ids=_put_rows(state.ids, slot, new_ids.to(torch.int32)),
+            last_predict_ts=_put_rows(state.last_predict_ts, slot, ts_d),
+            last_update_ts=_put_rows(state.last_update_ts, slot, ts_d),
+            hits=_put_rows(state.hits, slot, 1),
+            hit_streak=_put_rows(state.hit_streak, slot, 1),
+            cls_id=_put_rows(state.cls_id, slot, cls_id.to(torch.int32)),
+            conf=_put_rows(state.conf, slot, conf),
+            dist=_put_rows(state.dist, slot, float("nan")),
+            speed=_put_rows(state.speed, slot, float("nan")),
+            hist_head=_put_rows(state.hist_head, slot, 0),
+            hist_len=_put_rows(state.hist_len, slot, 0),
+            next_id=state.next_id + is_new.sum().to(torch.int32))
+
+        # metrics for brand-new tracks (first history entry, speed None)
+        if proj is not None:
+            h_mat, origin, maxd = proj
+            ground_d, gvalid_d = project_boxes_device(h_mat, boxes)
+            created_t = _put_rows(
+                torch.zeros((num_t,), dtype=torch.bool, device=dev),
+                slot, fits)
+            src_det = _put_rows(
+                torch.zeros((num_t,), dtype=torch.long, device=dev), slot,
+                torch.arange(num_d, device=dev))
+            okc = created_t & gvalid_d[src_det]
+            gdist_t = torch.minimum(
+                torch.hypot(ground_d[src_det, 0] - origin[0],
+                            ground_d[src_det, 1] - origin[1]), maxd)
+            state = state._replace(dist=torch.where(
+                okc, gdist_t, torch.where(created_t, nan_t, state.dist)))
+            state, _ = _history_append_and_window(
+                state, okc, ts, ground_d[src_det, 0], ground_d[src_det, 1],
+                window)
+
+        # 7. per-detection outputs
+        trk_of_d = det2trk.clamp(0, num_t - 1).long()
+        out_id = torch.where(matched_d, state.ids[trk_of_d],
+                             torch.where(is_new, new_ids.to(torch.int32),
+                                         torch.zeros_like(new_ids,
+                                                          dtype=torch.int32)))
+        nan_d = torch.full((num_d,), float("nan"), device=dev)
+        if proj is not None:
+            slot_of_new = slot.clamp(0, num_t - 1)
+            out_dist = torch.where(
+                matched_d, state.dist[trk_of_d],
+                torch.where(fits, state.dist[slot_of_new], nan_d))
+            out_spd = torch.where(
+                matched_d, state.speed[trk_of_d],
+                torch.where(fits, state.speed[slot_of_new], nan_d))
+        else:
+            out_dist = out_spd = nan_d
+        out = SortOutput(
+            track_id=torch.where(dvalid, out_id,
+                                 torch.zeros_like(out_id)).to(torch.int32),
+            distance_m=torch.where(dvalid, out_dist, nan_d),
+            speed_kmh=torch.where(dvalid, out_spd * 3.6, nan_d))
+        return state, out
+
+    return step
+
+
+def build_sort_step(cfg):
+    """Step from a ``tracking:`` config; only backend "sort" is ported."""
+    name = str(cfg.get("backend") or "sort").lower()
+    if name != "sort":
+        raise NotImplementedError(
+            f"tracking.backend {name!r} is not ported to roadvision_tpu_torch "
+            f"yet (sort only)")
+    if cfg.get("gmc") or cfg.get("nsa"):
+        raise NotImplementedError("tracking.gmc / tracking.nsa are not "
+                                  "ported to roadvision_tpu_torch yet")
+    return make_sort_step(
+        float(cfg.get("iou_threshold", 0.3)),
+        float(cfg.get("max_staleness", 1.0)),
+        float(cfg.get("speed_window", 0.75)),
+        int(cfg.get("min_hits", 3)),
+        association=str(cfg.get("association", "greedy")))

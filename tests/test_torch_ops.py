@@ -1,0 +1,246 @@
+"""roadvision_tpu_torch ops vs the JAX package, on the CPU.
+
+Inputs are made with seeded numpy and go through the JAX function and
+its port. Colour, CLAHE (tile LUTs and both blend modes) and the median
+are integer-exact, so they must be bit-equal; the CLAHE tap lookup and
+the median are also held against the Pallas kernels themselves, run in
+interpret mode. Letterbox, NMS and geometry compare as stated per test.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from roadvision_tpu.geometry import projector as jproj
+from roadvision_tpu.ops import clahe as jclahe
+from roadvision_tpu.ops import color as jcolor
+from roadvision_tpu.ops import letterbox as jlb
+from roadvision_tpu.ops import median as jmedian
+from roadvision_tpu.ops import nms as jnms
+from roadvision_tpu.ops.pallas_clahe import sweep_pallas
+from roadvision_tpu.ops.pallas_median import median3_pallas
+from roadvision_tpu_torch.geometry import projector as tproj
+from roadvision_tpu_torch.ops import clahe as tclahe
+from roadvision_tpu_torch.ops import color as tcolor
+from roadvision_tpu_torch.ops import letterbox as tlb
+from roadvision_tpu_torch.ops import median as tmedian
+from roadvision_tpu_torch.ops import nms as tnms
+
+
+def _all_bgr():
+    v = np.arange(256 ** 3, dtype=np.int64)
+    return tuple(((v >> s) & 255).astype(np.int32) for s in (16, 8, 0))
+
+
+@pytest.mark.parametrize("fn", ["bgr_planes_to_ycrcb_i32",
+                                "ycrcb_planes_to_bgr_i32",
+                                "gray_from_bgr_planes"])
+def test_color_bit_equal_full_u8_domain(fn):
+    planes = _all_bgr()
+    want = getattr(jcolor, fn)(*(jnp.asarray(p) for p in planes))
+    got = getattr(tcolor, fn)(*(torch.from_numpy(p) for p in planes))
+    if fn == "gray_from_bgr_planes":
+        want, got = (want,), (got,)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_color_keeps_uint8_planes():
+    rng = np.random.RandomState(3)
+    b, g, r = (torch.from_numpy(rng.randint(0, 256, (4, 5), dtype=np.uint8))
+               for _ in range(3))
+    y, cr, cb = tcolor.bgr_planes_to_ycrcb_i32(b, g, r)
+    assert y.dtype == torch.uint8 and cr.dtype == torch.uint8
+    want = jcolor.bgr_planes_to_ycrcb_i32(
+        *(jnp.asarray(p.numpy().astype(np.int32)) for p in (b, g, r)))
+    for w, t in zip(want, (y, cr, cb)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(w))
+
+
+def _plane(shape, seed):
+    rng = np.random.RandomState(seed)
+    p = rng.randint(0, 256, shape).astype(np.int32)
+    p[..., : shape[-2] // 4, :] = 117      # a flat band: heavy clipping
+    return p
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((2, 120, 161), (2, 3)),     # ragged width: both dims padded
+    ((2, 120, 161), (8, 8)),
+    ((1, 96, 128), (4, 4)),      # divisible: no pad
+    ((3, 72, 96), (8, 8)),
+])
+def test_tile_luts_bit_equal(shape, grid):
+    p = _plane(shape, sum(shape) + grid[0])
+    want = np.asarray(jclahe.compute_tile_luts(jnp.asarray(p), 2.0, grid))
+    got = tclahe.compute_tile_luts(torch.from_numpy(p.astype(np.uint8)),
+                                   2.0, grid)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("blend", ["cv2", "fixed"])
+@pytest.mark.parametrize("shape,grid,clip", [
+    ((2, 120, 161), (2, 3), 2.0),    # ragged: both dims padded
+    ((2, 96, 128), (4, 4), 3.5),
+    ((1, 67, 90), (8, 8), 0.0),  # no clipping
+])
+def test_clahe_planar_bit_equal(blend, shape, grid, clip):
+    p = _plane(shape, 7 * shape[-1] + grid[1])
+    want = np.asarray(jclahe.clahe_planar_i32(jnp.asarray(p), clip, grid,
+                                              blend=blend))
+    got = tclahe.clahe_planar(torch.from_numpy(p), clip, grid, blend)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_clahe_taps_match_pallas_sweep():
+    """The port's per-pixel tap lookup against sweep_pallas itself: on
+    one row band the four taps of every pixel, packed
+    l11 | l12<<8 | l21<<16 | l22<<24, equal what the TPU kernel reads
+    out of the packed per-(bin, column) table (interpret mode)."""
+    rng = np.random.RandomState(11)
+    n, h, w, gy, gx = 2, 64, 200, 4, 5
+    plane = rng.randint(0, 256, (n, h, w)).astype(np.uint8)
+    x = torch.from_numpy(plane)
+    pad_h, pad_w, th, tw = tclahe.pad_plan(h, w, gy, gx)
+    luts = tclahe.clahe_tile_luts(tclahe._reflect_pad_101(x, pad_h, pad_w),
+                                  gy, gx, tclahe.clip_count(2.0, th * tw),
+                                  tclahe.lut_scale(th * tw))
+    ri, _ = tclahe.interp_tables(h, th, gy)
+    ci, _ = tclahe.interp_tables(w, tw, gx)
+    y0 = int(np.argmax(ri[:, 0] == 1))           # a band: rows with
+    y1 = y0 + int(np.sum((ri[:, 0] == 1) & (ri[:, 1] == 2)))  # ty = (1, 2)
+    assert y1 - y0 > 4
+    lut = luts.numpy().astype(np.uint32)
+    l1 = lut[:, 1][:, ci[:, 0]]                  # (n, w, 256) tile row 1
+    l2 = lut[:, 2][:, ci[:, 0]]
+    r1 = lut[:, 1][:, ci[:, 1]]
+    r2 = lut[:, 2][:, ci[:, 1]]
+    packed = (l1 | (r1 << 8) | (l2 << 16) | (r2 << 24)).transpose(0, 2, 1)
+    want = np.asarray(sweep_pallas(plane[:, y0:y1].astype(np.int32),
+                                   packed, interpret=True))
+    taps = tclahe.lut_taps(x, luts, th, tw)
+    l11, l12, l21, l22 = (t.numpy().astype(np.uint32)[:, y0:y1] for t in taps)
+    got = l11 | (l12 << 8) | (l21 << 16) | (l22 << 24)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7, 9])
+def test_median_bit_equal(k):
+    rng = np.random.RandomState(40 + k)
+    x = rng.randint(0, 256, (3, 37, 53)).astype(np.int32)
+    want = np.asarray(jmedian.median_planar_i32(jnp.asarray(x), k))
+    got = tmedian.median_planar(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ksize,k", [(2, 3), (4, 5), (11, 9), (1, 3)])
+def test_median_ksize_normalisation(ksize, k):
+    assert tmedian.normalize_ksize(ksize) == jmedian._normalize_ksize(ksize)
+    assert tmedian.normalize_ksize(ksize) == k
+
+
+def test_median_matches_pallas_kernel():
+    rng = np.random.RandomState(5)
+    img = rng.randint(0, 256, (2, 70, 90, 3), dtype=np.uint8)
+    want = np.asarray(median3_pallas(img, interpret=True))
+    got = tmedian.median_blur_u8(torch.from_numpy(img), 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("hw", [(270, 480), (320, 320), (120, 160),
+                                (97, 153), (250, 333)])
+@pytest.mark.parametrize("rect", [False, True])
+def test_letterbox_matches_jax(hw, rect):
+    """slice/avg2/id plans are exact; the general plan (jax linear,
+    antialias off) agrees within 5e-5 of [0, 1] — 0.013 of a u8 level —
+    from the f32 contraction order."""
+    rng = np.random.RandomState(hw[0])
+    frames = rng.randint(0, 256, (2, hw[0], hw[1], 3), dtype=np.uint8)
+    jfn = jlb.letterbox_rect_u8 if rect else jlb.letterbox_u8
+    tfn = tlb.letterbox_rect_u8 if rect else tlb.letterbox_u8
+    ji, jr, jp = jfn(jnp.asarray(frames), size=160)
+    ti, tr, tp = tfn(torch.from_numpy(frames), size=160)
+    assert tuple(ti.shape) == ji.shape
+    assert float(tr) == float(jr)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    plans = (tlb.axis_plan(hw[0], round(hw[0] * float(tr))),
+             tlb.axis_plan(hw[1], round(hw[1] * float(tr))))
+    err = float(np.abs(ti.numpy() - np.asarray(ji)).max())
+    assert err <= (5e-5 if ("general",) in plans else 0.0), err
+    assert tlb.rect_target_hw(*hw, 160) == jlb.rect_target_hw(*hw, 160)
+
+
+def test_scale_boxes_matches_jax():
+    rng = np.random.RandomState(2)
+    boxes = rng.uniform(-20, 700, (3, 10, 4)).astype(np.float32)
+    want = np.asarray(jlb.scale_boxes(jnp.asarray(boxes), jnp.float32(1 / 3),
+                                      jnp.asarray([0.0, 12.0]), (1080, 1920)))
+    got = tlb.scale_boxes(torch.from_numpy(boxes),
+                          torch.tensor(1 / 3, dtype=torch.float32),
+                          torch.tensor([0.0, 12.0]), (1080, 1920))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4)
+
+
+def _nms_inputs(seed, b=2, n=400, nc=6):
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 300, (b, n, 2))
+    wh = rng.uniform(5, 60, (b, n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    # coarse scores: many exact ties, across and within classes
+    scores = (rng.randint(0, 20, (b, n, nc)) / 20.0).astype(np.float32)
+    boxes[:, 50:60] = boxes[:, 40:50]            # duplicate boxes
+    return boxes, scores
+
+
+@pytest.mark.parametrize("keep", [None, (0, 2, 5)])
+@pytest.mark.parametrize("iou,max_det", [(0.7, 100), (0.45, 300), (0.3, 20)])
+def test_nms_keep_sets_equal(keep, iou, max_det):
+    boxes, scores = _nms_inputs(int(iou * 100) + max_det)
+    kw = dict(conf_thres=0.25, iou_thres=iou, max_det=max_det, pre_topk=300)
+    want = jnms.nms_batch(jnp.asarray(boxes), jnp.asarray(scores),
+                          classes_keep=keep, **kw)
+    got = tnms.nms_batch(torch.from_numpy(boxes), torch.from_numpy(scores),
+                         classes_keep=keep, **kw)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_nms_single_fewer_anchors_than_max_det():
+    boxes, scores = _nms_inputs(9, b=1, n=40)
+    want = jnms.nms_single(jnp.asarray(boxes[0]), jnp.asarray(scores[0]))
+    got = tnms.nms_single(torch.from_numpy(boxes[0]),
+                          torch.from_numpy(scores[0]))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _proj_cfg():
+    return {"type": "homography",
+            "image_points": [[0, 480], [640, 480], [0, 192], [640, 192]],
+            "world_points": [[0, 0], [20, 0], [0, 120], [20, 120]],
+            "origin": [10.0, 0.0], "max_distance": 60.0}
+
+
+def test_homography_and_device_projection_match_jax():
+    cfg = _proj_cfg()
+    jp = jproj.HomographyProjector(cfg)
+    tp = tproj.HomographyProjector(cfg, device="cpu")
+    np.testing.assert_allclose(tp.H, jp.H, rtol=1e-12)
+    rng = np.random.RandomState(4)
+    boxes = rng.uniform(0, 640, (5, 7, 4)).astype(np.float32)
+    boxes[..., 3] = rng.uniform(150, 480, (5, 7))     # some above horizon
+    h_j, o_j, m_j = jp.device_params()
+    h_t, o_t, m_t = tp.device_params()
+    g_j, v_j = jproj.project_boxes_device(h_j, jnp.asarray(boxes))
+    g_t, v_t = tproj.project_boxes_device(h_t, torch.from_numpy(boxes))
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-5,
+                               atol=1e-4)
+    d_j = np.asarray(jproj.distance_device(g_j, v_j, o_j, m_j))
+    d_t = tproj.distance_device(g_t, v_t, o_t, m_t).numpy()
+    np.testing.assert_array_equal(np.isnan(d_t), np.isnan(d_j))
+    np.testing.assert_allclose(d_t, d_j, rtol=1e-5, atol=1e-4)
+    assert np.nanmax(d_t) <= 60.0

@@ -1,0 +1,192 @@
+"""roadvision_tpu_torch SORT vs the JAX step and the scalar oracle (CPU).
+
+Scripted scenarios drive the JAX ``make_sort_step`` and the port's step
+frame by frame on identical fixed-capacity detection sets. Track ids
+must be identical; distances and speeds agree within float32 noise
+(rtol 1e-3: the Kalman solve and hypot round differently in the two
+libraries). The same scenarios also go through
+``tests/oracles/sort_oracle.py``, the float64 reading of the reference.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from roadvision_tpu.geometry import build_projector as jbuild_projector
+from roadvision_tpu.track import sort_tpu as jsort
+from roadvision_tpu_torch.geometry import build_projector as tbuild_projector
+from roadvision_tpu_torch.track import sort as tsort
+from tests.oracles.sort_oracle import SortOracle
+
+CFG = dict(iou_threshold=0.35, max_staleness=1.2, speed_window=0.8)
+D, T = 8, 16
+_JSTEP = jax.jit(jsort.make_sort_step(**CFG))
+
+
+def _proj_cfg():
+    return {"projector": {
+        "type": "homography",
+        "image_points": [[0, 480], [640, 480], [0, 80], [640, 80]],
+        "world_points": [[0.0, 0.0], [6.4, 0.0], [0.0, 40.0], [6.4, 40.0]],
+        "origin": [3.2, -2.0], "max_distance": 35.0}}
+
+
+def _pack(boxes):
+    b = np.zeros((D, 4), np.float32)
+    v = np.zeros((D,), bool)
+    for i, box in enumerate(boxes):
+        b[i] = box
+        v[i] = True
+    return b, v
+
+
+def _drive(seq, with_proj=True):
+    """[(dt, boxes), ...] → per frame (jax ids, dist, speed), (torch ...),
+    oracle outputs."""
+    jstep = _JSTEP
+    tstep = tsort.make_sort_step(**CFG)
+    jstate, tstate = jsort.init_state(T), tsort.init_state(T)
+    jp = tp = oproj = None
+    if with_proj:
+        jpr = jbuild_projector(_proj_cfg())
+        jp = jpr.device_params()
+        tp = tbuild_projector(_proj_cfg(), device="cpu").device_params()
+        oproj = jpr
+    oracle = SortOracle(CFG["max_staleness"], 3, CFG["iou_threshold"],
+                        CFG["speed_window"])
+    cls = np.full((D,), 2, np.int32)
+    conf = np.full((D,), 0.9, np.float32)
+    t = 0.0
+    out = []
+    for dt, boxes in seq:
+        t += dt
+        b, v = _pack(boxes)
+        jstate, jo = jstep(jstate, jnp.asarray(b), jnp.asarray(cls),
+                           jnp.asarray(conf), jnp.asarray(v),
+                           jnp.float32(t), jp)
+        tstate, to = tstep(tstate, torch.from_numpy(b), torch.from_numpy(cls),
+                           torch.from_numpy(conf), torch.from_numpy(v),
+                           torch.tensor(t, dtype=torch.float32), tp)
+        want = oracle.update([tuple(x) for x in boxes], t, projector=oproj)
+        out.append(([np.asarray(a) for a in jo], [a.numpy() for a in to],
+                    want, len(boxes)))
+    return out
+
+
+def _check(out):
+    for f, (j, t, oracle, n) in enumerate(out):
+        np.testing.assert_array_equal(t[0], j[0], err_msg=f"ids, frame {f}")
+        for k in (1, 2):
+            np.testing.assert_array_equal(np.isnan(t[k]), np.isnan(j[k]))
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-3, atol=1e-3,
+                                       equal_nan=True)
+        assert [int(i) for i in t[0][:n]] == [w["id"] for w in oracle], f
+
+
+def _crossing():
+    seq = []
+    for f in range(12):
+        a = (10 + 8 * f, 100, 60 + 8 * f, 150)
+        b = (110 - 8 * f, 102, 160 - 8 * f, 152)
+        seq.append((1 / 30, [a, b]))
+    return seq
+
+
+def _random_objects():
+    rng = np.random.RandomState(42)
+    pos = rng.uniform(50, 400, (6, 2))
+    vel = rng.uniform(-5, 5, (6, 2))
+    seq = []
+    for f in range(15):
+        boxes = []
+        for k in range(6):
+            if (f > 10 and k in (1, 3)) or (f < 3 and k == 5):
+                continue
+            x, y = pos[k] + vel[k] * f
+            boxes.append((x, y, x + 45, y + 40))
+        seq.append((1 / 30, boxes))
+    return seq
+
+
+SCENARIOS = {
+    "ids_in_det_order": [(0.0, [(0, 0, 10, 10), (50, 50, 70, 70),
+                                (200, 10, 240, 60)])],
+    "greedy_tie_breaking": [(0.0, [(0, 0, 40, 40), (100, 0, 140, 40)]),
+                            (1 / 30, [(90, 0, 130, 40), (98, 2, 138, 42)])],
+    "crossing": _crossing(),
+    "missed_then_reacquired": [(1 / 30, [(100, 100, 150, 150)])] * 3
+    + [(0.5, [])] + [(1 / 30, [(102, 101, 152, 151)])],
+    "staleness_prunes": [(1 / 30, [(100, 100, 150, 150)])] * 2
+    + [(1.5, [(100, 100, 150, 150)])],
+    "approach_with_speed": [(1 / 30, [(300, 120 + 20 * f, 340, 200 + 20 * f)])
+                            for f in range(8)],
+    "speed_window_expiry": [(0.3, [(300, 150 + 30 * f, 340, 230 + 30 * f)])
+                            for f in range(8)],
+    "many_objects": _random_objects(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_sort_matches_jax_step_and_oracle(name):
+    _check(_drive(SCENARIOS[name]))
+
+
+def test_sort_without_projector_matches_jax():
+    out = _drive(_crossing(), with_proj=False)
+    for j, t, _, _ in out:
+        np.testing.assert_array_equal(t[0], j[0])
+        assert np.isnan(t[1]).all() and np.isnan(t[2]).all()
+
+
+def test_slot_overflow_keeps_ids_and_drops_tracks():
+    """More new detections than free slots: ids still count up in det
+    order; the overflow gets an id but no slot (as the JAX step)."""
+    jstep = jsort.make_sort_step(**CFG)
+    tstep = tsort.make_sort_step(**CFG)
+    boxes = np.array([[40 * i, 0, 40 * i + 30, 30] for i in range(D)],
+                     np.float32)
+    cls = np.zeros((D,), np.int32)
+    conf = np.full((D,), 0.5, np.float32)
+    v = np.ones((D,), bool)
+    js, jo = jstep(jsort.init_state(4), jnp.asarray(boxes), jnp.asarray(cls),
+                   jnp.asarray(conf), jnp.asarray(v), jnp.float32(0.1))
+    ts_, to = tstep(tsort.init_state(4), torch.from_numpy(boxes),
+                    torch.from_numpy(cls), torch.from_numpy(conf),
+                    torch.from_numpy(v), torch.tensor(0.1))
+    np.testing.assert_array_equal(to.track_id.numpy(), np.asarray(jo.track_id))
+    np.testing.assert_array_equal(ts_.ids.numpy(), np.asarray(js.ids))
+    assert int(ts_.next_id) == int(js.next_id) == D + 1
+
+
+def test_greedy_associate_matches_jax_with_ties():
+    rng = np.random.RandomState(7)
+    iou = (rng.randint(0, 6, (12, 9)) / 5.0).astype(np.float32)   # ties
+    alive = rng.rand(12) > 0.2
+    dvalid = rng.rand(9) > 0.2
+    want = np.asarray(jsort.greedy_associate(
+        jnp.asarray(iou), jnp.asarray(alive), jnp.asarray(dvalid), 0.35))
+    got = tsort.greedy_associate(torch.from_numpy(iou),
+                                 torch.from_numpy(alive),
+                                 torch.from_numpy(dvalid), 0.35)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_iou_matrix_matches_jax():
+    rng = np.random.RandomState(0)
+    a = rng.uniform(0, 100, (7, 4)).astype(np.float32)
+    b = rng.uniform(0, 100, (5, 4)).astype(np.float32)
+    a[:, 2:] += a[:, :2]
+    b[:, 2:] += b[:, :2]
+    np.testing.assert_array_equal(
+        tsort.iou_matrix(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+        np.asarray(jsort.iou_matrix(jnp.asarray(a), jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("cfg", [{"backend": "bytetrack"},
+                                 {"association": "hungarian"},
+                                 {"gmc": True}])
+def test_unported_tracking_configs_raise(cfg):
+    with pytest.raises(NotImplementedError):
+        tsort.build_sort_step(cfg)
