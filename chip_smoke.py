@@ -11,9 +11,13 @@ Phases, in order; any failure exits non-zero:
   3. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes (8 x 1080p luma for CLAHE in both blend
      modes plus a ragged 1079 x 1917 plane; 3 x 8 planes of 1080p for the
-     median at k = 3, and k = 5, 7, 9 at a smaller shape): bit-equality,
-     times by CUDA events, and the bound (the larger of bytes read once
-     and written once over 3.35 TB/s and scalar operations over 67 T/s);
+     median at k = 3, and k = 5, 7, 9 at a smaller shape) and at the
+     shapes that reach the kernels' edge paths (other tile grids, widths
+     with a ragged tail, one-pixel planes, pointers off a 16-byte
+     boundary): bit-equality, times by CUDA events at a warm L2 and with
+     L2 flushed before every call, and the bound (the larger of bytes
+     read once and written once over 3.35 TB/s and scalar operations
+     over 67 T/s);
   4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
      CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
      PipelineEngine.process_batch: one batch in float32 with TF32 off
@@ -28,6 +32,7 @@ Phases, in order; any failure exits non-zero:
 Options: ``--kernels-only`` stops after phase 3; ``--profile`` adds a
 torch.profiler pass over one bfloat16 batch (device busy share, kernel
 launches, top kernels; tables in chiprun_out/profile.txt).
+The pass also prints the hand-written kernels' device times.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -48,8 +53,12 @@ SCALAR_OPS_PER_S = 67e12
 # scalar operations per element, as the kernels compute them
 K1_OPS_PER_PIXEL = 1               # one histogram increment
 K1_OPS_PER_BIN = 14                # clip, redistribute, 8-step scan, scale
-K2_OPS_PER_PIXEL = 16              # 4 converts, 6 mul, 3 add, rint, clamp
-K3_OPS_PER_PIXEL = 38              # 19 compare-exchanges of min and max
+K2_OPS_PER_PIXEL = 14              # 4 converts, 6 mul, 3 add, 1 rounding add
+# the pixel's column of three sorted once for the three outputs it feeds
+# (min3 + max3 = 4 compares, 4 adds for the middle), then max3 + min3 of
+# the neighbouring columns (4) and two med3 (8 each)
+K3_OPS_PER_PIXEL = 28
+L2_FLUSH_BYTES = 256 << 20         # well over the card's 50 MB L2
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 BOX_TOL, CONF_TOL = 0.05, 2e-3     # as tests/test_torch_pipeline.py
 
@@ -68,18 +77,48 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, by CUDA
+    events. The calls queue behind a few milliseconds of fills, so the
+    card runs them one after the other however long the host takes to
+    enqueue each: a kernel shorter than its wrapper's launch cost would
+    otherwise be timed at the host's pace."""
     import torch
     for _ in range(warmup):
         fn()
+    blocker = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    for i in range(40):
+        blocker.fill_(i & 1)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_flushed(fn, iters: int = 20) -> float:
+    """Median time of ``fn`` alone when a write of L2_FLUSH_BYTES has
+    just gone through L2: what a caller pays whose input other stages
+    have pushed out of the cache. Events sit around the one call; the
+    time of an empty event pair is taken off."""
+    import torch
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(2 * iters)]
+    fn()
+    for i, (start, end) in enumerate(pairs):
+        scratch.fill_(i & 1)
+        start.record()
+        if i < iters:
+            fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs[:iters])
+    empty = sorted(a.elapsed_time(b) for a, b in pairs[iters:])
+    return max(times[iters // 2] - empty[iters // 2], 0.0)
 
 
 def bound(nbytes: int, nops: int) -> dict:
@@ -154,23 +193,44 @@ def check_kernels(frames: np.ndarray):
             fail(f"{what}: kernel differs from its plain version "
                  f"(max |err| {err})")
 
-    # K1 + K2 on the main-path plane, and on a ragged plane
-    cases = {}
-    for name, plane in (("main", y), ("ragged", noise)):
+    def rand_planes(shape, offset=0):
+        """Seeded noise with a flat band; ``offset`` shifts the storage
+        off its 16-byte boundary (the tensor stays contiguous)."""
+        p = rng.randint(0, 256, shape).astype(np.uint8)
+        p[:, : shape[1] // 5] = 90
+        flat = torch.empty(p.size + offset, dtype=torch.uint8, device=dev)
+        out = flat[offset:].view(shape)
+        out.copy_(torch.from_numpy(p))
+        return out
+
+    def clahe_case(name, plane, gy, gx):
         n, h, w = plane.shape
-        pad_h, pad_w, th, tw = C.pad_plan(h, w, 8, 8)
+        pad_h, pad_w, th, tw = C.pad_plan(h, w, gy, gx)
         xe = C._reflect_pad_101(plane, pad_h, pad_w)
         clip, scale = C.clip_count(2.0, th * tw), C.lut_scale(th * tw)
-        k_luts = C.clahe_tile_luts(xe, 8, 8, clip, scale)
-        p_luts = C.tile_luts_plain(xe, 8, 8, clip, scale)
+        k_luts = C.clahe_tile_luts(xe, gy, gx, clip, scale)
+        p_luts = C.tile_luts_plain(xe, gy, gx, clip, scale)
         same(k_luts, p_luts, f"clahe_tile_luts ({name})")
         for blend in C.BLENDS:
             same(C.clahe_apply(plane, k_luts, th, tw, blend),
                  C.apply_plain(plane, k_luts, th, tw, blend),
                  f"clahe_apply {blend} ({name})")
-        cases[name] = (plane, xe, k_luts, th, tw, clip, scale)
-        print(f"[kernels] CLAHE {name} {tuple(plane.shape)}: K1 and K2 "
-              f"(cv2, fixed) bit-equal to plain", flush=True)
+        print(f"[kernels] CLAHE {name} {tuple(plane.shape)} grid {gy}x{gx}: "
+              f"K1 and K2 (cv2, fixed) bit-equal to plain", flush=True)
+        return plane, xe, k_luts, th, tw, clip, scale
+
+    # K1 + K2 on the main-path plane and on a ragged plane, then the
+    # shapes behind K2's edge paths: other grids, a tile of 4 x 4 pixels,
+    # ragged tails, and a pointer that is not word-aligned
+    cases = {"main": clahe_case("main", y, 8, 8),
+             "ragged": clahe_case("ragged", noise, 8, 8)}
+    for shape, grid, offset in (((3, 120, 161), (2, 3), 0),
+                                ((1, 64, 64), (16, 16), 0),
+                                ((2, 270, 484), (16, 16), 0),
+                                ((2, 97, 203), (8, 8), 0),
+                                ((2, 96, 128), (4, 4), 1)):
+        clahe_case("edge" + (" unaligned" if offset else ""),
+                   rand_planes(shape, offset), *grid)
 
     plane, xe, luts, th, tw, clip, scale = cases["main"]
     n, h, w = plane.shape
@@ -200,12 +260,28 @@ def check_kernels(frames: np.ndarray):
     for k in (3, 5, 7, 9):
         same(M.median_planes(small, k), M.median_plain(small, k),
              f"median_k k={k} (small)")
-    print("[kernels] median: K3 bit-equal to plain at k=3 (24 x 1080p) and "
-          "k=3,5,7,9 (3 x 270 x 481)", flush=True)
+    # the k = 3 kernel's edge paths: ragged widths, a height that is no
+    # multiple of a thread's rows, one-pixel planes, an unaligned pointer
+    edge = (((2, 37, 1917), 0), ((3, 13, 17), 0), ((2, 33, 2), 0),
+            ((1, 1, 1), 0), ((2, 5, 16), 0), ((2, 43, 64), 1))
+    for shape, offset in edge:
+        p = rand_planes(shape, offset)
+        same(M.median_planes(p, 3), M.median_plain(p, 3),
+             f"median_k k=3 {shape}" + (" unaligned" if offset else ""))
+    print("[kernels] median: K3 bit-equal to plain at k=3 (24 x 1080p), "
+          "k=3,5,7,9 (3 x 270 x 481) and k=3 at "
+          + ", ".join("x".join(map(str, sh)) for sh, _ in edge), flush=True)
     rows["median_k"] = dict(
         ms=cuda_ms(lambda: M.median_planes(planes, 3), 50),
         plain_ms=cuda_ms(lambda: M.median_plain(planes, 3), 5, 1),
         **bound(2 * planes.numel(), K3_OPS_PER_PIXEL * planes.numel()))
+    flushed = {
+        "clahe_tile_luts": lambda: C.clahe_tile_luts(xe, 8, 8, clip, scale),
+        "clahe_apply": lambda: C.clahe_apply(plane, luts, th, tw, "cv2"),
+        "median_k": lambda: M.median_planes(planes, 3)}
+    for name, fn in flushed.items():
+        print(f"[kernels] {name}: {cuda_ms_flushed(fn):.4f} ms with L2 "
+              f"flushed before each call (median of 20)", flush=True)
     for name, r in rows.items():
         r["max_abs_err"] = errs[name]
         print(f"[kernels] {name}: {r['ms']:.4f} ms kernel, "
@@ -293,9 +369,15 @@ def profile_batch(engine, frames, ts) -> dict:
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    # the hand-written kernels, by the names nvcc gives them
+    ours = {name: e.self_device_time_total / 1e3 / e.count
+            for name in ("clahe_tile_luts_kernel", "clahe_apply_kernel",
+                         "median3_kernel")
+            for e in kern if name in e.key}
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us,
            "kernel_launches": sum(e.count for e in kern),
+           "port_kernels_ms": ours,
            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                               for e in top}}
     Path("chiprun_out").mkdir(exist_ok=True)

@@ -17,21 +17,40 @@
 //
 // K2 clahe_apply_kernel
 //   Replaces roadvision_tpu/ops/pallas_clahe.py::sweep_pallas together
-//   with the bilinear blend around it (clahe.py::_apply_band_sweep). On
-//   the TPU a gather is slow, so the JAX package packs four LUT taps per
-//   (bin, column) and sweeps all 256 bins; on Hopper a gather from
-//   shared memory is cheap, so the packed table and the sweep go away.
+//   with the bilinear blend around it (clahe.py::_apply_band_sweep).
 //   Bound: device-memory bytes (plane read once, written once; ~33 MB
-//   for 8 x 1080p). Design: a block stages its image's gy*gx*256 LUT
-//   bytes (16 KiB at 8x8) in shared memory, then walks a band of rows;
-//   each pixel reads its four taps and blends. Row and column tables
-//   (tile indices, weights) come from the host, computed in numpy
-//   exactly as clahe.py::_interp_coords / _interp_weight_num do.
-//   "fixed" blend: exact uint32 rationals, half-even division
-//   (clahe.py:338-345). "cv2" blend: every float multiply and add rounds
-//   on its own (__fmul_rn / __fadd_rn, and the file is built with
-//   --fmad=false), then rintf and clamp (clahe.py:347-375).
+//   for 8 x 1080p, 0.00996 ms at 3.35 TB/s). The plane fits in L2, so
+//   what decides the time is the instruction count per pixel. On the TPU
+//   a gather is slow, so the JAX package packs four LUT taps per (bin,
+//   column) and sweeps all 256 bins; on Hopper a gather from shared
+//   memory is cheap, so the sweep goes away but the packed table stays.
+//   Design: the host cuts the rows where the pair of tile rows (r1, r2)
+//   changes and then into chunks of a few rows (ops/clahe.py::
+//   row_chunks); one block takes one chunk of one image. It builds in
+//   shared memory the chunk's packed table over the gx + 1 column
+//   intervals, one entry per (interval, bin) holding the four taps
+//   l11, l12, l21, l22 (built from 32-bit loads of the four LUT rows),
+//   so a pixel costs one shared gather instead of four byte gathers, and
+//   a block reads four LUT rows per interval instead of staging all
+//   gy * gx. A thread owns four adjacent columns: the shared-memory
+//   address of each column's interval and its blend weights sit in
+//   registers for the whole chunk, and each row is one 32-bit load and
+//   one 32-bit store per four pixels. Rows whose width or pointers are
+//   not a multiple of four take the same arithmetic with guarded byte
+//   accesses. Row tables (weights) and column tables (interval, weights)
+//   come from the host, computed in numpy exactly as
+//   clahe.py::_interp_coords / _interp_weight_num do.
+//   "fixed" blend: entries are four bytes in a word; exact uint32
+//   rationals, half-even division (clahe.py:338-345).
+//   "cv2" blend: every float multiply and add rounds on its own
+//   (__fmul_rn / __fadd_rn, and the file is built with --fmad=false),
+//   then round-half-even and clamp (clahe.py:347-375). The conversions
+//   stay off the slow conversion unit and stay exact: entries are four
+//   f16 values (a byte is exact in f16, and f16 -> f32 is one
+//   instruction), and the result is rounded by adding 1.5 * 2^23, which
+//   leaves rint(v) in the low mantissa bits.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,63 +120,188 @@ __global__ void clahe_tile_luts_kernel(const uint8_t* __restrict__ x,
   luts[(((size_t)n * gy + ty) * gx + tx) * 256 + tid] = (uint8_t)r;
 }
 
-__global__ void clahe_apply_kernel(const uint8_t* __restrict__ x,
-                                   const uint8_t* __restrict__ luts,
-                                   const int* __restrict__ row_i,
-                                   const float* __restrict__ row_f,
-                                   const int* __restrict__ col_i,
-                                   const float* __restrict__ col_f,
-                                   uint8_t* __restrict__ out,
-                                   int h, int w, int gy, int gx, int th,
-                                   int tw, int rows_per_block, int fixed) {
-  extern __shared__ int4 lut_s4[];
-  const uint8_t* lut_s = reinterpret_cast<const uint8_t*>(lut_s4);
+
+constexpr int PX = 4;          // adjacent pixels per thread per row
+constexpr int APPLY_MAX_THREADS = 512;
+
+// Shared-memory reads by 32-bit shared-space address: one register per
+// column holds the address of its interval's table, so a gather is one
+// shift-add and one load. The "memory" clobber keeps them behind the
+// barrier that follows the table build.
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// byte K of a word
+template <int K>
+__device__ __forceinline__ uint32_t byte_of(uint32_t word) {
+  return K == 0 ? (word & 0xffu)
+                : K == 3 ? (word >> 24) : __byte_perm(word, 0, 0x4440 + K);
+}
+
+// two bytes (byte i of lo_src and of hi_src) as the f16 pair of their
+// values, exactly: 0x64vv is the half 1024 + v, and 1024 comes off
+__device__ __forceinline__ uint32_t half_pair(uint32_t lo_src,
+                                              uint32_t hi_src, int i) {
+  const uint32_t p =
+      (__byte_perm(lo_src, hi_src, ((4 + i) << 8) | i) & 0x00ff00ffu) |
+      0x64006400u;
+  const __half2 hv = __hsub2(*reinterpret_cast<const __half2*>(&p),
+                             __floats2half2_rn(1024.0f, 1024.0f));
+  return *reinterpret_cast<const uint32_t*>(&hv);
+}
+
+// The packed table has one entry per (column interval c, bin v) holding
+// the four taps l11, l12, l21, l22. "fixed" blend: four bytes in a word.
+// "cv2" blend: four f16 values in two words (bytes are exact in f16, and
+// f16 -> f32 is one instruction on the floating-point pipe, where a byte
+// -> f32 costs two, one of them on the busier integer pipe).
+template <bool FIXED, bool ALIGNED>
+__global__ void __launch_bounds__(APPLY_MAX_THREADS)
+clahe_apply_kernel(const uint8_t* __restrict__ x,
+                   const uint8_t* __restrict__ luts,
+                   const int* __restrict__ chunks,
+                   const int* __restrict__ row_i,
+                   const float* __restrict__ row_f,
+                   const int* __restrict__ col_c,
+                   const int* __restrict__ col_n,
+                   const float* __restrict__ col_a,
+                   const float* __restrict__ col_a1,
+                   uint8_t* __restrict__ out, int h, int w, int gy, int gx,
+                   int th, int tw) {
+  constexpr int ENTRY = FIXED ? 4 : 8;   // bytes per table entry
+  extern __shared__ uint4 tab4[];
+  const uint32_t tab_s = (uint32_t)__cvta_generic_to_shared(tab4);
   const int n = blockIdx.y;
-  const int nl = gy * gx * 256;
-  const int4* src4 = reinterpret_cast<const int4*>(luts + (size_t)n * nl);
-  for (int i = threadIdx.x; i < nl / 16; i += blockDim.x) lut_s4[i] = src4[i];
+  // this block's rows [y0, y1) and their tile rows r1, r2
+  const int4 ch = __ldg(reinterpret_cast<const int4*>(chunks) + blockIdx.x);
+  const uint8_t* lut1 = luts + ((size_t)n * gy + ch.z) * gx * 256;
+  const uint8_t* lut2 = luts + ((size_t)n * gy + ch.w) * gx * 256;
+  // interval c blends tile columns max(c - 1, 0) and min(c, gx - 1);
+  // one task packs four bins of one interval
+  for (int t = threadIdx.x; t < (gx + 1) * 64; t += blockDim.x) {
+    const int c = t >> 6;
+    const int o1 = max(c - 1, 0) * 256 + (t & 63) * 4;
+    const int o2 = min(c, gx - 1) * 256 + (t & 63) * 4;
+    const uint32_t a = __ldg(reinterpret_cast<const uint32_t*>(lut1 + o1));
+    const uint32_t b = __ldg(reinterpret_cast<const uint32_t*>(lut1 + o2));
+    const uint32_t cc = __ldg(reinterpret_cast<const uint32_t*>(lut2 + o1));
+    const uint32_t d = __ldg(reinterpret_cast<const uint32_t*>(lut2 + o2));
+    if (FIXED) {
+      const uint32_t ab_lo = __byte_perm(a, b, 0x5140);   // a0 b0 a1 b1
+      const uint32_t ab_hi = __byte_perm(a, b, 0x7362);   // a2 b2 a3 b3
+      const uint32_t cd_lo = __byte_perm(cc, d, 0x5140);
+      const uint32_t cd_hi = __byte_perm(cc, d, 0x7362);
+      tab4[t] = make_uint4(__byte_perm(ab_lo, cd_lo, 0x5410),
+                           __byte_perm(ab_lo, cd_lo, 0x7632),
+                           __byte_perm(ab_hi, cd_hi, 0x5410),
+                           __byte_perm(ab_hi, cd_hi, 0x7632));
+    } else {
+      tab4[2 * t] = make_uint4(half_pair(a, b, 0), half_pair(cc, d, 0),
+                               half_pair(a, b, 1), half_pair(cc, d, 1));
+      tab4[2 * t + 1] = make_uint4(half_pair(a, b, 2), half_pair(cc, d, 2),
+                                   half_pair(a, b, 3), half_pair(cc, d, 3));
+    }
+  }
   __syncthreads();
 
   const uint32_t twn = 2u * (uint32_t)tw;
   const uint32_t thn = 2u * (uint32_t)th;
   const uint32_t den = 4u * (uint32_t)th * (uint32_t)tw;
-  const int y0 = blockIdx.x * rows_per_block;
-  const int y1 = min(y0 + rows_per_block, h);
-  for (int y = y0; y < y1; ++y) {
-    const uint8_t* l1 = lut_s + row_i[3 * y] * gx * 256;
-    const uint8_t* l2 = lut_s + row_i[3 * y + 1] * gx * 256;
-    const uint32_t yan = (uint32_t)row_i[3 * y + 2];
-    const float ya = row_f[2 * y];
-    const float ya1 = row_f[2 * y + 1];
-    const uint8_t* xr = x + ((size_t)n * h + y) * w;
-    uint8_t* orow = out + ((size_t)n * h + y) * w;
-    for (int xx = threadIdx.x; xx < w; xx += blockDim.x) {
-      const int v = xr[xx];
-      const int o1 = col_i[3 * xx] * 256 + v;
-      const int o2 = col_i[3 * xx + 1] * 256 + v;
-      const uint32_t l11 = l1[o1], l12 = l1[o2], l21 = l2[o1], l22 = l2[o2];
-      uint32_t res;
-      if (fixed) {
-        const uint32_t xan = (uint32_t)col_i[3 * xx + 2];
-        const uint32_t top = l11 * (twn - xan) + l12 * xan;
-        const uint32_t bot = l21 * (twn - xan) + l22 * xan;
-        const uint32_t num = top * (thn - yan) + bot * yan;
-        const uint32_t q = num / den;
-        const uint32_t rem = num - q * den;
-        const uint32_t up = (2u * rem > den) || (2u * rem == den && (q & 1u));
-        res = q + up;
+  const int rows = ch.y - ch.x;
+  const size_t first = ((size_t)n * h + ch.x) * w;
+  const uint8_t* xb = x + first;
+  uint8_t* ob = out + first;
+  const int* yn = row_i + 3 * ch.x + 2;
+  const float2* yw = reinterpret_cast<const float2*>(row_f) + ch.x;
+  const int nq = (w + PX - 1) / PX;
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+    const int x0 = q * PX;
+    // the column tables are padded to a multiple of PX entries
+    uint32_t tcol[PX], xan[PX];
+    float xa[PX], xa1[PX];
+#pragma unroll
+    for (int k = 0; k < PX; ++k) {
+      tcol[k] = tab_s + (uint32_t)__ldg(col_c + x0 + k) * (256 * ENTRY);
+      if (FIXED) {
+        xan[k] = (uint32_t)__ldg(col_n + x0 + k);
       } else {
-        const float xa = col_f[2 * xx];
-        const float xa1 = col_f[2 * xx + 1];
-        const float top = __fadd_rn(__fmul_rn((float)l11, xa1),
-                                    __fmul_rn((float)l12, xa));
-        const float bot = __fadd_rn(__fmul_rn((float)l21, xa1),
-                                    __fmul_rn((float)l22, xa));
-        float r = rintf(__fadd_rn(__fmul_rn(top, ya1), __fmul_rn(bot, ya)));
-        r = fminf(fmaxf(r, 0.0f), 255.0f);
-        res = (uint32_t)r;
+        xa[k] = __ldg(col_a + x0 + k);
+        xa1[k] = __ldg(col_a1 + x0 + k);
       }
-      orow[xx] = (uint8_t)res;
+    }
+    uint32_t off = (uint32_t)x0;   // within the chunk: fits 32 bits
+    for (int r = 0; r < rows; ++r, off += (uint32_t)w) {
+      uint32_t pw = 0;
+      if (ALIGNED) {
+        pw = __ldg(reinterpret_cast<const uint32_t*>(xb + off));
+      } else {
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+          if (x0 + k < w) pw |= (uint32_t)xb[off + k] << (8 * k);
+        }
+      }
+      const uint32_t v[PX] = {byte_of<0>(pw), byte_of<1>(pw), byte_of<2>(pw),
+                              byte_of<3>(pw)};
+      uint32_t res[PX];
+      if (FIXED) {
+        const uint32_t yan = (uint32_t)__ldg(yn + 3 * r);
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+          const uint32_t taps = lds32(tcol[k] + v[k] * ENTRY);
+          const uint32_t l11 = taps & 0xffu, l12 = (taps >> 8) & 0xffu;
+          const uint32_t l21 = (taps >> 16) & 0xffu, l22 = taps >> 24;
+          const uint32_t top = l11 * (twn - xan[k]) + l12 * xan[k];
+          const uint32_t bot = l21 * (twn - xan[k]) + l22 * xan[k];
+          const uint32_t num = top * (thn - yan) + bot * yan;
+          const uint32_t qq = num / den;
+          const uint32_t rem = num - qq * den;
+          const uint32_t up =
+              (2u * rem > den) || (2u * rem == den && (qq & 1u));
+          res[k] = qq + up;
+        }
+      } else {
+        const float2 yy = __ldg(yw + r);   // (frac, 1 - frac) of the row
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+          const uint2 taps = lds64(tcol[k] + v[k] * ENTRY);
+          const float2 t1 =
+              __half22float2(*reinterpret_cast<const __half2*>(&taps.x));
+          const float2 t2 =
+              __half22float2(*reinterpret_cast<const __half2*>(&taps.y));
+          const float top = __fadd_rn(__fmul_rn(t1.x, xa1[k]),
+                                      __fmul_rn(t1.y, xa[k]));
+          const float bot = __fadd_rn(__fmul_rn(t2.x, xa1[k]),
+                                      __fmul_rn(t2.y, xa[k]));
+          const float rr =
+              __fadd_rn(__fmul_rn(top, yy.y), __fmul_rn(bot, yy.x));
+          // adding 1.5 * 2^23 leaves rint(rr) in the low mantissa bits.
+          // The clamp to [0, 255] is a no-op and is left out: the taps
+          // are at most 255 and each weight pair is (f, fl(1 - f)), so
+          // rr lies within 255 * (1 + 2^-22), which rounds to 255
+          res[k] = (uint32_t)__float_as_int(__fadd_rn(rr, 12582912.0f));
+        }
+      }
+      // the low byte of every result
+      const uint32_t word = __byte_perm(__byte_perm(res[0], res[1], 0x0040),
+                                        __byte_perm(res[2], res[3], 0x0040),
+                                        0x5410);
+      if (ALIGNED) {
+        *reinterpret_cast<uint32_t*>(ob + off) = word;
+      } else {
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+          if (x0 + k < w) ob[off + k] = (uint8_t)(word >> (8 * k));
+        }
+      }
     }
   }
 }
@@ -174,22 +318,34 @@ extern "C" int rvt_clahe_tile_luts(const void* x, void* luts, int n, int h,
 }
 
 extern "C" int rvt_clahe_apply(const void* x, const void* luts,
-                               const void* row_i, const void* row_f,
-                               const void* col_i, const void* col_f,
-                               void* out, int n, int h, int w, int gy, int gx,
-                               int th, int tw, int fixed, void* stream) {
-  const int rows_per_block = 16;
-  const size_t smem = (size_t)gy * gx * 256;
+                               const void* chunks, const void* row_i,
+                               const void* row_f, const void* col_c,
+                               const void* col_n, const void* col_a,
+                               const void* col_a1, void* out, int n, int h,
+                               int w, int gy, int gx, int th, int tw,
+                               int nchunks, int fixed, void* stream) {
+  const bool aligned = w % PX == 0 && (uintptr_t)x % PX == 0 &&
+                       (uintptr_t)out % PX == 0;
+  auto kern = fixed ? (aligned ? clahe_apply_kernel<true, true>
+                               : clahe_apply_kernel<true, false>)
+                    : (aligned ? clahe_apply_kernel<false, true>
+                               : clahe_apply_kernel<false, false>);
+  const size_t smem = (size_t)(gx + 1) * 256 * (fixed ? 4 : 8);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        clahe_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((h + rows_per_block - 1) / rows_per_block, n);
-  clahe_apply_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)x, (const uint8_t*)luts, (const int*)row_i,
-      (const float*)row_f, (const int*)col_i, (const float*)col_f,
-      (uint8_t*)out, h, w, gy, gx, th, tw, rows_per_block, fixed);
+  // every thread gets the same number of column groups, in whole warps
+  const int nq = (w + PX - 1) / PX;
+  const int passes = (nq + APPLY_MAX_THREADS - 1) / APPLY_MAX_THREADS;
+  const int threads = ((nq + passes - 1) / passes + 31) / 32 * 32;
+  dim3 grid(nchunks, n);
+  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)x, (const uint8_t*)luts, (const int*)chunks,
+      (const int*)row_i, (const float*)row_f, (const int*)col_c,
+      (const int*)col_n, (const float*)col_a, (const float*)col_a1,
+      (uint8_t*)out, h, w, gy, gx, th, tw);
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,7 @@ _F = ctypes.c_float
 # C signatures of the entry points: (library, symbol) -> argtypes
 SIGNATURES = {
     ("clahe", "rvt_clahe_tile_luts"): [_P, _P] + [_I] * 8 + [_F, _P],
-    ("clahe", "rvt_clahe_apply"): [_P] * 7 + [_I] * 8 + [_P],
+    ("clahe", "rvt_clahe_apply"): [_P] * 10 + [_I] * 9 + [_P],
     ("median", "rvt_median_k"): [_P, _P, _I, _I, _I, _I, _P],
 }
 

@@ -16,7 +16,11 @@ Two stages, two kernels (``csrc/clahe.cu``):
   * :func:`clahe_tile_luts` — K1, the histogram→clip→CDF stage
     (``_luts_for_plane``; XLA-only in the JAX package);
   * :func:`clahe_apply` — K2, the LUT apply and blend (``sweep_pallas`` +
-    the blend of ``_apply_band_sweep``).
+    the blend of ``_apply_band_sweep``). The kernel works on chunks of
+    rows that share one pair of tile rows and gathers from a packed
+    four-tap table per column interval; :func:`row_chunks`,
+    :func:`col_intervals` and :func:`packed_taps_plain` are that layout
+    in numpy and plain PyTorch.
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor; there is no other route. The per-row and
@@ -103,6 +107,61 @@ def _tables_on(device: torch.device, h: int, w: int, th: int, tw: int,
         ci, cf = interp_tables(w, tw, gx)
         got = tuple(torch.from_numpy(a).to(device) for a in (ri, rf, ci, cf))
         _dev_tables[key] = got
+    return got
+
+
+# rows per block of K2; a chunk never crosses a change of tile rows
+APPLY_CHUNK_ROWS = 24
+# K2 reads its column tables in groups of adjacent columns
+_COL_PAD = 4
+
+
+def row_chunks(ri: np.ndarray, chunk_rows: int) -> np.ndarray:
+    """Cut the rows of ``interp_tables(h, th, gy)[0]`` into chunks for K2.
+
+    Returns (nchunks, 4) int32 ``[y0, y1, r1, r2]``: rows [y0, y1) all
+    blend tile rows r1 and r2. The rows are first cut wherever (r1, r2)
+    changes (OpenCV's half-tile offset: at most gy + 1 bands), then each
+    band into near-equal pieces of at most ``chunk_rows`` rows."""
+    h = ri.shape[0]
+    change = np.flatnonzero(np.any(ri[1:, :2] != ri[:-1, :2], axis=1)) + 1
+    out = []
+    for s, e in zip([0, *change], [*change, h]):
+        pieces = -(-(e - s) // chunk_rows)
+        edges = s + (np.arange(pieces + 1) * (e - s)) // pieces
+        for y0, y1 in zip(edges[:-1], edges[1:]):
+            out.append((y0, y1, ri[s, 0], ri[s, 1]))
+    return np.asarray(out, dtype=np.int32).reshape(-1, 4)
+
+
+def col_intervals(ci: np.ndarray, gx: int) -> np.ndarray:
+    """Column interval of every column, from ``interp_tables(w, tw, gx)[0]``:
+    interval c in [0, gx] blends tile columns max(c - 1, 0) and
+    min(c, gx - 1), so 0 and gx are the half tiles at the two edges."""
+    c1, c2 = ci[:, 0], ci[:, 1]
+    return np.where(c1 != c2, c2, np.where(c1 == 0, 0, gx)).astype(np.int32)
+
+
+_dev_apply_tables: Dict[tuple, tuple] = {}
+
+
+def _apply_tables_on(device: torch.device, h: int, w: int, th: int, tw: int,
+                     gy: int, gx: int, chunk_rows: int):
+    """K2's device tables: chunks, row [i1, i2, num], row [frac, 1-frac],
+    then per column (padded to a multiple of ``_COL_PAD``) the interval,
+    the exact weight numerator, frac and 1-frac."""
+    key = (str(device), h, w, th, tw, gy, gx, chunk_rows)
+    got = _dev_apply_tables.get(key)
+    if got is None:
+        ri, rf = interp_tables(h, th, gy)
+        ci, cf = interp_tables(w, tw, gx)
+        pad = (0, -w % _COL_PAD)
+        cols = (col_intervals(ci, gx), ci[:, 2], cf[:, 0], cf[:, 1])
+        arrays = (row_chunks(ri, chunk_rows), ri, rf,
+                  *(np.pad(np.ascontiguousarray(c), pad) for c in cols))
+        got = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in arrays)
+        _dev_apply_tables[key] = got
     return got
 
 
@@ -203,6 +262,33 @@ def lut_taps(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int):
     return flat[r1 + c1], flat[r1 + c2], flat[r2 + c1], flat[r2 + c2]
 
 
+def packed_taps_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
+                      chunk_rows: int = APPLY_CHUNK_ROWS) -> torch.Tensor:
+    """What K2 gathers at every pixel, (N, H, W) int64: per chunk of rows
+    the packed table ``word[c][v] = l11 | l12<<8 | l21<<16 | l22<<24``
+    over the gx + 1 column intervals, read at (interval of x, x's value).
+    Equals the four :func:`lut_taps` packed the same way. (The kernel
+    keeps the four taps of an entry as bytes in the "fixed" blend and as
+    f16 values in the "cv2" blend; the indexing is this one.)"""
+    n, h, w = x.shape
+    gy, gx = luts.shape[1], luts.shape[2]
+    ri, _ = interp_tables(h, th, gy)
+    ci, _ = interp_tables(w, tw, gx)
+    col_c = torch.from_numpy(col_intervals(ci, gx)).long().to(x.device)
+    c = torch.arange(gx + 1, device=x.device)
+    c1, c2 = (c - 1).clamp_(min=0), c.clamp(max=gx - 1)
+    out = torch.empty((n, h, w), dtype=torch.int64, device=x.device)
+    lut = luts.long()
+    for y0, y1, r1, r2 in row_chunks(ri, chunk_rows).tolist():
+        table = (lut[:, r1, c1] | (lut[:, r1, c2] << 8)
+                 | (lut[:, r2, c1] << 16) | (lut[:, r2, c2] << 24))
+        flat = table.reshape(n, -1)                      # (N, (gx+1)·256)
+        idx = col_c.view(1, 1, w) * 256 + x[:, y0:y1].long()
+        out[:, y0:y1] = torch.gather(flat, 1, idx.reshape(n, -1)) \
+            .view(n, y1 - y0, w)
+    return out
+
+
 def apply_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
                 blend: str = "cv2") -> torch.Tensor:
     """(N, H, W) uint8 + (N, gy, gx, 256) uint8 LUTs → (N, H, W) uint8.
@@ -238,14 +324,17 @@ def _apply_cuda(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
                 blend: str) -> torch.Tensor:
     n, h, w = x.shape
     gy, gx = luts.shape[1], luts.shape[2]
-    ri, rf, ci, cf = _tables_on(x.device, h, w, th, tw, gy, gx)
+    tables = _apply_tables_on(x.device, h, w, th, tw, gy, gx,
+                              APPLY_CHUNK_ROWS)
+    if luts.data_ptr() % 4:          # the kernel reads the LUTs as words
+        luts = luts.clone()
     out = torch.empty_like(x)
     lib = _build.load("clahe")
     with torch.cuda.device(x.device):
         code = lib.rvt_clahe_apply(
-            x.data_ptr(), luts.data_ptr(), ri.data_ptr(), rf.data_ptr(),
-            ci.data_ptr(), cf.data_ptr(), out.data_ptr(), n, h, w, gy, gx,
-            th, tw, int(blend == "fixed"), _build.stream_ptr(x))
+            x.data_ptr(), luts.data_ptr(), *(t.data_ptr() for t in tables),
+            out.data_ptr(), n, h, w, gy, gx, th, tw, tables[0].shape[0],
+            int(blend == "fixed"), _build.stream_ptr(x))
     _build.launch_counts["clahe_apply"] += 1
     _build.check(code, "clahe_apply")
     return out
@@ -270,9 +359,11 @@ def clahe_apply(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     gy, gx = luts.shape[1], luts.shape[2]
-    if gy * gx * 256 > 227 * 1024:
-        raise ValueError(f"a {gy}x{gx} grid's LUTs exceed one block's "
-                         f"shared memory")
+    entry = 4 if blend == "fixed" else 8       # bytes per (interval, bin)
+    if (gx + 1) * 256 * entry > 227 * 1024:
+        raise ValueError(f"a grid of {gx} tile columns needs a packed table "
+                         f"of {(gx + 1) * entry // 4} KiB in the {blend!r} "
+                         f"blend, over one block's 227 KiB of shared memory")
     if x.shape[0] > 65535:
         raise ValueError("at most 65535 planes per launch")
     return _apply_cuda(x.contiguous(), luts.contiguous(), th, tw, blend)

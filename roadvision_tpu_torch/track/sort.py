@@ -35,6 +35,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
+
 HISTORY = 32
 STATE_DIM = 7
 MEAS_DIM = 4
@@ -75,7 +77,10 @@ def _p0(device) -> torch.Tensor:
                                    device=device))
 
 
-def init_state(num_slots: int, device="cpu") -> SortState:
+def init_state(num_slots: int, device=None) -> SortState:
+    """Empty track slots on ``device``: the card unless the caller names
+    another (``device="cpu"`` for the plain path)."""
+    device = resolve_device(device)
     t = num_slots
     f32, i32 = torch.float32, torch.int32
 

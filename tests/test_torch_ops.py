@@ -127,6 +127,90 @@ def test_clahe_taps_match_pallas_sweep():
     np.testing.assert_array_equal(got, want)
 
 
+# the shapes behind the CUDA kernels' edge paths: the plain versions are
+# the oracle the kernels are held to on the card, so they are held to the
+# JAX functions here at the same shapes
+@pytest.mark.parametrize("blend", ["cv2", "fixed"])
+@pytest.mark.parametrize("shape,grid", [
+    ((3, 120, 161), (2, 3)),     # ragged tail, two tile rows
+    ((2, 50, 37), (2, 3)),
+    ((1, 64, 64), (16, 16)),     # tiles of 4 x 4 pixels: two-row bands
+    ((2, 97, 203), (16, 16)),    # ragged in both dims on the fine grid
+    ((1, 270, 484), (16, 16)),
+])
+def test_clahe_planar_edge_shapes_bit_equal(blend, shape, grid):
+    p = _plane(shape, 3 * shape[-1] + grid[0])
+    want = np.asarray(jclahe.clahe_planar_i32(jnp.asarray(p), 2.0, grid,
+                                              blend=blend))
+    got = tclahe.clahe_planar(torch.from_numpy(p), 2.0, grid, blend)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _taps_case(n, h, w, gy, gx, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, 256, (n, h, w)).astype(np.uint8))
+    pad_h, pad_w, th, tw = tclahe.pad_plan(h, w, gy, gx)
+    luts = tclahe.clahe_tile_luts(tclahe._reflect_pad_101(x, pad_h, pad_w),
+                                  gy, gx, tclahe.clip_count(2.0, th * tw),
+                                  tclahe.lut_scale(th * tw))
+    return x, luts, th, tw
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 5, 24])
+@pytest.mark.parametrize("shape,grid", [
+    ((2, 64, 200), (4, 5)), ((1, 64, 64), (16, 16)), ((2, 97, 203), (8, 8)),
+    ((1, 40, 30), (1, 1)), ((2, 120, 161), (2, 3)),
+])
+def test_clahe_packed_table_matches_lut_taps(shape, grid, chunk_rows):
+    """The layout the apply kernel gathers from (row chunks, column
+    intervals, one packed word per interval and bin) reads the same four
+    taps as the direct lookup, at every pixel."""
+    x, luts, th, tw = _taps_case(*shape, *grid, seed=sum(shape) + chunk_rows)
+    l11, l12, l21, l22 = (t.long() for t in tclahe.lut_taps(x, luts, th, tw))
+    want = l11 | (l12 << 8) | (l21 << 16) | (l22 << 24)
+    got = tclahe.packed_taps_plain(x, luts, th, tw, chunk_rows)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h,tile,tiles,chunk_rows", [
+    (1080, 135, 8, 24), (64, 4, 16, 24), (97, 13, 8, 5), (40, 40, 1, 16),
+    (1, 1, 1, 24), (120, 60, 2, 7),
+])
+def test_clahe_row_chunks_partition_the_rows(h, tile, tiles, chunk_rows):
+    """Chunks tile [0, h) in order, none longer than asked, and every row
+    of a chunk blends the chunk's pair of tile rows."""
+    ri, _ = tclahe.interp_tables(h, tile, tiles)
+    chunks = tclahe.row_chunks(ri, chunk_rows)
+    assert chunks.dtype == np.int32 and chunks.shape[1] == 4
+    assert chunks[0, 0] == 0 and chunks[-1, 1] == h
+    np.testing.assert_array_equal(chunks[1:, 0], chunks[:-1, 1])
+    assert (chunks[:, 1] > chunks[:, 0]).all()
+    assert (chunks[:, 1] - chunks[:, 0]).max() <= chunk_rows
+    for y0, y1, r1, r2 in chunks:
+        assert (ri[y0:y1, 0] == r1).all() and (ri[y0:y1, 1] == r2).all()
+
+
+@pytest.mark.parametrize("w,tile,tiles", [(1920, 240, 8), (161, 54, 3),
+                                          (64, 4, 16), (30, 30, 1),
+                                          (203, 26, 8)])
+def test_clahe_col_intervals_name_the_tile_pair(w, tile, tiles):
+    ci, _ = tclahe.interp_tables(w, tile, tiles)
+    c = tclahe.col_intervals(ci, tiles)
+    assert c.min() >= 0 and c.max() <= tiles
+    np.testing.assert_array_equal(np.maximum(c - 1, 0), ci[:, 0])
+    np.testing.assert_array_equal(np.minimum(c, tiles - 1), ci[:, 1])
+
+
+@pytest.mark.parametrize("h", [1, 2, 9])
+@pytest.mark.parametrize("w", [1, 2, 15, 17, 33])
+def test_median3_edge_shapes_bit_equal(h, w):
+    rng = np.random.RandomState(100 * h + w)
+    x = rng.randint(0, 256, (2, h, w)).astype(np.int32)
+    want = np.asarray(jmedian.median_planar_i32(jnp.asarray(x), 3))
+    got = tmedian.median_planar(torch.from_numpy(x), 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("k", [3, 5, 7, 9])
 def test_median_bit_equal(k):
     rng = np.random.RandomState(40 + k)

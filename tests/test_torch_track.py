@@ -47,7 +47,7 @@ def _drive(seq, with_proj=True):
     oracle outputs."""
     jstep = _JSTEP
     tstep = tsort.make_sort_step(**CFG)
-    jstate, tstate = jsort.init_state(T), tsort.init_state(T)
+    jstate, tstate = jsort.init_state(T), tsort.init_state(T, device="cpu")
     jp = tp = oproj = None
     if with_proj:
         jpr = jbuild_projector(_proj_cfg())
@@ -152,7 +152,8 @@ def test_slot_overflow_keeps_ids_and_drops_tracks():
     v = np.ones((D,), bool)
     js, jo = jstep(jsort.init_state(4), jnp.asarray(boxes), jnp.asarray(cls),
                    jnp.asarray(conf), jnp.asarray(v), jnp.float32(0.1))
-    ts_, to = tstep(tsort.init_state(4), torch.from_numpy(boxes),
+    ts_, to = tstep(tsort.init_state(4, device="cpu"),
+                    torch.from_numpy(boxes),
                     torch.from_numpy(cls), torch.from_numpy(conf),
                     torch.from_numpy(v), torch.tensor(0.1))
     np.testing.assert_array_equal(to.track_id.numpy(), np.asarray(jo.track_id))
