@@ -14,16 +14,24 @@ Phases, in order; any failure exits non-zero:
      median at k = 3, and k = 5, 7, 9 at a smaller shape) and at the
      shapes that reach the kernels' edge paths (other tile grids, widths
      with a ragged tail, one-pixel planes, pointers off a 16-byte
-     boundary): bit-equality, times by CUDA events at a warm L2 and with
-     L2 flushed before every call, and the bound (the larger of bytes
-     read once and written once over 3.35 TB/s and scalar operations
-     over 67 T/s);
+     boundary; for the LUT kernel also a plane of one value, a single
+     plane, no clip limit, 4 x 4-pixel tiles and 4K planes; for the
+     apply kernel also the 360 x 640 sample grid of the 1080p plane):
+     bit-equality, times by CUDA events at a warm L2 and with L2 flushed
+     before every call (the LUT kernel also on noise, one value and a
+     camera-like plane, since its time depends on the data), and the
+     bound (the larger of bytes read once and written once over
+     3.35 TB/s and scalar operations over 67 T/s);
   4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
      CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
      PipelineEngine.process_batch: one batch in float32 with TF32 off
      against the CPU plain path (processed frames bit-equal, detections
-     within the tests' tolerance, identical track ids), then the default
-     bfloat16 path with the kernels' launch counters reset just before
+     within the tests' tolerance, identical track ids); then, the same
+     way, one float32 batch each of the engine with the auto-gate on
+     (span + impulse statistic, on a batch that mixes clean,
+     low-contrast and impulse-noise frames), with ``space: LAB``, and
+     with ``tpu.sampled_preprocess``, each also timed over two more
+     batches with its own launch counts; then the default bfloat16 path with the kernels' launch counters reset just before
      and read just after (each kernel once per batch), timed in
      frames/s, and sanity-checked: on the first batch it tracks as many
      distinct objects as the float32 run;
@@ -61,6 +69,7 @@ K3_OPS_PER_PIXEL = 28
 L2_FLUSH_BYTES = 256 << 20         # well over the card's 50 MB L2
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 BOX_TOL, CONF_TOL = 0.05, 2e-3     # as tests/test_torch_pipeline.py
+GATE_RTOL = 1e-5                   # impulse statistic, card against CPU
 
 
 def card_line() -> str:
@@ -232,8 +241,45 @@ def check_kernels(frames: np.ndarray):
         clahe_case("edge" + (" unaligned" if offset else ""),
                    rand_planes(shape, offset), *grid)
 
+    def k1_case(name, xe, gy, gx, clip_limit=2.0):
+        th, tw = xe.shape[1] // gy, xe.shape[2] // gx
+        clip, scale = C.clip_count(clip_limit, th * tw), C.lut_scale(th * tw)
+        same(C.clahe_tile_luts(xe, gy, gx, clip, scale),
+             C.tile_luts_plain(xe, gy, gx, clip, scale),
+             f"clahe_tile_luts ({name})")
+
+    # K1 alone: data and shapes behind its fast and its guarded paths
+    one_value = torch.full((BATCH, HEIGHT, WIDTH), 77, dtype=torch.uint8,
+                           device=dev)
+    g = (np.linspace(40, 200, WIDTH)[None, None, :]
+         + np.linspace(0, 30, HEIGHT)[None, :, None]
+         + rng.normal(0, 2.0, (BATCH, HEIGHT, WIDTH)))
+    camera = torch.from_numpy(np.clip(g, 0, 255).astype(np.uint8)).to(dev)
+    full_noise = cases["ragged"][1]            # 1079 x 1917 padded to 1080p
+    k1_case("one value", one_value, 8, 8)
+    k1_case("camera-like", camera, 8, 8)
+    k1_case("one plane", camera[:1], 8, 8)
+    k1_case("no clip", y, 8, 8, clip_limit=0.0)
+    k1_case("4x4-pixel tiles", rand_planes((1, 16, 16)), 4, 4)
+    k1_case("tile width 24, unaligned", rand_planes((2, 64, 96), 3), 4, 4)
+    k1_case("4K", rand_planes((2, 2160, 3840)), 8, 8)
+    print("[kernels] K1 also bit-equal on a plane of one value, a "
+          "camera-like plane, one plane, clip 0, 4x4-pixel tiles, tile "
+          "width 24 at an odd pointer, and 2 x 2160 x 3840", flush=True)
+
     plane, xe, luts, th, tw, clip, scale = cases["main"]
     n, h, w = plane.shape
+    # K2 on the letterbox's sample grid of the main plane (stride 3)
+    sample = (h, w, (3, 1, h // 3), (3, 1, w // 3))
+    grid_px = plane[:, 1::3, 1::3].contiguous()
+    for blend in C.BLENDS:
+        got = C.clahe_apply(grid_px, luts, th, tw, blend, sample=sample)
+        same(got, C.apply_plain(grid_px, luts, th, tw, blend, sample=sample),
+             f"clahe_apply {blend} (sampled)")
+        same(got, C.clahe_apply(plane, luts, th, tw, blend)[:, 1::3, 1::3],
+             f"clahe_apply {blend} (sampled vs full)")
+    print(f"[kernels] K2 on the {h // 3} x {w // 3} sample grid: bit-equal "
+          f"to plain and to the full result sliced", flush=True)
     rows["clahe_tile_luts"] = dict(
         ms=cuda_ms(lambda: C.clahe_tile_luts(xe, 8, 8, clip, scale), 50),
         plain_ms=cuda_ms(lambda: C.tile_luts_plain(xe, 8, 8, clip, scale),
@@ -268,7 +314,18 @@ def check_kernels(frames: np.ndarray):
         p = rand_planes(shape, offset)
         same(M.median_planes(p, 3), M.median_plain(p, 3),
              f"median_k k=3 {shape}" + (" unaligned" if offset else ""))
+    # the gate's impulse statistic: the stride-4 gray subsample of the
+    # gated path's batch (clean, low-contrast and salt-and-pepper frames)
+    mx = torch.from_numpy(mixed_batch(frames)).to(dev)
+    gate_sub = color.gray_from_bgr_planes(mx[..., 0], mx[..., 1], mx[..., 2]) \
+        [:, ::4, ::4].contiguous()
+    if tuple(gate_sub.shape) != (BATCH, HEIGHT // 4, WIDTH // 4) \
+            or gate_sub.dtype != torch.uint8:
+        fail(f"gate subsample is {gate_sub.dtype} {tuple(gate_sub.shape)}")
+    same(M.median_planes(gate_sub, 3), M.median_plain(gate_sub, 3),
+         "median_k k=3 (gate subsample)")
     print("[kernels] median: K3 bit-equal to plain at k=3 (24 x 1080p), "
+          "k=3 on the gate's 8 x 270 x 480 gray subsample, "
           "k=3,5,7,9 (3 x 270 x 481) and k=3 at "
           + ", ".join("x".join(map(str, sh)) for sh, _ in edge), flush=True)
     rows["median_k"] = dict(
@@ -280,8 +337,16 @@ def check_kernels(frames: np.ndarray):
         "clahe_apply": lambda: C.clahe_apply(plane, luts, th, tw, "cv2"),
         "median_k": lambda: M.median_planes(planes, 3)}
     for name, fn in flushed.items():
-        print(f"[kernels] {name}: {cuda_ms_flushed(fn):.4f} ms with L2 "
+        rows[name]["flushed_ms"] = cuda_ms_flushed(fn)
+        print(f"[kernels] {name}: {rows[name]['flushed_ms']:.4f} ms with L2 "
               f"flushed before each call (median of 20)", flush=True)
+    # K1's counting depends on the data: the same shape, other planes
+    for name, data in (("noise", full_noise), ("one value", one_value),
+                       ("camera-like", camera)):
+        def fn(data=data):
+            return C.clahe_tile_luts(data, 8, 8, clip, scale)
+        print(f"[kernels] clahe_tile_luts on {name}: {cuda_ms(fn, 50):.4f} "
+              f"ms warm, {cuda_ms_flushed(fn):.4f} ms flushed", flush=True)
     for name, r in rows.items():
         r["max_abs_err"] = errs[name]
         print(f"[kernels] {name}: {r['ms']:.4f} ms kernel, "
@@ -314,6 +379,116 @@ def compare_results(cpu, gpu) -> float:
                 fail(f"frame {fi}: box err {box} / conf err "
                      f"{abs(da.conf - db.conf)} over tolerance")
     return worst
+
+
+def mixed_batch(frames: np.ndarray, seed: int = 1) -> np.ndarray:
+    """A batch for the gate: frames 2 and 5 squeezed to a span under the
+    contrast threshold, frames 3 and 6 with salt-and-pepper noise on 5 %
+    of their pixels, the rest clean."""
+    rng = np.random.RandomState(seed)
+    out = frames.copy()
+    for i in (2, 5):
+        out[i] = out[i] // 16 + 100
+    for i in (3, 6):
+        hit = rng.rand(*out.shape[1:3]) < 0.05
+        out[i][hit] = rng.choice([0, 255], size=(int(hit.sum()), 1))
+    return out
+
+
+def second_paths(model: str, batches, card: str) -> dict:
+    """The gated, LAB and sampled engines at 1080p x 8 in float32: one
+    batch each against the port's CPU path, then two timed batches with
+    the launch counts from 0."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.ops.color import gray_from_bgr_planes
+    from roadvision_tpu_torch.runtime import PipelineEngine
+
+    base = pipeline_cfg(model)
+    base["tpu"]["compute_dtype"] = "float32"
+    lab_chain = [{"name": "CLAHEDehaze",
+                  "params": {"space": "LAB", "clip_limit": 2.0,
+                             "tile_grid": 8}},
+                 {"name": "MedianDerain", "params": {"ksize": 3}}]
+    paths = {
+        "gated": ({"preprocess": {"auto_gate": {
+            "enable_low_contrast_gate": True, "stat": "span",
+            "contrast_thresh": 20.0, "impulse_thresh": 2.5}}}, True),
+        "lab": ({"preprocess": {"chain": lab_chain}}, True),
+        "sampled": ({"tpu": {"sampled_preprocess": True}}, False),
+    }
+    from roadvision_tpu_torch.config import merge
+    out = {}
+    for name, (over, want_proc) in paths.items():
+        cfg = merge(base, over)
+        frames, ts = batches[0]
+        if name == "gated":
+            frames = mixed_batch(frames)
+        gpu = PipelineEngine(cfg, device="cuda")
+        cpu = PipelineEngine(cfg, device="cpu")
+        r_gpu = gpu.process_batch(frames, ts, want_proc=want_proc)
+        r_cpu = cpu.process_batch(frames, ts, want_proc=want_proc)
+        worst = compare_results(r_cpu, r_gpu)
+        n_dets = sum(len(r.detections) for r in r_cpu)
+        if n_dets == 0:
+            fail(f"{name} path: no detections to compare")
+        note = ""
+        if name == "gated":
+            ran = [not np.array_equal(r.proc, r.raw) for r in r_gpu]
+            if ran != [False, False, True, True, False, True, True, False]:
+                fail(f"gated path: the chain ran on frames {ran}")
+            # the statistics behind the decision, card against CPU
+            bgr = torch.from_numpy(frames)
+            stats = []
+            for eng in (cpu, gpu):
+                px = bgr.to(eng.device)
+                gray = gray_from_bgr_planes(px[..., 0], px[..., 1],
+                                            px[..., 2])
+                stats.append([s.cpu().numpy()
+                              for s in eng.pipeline.gate_stats(gray)])
+            (span_c, imp_c), (span_g, imp_g) = stats
+            if not np.array_equal(span_c, span_g):
+                fail(f"gated path: span {span_g} on the card, {span_c} on "
+                     f"the CPU")
+            if not np.allclose(imp_g, imp_c, rtol=GATE_RTOL, atol=0.0):
+                fail(f"gated path: impulse statistic {imp_g} on the card, "
+                     f"{imp_c} on the CPU")
+            if not ((span_c < 20.0) == np.isin(np.arange(BATCH), (2, 5))) \
+                    .all() or not ((imp_c >= 2.5) == np.isin(
+                        np.arange(BATCH), (3, 6))).all():
+                fail(f"gated path: span {span_c} / impulse {imp_c} do not "
+                     f"split the batch as built")
+            note = (" the chain ran on frames 2, 3, 5, 6 only; span equal "
+                    "and impulse statistic within "
+                    f"{GATE_RTOL:g} relative of the CPU path's "
+                    f"(max {np.abs(imp_g / imp_c - 1).max():.1e});")
+        if name == "sampled" and gpu.sampled_plans(HEIGHT, WIDTH, False) \
+                != ((3, 1, 360), (3, 1, 640)):
+            fail("sampled path: 1080p -> 640 is not the stride-3 grid")
+        timed = [(mixed_batch(f) if name == "gated" else f, t)
+                 for f, t in batches[1:3]]
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for frames, ts in timed:
+            gpu.process_batch(frames, ts, want_proc=want_proc)
+        torch.cuda.synchronize()
+        fps = 2 * BATCH / (time.perf_counter() - t0)
+        counts = dict(kernels.launch_counts)
+        # per batch one launch of each kernel; the gate's impulse
+        # statistic adds one of the median on the gray subsample
+        want = {"clahe_tile_luts": 2, "clahe_apply": 2,
+                "median_k": 4 if name == "gated" else 2}
+        if counts != want:
+            fail(f"{name} path: launches {counts} in 2 batches, expected "
+                 f"{want}")
+        print(f"[e2e] {name} path, float32: {n_dets} detections match the "
+              f"CPU path (max box err {worst:.2e} px), frames bit-equal;"
+              f"{note} 2 more batches at {fps:.1f} frames/s ({card}); "
+              f"launches in them {counts}", flush=True)
+        out[name] = {"fps_f32": fps, "launches_2_batches": counts,
+                     "detections": n_dets}
+    return out
 
 
 def stage_breakdown(engine, frames, ts):
@@ -436,6 +611,8 @@ def main() -> int:
                                                  d.conf)):
                 fail("non-finite detection")
 
+    paths = second_paths(model, batches, card)
+
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
     engine = PipelineEngine(pipeline_cfg(model), device="cuda")
@@ -494,9 +671,10 @@ def main() -> int:
          "replaces": replaces[name][1], "launches": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None}
+         "library_ms": None, "flushed_ms": r["flushed_ms"]}
         for name, r in rows.items()],
-        "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages}
+        "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
+        "second_paths": paths}
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))

@@ -1,6 +1,6 @@
 """CLAHE on uint8 luma planes: plain PyTorch plus two CUDA kernels.
 
-Port of ``roadvision_tpu/ops/clahe.py:125-434``: OpenCV's CLAHE step for
+Port of ``roadvision_tpu/ops/clahe.py:125-450``: OpenCV's CLAHE step for
 step — reflect-101 pad of the ragged edge, 256-bin histogram per tile,
 clip at ``max(int(clip·area/256), 1)`` with OpenCV's excess
 redistribution, LUT = round-half-even(cdf·255/area), then the bilinear
@@ -14,13 +14,18 @@ in one of two modes:
 Two stages, two kernels (``csrc/clahe.cu``):
 
   * :func:`clahe_tile_luts` — K1, the histogram→clip→CDF stage
-    (``_luts_for_plane``; XLA-only in the JAX package);
+    (``_luts_for_plane``; XLA-only in the JAX package). The kernel cuts
+    tile rows into 16-byte pieces and counts them into one histogram per
+    warp; :func:`tile_pieces` and :func:`tile_luts_by_pieces` are that
+    layout in numpy;
   * :func:`clahe_apply` — K2, the LUT apply and blend (``sweep_pallas`` +
     the blend of ``_apply_band_sweep``). The kernel works on chunks of
     rows that share one pair of tile rows and gathers from a packed
     four-tap table per column interval; :func:`row_chunks`,
     :func:`col_intervals` and :func:`packed_taps_plain` are that layout
-    in numpy and plain PyTorch.
+    in numpy and plain PyTorch. With ``sample`` the plane is a strided
+    sample grid of a larger one (:func:`clahe_planar_sampled`): same
+    kernel, the larger plane's tables at the sampled rows and columns.
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor; there is no other route. The per-row and
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,17 +100,50 @@ def interp_tables(size: int, tile: int, tiles: int):
     return ti, tf
 
 
+Plan = Tuple[int, int, int]          # (stride, offset, count) along one axis
+# a plane that is a strided sample grid of a larger one:
+# (full_h, full_w, plan_y, plan_x); None for a whole plane
+Sample = Optional[Tuple[int, int, Plan, Plan]]
+
+
+def _host_tables(h: int, w: int, th: int, tw: int, gy: int, gx: int,
+                 sample: Sample = None):
+    """Row and column interpolation tables of an (h, w) plane, or of the
+    sample grid of a (full_h, full_w) plane: the full plane's tables at
+    the sampled rows and columns (clahe.py:281-285)."""
+    if sample is None:
+        return (*interp_tables(h, th, gy), *interp_tables(w, tw, gx))
+    fh, fw, (sy, oy, ny), (sx, ox, nx) = sample
+    ri, rf = interp_tables(fh, th, gy)
+    ci, cf = interp_tables(fw, tw, gx)
+    rows = np.arange(ny) * sy + oy
+    cols = np.arange(nx) * sx + ox
+    return ri[rows], rf[rows], ci[cols], cf[cols]
+
+
+def _check_sample(h: int, w: int, sample: Sample) -> None:
+    if sample is None:
+        return
+    fh, fw, (sy, oy, ny), (sx, ox, nx) = sample
+    if (ny, nx) != (h, w):
+        raise ValueError(f"sample grid {ny}x{nx} does not match the plane "
+                         f"{h}x{w}")
+    if min(sy, sx) < 1 or min(oy, ox) < 0 \
+            or oy + sy * (ny - 1) >= fh or ox + sx * (nx - 1) >= fw:
+        raise ValueError(f"sample grid {sample[2:]} leaves the {fh}x{fw} "
+                         f"plane")
+
+
 _dev_tables: Dict[tuple, tuple] = {}
 
 
 def _tables_on(device: torch.device, h: int, w: int, th: int, tw: int,
-               gy: int, gx: int):
-    key = (str(device), h, w, th, tw, gy, gx)
+               gy: int, gx: int, sample: Sample = None):
+    key = (str(device), h, w, th, tw, gy, gx, sample)
     got = _dev_tables.get(key)
     if got is None:
-        ri, rf = interp_tables(h, th, gy)
-        ci, cf = interp_tables(w, tw, gx)
-        got = tuple(torch.from_numpy(a).to(device) for a in (ri, rf, ci, cf))
+        got = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in _host_tables(h, w, th, tw, gy, gx, sample))
         _dev_tables[key] = got
     return got
 
@@ -146,15 +184,17 @@ _dev_apply_tables: Dict[tuple, tuple] = {}
 
 
 def _apply_tables_on(device: torch.device, h: int, w: int, th: int, tw: int,
-                     gy: int, gx: int, chunk_rows: int):
+                     gy: int, gx: int, chunk_rows: int,
+                     sample: Sample = None):
     """K2's device tables: chunks, row [i1, i2, num], row [frac, 1-frac],
     then per column (padded to a multiple of ``_COL_PAD``) the interval,
-    the exact weight numerator, frac and 1-frac."""
-    key = (str(device), h, w, th, tw, gy, gx, chunk_rows)
+    the exact weight numerator, frac and 1-frac. With ``sample`` they are
+    the full plane's tables at the sampled rows and columns; the kernel
+    reads them the same way."""
+    key = (str(device), h, w, th, tw, gy, gx, chunk_rows, sample)
     got = _dev_apply_tables.get(key)
     if got is None:
-        ri, rf = interp_tables(h, th, gy)
-        ci, cf = interp_tables(w, tw, gx)
+        ri, rf, ci, cf = _host_tables(h, w, th, tw, gy, gx, sample)
         pad = (0, -w % _COL_PAD)
         cols = (col_intervals(ci, gx), ci[:, 2], cf[:, 0], cf[:, 1])
         arrays = (row_chunks(ri, chunk_rows), ri, rf,
@@ -208,6 +248,65 @@ def tile_luts_plain(xe: torch.Tensor, gy: int, gx: int, clip: int,
     return lut.clamp_(0, 255).to(torch.uint8)
 
 
+# K1's layout: threads per block, bytes per piece
+LUT_THREADS = 256
+LUT_PIECE = 16
+
+
+def tile_pieces(th: int, tw: int) -> np.ndarray:
+    """The pieces K1 cuts a (th, tw) tile into, (npieces, 3) int32
+    ``[row, first column, bytes inside the tile]``: piece p is up to 16
+    adjacent bytes of tile row ``p // ppr`` with ``ppr = ceil(tw / 16)``;
+    thread ``p % 256`` of the tile's block loads and counts it."""
+    ppr = -(-tw // LUT_PIECE)
+    p = np.arange(th * ppr)
+    col = (p % ppr) * LUT_PIECE
+    return np.stack([p // ppr, col, np.minimum(LUT_PIECE, tw - col)],
+                    axis=1).astype(np.int32)
+
+
+def tile_luts_by_pieces(xe: torch.Tensor, gy: int, gx: int, clip: int,
+                        scale: np.float32) -> torch.Tensor:
+    """:func:`tile_luts_plain` computed the way K1 lays the work out, in
+    numpy: pieces dealt to 256 threads, one histogram per warp (a piece
+    of 16 equal bytes adds 16 at once, any other its bytes one by one),
+    the warps' histograms summed per bin, the clip, then the scan as 32
+    bins per warp plus the totals of the warps before."""
+    x = xe.cpu().numpy()
+    n, hp, wp = x.shape
+    th, tw = hp // gy, wp // gx
+    pieces = tile_pieces(th, tw)
+    warps = LUT_THREADS // 32
+    warp_of = (np.arange(len(pieces)) % LUT_THREADS) // 32
+    cols = pieces[:, 1:2] + np.arange(LUT_PIECE)[None, :]
+    inside = np.arange(LUT_PIECE)[None, :] < pieces[:, 2:3]
+    out = np.empty((n, gy, gx, 256), np.uint8)
+    bins = np.arange(256)
+    for i, ty, tx in np.ndindex(n, gy, gx):
+        tile = x[i, ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw]
+        vals = tile[pieces[:, 0:1], np.minimum(cols, tw - 1)].astype(np.int64)
+        flat = (pieces[:, 2] == LUT_PIECE) & (vals == vals[:, :1]).all(axis=1)
+        wh = np.zeros((warps, 256), np.int64)
+        np.add.at(wh, (warp_of[flat], vals[flat, 0]), LUT_PIECE)
+        rest = inside & ~flat[:, None]
+        np.add.at(wh, (np.broadcast_to(warp_of[:, None], vals.shape)[rest],
+                       vals[rest]), 1)
+        c = wh.sum(axis=0)
+        if clip > 0:
+            clipped = np.minimum(c, clip)
+            excess = int((c - clipped).sum())
+            redist, residual = divmod(excess, 256)
+            step = max(256 // max(residual, 1), 1)
+            c = clipped + redist + ((bins % step == 0)
+                                    & (bins // step < residual))
+        in_warp = np.cumsum(c.reshape(warps, 32), axis=1)
+        before = np.concatenate([[0], np.cumsum(in_warp[:-1, -1])])
+        cdf = (in_warp + before[:, None]).reshape(256)
+        lut = np.rint(cdf.astype(np.float32) * np.float32(scale))
+        out[i, ty, tx] = np.clip(lut, 0, 255).astype(np.uint8)
+    return torch.from_numpy(out).to(xe.device)
+
+
 def _tile_luts_cuda(xe: torch.Tensor, gy: int, gx: int, clip: int,
                     scale: np.float32) -> torch.Tensor:
     n, hp, wp = xe.shape
@@ -246,12 +345,13 @@ def clahe_tile_luts(xe: torch.Tensor, gy: int, gx: int, clip: int,
 # K2 — LUT apply + bilinear blend
 # ---------------------------------------------------------------------------
 
-def lut_taps(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int):
+def lut_taps(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
+             sample: Sample = None):
     """The four LUT taps (l11, l12, l21, l22) at every pixel, uint8 —
     what ``sweep_pallas`` reads out of its packed table."""
     n, h, w = x.shape
     gy, gx = luts.shape[1], luts.shape[2]
-    ri, _, ci, _ = _tables_on(x.device, h, w, th, tw, gy, gx)
+    ri, _, ci, _ = _tables_on(x.device, h, w, th, tw, gy, gx, sample)
     flat = luts.reshape(-1)
     v = x.long()
     nbase = torch.arange(n, device=x.device).view(n, 1, 1) * (gy * gx)
@@ -263,7 +363,8 @@ def lut_taps(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int):
 
 
 def packed_taps_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
-                      chunk_rows: int = APPLY_CHUNK_ROWS) -> torch.Tensor:
+                      chunk_rows: int = APPLY_CHUNK_ROWS,
+                      sample: Sample = None) -> torch.Tensor:
     """What K2 gathers at every pixel, (N, H, W) int64: per chunk of rows
     the packed table ``word[c][v] = l11 | l12<<8 | l21<<16 | l22<<24``
     over the gx + 1 column intervals, read at (interval of x, x's value).
@@ -272,8 +373,7 @@ def packed_taps_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
     f16 values in the "cv2" blend; the indexing is this one.)"""
     n, h, w = x.shape
     gy, gx = luts.shape[1], luts.shape[2]
-    ri, _ = interp_tables(h, th, gy)
-    ci, _ = interp_tables(w, tw, gx)
+    ri, _, ci, _ = _host_tables(h, w, th, tw, gy, gx, sample)
     col_c = torch.from_numpy(col_intervals(ci, gx)).long().to(x.device)
     c = torch.arange(gx + 1, device=x.device)
     c1, c2 = (c - 1).clamp_(min=0), c.clamp(max=gx - 1)
@@ -290,14 +390,16 @@ def packed_taps_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
 
 
 def apply_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
-                blend: str = "cv2") -> torch.Tensor:
+                blend: str = "cv2", sample: Sample = None) -> torch.Tensor:
     """(N, H, W) uint8 + (N, gy, gx, 256) uint8 LUTs → (N, H, W) uint8.
 
-    One eager op per arithmetic step, so no multiply and add fuse."""
+    One eager op per arithmetic step, so no multiply and add fuse. With
+    ``sample``, ``x`` holds the sample grid of a larger plane and every
+    pixel blends as it would at its place in that plane."""
     n, h, w = x.shape
     gy, gx = luts.shape[1], luts.shape[2]
-    ri, rf, ci, cf = _tables_on(x.device, h, w, th, tw, gy, gx)
-    l11, l12, l21, l22 = lut_taps(x, luts, th, tw)
+    ri, rf, ci, cf = _tables_on(x.device, h, w, th, tw, gy, gx, sample)
+    l11, l12, l21, l22 = lut_taps(x, luts, th, tw, sample)
     if blend == "fixed":
         twn, thn = 2 * tw, 2 * th
         den = 4 * th * tw
@@ -321,11 +423,11 @@ def apply_plain(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
 
 
 def _apply_cuda(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
-                blend: str) -> torch.Tensor:
+                blend: str, sample: Sample) -> torch.Tensor:
     n, h, w = x.shape
     gy, gx = luts.shape[1], luts.shape[2]
     tables = _apply_tables_on(x.device, h, w, th, tw, gy, gx,
-                              APPLY_CHUNK_ROWS)
+                              APPLY_CHUNK_ROWS, sample)
     if luts.data_ptr() % 4:          # the kernel reads the LUTs as words
         luts = luts.clone()
     out = torch.empty_like(x)
@@ -341,8 +443,13 @@ def _apply_cuda(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
 
 
 def clahe_apply(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
-                blend: str = "cv2") -> torch.Tensor:
-    """K2 wrapper: CPU tensor → plain version, CUDA tensor → kernel."""
+                blend: str = "cv2", sample: Sample = None) -> torch.Tensor:
+    """K2 wrapper: CPU tensor → plain version, CUDA tensor → kernel.
+
+    ``sample = (full_h, full_w, plan_y, plan_x)`` says that ``x`` is the
+    (stride, offset, count) sample grid of a (full_h, full_w) plane: the
+    row and column tables are then the full plane's at the sampled
+    positions, and the kernel is the same."""
     if blend not in BLENDS:
         raise ValueError(f"blend must be one of {BLENDS}, got {blend!r}")
     if x.dtype != torch.uint8 or x.dim() != 3:
@@ -354,8 +461,9 @@ def clahe_apply(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
                          f"{tuple(luts.shape)} {luts.dtype}")
     if x.device != luts.device:
         raise ValueError("plane and LUTs must be on one device")
+    _check_sample(x.shape[1], x.shape[2], sample)
     if x.device.type == "cpu":
-        return apply_plain(x, luts, th, tw, blend)
+        return apply_plain(x, luts, th, tw, blend, sample)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     gy, gx = luts.shape[1], luts.shape[2]
@@ -366,7 +474,8 @@ def clahe_apply(x: torch.Tensor, luts: torch.Tensor, th: int, tw: int,
                          f"blend, over one block's 227 KiB of shared memory")
     if x.shape[0] > 65535:
         raise ValueError("at most 65535 planes per launch")
-    return _apply_cuda(x.contiguous(), luts.contiguous(), th, tw, blend)
+    return _apply_cuda(x.contiguous(), luts.contiguous(), th, tw, blend,
+                       sample)
 
 
 # ---------------------------------------------------------------------------
@@ -406,3 +515,25 @@ def clahe_planar(plane: torch.Tensor, clip_limit: float = 2.0,
     luts, th, tw = _luts_for_plane(x, clip_limit, gy, gx)
     out = clahe_apply(x, luts, th, tw, blend)
     return out.reshape(plane.shape).to(plane.dtype)
+
+
+def clahe_planar_sampled(plane: torch.Tensor, plan_y: Plan, plan_x: Plan,
+                         clip_limit: float = 2.0, grid: tuple = (8, 8),
+                         blend: str = "cv2") -> torch.Tensor:
+    """CLAHE with the LUT apply evaluated only at a strided sample grid
+    (the counterpart of ``clahe_planar_sampled_i32``).
+
+    The tile LUTs come from the whole plane (K1, padded as
+    :func:`pad_plan` says); the apply (K2) runs on the compacted grid
+    ``offset + stride·i`` per axis with the full plane's interpolation
+    tables at those rows and columns. Bit-equal to
+    ``clahe_planar(plane)[..., oy::sy, ox::sx]`` cut to the counts."""
+    gy, gx = int(grid[0]), int(grid[1])
+    h, w = plane.shape[-2], plane.shape[-1]
+    x = _planes_u8(plane)
+    luts, th, tw = _luts_for_plane(x, clip_limit, gy, gx)
+    (sy, oy, ny), (sx, ox, nx) = plan_y, plan_x
+    xs = x[:, oy:oy + sy * ny:sy, ox:ox + sx * nx:sx].contiguous()
+    out = clahe_apply(xs, luts, th, tw, blend,
+                      sample=(h, w, tuple(plan_y), tuple(plan_x)))
+    return out.reshape(plane.shape[:-2] + (ny, nx)).to(plane.dtype)

@@ -1,5 +1,7 @@
 """Letterbox resize and the inverse box mapping — the port of
-``roadvision_tpu/ops/letterbox.py:19-215``.
+``roadvision_tpu/ops/letterbox.py:19-215`` (``finish_letterbox``
+included: the pad-and-normalise tail for a frame that is already
+resized).
 
 Half-pixel bilinear resize without antialias (cv2 INTER_LINEAR, what
 ultralytics letterboxes with), BGR→RGB, gray-114 pad, /255, NHWC float32
@@ -92,24 +94,35 @@ def rect_target_hw(h: int, w: int, size: int = 640,
     return new_h + (-new_h) % stride, new_w + (-new_w) % stride
 
 
-def _letterbox(frames: torch.Tensor, size: int, th: int, tw: int):
-    if frames.dim() == 3:
-        frames = frames[None]
-    h, w = frames.shape[1], frames.shape[2]
+def _scaled_hw(h: int, w: int, size: int):
     r = min(size / h, size / w)
-    new_h, new_w = round(h * r), round(w * r)
+    return r, round(h * r), round(w * r)
+
+
+def _canvas(resized_bgr: torch.Tensor, r: float, th: int, tw: int):
+    """(B, new_h, new_w, 3) resized BGR (uint8 or float32) → the padded,
+    normalised RGB canvas with its (ratio, pad)."""
+    new_h, new_w = resized_bgr.shape[1], resized_bgr.shape[2]
     dw, dh = (tw - new_w) / 2, (th - new_h) / 2
-    # resize first, then BGR → RGB: the channel flip commutes with the
-    # per-channel resize and touches only the small canvas
-    x = _bilinear_resize(frames, new_h, new_w).flip(-1)
+    x = resized_bgr.to(torch.float32).flip(-1)          # BGR → RGB
     top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
     bottom, right = th - new_h - top, tw - new_w - left
     x = F.pad(x, (0, 0, left, right, top, bottom), value=114.0)
-    ratio = torch.tensor(r, dtype=torch.float32, device=frames.device)
-    pad = torch.tensor([left, top], dtype=torch.float32, device=frames.device)
+    dev = resized_bgr.device
+    ratio = torch.tensor(r, dtype=torch.float32, device=dev)
+    pad = torch.tensor([left, top], dtype=torch.float32, device=dev)
     # x * float32(1/255): XLA rewrites the JAX package's ``x / 255.0``
     # into this multiply, so the canvas is bit-equal to the reference's
     return x * _INV_255, ratio, pad
+
+
+def _letterbox(frames: torch.Tensor, size: int, th: int, tw: int):
+    if frames.dim() == 3:
+        frames = frames[None]
+    r, new_h, new_w = _scaled_hw(frames.shape[1], frames.shape[2], size)
+    # resize first, then BGR → RGB: the channel flip commutes with the
+    # per-channel resize and touches only the small canvas
+    return _canvas(_bilinear_resize(frames, new_h, new_w), r, th, tw)
 
 
 def letterbox_u8(frames: torch.Tensor, size: int = 640):
@@ -125,6 +138,21 @@ def letterbox_rect_u8(frames: torch.Tensor, size: int = 640,
     h, w = frames.shape[-3], frames.shape[-2]
     th, tw = rect_target_hw(h, w, size, stride)
     return _letterbox(frames, size, th, tw)
+
+
+def finish_letterbox(resized_bgr: torch.Tensor, orig_hw: Tuple[int, int],
+                     size: int = 640, stride: int = 32, rect: bool = True):
+    """Pad and normalise an ALREADY-resized (B, new_h, new_w, 3) uint8
+    BGR batch, e.g. the sampled preprocess path's output: exactly what
+    :func:`letterbox_u8` / :func:`letterbox_rect_u8` give for the
+    original (h, w) frame, with the same (ratio, pad)."""
+    h, w = orig_hw
+    r, new_h, new_w = _scaled_hw(h, w, size)
+    if tuple(resized_bgr.shape[1:3]) != (new_h, new_w):
+        raise ValueError(f"a {h}x{w} frame letterboxes to {new_h}x{new_w}, "
+                         f"got {tuple(resized_bgr.shape[1:3])}")
+    th, tw = rect_target_hw(h, w, size, stride) if rect else (size, size)
+    return _canvas(resized_bgr, r, th, tw)
 
 
 def scale_boxes(boxes: torch.Tensor, ratio, pad,

@@ -100,6 +100,23 @@ def median_planar(x: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     return median_planes(planes, ksize).reshape(x.shape).to(x.dtype)
 
 
+def median_planar_strided(x: torch.Tensor, ksize: int, plan_y,
+                          plan_x) -> torch.Tensor:
+    """Median output at a strided sample grid, ``plan = (stride, offset,
+    count)`` per axis (the counterpart of ``median_planar_strided_i32``,
+    whose docstring defines the result as
+    ``median_planar(x)[..., oy::sy, ox::sx]`` cut to the counts).
+
+    That is how it is computed here, on the CPU and on the card: the
+    kernel runs over the whole planes and the grid is sliced out. Every
+    window reads every input pixel either way, and K3 runs at 1.21 × a
+    plain copy of its bytes, so a strided variant of the kernel could
+    save only the store of the pixels that are dropped."""
+    (sy, oy, ny), (sx, ox, nx) = plan_y, plan_x
+    full = median_planar(x, ksize)
+    return full[..., oy:oy + sy * ny:sy, ox:ox + sx * nx:sx]
+
+
 def median_blur_u8(x: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     """(..., H, W, C) uint8 → same: channels filtered as planes."""
     moved = torch.movedim(x, -1, 0)

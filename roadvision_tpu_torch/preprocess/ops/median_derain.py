@@ -3,13 +3,14 @@
 
 ksize normalised as in the reference (even → +1, clamp [3, 9]). The
 three planes of the batch go through kernel K3 as one stack, so the
-card sees one launch per batch.
+card sees one launch per batch, on the full and on the sampled path.
 """
 from __future__ import annotations
 
 import torch
 
-from ...ops.median import median_planes, normalize_ksize
+from ...ops.median import (median_blur_u8, median_planar,
+                           median_planar_strided, normalize_ksize)
 from ..base import PreprocessOp
 
 
@@ -18,8 +19,20 @@ class MedianDerain(PreprocessOp):
         super().__init__(**params)
         self.ksize = normalize_ksize(int(params.get("ksize", 3)))
 
+    def supports_planar(self) -> bool:
+        return True
+
     def apply_planar(self, planes):
         x = torch.stack([p.to(torch.uint8) for p in planes])  # (3, ..., H, W)
-        h, w = x.shape[-2], x.shape[-1]
-        out = median_planes(x.reshape(-1, h, w), self.ksize).reshape(x.shape)
-        return tuple(out.unbind(0))
+        return tuple(median_planar(x, self.ksize).unbind(0))
+
+    def supports_planar_sampled(self) -> bool:
+        return True
+
+    def apply_planar_sampled(self, planes, plan_y, plan_x):
+        x = torch.stack([p.to(torch.uint8) for p in planes])
+        return tuple(median_planar_strided(x, self.ksize, plan_y, plan_x)
+                     .unbind(0))
+
+    def apply_batch(self, frames: torch.Tensor) -> torch.Tensor:
+        return median_blur_u8(frames, self.ksize)

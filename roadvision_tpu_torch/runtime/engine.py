@@ -9,10 +9,17 @@ batches. :meth:`PipelineEngine.dispatch_batch` queues a batch without
 waiting for its results; :meth:`PipelineEngine.stream` keeps two batches
 in flight so the host's decode and unpack overlap the card's work.
 
+With ``tpu.sampled_preprocess`` and ``want_proc=False``, where the
+letterbox resize is an exact odd-stride slice on both axes (1080p → 640
+is stride 3) and the chain has a sampled terminal op, the chain's last
+op evaluates only the letterbox's sample grid and
+:func:`finish_letterbox` pads the result: bit-equal detector input, no
+full processed frame. An ``auto_gate.contrast_thresh: "auto"`` gate is
+calibrated from the first batch, on the host, before that batch runs.
+
 Config keys as in the JAX engine. Not ported yet, and raising at
 construction: ``detect.temporal_gate``, ``tracking.gmc``, the tracker
-backends other than greedy SORT, ``tpu.sampled_preprocess``, and what
-the preprocess pipeline and the detector refuse.
+backends other than greedy SORT, and what the detector refuses.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 from ..detect.types import COCO_NAMES, Detection
 from ..geometry.projector import (HomographyProjector, build_projector,
                                   distance_device, project_boxes_device)
-from ..ops.letterbox import scale_boxes
+from ..ops.letterbox import axis_plan, finish_letterbox, scale_boxes
 from ..preprocess import PreprocessPipeline
 from ..track.sort import build_sort_step, init_state
 from ..utils.device import DeviceLike, resolve_device
@@ -74,11 +81,10 @@ class PipelineEngine:
         self.device = resolve_device(device)
         tpu_cfg = cfg.get("tpu", {}) or {}
         self.batch_size = int(tpu_cfg.get("batch_size", 8))
-        if tpu_cfg.get("sampled_preprocess", False):
-            raise NotImplementedError("tpu.sampled_preprocess is not ported "
-                                      "to roadvision_tpu_torch yet")
+        self._sampled_pre = bool(tpu_cfg.get("sampled_preprocess", False))
 
-        self.pipeline = PreprocessPipeline(cfg.get("preprocess", {}) or {})
+        self.pipeline = PreprocessPipeline(cfg.get("preprocess", {}) or {},
+                                           device=self.device)
 
         det_cfg = dict(cfg.get("detect", {}) or {})
         det_cfg.setdefault("compute_dtype",
@@ -142,12 +148,32 @@ class PipelineEngine:
                                         maxd), nan
         return ids, nan, nan.clone()
 
+    def sampled_plans(self, h: int, w: int, want_proc: bool):
+        """The letterbox's (stride, offset, count) sample grid per axis
+        when the sampled preprocess path applies to (h, w) frames, else
+        None: opted in, nothing reads the full processed frame, the
+        chain can sample, and the resize is a pure slice on both axes."""
+        det, pre = self.detector, self.pipeline
+        if not self._sampled_pre or det is None or want_proc \
+                or pre.identity or not pre.supports_sampled():
+            return None
+        r = min(det.imgsz / h, det.imgsz / w)
+        new_h, new_w = round(h * r), round(w * r)
+        py, px = axis_plan(h, new_h), axis_plan(w, new_w)
+        if py[0] != "slice" or px[0] != "slice":
+            return None
+        return (py[1], py[2], new_h), (px[1], px[2], new_w)
+
     @torch.inference_mode()
-    def step(self, frames_u8: torch.Tensor, ts: torch.Tensor):
+    def step(self, frames_u8: torch.Tensor, ts: torch.Tensor,
+             want_proc: bool = True):
         """The device step: (B, H, W, 3) uint8 + (B,) float32 stamps →
-        (proc, (boxes, conf, cls, valid, ids, dist, speed))."""
+        (proc, (boxes, conf, cls, valid, ids, dist, speed)); ``proc`` is
+        None on the sampled preprocess path."""
         b, h, w = frames_u8.shape[:3]
-        proc = self.pipeline.apply_batch(frames_u8)
+        plans = self.sampled_plans(h, w, want_proc)
+        proc = None if plans is not None \
+            else self.pipeline.apply_batch(frames_u8)
         det = self.detector
         if det is None:
             md = self.max_det
@@ -160,7 +186,13 @@ class PipelineEngine:
                                       device=self.device),
                           torch.zeros((b, md), dtype=torch.int32,
                                       device=self.device), nan, nan.clone())
-        imgs, ratio, pad = det.letterbox(proc)
+        if plans is not None:
+            small = torch.stack(
+                self.pipeline.sampled_planes_fn(*plans)(frames_u8), dim=-1)
+            imgs, ratio, pad = finish_letterbox(
+                small, (h, w), size=det.imgsz, rect=det.rect)
+        else:
+            imgs, ratio, pad = det.letterbox(proc)
         boxes, conf, cls_id, valid = det.detect(imgs)
         boxes = scale_boxes(boxes, ratio, pad, (h, w))
         ids, dist, speed = self._dets_tail(b, boxes, conf, cls_id, valid, ts)
@@ -175,12 +207,13 @@ class PipelineEngine:
         if self._t0 is None:
             self._t0 = float(timestamps[0])
         ts_rel = (np.asarray(timestamps) - self._t0).astype(np.float32)
+        self.pipeline.ensure_gate_calibrated(frames)
         host = torch.from_numpy(np.ascontiguousarray(frames))
         if self.device.type == "cuda":
             host = host.pin_memory()
         dev = host.to(self.device, non_blocking=True)
         ts = torch.from_numpy(ts_rel).to(self.device, non_blocking=True)
-        proc, arrays = self.step(dev, ts)
+        proc, arrays = self.step(dev, ts, want_proc)
         out = [proc if want_proc else None, *arrays]
         if self.device.type == "cuda":
             out = [None if t is None else t.to("cpu", non_blocking=True)

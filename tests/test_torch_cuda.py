@@ -68,6 +68,76 @@ def test_clahe_kernels_bit_equal(dev, shape, grid, offset, blend):
     assert launch_counts["clahe_apply"] == before["clahe_apply"] + 1
 
 
+@pytest.mark.parametrize("shape,grid,offset,fill,clip_limit", [
+    ((8, 1080, 1920), (8, 8), 0, None, 2.0),   # tile width 240 = 15 pieces
+    ((1, 1080, 1920), (8, 8), 0, None, 2.0),   # one plane
+    ((2, 1080, 1920), (8, 8), 0, 77, 2.0),     # one value: flat pieces only
+    ((2, 1080, 1920), (8, 8), 0, None, 0.0),   # no clip limit
+    ((2, 2160, 3840), (8, 8), 0, None, 2.0),   # several passes per thread
+    ((2, 64, 96), (4, 4), 0, None, 2.0),       # tile width 24: guarded loads
+    ((2, 64, 128), (4, 4), 5, None, 2.0),      # tile width 32, odd pointer
+    ((2, 64, 96), (4, 4), 3, None, 2.0),
+    ((1, 16, 16), (4, 4), 0, None, 2.0),       # 4 x 4-pixel tiles, area < 256
+    ((3, 122, 162), (2, 3), 0, None, 3.5),     # row stride not a multiple of 16
+    ((1, 40, 30), (1, 1), 0, 255, 2.0),
+])
+def test_tile_luts_kernel_bit_equal(dev, shape, grid, offset, fill,
+                                    clip_limit):
+    xe = _plane(shape, sum(shape), dev, offset)
+    if fill is not None:
+        xe.fill_(fill)
+    gy, gx = grid
+    th, tw = shape[1] // gy, shape[2] // gx
+    clip, scale = C.clip_count(clip_limit, th * tw), C.lut_scale(th * tw)
+    before = launch_counts["clahe_tile_luts"]
+    luts = C.clahe_tile_luts(xe, gy, gx, clip, scale)
+    assert torch.equal(luts, C.tile_luts_plain(xe, gy, gx, clip, scale))
+    if shape[1] <= 128:         # the layout's numpy twin, where it is quick
+        assert torch.equal(luts, C.tile_luts_by_pieces(xe, gy, gx, clip,
+                                                       scale))
+    assert launch_counts["clahe_tile_luts"] == before + 1
+
+
+@pytest.mark.parametrize("blend", ["cv2", "fixed"])
+@pytest.mark.parametrize("shape,grid,stride", [
+    ((2, 1080, 1920), (8, 8), 3), ((2, 97, 131), (8, 8), 3),
+    ((2, 96, 128), (4, 4), 5),
+])
+def test_clahe_sampled_apply_bit_equal(dev, shape, grid, stride, blend):
+    x = _plane(shape, sum(shape), dev)
+    n, h, w = shape
+    off = (stride - 1) // 2
+    py, px = (stride, off, h // stride), (stride, off, w // stride)
+    before = dict(launch_counts)
+    got = C.clahe_planar_sampled(x, py, px, 2.0, grid, blend)
+    assert launch_counts["clahe_tile_luts"] == before["clahe_tile_luts"] + 1
+    assert launch_counts["clahe_apply"] == before["clahe_apply"] + 1
+    full = C.clahe_planar(x, 2.0, grid, blend)
+    assert torch.equal(got, full[:, off::stride, off::stride]
+                       [:, :py[2], :px[2]])
+    assert torch.equal(got.cpu(), C.clahe_planar_sampled(x.cpu(), py, px, 2.0,
+                                                         grid, blend))
+
+
+@pytest.mark.parametrize("cfg", [
+    {"auto_gate": {"enable_low_contrast_gate": True, "stat": "pspan",
+                   "contrast_thresh": 20.0, "impulse_thresh": 2.5}},
+    {"chain": [{"name": "CLAHEDehaze", "params": {"space": "LAB"}},
+               {"name": "MedianDerain", "params": {"ksize": 3}}]},
+], ids=["gated", "lab"])
+def test_preprocess_pipeline_on_the_card_equals_the_cpu_path(dev, cfg):
+    from roadvision_tpu_torch.preprocess import PreprocessPipeline
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, (4, 180, 320, 3)).astype(np.uint8)
+    frames[1] = frames[1] // 16 + 100                    # low contrast
+    base = {"enabled": True, "chain": [
+        {"name": "CLAHEDehaze", "params": {}},
+        {"name": "MedianDerain", "params": {"ksize": 3}}]}
+    pipe = PreprocessPipeline(dict(base, **cfg))
+    x = torch.from_numpy(frames)
+    assert torch.equal(pipe.apply_batch(x.to(dev)).cpu(), pipe.apply_batch(x))
+
+
 @pytest.mark.parametrize("k", [3, 5, 7, 9])
 @pytest.mark.parametrize("shape", [(3, 70, 93), (1, 1, 1), (2, 33, 2)])
 def test_median_kernel_bit_equal(dev, k, shape):

@@ -201,6 +201,64 @@ def test_clahe_col_intervals_name_the_tile_pair(w, tile, tiles):
     np.testing.assert_array_equal(np.minimum(c, tiles - 1), ci[:, 1])
 
 
+@pytest.mark.parametrize("th,tw", [(135, 240), (4, 4), (61, 54), (7, 16),
+                                   (3, 33), (1, 1)])
+def test_clahe_tile_pieces_cover_the_tile_once(th, tw):
+    """The LUT kernel's pieces: 16 adjacent bytes of one tile row (fewer
+    at a ragged right edge), in row-major order, every pixel in exactly
+    one piece."""
+    pieces = tclahe.tile_pieces(th, tw)
+    assert pieces.dtype == np.int32
+    assert len(pieces) == th * -(-tw // 16)
+    seen = np.zeros((th, tw), np.int32)
+    for row, col, nvalid in pieces:
+        assert 1 <= nvalid <= 16 and col % 16 == 0
+        seen[row, col:col + nvalid] += 1
+    assert (seen == 1).all()
+    assert (np.diff(pieces[:, 0] * 100000 + pieces[:, 1]) > 0).all()
+    if tw % 16 == 0:
+        assert (pieces[:, 2] == 16).all()
+
+
+@pytest.mark.parametrize("name", ["LUT_THREADS", "LUT_PIECE"])
+def test_clahe_piece_layout_constants_are_the_kernels(name):
+    """The numpy twin of the LUT kernel's layout deals pieces of the
+    kernel's size to the kernel's number of threads."""
+    import re
+    from pathlib import Path
+    src = (Path(tclahe.__file__).resolve().parents[1] / "csrc"
+           / "clahe.cu").read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", src)
+    assert found == [str(getattr(tclahe, name))]
+
+
+@pytest.mark.parametrize("clip_limit", [2.0, 0.0])
+@pytest.mark.parametrize("shape,grid,fill", [
+    ((2, 96, 128), (4, 4), None),     # tile width 32: whole pieces
+    ((2, 120, 161), (2, 3), None),    # padded to 122 x 162: tile width 54
+    ((1, 64, 64), (16, 16), None),    # tiles of 4 x 4 pixels, area < 256
+    ((1, 270, 480), (2, 2), None),    # 4050 pieces: many per thread
+    ((2, 96, 128), (4, 4), 77),       # one value: every piece flat
+    ((1, 135, 240), (1, 1), 0),
+])
+def test_clahe_piece_layout_matches_tile_luts_plain(shape, grid, fill,
+                                                    clip_limit):
+    """The layout the LUT kernel works in (pieces dealt to 256 threads,
+    one histogram per warp, flat pieces added 16 at a time, the scan as
+    32 bins per warp plus the warps before) gives the plain LUTs."""
+    p = _plane(shape, sum(shape)).astype(np.uint8)
+    if fill is not None:
+        p[:] = fill
+    x = torch.from_numpy(p)
+    pad_h, pad_w, th, tw = tclahe.pad_plan(shape[1], shape[2], *grid)
+    xe = tclahe._reflect_pad_101(x, pad_h, pad_w)
+    clip, scale = tclahe.clip_count(clip_limit, th * tw), \
+        tclahe.lut_scale(th * tw)
+    want = tclahe.tile_luts_plain(xe, *grid, clip, scale)
+    got = tclahe.tile_luts_by_pieces(xe, *grid, clip, scale)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("h", [1, 2, 9])
 @pytest.mark.parametrize("w", [1, 2, 15, 17, 33])
 def test_median3_edge_shapes_bit_equal(h, w):

@@ -147,13 +147,12 @@ def test_registry_aliases_and_unknown_name():
 
 
 @pytest.mark.parametrize("over", [
-    {"preprocess": {"enabled": True, "chain": CHAIN,
-                    "auto_gate": {"enable_low_contrast_gate": True}}},
-    {"preprocess": {"enabled": True, "chain": CHAIN,
-                    "auto_gate": {"contrast_thresh": "auto"}}},
-    {"preprocess": {"enabled": True, "chain": [
-        {"name": "CLAHEDehaze", "params": {"space": "LAB"}}]}},
-    {"tpu": {"sampled_preprocess": True}},
+    {"detect": {"enabled": True, "model": "yolov8n.pt", "tta": True}},
+    {"detect": {"enabled": True, "model": "yolov8n.pt",
+                "tiling": {"enable": True}}},
+    {"detect": {"enabled": True, "model": "rtdetr-l.pt"}},
+    {"detect": {"enabled": True, "model": "yolov8n.pt"},
+     "tracking": {"enabled": True, "gmc": True}},
     {"detect": {"enabled": True, "model": "yolov8n.pt",
                 "temporal_gate": {"enable": True}}},
     {"detect": {"enabled": True, "model": "yolov8n.pt"},
@@ -162,6 +161,29 @@ def test_registry_aliases_and_unknown_name():
 def test_engine_refuses_unported_configs(over):
     with pytest.raises(NotImplementedError):
         PipelineEngine(merge(DEFAULTS, over), device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    {"preprocess": {"enabled": True, "chain": CHAIN,
+                    "auto_gate": {"enable_low_contrast_gate": True,
+                                  "impulse_thresh": 2.5}}},
+    {"preprocess": {"enabled": True, "chain": CHAIN,
+                    "auto_gate": {"enable_low_contrast_gate": True,
+                                  "contrast_thresh": "auto"}}},
+    {"preprocess": {"enabled": True, "chain": [
+        {"name": "CLAHEDehaze", "params": {"space": "LAB"}}]}},
+    {"preprocess": {"enabled": True, "chain": CHAIN},
+     "tpu": {"sampled_preprocess": True}},
+])
+def test_engine_accepts_the_whole_preprocess_layer(over):
+    """Gate, "auto" threshold, LAB and the sampled path construct and
+    process a batch (they raised NotImplementedError before they were
+    ported)."""
+    eng = PipelineEngine(merge(DEFAULTS, over), device="cpu")
+    frames = np.random.RandomState(2).randint(0, 256, (2, 32, 48, 3),
+                                              dtype=np.uint8)
+    out = eng.process_batch(frames, np.array([1.0, 1.1]))
+    assert len(out) == 2 and out[0].proc.shape == (32, 48, 3)
 
 
 def test_stream_over_synthetic_source():
