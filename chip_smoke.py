@@ -35,7 +35,24 @@ Phases, in order; any failure exits non-zero:
      and read just after (each kernel once per batch), timed in
      frames/s, and sanity-checked: on the first batch it tracks as many
      distinct objects as the float32 run;
-  5. print the kernels' JSON line, the card line, and last the ok line.
+  5. drive the serving surface at 1080p x batch 8 with the default chain,
+     each path with the launch counters set to 0 just before and read
+     just after (one launch of each kernel per batch on every path):
+     ``[entry] api`` (``Pipeline`` over 16 frames against
+     ``process_batch`` on the same frames and stamps: ids, classes,
+     boxes, confidences, distance and speed equal bit for bit;
+     ``detect_image``; ``process_video`` to chiprun_out/api.avi),
+     ``[entry] preview`` (the preview ``main`` with ``--max-frames 48
+     --no-show --record``: valid RIFF, 48 JPEG frames, the first decodes,
+     ``MJPEGAviReader`` reads 48 back), ``[entry] serve`` (the HTTP
+     server on 127.0.0.1 port 0: ``/stats``, ``/detections``, three
+     parts of ``/stream``, shutdown with every thread joined),
+     ``[state]`` (three batches, ``save_state``, three more; a fresh
+     engine, ``load_state``, the same three: bit-equal), ``[tracker]``
+     (``SortTracker.update`` over the engine's detections gives the
+     engine's ids) and ``[bench]`` (the port bench in-process at a small
+     iteration count);
+  6. print the kernels' JSON line, the card line, and last the ok line.
 
 Options: ``--kernels-only`` stops after phase 3; ``--profile`` adds a
 torch.profiler pass over one bfloat16 batch (device busy share, kernel
@@ -47,8 +64,11 @@ Exits non-zero without a result when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -141,27 +161,8 @@ def bound(nbytes: int, nops: int) -> dict:
 
 def pipeline_cfg(model: str):
     """bench.py::_cfg(1080, 1920, 8) with the demo checkpoint."""
-    from roadvision_tpu_torch.config import DEFAULTS, merge
-    h, w = HEIGHT, WIDTH
-    return merge(DEFAULTS, {
-        "preprocess": {"enabled": True, "chain": [
-            {"name": "CLAHEDehaze",
-             "params": {"space": "YCrCb", "clip_limit": 2.0, "tile_grid": 8}},
-            {"name": "MedianDerain", "params": {"ksize": 3}},
-        ]},
-        "detect": {"enabled": True, "model": model, "conf_thres": 0.25,
-                   "iou_thres": 0.7, "max_det": 100,
-                   "classes_keep": [0, 2, 3, 5, 7]},
-        "tracking": {"enabled": True, "max_staleness": 1.2, "min_hits": 3,
-                     "iou_threshold": 0.35, "speed_window": 0.8},
-        "geometry": {"enabled": True, "projector": {
-            "type": "homography",
-            "image_points": [[0, h], [w, h], [0, int(0.4 * h)],
-                             [w, int(0.4 * h)]],
-            "world_points": [[0, 0], [20, 0], [0, 120], [20, 120]],
-            "origin": [10.0, 0.0], "max_distance": 1000.0}},
-        "tpu": {"batch_size": BATCH},
-    })
+    from roadvision_tpu_torch.tools.bench import bench_cfg
+    return bench_cfg(HEIGHT, WIDTH, BATCH, model)
 
 
 def render_batches(n: int, seed: int = 0):
@@ -491,37 +492,343 @@ def second_paths(model: str, batches, card: str) -> dict:
     return out
 
 
-def stage_breakdown(engine, frames, ts):
-    """Host-clock ms of each stage of one step, synchronised between."""
-    import torch
-    dev = engine.device
-    out = {}
-    x = torch.from_numpy(frames).to(dev)
-    tsd = torch.from_numpy(((ts - ts[0]).astype(np.float32))).to(dev)
+class PathLaunches:
+    """The kernels' launch counts around one path: 0 just before, read
+    just after, and held to one launch of each kernel per batch."""
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        from roadvision_tpu_torch import kernels
+        kernels.reset_launch_counts()
+        return self
+
+    def check(self, batches: int, at_least: bool = False) -> dict:
+        from roadvision_tpu_torch import kernels
+        counts = dict(kernels.launch_counts)
+        ok = len(set(counts.values())) == 1 and (
+            counts["median_k"] >= batches if at_least
+            else counts["median_k"] == batches)
+        if not ok or batches < 1:
+            fail(f"{self.name}: launches {counts} for "
+                 f"{'at least ' if at_least else ''}{batches} batches")
+        return counts
+
+    def __exit__(self, *exc):
+        return False
+
+
+def same_detections(a, b, what: str) -> int:
+    """Two per-frame result lists: every field of every detection equal
+    bit for bit. Returns the number of detections."""
+    n = 0
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} frames against {len(b)}")
+    for fi, (ra, rb) in enumerate(zip(a, b)):
+        if len(ra.detections) != len(rb.detections):
+            fail(f"{what}: frame {fi} has {len(ra.detections)} detections "
+                 f"against {len(rb.detections)}")
+        for da, db in zip(ra.detections, rb.detections):
+            if da != db:
+                fail(f"{what}: frame {fi} differs: {da} against {db}")
+            n += 1
+    return n
+
+
+def check_avi(path: Path, n_frames: int, size) -> None:
+    """RIFF structure, JPEG frame count, first frame decodes, and the
+    port's reader reads every frame back at ``size`` (w, h)."""
+    import io
+
+    from PIL import Image
+    from roadvision_tpu_torch.io_video import MJPEGAviReader
+    data = path.read_bytes()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI " or b"idx1" not in data \
+            or int.from_bytes(data[4:8], "little") != len(data) - 8:
+        fail(f"{path}: not a complete RIFF AVI")
+    if data.count(b"\xff\xd8\xff") != n_frames:
+        fail(f"{path}: {data.count(bytes([255, 216, 255]))} JPEG frames, "
+             f"expected {n_frames}")
+    first = data.index(b"\xff\xd8\xff")
+    if Image.open(io.BytesIO(data[first:])).size != tuple(size):
+        fail(f"{path}: first frame is not {size}")
+    reader = MJPEGAviReader(str(path))
+    try:
+        if len(reader) != n_frames:
+            fail(f"{path}: the reader finds {len(reader)} frames")
+        for _ in range(n_frames):
+            ok, img = reader.read_frame()
+            if not ok or img.shape != (size[1], size[0], 3):
+                fail(f"{path}: a frame does not read back")
+    finally:
+        reader.release()
+
+
+def serving_cfg(model: str):
+    """The main-path config with the camera the entry points open: the
+    synthetic road scene at 1080p, six vehicles."""
+    from roadvision_tpu_torch.config import merge
+    return merge(pipeline_cfg(model), {
+        "camera": {"source": "synthetic:6", "width": WIDTH, "height": HEIGHT,
+                   "fps_request": 30}})
+
+
+def entry_api(model: str, batches, out_dir: Path) -> dict:
+    import roadvision_tpu_torch as rvt
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    cfg = serving_cfg(model)
+    pipe = rvt.Pipeline(cfg)
+    n = 2 * BATCH
+    with PathLaunches("[entry] api") as pl:
+        got = list(pipe(max_frames=n))
+        counts = pl.check(n // BATCH)
+    if len(got) != n:
+        fail(f"[entry] api: {len(got)} results for {n} frames")
+    # the same frames and stamps through process_batch of a fresh engine
+    ref = PipelineEngine(cfg)
+    want = []
+    for k in range(n // BATCH):
+        rows = got[k * BATCH:(k + 1) * BATCH]
+        frames = np.stack([r.raw for r in rows])
+        if not np.array_equal(frames, batches[k][0]):
+            fail("[entry] api: the source's frames differ from the renderer's")
+        want += ref.process_batch(frames, np.array([r.ts for r in rows]))
+    n_dets = same_detections(want, got, "[entry] api")
+    for ra, rb in zip(want, got):
+        if not np.array_equal(ra.proc, rb.proc):
+            fail("[entry] api: processed frames differ")
+    if n_dets == 0:
+        fail("[entry] api: no detections to compare")
+    # one image: the row that the batch of eight gives for it, in float32
+    # (a batch of one may take another convolution algorithm, which
+    # bfloat16 would show)
+    if not pipe.detect_image(batches[0][0][3]):
+        fail("[entry] api: detect_image finds nothing in bfloat16")
+    det32 = rvt.Pipeline(cfg, tpu={"compute_dtype": "float32"}) \
+        .engine.detector
+    one = det32.infer(batches[0][0][3])
+    row = det32.infer_batch(batches[0][0])
+    names = [det32.names[i] for i in range(det32.nc)]
+    from roadvision_tpu_torch.detect import DetectionBatch
+    of8 = DetectionBatch(row.boxes[3], row.conf[3], row.cls_id[3],
+                         row.valid[3]).to_detections(names)
+    if not one or len(one) != len(of8):
+        fail(f"[entry] api: detect_image gives {len(one)} detections, the "
+             f"batch row {len(of8)}")
+    worst = 0.0
+    for da, db in zip(one, of8):
+        box = max(abs(p - q) for p, q in zip(
+            (da.x1, da.y1, da.x2, da.y2), (db.x1, db.y1, db.x2, db.y2)))
+        worst = max(worst, box)
+        if da.cls_id != db.cls_id or box > BOX_TOL \
+                or abs(da.conf - db.conf) > CONF_TOL \
+                or not all(math.isfinite(v) for v in
+                           (da.x1, da.y1, da.x2, da.y2, da.conf)):
+            fail(f"[entry] api: detect_image {da} against batch row {db}")
+    pipe.reset()
+    avi = out_dir / "api.avi"
+    with PathLaunches("[entry] api process_video") as pl:
+        summary = pipe.process_video(None, str(avi), max_frames=n)
+        pl.check(n // BATCH)
+    if summary["frames"] != n or summary["unique_tracks"] < 1:
+        fail(f"[entry] api: process_video summary {summary}")
+    check_avi(avi, n, (WIDTH, HEIGHT))
+    print(f"[entry] api: Pipeline over {n} frames equals process_batch on "
+          f"the same frames bit for bit ({n_dets} detections, processed "
+          f"frames too); detect_image gives the batch row within "
+          f"{worst:.1e} px; process_video wrote {avi} ({summary}); "
+          f"launches {counts}", flush=True)
+    return {"launches": counts, "batches": n // BATCH, "detections": n_dets}
+
+
+def entry_preview(model: str, tmp: Path) -> dict:
+    import yaml
+    from roadvision_tpu_torch.tools import preview
+    cfg_path = tmp / "preview.yaml"
+    cfg_path.write_text(yaml.safe_dump(serving_cfg(model)))
+    avi = tmp / "preview.avi"
+    n = 48
+    with PathLaunches("[entry] preview") as pl:
         t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        out[name] = (time.perf_counter() - t0) * 1e3
-        return r
+        rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
+                           "--no-show", "--record", str(avi)])
+        elapsed = time.perf_counter() - t0
+        counts = pl.check(n // BATCH)
+    if rc != 0:
+        fail(f"[entry] preview: main returned {rc}")
+    check_avi(avi, n, (2 * WIDTH + 4, HEIGHT))
+    print(f"[entry] preview: {n} frames recorded to a valid MJPEG AVI "
+          f"({avi.stat().st_size >> 10} KiB, canvas {2 * WIDTH + 4}x{HEIGHT}) "
+          f"and read back; {n / elapsed:.1f} frames/s with overlay, canvas "
+          f"and JPEG encode; launches {counts}", flush=True)
+    return {"launches": counts, "batches": n // BATCH,
+            "fps_with_record": n / elapsed}
 
-    from roadvision_tpu_torch.ops.letterbox import scale_boxes
-    det = engine.detector
-    with torch.inference_mode():
-        proc = timed("preprocess", lambda: engine.pipeline.apply_batch(x))
-        imgs, ratio, pad = timed("letterbox", lambda: det.letterbox(proc))
-        raw = timed("forward", lambda: det.forward(imgs))
-        from roadvision_tpu_torch.ops.nms import nms_batch
-        b, c, k, v = timed("nms", lambda: nms_batch(
-            *raw, conf_thres=det.conf, iou_thres=det.iou,
-            max_det=det.max_det, pre_topk=300,
-            classes_keep=det.keep or None))
-        b = scale_boxes(b, ratio, pad, (HEIGHT, WIDTH))
-        timed("sort_geometry",
-              lambda: engine._dets_tail(BATCH, b, c, k, v, tsd))
-    return out
+
+def entry_serve(model: str) -> dict:
+    import http.client
+    import io
+
+    from PIL import Image
+    from roadvision_tpu_torch.tools import serve
+    before = set(threading.enumerate())
+    with PathLaunches("[entry] serve") as pl:
+        server, hub, worker = serve.serve_background(
+            serving_cfg(model), port=0, max_frames=96)
+        host, port = server.server_address[:2]
+        try:
+            parts = serve.read_stream_parts(host, port, 3, timeout=60.0)
+
+            def get(path):
+                conn = http.client.HTTPConnection(host, port, timeout=30.0)
+                try:
+                    conn.request("GET", path, headers={"Connection": "close"})
+                    resp = conn.getresponse()
+                    if resp.status != 200:
+                        fail(f"[entry] serve: GET {path} -> {resp.status}")
+                    return json.loads(resp.read())
+                finally:
+                    conn.close()
+
+            stats = get("/stats")
+            dets = get("/detections")
+        finally:
+            hub.close()
+            server.shutdown()
+            server.server_close()
+            worker.join(timeout=60.0)
+            server.thread.join(timeout=60.0)
+        if worker.is_alive() or server.thread.is_alive():
+            fail("[entry] serve: a thread did not stop")
+        if hub.error is not None:
+            fail(f"[entry] serve: the pipeline failed: {hub.error!r}")
+        frames = hub.stats["frames"]
+        counts = pl.check(math.ceil(frames / BATCH), at_least=True)
+    deadline = time.time() + 20.0
+    while set(threading.enumerate()) - before and time.time() < deadline:
+        time.sleep(0.05)
+    left = set(threading.enumerate()) - before
+    if left:
+        fail(f"[entry] serve: threads still alive: {left}")
+    if len(parts) != 3:
+        fail(f"[entry] serve: {len(parts)} stream parts, expected 3")
+    for jpeg in parts:
+        if Image.open(io.BytesIO(jpeg)).size != (2 * WIDTH + 4, HEIGHT):
+            fail("[entry] serve: a stream part is not the compare canvas")
+    if not {"frames", "fps", "tracks_per_frame", "clients", "done"} \
+            <= set(stats) or stats["frames"] < 1:
+        fail(f"[entry] serve: /stats gives {stats}")
+    if not {"ts", "frame", "detections"} <= set(dets) or not dets["detections"] \
+            or not {"bbox", "conf", "cls_id", "name", "track_id",
+                    "distance_m", "speed_kmh"} <= set(dets["detections"][0]):
+        fail(f"[entry] serve: /detections gives {str(dets)[:300]}")
+    print(f"[entry] serve: /stats {stats}; /detections frame "
+          f"{dets['frame']} with {len(dets['detections'])} detections; 3 "
+          f"stream parts decode to the canvas; stopped after {frames} frames "
+          f"with every thread joined; launches {counts}", flush=True)
+    return {"launches": counts, "frames": frames}
+
+
+def state_phase(model: str, batches, tmp: Path) -> dict:
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    cfg = pipeline_cfg(model)
+    first = PipelineEngine(cfg)
+    seen = set()
+    with PathLaunches("[state]") as pl:
+        for frames, ts in batches[:3]:
+            for r in first.process_batch(frames, ts, want_proc=False):
+                seen |= {d.track_id for d in r.detections}
+        path = tmp / "state.npz"
+        first.save_state(path)
+        want = [first.process_batch(f, t, want_proc=False)
+                for f, t in batches[3:6]]
+        second = PipelineEngine(cfg)
+        second.load_state(path)
+        got = [second.process_batch(f, t, want_proc=False)
+               for f, t in batches[3:6]]
+        counts = pl.check(9)
+    n = sum(same_detections(a, b, "[state]") for a, b in zip(want, got))
+    ids = {d.track_id for rs in got for r in rs for d in r.detections}
+    speeds = sum(d.speed_kmh is not None
+                 for rs in got for r in rs for d in r.detections)
+    if n == 0 or None in ids or speeds == 0 or not ids & seen:
+        fail(f"[state]: nothing carried over (ids {sorted(ids)} after "
+             f"{sorted(seen)}, {speeds} speeds)")
+    # the file also loads on the CPU path
+    cpu = PipelineEngine(cfg, device="cpu")
+    cpu.load_state(path)
+    with np.load(path) as z:
+        if cpu.sort_state.ids.device.type != "cpu" or not np.array_equal(
+                cpu.sort_state.ids.numpy(), z["sort_ids"]):
+            fail("[state]: the CPU engine did not take the state over")
+    print(f"[state] three batches after load_state equal the uninterrupted "
+          f"run bit for bit ({n} detections: {len(ids)} ids, "
+          f"{len(ids & seen)} of them from before the save, boxes, "
+          f"distance, speed); launches {counts}", flush=True)
+    return {"launches": counts, "batches": 9, "detections": n}
+
+
+def tracker_phase(model: str, batches) -> dict:
+    from roadvision_tpu_torch.detect import Detection
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.track import SortTracker
+    cfg = pipeline_cfg(model)
+    engine = PipelineEngine(cfg)
+    tracker = SortTracker(dict(cfg["tracking"], det_capacity=engine.max_det,
+                               track_slots=engine.track_slots))
+    n = 0
+    with PathLaunches("[tracker]") as pl:
+        for frames, ts in batches[:2]:
+            for r in engine.process_batch(frames, ts, want_proc=False):
+                bare = [Detection(d.x1, d.y1, d.x2, d.y2, d.conf, d.cls_id,
+                                  d.cls_name) for d in r.detections]
+                out = tracker.update(bare, r.ts, projector=engine.projector)
+                for d, e in zip(out, r.detections):
+                    if d != e:
+                        fail(f"[tracker]: SortTracker gives {d}, the engine "
+                             f"{e}")
+                    n += 1
+        counts = pl.check(2)
+    if n == 0:
+        fail("[tracker]: no detections to compare")
+    print(f"[tracker] SortTracker.update over the engine's detections of "
+          f"two batches gives the engine's ids, distances and speeds "
+          f"({n} detections); launches {counts}", flush=True)
+    return {"launches": counts, "batches": 2, "detections": n}
+
+
+def bench_phase(model: str, card: str) -> dict:
+    """The port bench in-process: its line parses, names the card, and
+    its pipeline launched each kernel once per batch."""
+    import contextlib
+    import io
+
+    from roadvision_tpu_torch.tools import bench
+    buf = io.StringIO()
+    with PathLaunches("[bench]"), contextlib.redirect_stdout(buf):
+        rc = bench.main(["--iters", "3", "--windows", "3", "--warmup", "1",
+                         "--model", model])
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        fail(f"[bench]: rc {rc}, {len(lines)} lines on stdout")
+    line = json.loads(lines[0])
+    need = {"host_fed_process_batch_fps", "host_fed_stream_fps",
+            "device_resident_fps", "stage_ms", "timer_ms",
+            "launches_per_batch", "batch", "iters", "dtype", "card", "device"}
+    if not need <= set(line) or line["card"] != card \
+            or line["device"]["platform"] != "gpu":
+        fail(f"[bench]: line lacks {need - set(line)} or names another card "
+             f"({line.get('card')!r})")
+    if set(line["launches_per_batch"].values()) != {1.0}:
+        fail(f"[bench]: launches per batch {line['launches_per_batch']}")
+    for key in ("host_fed_process_batch_fps", "host_fed_stream_fps",
+                "device_resident_fps"):
+        if not line[key]["median"] > 0 or not math.isfinite(
+                line[key]["median"]):
+            fail(f"[bench]: {key} is {line[key]}")
+    print("[bench] " + lines[0], flush=True)
+    return line
 
 
 def profile_batch(engine, frames, ts) -> dict:
@@ -613,6 +920,19 @@ def main() -> int:
 
     paths = second_paths(model, batches, card)
 
+    # the serving surface, each path with its own launch counts
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        entries = {
+            "api": entry_api(model, batches, out_dir),
+            "preview": entry_preview(model, Path(tmp)),
+            "serve": entry_serve(model),
+            "state": state_phase(model, batches, Path(tmp)),
+            "tracker": tracker_phase(model, batches),
+        }
+    entries["bench"] = bench_phase(model, card)
+
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
     engine = PipelineEngine(pipeline_cfg(model), device="cuda")
@@ -650,7 +970,8 @@ def main() -> int:
           flush=True)
     if tracks16 != tracks32 or tracks32 == 0:
         fail("bf16 and f32 track a different number of objects")
-    stages = stage_breakdown(engine, *batches[1])
+    from roadvision_tpu_torch.tools.bench import stage_ms
+    stages = stage_ms(engine, *batches[1])
     print("[e2e] stage ms (one batch, host clock, synchronised): "
           + json.dumps({k: round(v, 3) for k, v in stages.items()}),
           flush=True)
@@ -674,9 +995,7 @@ def main() -> int:
          "library_ms": None, "flushed_ms": r["flushed_ms"]}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
-        "second_paths": paths}
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
+        "second_paths": paths, "entries": entries}
     (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))
     print(json.dumps(line), flush=True)
     print(card_line(), flush=True)

@@ -7,12 +7,29 @@ kernels for the CLAHE tile-LUT build, the CLAHE LUT apply and the median
 (``roadvision_tpu_torch/csrc``). Every kernel has a plain PyTorch version
 beside it, which is what a tensor on the CPU runs.
 
-Entry points default to ``device="cuda"`` and raise when no card is
-present; pass ``device="cpu"`` to run the plain path.
+Around the engine: ``Pipeline`` (the library API), frame sources and
+recorders (``io_video``), overlays (``vis``), and the entry points under
+``roadvision_tpu_torch.tools`` (preview, serve, detect, track, bench).
 
-The package imports ``torch`` and numpy only; it keeps its own copies of
-the host-side pieces of ``roadvision_tpu`` it needs, each naming the file
-it mirrors.
+Entry points default to ``device="cuda"`` and raise when no card is
+present; pass ``device="cpu"`` (``--device cpu``) to run the plain path.
+
+The package imports ``torch``, numpy, the standard library, PyYAML and
+PIL (and ``cv2`` where it is installed); it keeps its own copies of the
+host-side pieces of ``roadvision_tpu`` it needs, each naming the file it
+mirrors.
 """
 
 __version__ = "0.1.0"
+
+from .config import DEFAULTS, load_config  # noqa: F401
+from .detect.types import Detection  # noqa: F401
+
+
+def __getattr__(name):
+    # Pipeline pulls in the whole engine stack; lazy, so that
+    # ``import roadvision_tpu_torch`` stays light for config-only users
+    if name == "Pipeline":
+        from .api import Pipeline
+        return Pipeline
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

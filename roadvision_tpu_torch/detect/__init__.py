@@ -1,3 +1,6 @@
-from .types import COCO_NAMES, Detection
+from .base import Detector
+from .registry import build_detector
+from .types import COCO_NAMES, Detection, DetectionBatch
 
-__all__ = ["COCO_NAMES", "Detection"]
+__all__ = ["COCO_NAMES", "Detection", "DetectionBatch", "Detector",
+           "build_detector"]

@@ -1,6 +1,8 @@
 """YOLOv8 detector backend for the port — the counterpart of
-``roadvision_tpu/detect/yolo_jax.py:42-188`` for the plain detect task
-of the v8 family.
+``roadvision_tpu/detect/yolo_jax.py`` for the plain detect task of the
+v8 family: the surface the engine composes its step from (``letterbox``,
+``forward``, ``detect``) and the host API (``infer_batch``, ``infer``,
+``set_params``, ``close``).
 
 Config surface as in the JAX package: ``model``, ``conf_thres``,
 ``iou_thres``, ``max_det``, ``classes_keep``, ``imgsz``, ``rect``,
@@ -13,16 +15,18 @@ YOLOv5 and YOLO11, int8, test-time augmentation and tiling.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 from ..models.yolo import weights as yolo_weights
 from ..models.yolo.yolov8 import build_model
-from ..ops.letterbox import letterbox_rect_u8, letterbox_u8
+from ..ops.letterbox import letterbox_rect_u8, letterbox_u8, scale_boxes
 from ..ops.nms import nms_batch
 from ..utils.device import DeviceLike, resolve_device
-from .types import COCO_NAMES
+from .base import Detector
+from .types import COCO_NAMES, Detection, DetectionBatch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -35,7 +39,7 @@ def _size_from_model_name(name: str) -> str:
     return "n"
 
 
-class YOLOTorch:
+class YOLOTorch(Detector):
     def __init__(self, cfg: Dict[str, Any], device: DeviceLike = None,
                  seed: int = 0):
         self.device = resolve_device(device)
@@ -78,15 +82,38 @@ class YOLOTorch:
         if not self.loaded:
             print(f"[roadvision] weights '{model_ref}' not found — running "
                   f"yolov8{self.size} with random init (seed {seed})")
-        model = build_model(tree, self.size, self.nc, seed=seed)
+        self.model = self._place(
+            build_model(tree, self.size, self.nc, seed=seed))
+        self._set_names()
+
+    def _place(self, model):
+        """Compute dtype, device, eval mode, channels-last on the card."""
         model.set_compute_dtype(self.dtype)
         model = model.to(self.device).eval()
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
-        self.model = model
+        return model
+
+    def _set_names(self) -> None:
         self.names = {i: n for i, n in enumerate(COCO_NAMES)} \
             if self.nc == len(COCO_NAMES) \
             else {i: str(i) for i in range(self.nc)}
+
+    def set_params(self, params) -> None:
+        """Swap the weights without rebuilding the detector. ``params``
+        is a parameter tree in the JAX package's layout (as
+        ``weights.import_npz`` or ``YOLOJax.params`` give it); the class
+        count follows the tree, the model size must stay."""
+        size, nc = yolo_weights.describe(params)
+        if size != self.size:
+            raise ValueError(f"set_params: a yolov8{size} tree for a "
+                             f"yolov8{self.size} detector")
+        if nc != self.nc:
+            self.model, self.nc = self._place(build_model(params, size,
+                                                          nc)), nc
+            self._set_names()
+        else:
+            self.model.load_state_dict(yolo_weights.params_from_jax(params))
 
     def letterbox(self, frames_u8: torch.Tensor):
         """The configured letterbox (rect or square)."""
@@ -107,3 +134,26 @@ class YOLOTorch:
                          iou_thres=self.iou, max_det=self.max_det,
                          pre_topk=300,
                          classes_keep=self.keep if self.keep else None)
+
+    @torch.inference_mode()
+    def infer_batch(self, frames_u8: np.ndarray) -> DetectionBatch:
+        """(B, H, W, 3) BGR uint8 → DetectionBatch with (B, max_det)
+        arrays, boxes in source pixels."""
+        frames = torch.from_numpy(np.ascontiguousarray(frames_u8)) \
+            .to(self.device)
+        h, w = frames.shape[1:3]
+        imgs, ratio, pad = self.letterbox(frames)
+        boxes, conf, cls_id, valid = self.detect(imgs)
+        boxes = scale_boxes(boxes, ratio, pad, (h, w))
+        return DetectionBatch(*(t.cpu().numpy()
+                                for t in (boxes, conf, cls_id, valid)))
+
+    def infer(self, bgr: np.ndarray) -> List[Detection]:
+        batch = self.infer_batch(np.asarray(bgr)[None])
+        single = DetectionBatch(batch.boxes[0], batch.conf[0],
+                                batch.cls_id[0], batch.valid[0])
+        names = [self.names.get(i, str(i)) for i in range(self.nc)]
+        return single.to_detections(names)
+
+    def close(self) -> None:
+        """Nothing is cached per shape; kept for the Detector contract."""

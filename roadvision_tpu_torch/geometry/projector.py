@@ -78,6 +78,23 @@ class HomographyProjector:
         """(H (3, 3), origin (2,), max_distance ()) float32 tensors."""
         return self._dev
 
+    def project_point(self, x: float, y: float):
+        """One image point → ground (X, Y) on the host, or None where
+        the mapping is degenerate (w ≈ 0 or a non-finite result)."""
+        mapped = self.H @ np.array([float(x), float(y), 1.0], np.float64)
+        w = float(mapped[2])
+        if abs(w) < 1e-6:
+            return None
+        gx, gy = mapped[0] / w, mapped[1] / w
+        if not (np.isfinite(gx) and np.isfinite(gy)):
+            return None
+        return float(gx), float(gy)
+
+    def project_bbox(self, bbox):
+        """The box's bottom-centre point on the ground plane."""
+        x1, _, x2, y2 = bbox
+        return self.project_point(0.5 * (float(x1) + float(x2)), float(y2))
+
 
 def project_points_device(H: torch.Tensor, pts: torch.Tensor):
     """pts (..., 2) → (ground (..., 2), valid (...)), elementwise f32."""

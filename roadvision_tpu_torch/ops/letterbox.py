@@ -1,7 +1,9 @@
 """Letterbox resize and the inverse box mapping — the port of
 ``roadvision_tpu/ops/letterbox.py:19-215`` (``finish_letterbox``
 included: the pad-and-normalise tail for a frame that is already
-resized).
+resized; ``letterbox_meta``, the host-side (ratio, pad); and
+``resize_stretch_u8``, the aspect-distorting resize RT-DETR predicts
+with).
 
 Half-pixel bilinear resize without antialias (cv2 INTER_LINEAR, what
 ultralytics letterboxes with), BGR→RGB, gray-114 pad, /255, NHWC float32
@@ -153,6 +155,27 @@ def finish_letterbox(resized_bgr: torch.Tensor, orig_hw: Tuple[int, int],
                          f"got {tuple(resized_bgr.shape[1:3])}")
     th, tw = rect_target_hw(h, w, size, stride) if rect else (size, size)
     return _canvas(resized_bgr, r, th, tw)
+
+
+def letterbox_meta(h: int, w: int, size: int = 640, rect: bool = True,
+                   stride: int = 32) -> Tuple[float, Tuple[float, float]]:
+    """Host-side (ratio, (left, top)) for a source geometry: what
+    :func:`letterbox_u8` / :func:`letterbox_rect_u8` return as device
+    scalars, without running the transform."""
+    r, new_h, new_w = _scaled_hw(h, w, size)
+    th, tw = rect_target_hw(h, w, size, stride) if rect else (size, size)
+    dw, dh = (tw - new_w) / 2, (th - new_h) / 2
+    return r, (float(int(round(dw - 0.1))), float(int(round(dh - 0.1))))
+
+
+def resize_stretch_u8(frames: torch.Tensor, size: int = 640) -> torch.Tensor:
+    """(B, H, W, 3) uint8 BGR → (B, size, size, 3) float32 RGB in [0, 1]:
+    a plain stretch resize, no pad and no ratio (the RT-DETR predict
+    convention). Normalised by ``* float32(1/255)`` like the letterbox
+    canvas, which is what XLA makes of the JAX function's ``/ 255.0``."""
+    if frames.dim() == 3:
+        frames = frames[None]
+    return _bilinear_resize(frames, size, size).flip(-1) * _INV_255
 
 
 def scale_boxes(boxes: torch.Tensor, ratio, pad,

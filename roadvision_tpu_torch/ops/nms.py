@@ -1,5 +1,6 @@
 """Fixed-shape class-aware greedy NMS — the port of
-``roadvision_tpu/ops/nms.py:35-124``.
+``roadvision_tpu/ops/nms.py`` (``nms_single`` / ``nms_batch`` with
+``return_idx``, and the NMS-free ``select_topk_batch``).
 
 Semantics kept: candidate iff max class score > conf_thres (strict);
 top ``pre_topk`` by score with first-index ties (``lax.top_k``); classes
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 MAX_WH = 7680.0
 
@@ -42,10 +44,14 @@ def iou_matrix_xyxy(boxes: torch.Tensor) -> torch.Tensor:
 def nms_batch(boxes: torch.Tensor, scores: torch.Tensor,
               conf_thres: float = 0.25, iou_thres: float = 0.7,
               max_det: int = 100, pre_topk: int = 300,
-              classes_keep: Optional[Sequence[int]] = None):
+              classes_keep: Optional[Sequence[int]] = None,
+              return_idx: bool = False):
     """boxes (B, N, 4) xyxy, scores (B, N, nc) → (boxes (B, M, 4),
     conf (B, M), cls (B, M) int32, valid (B, M) bool), M = min(max_det,
-    pre_topk, N), score-descending."""
+    pre_topk, N), score-descending. With ``return_idx`` a fifth output
+    carries each kept entry's source anchor index (B, M) int32
+    (arbitrary where not valid): the handle per-anchor side outputs are
+    gathered with."""
     bsz, n, _ = boxes.shape
     conf = scores.max(dim=-1).values
     cls = scores.argmax(dim=-1).to(torch.int32)
@@ -84,9 +90,50 @@ def nms_batch(boxes: torch.Tensor, scores: torch.Tensor,
                               device=boxes.device)
         allowed[list(int(c) for c in classes_keep)] = True
         kept_valid = kept_valid & allowed[kept_cls.long()]
+    if return_idx:
+        kept_idx = torch.gather(sel_idx, 1, order).to(torch.int32)
+        return kept_boxes, kept_conf, kept_cls, kept_valid, kept_idx
     return kept_boxes, kept_conf, kept_cls, kept_valid
 
 
 def nms_single(boxes: torch.Tensor, scores: torch.Tensor, **kw):
     """One image: boxes (N, 4), scores (N, nc) → per-image outputs."""
     return tuple(t[0] for t in nms_batch(boxes[None], scores[None], **kw))
+
+
+def select_topk_batch(boxes: torch.Tensor, scores: torch.Tensor,
+                      conf_thres: float = 0.25, max_det: int = 100,
+                      classes_keep: Optional[Sequence[int]] = None):
+    """NMS-free selection for set-prediction detectors (RT-DETR): score
+    threshold, ``classes_keep``, top-k; no IoU pass.
+
+    boxes (B, N, 4), scores (B, N, nc) → fixed-shape (boxes (B, max_det,
+    4), conf, cls int32, valid bool), score-descending. Equal scores
+    keep the lower index first, as ``jax.lax.top_k`` does (a stable
+    descending sort; ``torch.topk`` promises no order among equals).
+    N < max_det pads with zeros and ``valid`` False."""
+    bsz, n, _ = boxes.shape
+    conf = scores.max(dim=-1).values
+    cls = scores.argmax(dim=-1).to(torch.int32)
+    valid = conf > conf_thres
+    if classes_keep:
+        allowed = torch.zeros(scores.shape[-1], dtype=torch.bool,
+                              device=boxes.device)
+        allowed[list(int(c) for c in classes_keep)] = True
+        valid = valid & allowed[cls.long()]
+    k = min(max_det, n)
+    top_conf, top_idx = torch.sort(
+        torch.where(valid, conf, torch.full_like(conf, -1.0)), dim=1,
+        descending=True, stable=True)
+    top_conf, top_idx = top_conf[:, :k], top_idx[:, :k]
+    out_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(bsz, k, 4))
+    out_cls = torch.gather(cls, 1, top_idx)
+    out_valid = top_conf > 0.0
+    top_conf = torch.where(out_valid, top_conf, torch.zeros_like(top_conf))
+    if k < max_det:
+        pad = max_det - k
+        out_boxes = F.pad(out_boxes, (0, 0, 0, pad))
+        top_conf = F.pad(top_conf, (0, pad))
+        out_cls = F.pad(out_cls, (0, pad))
+        out_valid = F.pad(out_valid, (0, pad))
+    return out_boxes, top_conf, out_cls, out_valid

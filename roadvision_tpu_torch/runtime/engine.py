@@ -9,6 +9,22 @@ batches. :meth:`PipelineEngine.dispatch_batch` queues a batch without
 waiting for its results; :meth:`PipelineEngine.stream` keeps two batches
 in flight so the host's decode and unpack overlap the card's work.
 
+Frames reach the card through :meth:`PipelineEngine.upload`: a ring of
+pinned host buffers, each paired with a device buffer, copied on a CUDA
+stream of its own. ``stream``'s reader thread starts the upload as soon
+as a batch is decoded; the compute stream waits on the copy's event, and
+a buffer is refilled only after the step that read it has finished.
+Results come back into pinned buffers too, so the copy back overlaps the
+next batch's work; ``collect_batch`` copies them out before the buffers
+are used again.
+
+Around the step, as in the JAX engine: ``timer`` (a ``StageTimer`` with
+the stages ``decode``, ``upload``, ``device_step``, ``host_unpack``), a
+watchdog (``tpu.watchdog_s``: a diagnostic that sets ``watchdog_fired``
+when a warmed-up shape's step runs longer, never an abort),
+:meth:`PipelineEngine.save_state` / :meth:`PipelineEngine.load_state`
+and :meth:`PipelineEngine.lb_meta`.
+
 With ``tpu.sampled_preprocess`` and ``want_proc=False``, where the
 letterbox resize is an exact odd-stride slice on both axes (1080p → 640
 is stride 3) and the chain has a sampled terminal op, the chain's last
@@ -19,12 +35,14 @@ calibrated from the first batch, on the host, before that batch runs.
 
 Config keys as in the JAX engine. Not ported yet, and raising at
 construction: ``detect.temporal_gate``, ``tracking.gmc``, the tracker
-backends other than greedy SORT, and what the detector refuses.
+backends other than greedy SORT (``tracking.nsa`` is ported), and what
+the detector registry refuses.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
@@ -33,10 +51,20 @@ import torch
 from ..detect.types import COCO_NAMES, Detection
 from ..geometry.projector import (HomographyProjector, build_projector,
                                   distance_device, project_boxes_device)
-from ..ops.letterbox import axis_plan, finish_letterbox, scale_boxes
+from ..ops.letterbox import (axis_plan, finish_letterbox, letterbox_meta,
+                             scale_boxes)
 from ..preprocess import PreprocessPipeline
-from ..track.sort import build_sort_step, init_state
+from ..track.registry import build_device_step
+from ..track.sort import SortState, init_state, state_from_jax
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.logging import get_logger
+from ..utils.timing import StageTimer
+
+log = get_logger("roadvision.engine")
+
+# pinned/device buffer pairs for uploads: stream() can hold two batches
+# dispatched, two queued and one being filled
+UPLOAD_SLOTS = 5
 
 
 class FrameResult(NamedTuple):
@@ -71,6 +99,29 @@ def unpack_detections(arrays, names: List[str],
     return per_frame
 
 
+class Upload(NamedTuple):
+    """A batch on its way to the device: ``frames`` is the device tensor,
+    valid on a stream once it has waited on ``ready`` (None on the CPU);
+    ``slot`` is the ring slot to hand back, or None."""
+    frames: torch.Tensor
+    ready: Optional["torch.cuda.Event"]
+    slot: Optional["_UploadSlot"]
+
+
+class _UploadSlot:
+    """One pinned host buffer and the device buffer it is copied to.
+    ``uploaded`` is set while an upload waits to be dispatched;
+    ``copied`` is the event after the last host→device copy, ``consumed``
+    the event after the step that read the device buffer."""
+
+    def __init__(self, shape, device):
+        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        self.dev = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.uploaded = False
+        self.copied: Optional[torch.cuda.Event] = None
+        self.consumed: Optional[torch.cuda.Event] = None
+
+
 class PipelineEngine:
     """Config-driven end-to-end engine. ``device`` defaults to the card;
     pass ``device="cpu"`` for the plain PyTorch path."""
@@ -94,21 +145,22 @@ class PipelineEngine:
                                       "roadvision_tpu_torch yet")
         self.detector = None
         if det_cfg.get("enabled", False):
-            backend = str(det_cfg.get("backend") or "ultralytics").lower()
-            if backend not in ("ultralytics", "jax", "yolov8", "torch"):
-                raise NotImplementedError(
-                    f"detect.backend {backend!r} is not ported to "
-                    f"roadvision_tpu_torch yet")
-            from ..detect.yolo_torch import YOLOTorch
-            self.detector = YOLOTorch(det_cfg, device=self.device, seed=seed)
+            from ..detect.registry import build_detector
+            self.detector = build_detector(det_cfg, device=self.device,
+                                           seed=seed)
         self.max_det = int(det_cfg.get("max_det", 100))
         slots = tpu_cfg.get("track_slots")
         self.track_slots = int(slots) if slots else max(64, self.max_det)
+        if self.track_slots < self.max_det:
+            log.warning(
+                "tpu.track_slots=%d < detect.max_det=%d: more than %d "
+                "concurrent new objects will drop tracks", self.track_slots,
+                self.max_det, self.track_slots)
 
         track_cfg = cfg.get("tracking", {}) or {}
         self.track_enabled = bool(track_cfg.get("enabled", False)) \
             and self.detector is not None
-        self._sort_step = build_sort_step(track_cfg) \
+        self._sort_step = build_device_step(track_cfg) \
             if self.track_enabled else None
 
         geom_cfg = cfg.get("geometry", {}) or {}
@@ -117,11 +169,27 @@ class PipelineEngine:
             try:
                 self.projector = build_projector(geom_cfg, device=self.device)
             except ValueError as exc:   # soft fail, as the reference does
-                print(f"[roadvision] projector init failed: {exc}")
+                log.warning("projector init failed: %s", exc)
 
         self.sort_state = init_state(self.track_slots, self.device) \
             if self.track_enabled else None
         self._t0: Optional[float] = None
+        self.timer = StageTimer()
+
+        # device-step watchdog: a step that blocks far beyond the steady
+        # rate usually means the card or its runtime stalled. Warn, never
+        # kill, and skip the first call per shape (that one builds the
+        # kernels and tunes the convolutions). 0 disables.
+        self._watchdog_s = float(tpu_cfg.get("watchdog_s", 60.0))
+        self._warmed: set = set()
+        self.watchdog_fired = threading.Event()
+
+        self._upload_lock = threading.Lock()
+        self._upload_ring: List[_UploadSlot] = []
+        self._upload_next = 0
+        self._upload_stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        self._result_free: Dict[tuple, List[List[torch.Tensor]]] = {}
 
     # ------------------------------------------------------------------
     def _dets_tail(self, b: int, boxes, conf, cls_id, valid, ts):
@@ -198,61 +266,167 @@ class PipelineEngine:
         ids, dist, speed = self._dets_tail(b, boxes, conf, cls_id, valid, ts)
         return proc, (boxes, conf, cls_id, valid, ids, dist, speed)
 
+    def lb_meta(self, h: int, w: int):
+        """(ratio, (left, top)) the device step letterboxes (h, w) frames
+        with, computed on the host; None when no detector is configured."""
+        if self.detector is None:
+            return None
+        return letterbox_meta(h, w, size=self.detector.imgsz,
+                              rect=self.detector.rect)
+
     # ------------------------------------------------------------------
+    def upload(self, frames: np.ndarray) -> Upload:
+        """Start the host→device copy of a (B, H, W, 3) uint8 batch and
+        return at once. On the card the frames go through the next slot
+        of the pinned ring, on the engine's upload stream; the call
+        blocks only while that slot's previous batch is still being
+        computed on. Safe to call from a thread other than the one that
+        dispatches."""
+        frames = np.ascontiguousarray(frames)
+        if self.device.type != "cuda":
+            return Upload(torch.from_numpy(frames), None, None)
+        b = frames.shape[0]
+        with self._upload_lock, self.timer.stage("upload"):
+            ring = self._upload_ring
+            if not ring or ring[0].host.shape[1:] != frames.shape[1:] \
+                    or ring[0].host.shape[0] < b:
+                torch.cuda.synchronize(self.device)
+                if any(s.uploaded for s in ring):
+                    raise RuntimeError("frame shape changed while uploads "
+                                       "were waiting to be dispatched")
+                shape = (max(b, self.batch_size), *frames.shape[1:])
+                ring[:] = [_UploadSlot(shape, self.device)
+                           for _ in range(UPLOAD_SLOTS)]
+                self._upload_next = 0
+            slot = ring[self._upload_next]
+            if slot.uploaded:
+                raise RuntimeError(
+                    f"{UPLOAD_SLOTS} uploads are waiting to be dispatched; "
+                    f"dispatch one before uploading another")
+            self._upload_next = (self._upload_next + 1) % len(ring)
+            for event in (slot.copied, slot.consumed):
+                if event is not None:
+                    event.synchronize()
+            slot.consumed = None
+            slot.uploaded = True
+            slot.host[:b].copy_(torch.from_numpy(frames))
+            ready = torch.cuda.Event()
+            with torch.cuda.stream(self._upload_stream):
+                slot.dev[:b].copy_(slot.host[:b], non_blocking=True)
+                ready.record()
+            slot.copied = ready
+            return Upload(slot.dev[:b], ready, slot)
+
+    def download(self, out: List[Optional[torch.Tensor]]):
+        """Queue the copy of device tensors (None entries pass through)
+        into pinned host buffers, taken from a free list by shape and
+        grown on demand, and record the event after it. Returns (host
+        tensors, key, event); after ``event.synchronize()`` and once the
+        values are copied out, :meth:`recycle` hands the buffers back."""
+        key = tuple((tuple(t.shape), t.dtype) if t is not None else None
+                    for t in out)
+        free = self._result_free.setdefault(key, [])
+        bufs = free.pop() if free else [
+            None if t is None else
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in out]
+        for dst, src in zip(bufs, out):
+            if dst is not None:
+                dst.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return bufs, key, done
+
+    def recycle(self, key, bufs) -> None:
+        """Return :meth:`download`'s buffers to the free list."""
+        self._result_free[key].append(bufs)
+
     def dispatch_batch(self, frames: np.ndarray, timestamps: np.ndarray,
-                       want_proc: bool = True):
+                       want_proc: bool = True,
+                       device_frames: Optional[Upload] = None):
         """Queue one batch on the device; returns a handle for
-        :meth:`collect_batch`. Timestamps are rebased to the stream start
-        in float32, as the JAX engine does."""
+        :meth:`collect_batch`. ``device_frames`` is what :meth:`upload`
+        returned for these frames, when a reader thread started the copy
+        early. Timestamps are rebased to the stream start in float32, as
+        the JAX engine does."""
         if self._t0 is None:
             self._t0 = float(timestamps[0])
         ts_rel = (np.asarray(timestamps) - self._t0).astype(np.float32)
         self.pipeline.ensure_gate_calibrated(frames)
-        host = torch.from_numpy(np.ascontiguousarray(frames))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        dev = host.to(self.device, non_blocking=True)
+        up = device_frames if device_frames is not None \
+            else self.upload(frames)
         ts = torch.from_numpy(ts_rel).to(self.device, non_blocking=True)
-        proc, arrays = self.step(dev, ts, want_proc)
+        if up.ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(up.ready)
+        proc, arrays = self.step(up.frames, ts, want_proc)
         out = [proc if want_proc else None, *arrays]
+        key, done = None, None
         if self.device.type == "cuda":
-            out = [None if t is None else t.to("cpu", non_blocking=True)
-                   for t in out]
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            done = None
-        return frames, timestamps, out, done
+            out, key, done = self.download(out)
+        if up.slot is not None:
+            # after the copy back too: with no preprocessing the
+            # processed frames are the slot's own buffer
+            up.slot.consumed, up.slot.uploaded = done, False
+        shape_key = (tuple(frames.shape[:3]), want_proc)
+        return frames, timestamps, out, done, key, shape_key
 
     def collect_batch(self, inflight) -> List[FrameResult]:
         """Wait for an in-flight batch and unpack its results."""
-        frames, timestamps, out, done = inflight
-        if done is not None:
-            done.synchronize()
-        proc = None if out[0] is None else out[0].numpy()
-        arrays = [t.numpy() for t in out[1:]]
-        b = frames.shape[0]
-        if self.detector is not None:
-            names = [self.detector.names.get(i, str(i))
-                     for i in range(self.detector.nc)]
-        else:
-            names = list(COCO_NAMES)
-        per_frame = unpack_detections(arrays, names, b)
-        return [FrameResult(frames[i],
-                            proc[i] if proc is not None else frames[i],
-                            per_frame[i], float(timestamps[i]))
-                for i in range(b)]
+        frames, timestamps, out, done, key, shape_key = inflight
+        dog = None
+        if self._watchdog_s > 0 and shape_key in self._warmed:
+            def bark():
+                self.watchdog_fired.set()
+                log.warning(
+                    "device step has run > %.0fs for batch shape %s — the "
+                    "card may be stalled (the step continues; this is a "
+                    "diagnostic, not an abort)", self._watchdog_s,
+                    shape_key[0])
+            dog = threading.Timer(self._watchdog_s, bark)
+            dog.daemon = True
+            dog.start()
+        try:
+            with self.timer.stage("device_step"):
+                if done is not None:
+                    done.synchronize()
+        finally:
+            if dog is not None:
+                dog.cancel()
+            self._warmed.add(shape_key)
+        with self.timer.stage("host_unpack"):
+            if done is not None:
+                # the pinned buffers go back to the free list: copy out
+                host = [None if t is None else t.numpy().copy() for t in out]
+                self.recycle(key, out)
+            else:
+                host = [None if t is None else t.numpy() for t in out]
+            proc, arrays = host[0], host[1:]
+            b = frames.shape[0]
+            if self.detector is not None:
+                names = [self.detector.names.get(i, str(i))
+                         for i in range(self.detector.nc)]
+            else:
+                names = list(COCO_NAMES)
+            per_frame = unpack_detections(arrays, names, b)
+            return [FrameResult(frames[i],
+                                proc[i] if proc is not None else frames[i],
+                                per_frame[i], float(timestamps[i]))
+                    for i in range(b)]
 
     def process_batch(self, frames: np.ndarray, timestamps: np.ndarray,
-                      want_proc: bool = True) -> List[FrameResult]:
+                      want_proc: bool = True,
+                      device_frames: Optional[Upload] = None
+                      ) -> List[FrameResult]:
         """(B, H, W, 3) BGR uint8 + (B,) float64 stamps → per-frame results."""
-        return self.collect_batch(self.dispatch_batch(frames, timestamps,
-                                                      want_proc))
+        return self.collect_batch(self.dispatch_batch(
+            frames, timestamps, want_proc=want_proc,
+            device_frames=device_frames))
 
     def stream(self, source, max_frames: Optional[int] = None,
                want_proc: bool = True) -> Iterator[FrameResult]:
-        """Decode on a reader thread; two batches in flight on the card.
-        A failure of the source ends the stream and is raised here."""
+        """Decode on a reader thread, which also starts each batch's
+        upload; two batches in flight on the card. A failure of the
+        source ends the stream and is raised here."""
         q: "queue.Queue" = queue.Queue(maxsize=2)
         stop = threading.Event()
         failed: List[BaseException] = []
@@ -266,10 +440,13 @@ class PipelineEngine:
                         n = min(n, max_frames - count)
                         if n <= 0:
                             break
-                    frames, ts, m = source.read_batch(n)
+                    with self.timer.stage("decode"):
+                        frames, ts, m = source.read_batch(n)
                     if m == 0:
                         break
-                    q.put((frames, ts))
+                    # the copy runs on the upload stream and overlaps
+                    # the compute of the batches in flight
+                    q.put((frames, ts, self.upload(frames)))
                     count += m
             except Exception as exc:   # handed to the consuming thread
                 failed.append(exc)
@@ -284,23 +461,73 @@ class PipelineEngine:
                 item = q.get()
                 if item is None:
                     break
-                pending.append(self.dispatch_batch(*item, want_proc=want_proc))
+                frames, ts, up = item
+                pending.append(self.dispatch_batch(
+                    frames, ts, want_proc=want_proc, device_frames=up))
                 if len(pending) >= 2:
                     yield from self.collect_batch(pending.pop(0))
-            for inflight in pending:
-                yield from self.collect_batch(inflight)
+            while pending:
+                yield from self.collect_batch(pending.pop(0))
             if failed:
                 raise RuntimeError("frame source failed") from failed[0]
         finally:
             stop.set()
-            while True:
+            for inflight in pending:    # abandoned: hand the buffers back
+                if inflight[3] is not None:
+                    inflight[3].synchronize()
+                    self.recycle(inflight[4], inflight[2])
+            # empty the queue until the reader has ended (it may be
+            # blocked in put); uploads nobody will dispatch free their slot
+            deadline = time.monotonic() + 4.0
+            while (thread.is_alive() or not q.empty()) \
+                    and time.monotonic() < deadline:
                 try:
-                    q.get_nowait()
+                    item = q.get(timeout=0.05)
                 except queue.Empty:
-                    break
-            thread.join(timeout=2.0)
+                    continue
+                if item is not None and item[2].slot is not None:
+                    item[2].slot.uploaded = False
+            thread.join(timeout=0.1)
 
     def reset(self) -> None:
         if self.track_enabled:
             self.sort_state = init_state(self.track_slots, self.device)
         self._t0 = None
+
+    def save_state(self, path) -> None:
+        """Checkpoint the device-resident stream state (the whole
+        ``SortState`` and the stream's timestamp epoch) as an ``.npz``
+        with the JAX engine's key names (``sort_<field>``, ``t0``), so a
+        long-running deployment can stop and resume exactly. A file saved
+        on the card loads on the CPU path, and the other way round."""
+        data = {}
+        if self.sort_state is not None:
+            for k, v in zip(SortState._fields, self.sort_state):
+                data[f"sort_{k}"] = v.cpu().numpy()
+        data["t0"] = np.asarray(
+            np.nan if self._t0 is None else self._t0, np.float64)
+        np.savez(path, **data)
+
+    def load_state(self, path) -> None:
+        """Restore a :meth:`save_state` checkpoint (or one the JAX engine
+        saved: the fields the port's ``SortState`` holds are read). The
+        tracker slot count must match the current config."""
+        with np.load(path) as z:
+            if self.sort_state is not None:
+                missing = [k for k in SortState._fields
+                           if f"sort_{k}" not in z.files]
+                if missing:
+                    raise ValueError(
+                        f"state file {path}: missing tracker arrays "
+                        f"{missing} (saved without tracking?)")
+                saved_slots = z["sort_alive"].shape[0]
+                if saved_slots != self.track_slots:
+                    raise ValueError(
+                        f"state file {path}: {saved_slots} track slots, "
+                        f"engine has {self.track_slots} "
+                        f"(tpu.track_slots must match)")
+                self.sort_state = state_from_jax(
+                    {k: z[f"sort_{k}"] for k in SortState._fields},
+                    device=self.device)
+            t0 = float(z["t0"])
+            self._t0 = None if np.isnan(t0) else t0

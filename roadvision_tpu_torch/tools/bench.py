@@ -1,0 +1,500 @@
+"""The port's benchmark: one JSON line on stdout, detail on stderr.
+
+    python -m roadvision_tpu_torch.tools.bench [--mode full] [--res 1080]
+        [--batch 8] [--iters 16] [--windows 5] [--dtype bfloat16]
+        [--model W.npz] [--device cuda|cpu]
+
+The configuration is ``bench.py::_cfg(1080, 1920, 8)``, the default
+realtime pipeline (CLAHE → median → YOLOv8n → NMS → SORT → geometry),
+with the checked-in demo checkpoint unless ``--model`` names another.
+``--mode full`` gives, each as the median of ``--windows`` windows of
+``--iters`` batches with the windows' minimum and maximum beside it:
+
+  * ``host_fed_process_batch_fps`` — frames from host memory through
+    ``PipelineEngine.process_batch(want_proc=False)``, one batch at a time;
+  * ``host_fed_stream_fps`` — the same frames through
+    ``PipelineEngine.stream``: a reader thread starts each upload, two
+    batches in flight;
+  * ``device_resident_fps`` — frames rendered on the device by
+    ``DeviceSyntheticSource``; only results cross the bus;
+
+and ``stage_ms`` (one batch, each stage synchronised), ``timer_ms`` (the
+engine's ``StageTimer`` means over the stream windows: decode, upload,
+device_step, host_unpack), ``launches_per_batch`` of the hand-written
+kernels, batch, iterations, dtype, and the card's name and power limit
+as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+prints them.
+
+Other modes: ``preprocess`` (the chain alone), ``detect`` (no chain, no
+tracker), ``nopre`` (the pipeline without the chain) run the same three
+measurements; ``sort`` (the tracker step over synthetic detections),
+``geometry`` (homography + distance calls/s) and ``record`` (host
+overlay + compare canvas + MJPEG encode frames/s) time one layer. The
+JAX bench's ``gate``, ``streams``, ``seg``, ``pose`` and ``obb`` modes
+wait for their ports and raise ``NotImplementedError``.
+
+Timing: warm-up outside every window, ``torch.cuda.synchronize()`` at
+both ends of a window, host clock between. ``--device cpu`` rehearses the
+program on the plain PyTorch path (use a small ``--res``); its line says
+``"platform": "cpu"`` and carries no card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..config import DEFAULTS, merge, project_root
+from ..io_video import DeviceSyntheticSource, SyntheticRoadSource
+from ..ops.letterbox import scale_boxes
+from ..ops.nms import nms_batch
+from ..runtime import PipelineEngine
+from ..utils.device import resolve_device
+from ..utils.resolutions import res_width
+
+FULL_MODES = ("full", "preprocess", "detect", "nopre")
+LAYER_MODES = ("sort", "geometry", "record")
+NOT_PORTED_MODES = ("gate", "streams", "seg", "pose", "obb")
+FPS = 30.0
+DEMO_MODEL = "assets/yolov8n_synthetic_256.npz"
+
+
+def bench_cfg(height: int, width: int, batch: int, model: str,
+              dtype: str = "bfloat16") -> Dict[str, Any]:
+    """``bench.py::_cfg(height, width, batch)`` with ``model``."""
+    return merge(DEFAULTS, {
+        "preprocess": {"enabled": True, "chain": [
+            {"name": "CLAHEDehaze",
+             "params": {"space": "YCrCb", "clip_limit": 2.0, "tile_grid": 8}},
+            {"name": "MedianDerain", "params": {"ksize": 3}},
+        ]},
+        "detect": {"enabled": True, "model": model, "conf_thres": 0.25,
+                   "iou_thres": 0.7, "max_det": 100,
+                   "classes_keep": [0, 2, 3, 5, 7]},
+        "tracking": {"enabled": True, "max_staleness": 1.2, "min_hits": 3,
+                     "iou_threshold": 0.35, "speed_window": 0.8},
+        "geometry": {"enabled": True, "projector": {
+            "type": "homography",
+            "image_points": [[0, height], [width, height],
+                             [0, int(0.4 * height)],
+                             [width, int(0.4 * height)]],
+            "world_points": [[0, 0], [20, 0], [0, 120], [20, 120]],
+            "origin": [10.0, 0.0], "max_distance": 1000.0}},
+        "tpu": {"batch_size": batch, "compute_dtype": dtype},
+    })
+
+
+MODE_OVERRIDES = {
+    "full": {},
+    "preprocess": {"detect": {"enabled": False},
+                   "tracking": {"enabled": False},
+                   "geometry": {"enabled": False}},
+    "detect": {"preprocess": {"enabled": False},
+               "tracking": {"enabled": False},
+               "geometry": {"enabled": False}},
+    "nopre": {"preprocess": {"enabled": False}},
+}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def windows_fps(run: Callable[[], int], windows: int,
+                device: torch.device) -> Dict[str, Any]:
+    """``run()`` does one window's work and returns its frame count;
+    each window is timed between two synchronisations."""
+    vals = []
+    for _ in range(windows):
+        _sync(device)
+        t0 = time.perf_counter()
+        n = run()
+        _sync(device)
+        vals.append(n / (time.perf_counter() - t0))
+    return {"median": float(np.median(vals)), "min": min(vals),
+            "max": max(vals), "windows": vals}
+
+
+class ReplaySource:
+    """Pre-rendered batches served in a cycle with paced timestamps: the
+    decode cost is kept out of the host-fed numbers."""
+
+    def __init__(self, batches: List[np.ndarray], t0: float = 1000.0):
+        self.batches = batches
+        self.k = 0
+        self.t0 = t0
+
+    def read_batch(self, n: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        frames = self.batches[self.k % len(self.batches)][:n]
+        m = frames.shape[0]
+        ts = self.t0 + (self.k * len(self.batches[0]) + np.arange(m)) / FPS
+        self.k += 1
+        return frames, ts, m
+
+    def release(self) -> None:
+        pass
+
+
+def render_batches(width: int, height: int, batch: int, n: int,
+                   seed: int = 0) -> List[np.ndarray]:
+    src = SyntheticRoadSource(width, height, num_vehicles=6, seed=seed)
+    return [np.stack([src.render(k * batch + i) for i in range(batch)])
+            for k in range(n)]
+
+
+def host_fed_process_batch(engine, source: ReplaySource, iters: int) -> int:
+    n = 0
+    for _ in range(iters):
+        frames, ts, _ = source.read_batch(engine.batch_size)
+        n += len(engine.process_batch(frames, ts, want_proc=False))
+    return n
+
+
+def host_fed_stream(engine, source: ReplaySource, iters: int) -> int:
+    return sum(1 for _ in engine.stream(
+        source, max_frames=iters * engine.batch_size, want_proc=False))
+
+
+def device_resident(engine, render, k0: int, iters: int) -> Tuple[int, int]:
+    """``iters`` batches rendered on the device through ``engine.step``,
+    results copied back through pinned buffers, two batches in flight.
+    Returns (frames, tracked detections)."""
+    b = engine.batch_size
+    dev = engine.device
+    steps = torch.arange(b, device=dev, dtype=torch.float32) / FPS
+    pending: list = []
+    tracked = 0
+
+    def finish(item) -> int:
+        bufs, key, done = item
+        if done is None:
+            arrays = [t.numpy() for t in bufs]
+        else:
+            done.synchronize()
+            arrays = [t.numpy().copy() for t in bufs]
+            engine.recycle(key, bufs)
+        return int(((arrays[4] > 0) & arrays[3]).sum())
+
+    for k in range(k0, k0 + iters):
+        frames = render(k * b)
+        _, arrays = engine.step(frames, k * b / FPS + steps, want_proc=False)
+        pending.append(engine.download(list(arrays)) if dev.type == "cuda"
+                       else (list(arrays), None, None))
+        if len(pending) >= 2:
+            tracked += finish(pending.pop(0))
+    while pending:
+        tracked += finish(pending.pop(0))
+    return iters * b, tracked
+
+
+def stage_ms(engine, frames: np.ndarray, ts: np.ndarray) -> Dict[str, float]:
+    """Host-clock ms of each stage of one step, synchronised between."""
+    dev = engine.device
+    out: Dict[str, float] = {}
+    h, w = frames.shape[1:3]
+    x = torch.from_numpy(frames).to(dev)
+    tsd = torch.from_numpy((ts - ts[0]).astype(np.float32)).to(dev)
+
+    def timed(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(dev)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    det = engine.detector
+    with torch.inference_mode():
+        proc = timed("preprocess", lambda: engine.pipeline.apply_batch(x))
+        if det is None:
+            return out
+        imgs, ratio, pad = timed("letterbox", lambda: det.letterbox(proc))
+        raw = timed("forward", lambda: det.forward(imgs))
+        b, c, k, v = timed("nms", lambda: nms_batch(
+            *raw, conf_thres=det.conf, iou_thres=det.iou,
+            max_det=det.max_det, pre_topk=300,
+            classes_keep=det.keep or None))
+        b = scale_boxes(b, ratio, pad, (h, w))
+        state = engine.sort_state
+        timed("sort_geometry",
+              lambda: engine._dets_tail(frames.shape[0], b, c, k, v, tsd))
+        engine.sort_state = state     # the probe leaves no trace
+    return out
+
+
+def bench_pipeline(args, device: torch.device) -> Dict[str, Any]:
+    height, width, batch = args.res, res_width(args.res), args.batch
+    cfg = merge(bench_cfg(height, width, batch, args.model, args.dtype),
+                MODE_OVERRIDES[args.mode])
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+    engine = PipelineEngine(cfg, device=device, seed=args.seed)
+    batches = render_batches(width, height, batch, 4, seed=args.seed)
+    dsrc = DeviceSyntheticSource(width, height, num_vehicles=6,
+                                 seed=args.seed, device=device)
+    render = dsrc.make_render_fn(batch)
+    iters, wins = args.iters, args.windows
+    out: Dict[str, Any] = {}
+
+    # host-fed, one batch at a time
+    src = ReplaySource(batches)
+    host_fed_process_batch(engine, src, args.warmup)
+    kernels.reset_launch_counts()
+    out["host_fed_process_batch_fps"] = windows_fps(
+        lambda: host_fed_process_batch(engine, src, iters), wins, device)
+    out["launches_per_batch"] = {
+        k: v / (iters * wins) for k, v in kernels.launch_counts.items()}
+    print(f"[bench] process_batch: "
+          f"{out['host_fed_process_batch_fps']['median']:.1f} frames/s",
+          file=sys.stderr)
+
+    # host-fed through stream (reader-side upload, two in flight)
+    engine.reset()
+    src = ReplaySource(batches)
+    host_fed_stream(engine, src, max(2, args.warmup))
+    engine.timer = type(engine.timer)()
+    out["host_fed_stream_fps"] = windows_fps(
+        lambda: host_fed_stream(engine, src, iters), wins, device)
+    out["timer_ms"] = {k: engine.timer.p50_ms(k) for k in engine.timer.total}
+    print(f"[bench] stream: {out['host_fed_stream_fps']['median']:.1f} "
+          f"frames/s; timer {engine.timer.summary()}", file=sys.stderr)
+
+    # device-resident
+    engine.reset()
+    device_resident(engine, render, 0, args.warmup)
+    state = {"k": args.warmup, "tracked": 0, "frames": 0}
+
+    def run_resident() -> int:
+        n, tracked = device_resident(engine, render, state["k"], iters)
+        state["k"] += iters
+        state["tracked"] += tracked
+        state["frames"] += n
+        return n
+
+    out["device_resident_fps"] = windows_fps(run_resident, wins, device)
+    out["mean_tracks_per_frame"] = state["tracked"] / max(1, state["frames"])
+    print(f"[bench] device-resident: "
+          f"{out['device_resident_fps']['median']:.1f} frames/s, "
+          f"{out['mean_tracks_per_frame']:.2f} tracked objects a frame",
+          file=sys.stderr)
+
+    engine.reset()
+    ts = 1000.0 + np.arange(batch) / FPS
+    engine.process_batch(batches[0], ts, want_proc=False)
+    out["stage_ms"] = stage_ms(engine, batches[1], ts + batch / FPS)
+    out["metric"] = f"{'pipeline' if args.mode == 'full' else args.mode}" \
+                    f"_{height}p_fps"
+    out["value"] = out["device_resident_fps"]["median"]
+    out["unit"] = "frames/sec"
+    return out
+
+
+def bench_sort(args, device: torch.device) -> Dict[str, Any]:
+    """The tracker step over synthetic detections: 12 moving boxes a
+    frame, capacity 100, 64 slots (``bench.py::sort_only_fps``)."""
+    from ..track.sort import init_state, make_sort_step
+    n_frames, dets, cap, slots = 32 * args.iters, 12, 100, 64
+    rng = np.random.RandomState(args.seed)
+    boxes = np.zeros((n_frames, cap, 4), np.float32)
+    valid = np.zeros((n_frames, cap), bool)
+    pos = rng.uniform(50, 800, (dets, 2))
+    vel = rng.uniform(-4, 4, (dets, 2))
+    for f in range(n_frames):
+        xy = pos + vel * f
+        boxes[f, :dets] = np.concatenate([xy, xy + (50, 45)], axis=1)
+        valid[f, :dets] = True
+    tb = torch.from_numpy(boxes).to(device)
+    tv = torch.from_numpy(valid).to(device)
+    cls = torch.full((cap,), 2, dtype=torch.int32, device=device)
+    conf = torch.full((cap,), 0.9, device=device)
+    ts = torch.arange(n_frames, dtype=torch.float32, device=device) / FPS
+    step = make_sort_step(0.35, 1.2, 0.8)
+
+    @torch.inference_mode()
+    def run() -> int:
+        state = init_state(slots, device)
+        for f in range(n_frames):
+            state, _ = step(state, tb[f], cls, conf, tv[f], ts[f], None)
+        return n_frames
+
+    run()
+    fps = windows_fps(run, args.windows, device)
+    return {"metric": "sort_tracker_fps", "value": fps["median"],
+            "unit": "frames/sec", "sort_tracker_fps": fps}
+
+
+def bench_geometry(args, device: torch.device) -> Dict[str, Any]:
+    """Homography projection + clamped distance of 100 boxes a call
+    (``bench.py::geometry_only_fps``)."""
+    from ..geometry.projector import (build_projector, distance_device,
+                                      project_boxes_device)
+    proj = build_projector({"projector": {
+        "type": "homography",
+        "image_points": [[0, 1080], [1920, 1080], [0, 432], [1920, 432]],
+        "world_points": [[0, 0], [20, 0], [0, 120], [20, 120]],
+        "origin": [10.0, 0.0], "max_distance": 1000.0}}, device=device)
+    h_mat, origin, maxd = proj.device_params()
+    rng = np.random.RandomState(args.seed)
+    b0 = np.zeros((100, 4), np.float32)
+    b0[:, 0] = rng.uniform(0, 1800, 100)
+    b0[:, 1] = rng.uniform(440, 1000, 100)
+    b0[:, 2] = b0[:, 0] + rng.uniform(30, 120, 100)
+    b0[:, 3] = b0[:, 1] + rng.uniform(20, 80, 100)
+    drift = torch.tensor([0.0, 2.0, 0.0, 2.0], device=device)
+    calls = 16 * args.iters
+
+    @torch.inference_mode()
+    def run() -> int:
+        bx = torch.from_numpy(b0).to(device)
+        for _ in range(calls):
+            g, v = project_boxes_device(h_mat, bx)
+            distance_device(g, v, origin, maxd)
+            bx = bx + drift
+        return calls
+
+    run()
+    rate = windows_fps(run, args.windows, device)
+    return {"metric": "homography_batch100_calls_per_sec",
+            "value": rate["median"], "unit": "calls/sec",
+            "homography_batch100_calls_per_sec": rate}
+
+
+def bench_record(args) -> Dict[str, Any]:
+    """Host overlay + compare canvas + MJPEG encode + mux through the
+    real writer, on moving road-like content with 12 tracked boxes
+    (``bench.py::sustained_record_fps``). Host work only."""
+    from ..detect.types import Detection
+    from ..io_video.writer import MJPEGAVIWriter, encode_jpeg_bgr
+    from ..vis import draw_detections, make_canvas
+    height, width = args.res, res_width(args.res)
+    quality = int(DEFAULTS["preview"]["record"]["quality"])
+    rng = np.random.RandomState(args.seed)
+    base = (np.linspace(0, 200, width)[None, :, None]
+            + np.linspace(0, 55, height)[:, None, None])
+    frame = np.clip(base + rng.normal(0, 8, (height, width, 3)),
+                    0, 255).astype(np.uint8)
+    ring = [np.roll(frame, 45 * i, axis=0) for i in range(24)]
+
+    def dets_at(k: int):
+        out = []
+        for i in range(12):
+            x1 = float(20 + 80 * i + 3 * k) % (width - 120)
+            y1 = float(30 + 53 * i + 2 * k) % (height - 90)
+            out.append(Detection(x1, y1, x1 + 100, y1 + 70, 0.8, 2, "car",
+                                 track_id=i + 1, distance_m=25.0 + i,
+                                 speed_kmh=40.0 + i))
+        return out
+
+    def canvas_at(k: int) -> np.ndarray:
+        raw = ring[k % len(ring)]
+        canvas = make_canvas(raw, raw, layout="h", divider_px=4,
+                             label_raw="RAW", label_proc="PROC",
+                             fps=FPS, show_fps=True)
+        draw_detections(canvas[:, width + 4:], dets_at(k))
+        return canvas
+
+    canvas0 = canvas_at(0)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        encode_jpeg_bgr(canvas0, quality)
+    enc_ms = (time.perf_counter() - t0) / 8 * 1e3
+    n_frames = 8 * args.iters
+    vals = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for w in range(args.windows):
+            writer = MJPEGAVIWriter(os.path.join(tmp, f"w{w}.avi"), fps=FPS,
+                                    quality=quality)
+            for k in range(4):      # open the file, start the pool
+                writer.write(canvas_at(k))
+            t0 = time.perf_counter()
+            try:
+                for k in range(n_frames):
+                    writer.write(canvas_at(k))
+            finally:
+                writer.release()    # waits for the encodes in flight
+            vals.append(n_frames / (time.perf_counter() - t0))
+    fps = {"median": float(np.median(vals)), "min": min(vals),
+           "max": max(vals), "windows": vals}
+    return {"metric": f"record_tail_{height}p_sustained_fps",
+            "value": fps["median"], "unit": "frames/sec",
+            "record_tail_fps": fps, "jpeg_encode_ms": enc_ms,
+            "jpeg_quality": quality, "canvas": [2 * width + 4, height],
+            "host_cpus": os.cpu_count()}
+
+
+def run(args) -> Dict[str, Any]:
+    if args.mode in NOT_PORTED_MODES:
+        raise NotImplementedError(
+            f"bench mode {args.mode!r} is not ported to roadvision_tpu_torch "
+            f"yet")
+    device = resolve_device(args.device)
+    if args.model is None:
+        args.model = str(project_root() / DEMO_MODEL)
+    if args.mode in FULL_MODES:
+        out = bench_pipeline(args, device)
+    elif args.mode == "sort":
+        out = bench_sort(args, device)
+    elif args.mode == "geometry":
+        out = bench_geometry(args, device)
+    else:
+        out = bench_record(args)
+    on_card = device.type == "cuda"
+    out.update({
+        "mode": args.mode, "res": args.res, "batch": args.batch,
+        "iters": args.iters, "windows": args.windows, "dtype": args.dtype,
+        "model": os.path.basename(args.model),
+        "card": card_line() if on_card else None,
+        "device": {
+            "platform": "gpu" if on_card else "cpu",
+            "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
+            "count": torch.cuda.device_count() if on_card else 0}})
+    return out
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="full",
+                    choices=[*FULL_MODES, *LAYER_MODES, *NOT_PORTED_MODES])
+    ap.add_argument("--res", type=int, default=1080,
+                    help="frame height; the width follows the bench table")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--iters", type=int, default=16,
+                    help="batches per timed window")
+    ap.add_argument("--windows", type=int, default=5)
+    ap.add_argument("--warmup", type=int, default=2,
+                    help="batches run before the first window of each "
+                         "measurement")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--model", default=None,
+                    help=f"detector weights (default: {DEMO_MODEL})")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the card (default; raises without one) or a "
+                         "rehearsal on the CPU")
+    args = ap.parse_args(argv)
+    print(json.dumps(run(args)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

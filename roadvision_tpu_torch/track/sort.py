@@ -26,13 +26,18 @@ kept:
   * overflow beyond the slot count keeps id assignment but drops tracks.
 
 The association rounds read one flag back to the host per round (JAX
-runs them as a device ``while_loop``). The observation and appearance
-memories the other trackers need wait for their ports.
+runs them as a device ``while_loop``). ``nsa=True`` is the NSA Kalman of
+StrongSORT: measurement noise scaled per track by ``1 − conf``
+(:func:`nsa_r_scale`). The observation and appearance memories of the
+JAX ``SortState`` stay with the trackers that read them and wait for
+their ports; :func:`state_from_jax` takes over the fields both states
+hold.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Mapping, NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils.device import resolve_device
@@ -176,12 +181,22 @@ def _kf_predict(mean, cov, dt):
     return new_mean, new_cov
 
 
-def _kf_update(mean, cov, z):
-    """Batched KF update, H = [I4 0], Joseph-form covariance (filterpy)."""
+def nsa_r_scale(conf: torch.Tensor) -> torch.Tensor:
+    """NSA measurement-noise scale (1 − conf), floored at 1e-3 so that R
+    stays positive definite at conf → 1."""
+    return torch.clamp(1.0 - conf, min=1e-3)
+
+
+def _kf_update(mean, cov, z, r_scale=None):
+    """Batched KF update, H = [I4 0], Joseph-form covariance (filterpy).
+    ``r_scale`` (T,) scales the measurement noise per track (NSA)."""
     t = mean.shape[0]
     dev = mean.device
     r = torch.diag(torch.tensor(_R_DIAG, dtype=torch.float32, device=dev))
-    r = r.expand(t, MEAS_DIM, MEAS_DIM)
+    if r_scale is None:
+        r = r.expand(t, MEAS_DIM, MEAS_DIM)
+    else:
+        r = r_scale[:, None, None] * r[None]
     ph = cov[:, :, :MEAS_DIM]
     s = cov[:, :MEAS_DIM, :MEAS_DIM] + r
     k = torch.linalg.solve(s, ph.transpose(1, 2)).transpose(1, 2)
@@ -247,9 +262,10 @@ def _put_rows(buf: torch.Tensor, index: torch.Tensor, values) -> torch.Tensor:
 
 def make_sort_step(iou_threshold: float, max_staleness: float,
                    speed_window: float, min_hits: int = 3,
-                   association: str = "greedy"):
+                   association: str = "greedy", nsa: bool = False):
     """``step(state, boxes (D,4), cls (D,), conf (D,), dvalid (D,), ts (),
-    proj) -> (state', SortOutput)``; proj is None or (H, origin, maxd)."""
+    proj) -> (state', SortOutput)``; proj is None or (H, origin, maxd).
+    ``nsa`` turns on the confidence-scaled measurement noise."""
     if association != "greedy":
         raise NotImplementedError(
             f"tracking.association {association!r} is not ported to "
@@ -288,8 +304,9 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
 
         # 3. measurement update for matched tracks
         det_idx = trk2det.clamp(0, num_d - 1).long()
-        umean, ucov = _kf_update(state.mean, state.cov,
-                                 bbox_to_z(boxes)[det_idx])
+        umean, ucov = _kf_update(
+            state.mean, state.cov, bbox_to_z(boxes)[det_idx],
+            nsa_r_scale(conf[det_idx]) if nsa else None)
         state = state._replace(
             mean=torch.where(matched_t[:, None], umean, state.mean),
             cov=torch.where(matched_t[:, None, None], ucov, state.cov),
@@ -400,19 +417,19 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
     return step
 
 
-def build_sort_step(cfg):
-    """Step from a ``tracking:`` config; only backend "sort" is ported."""
-    name = str(cfg.get("backend") or "sort").lower()
-    if name != "sort":
-        raise NotImplementedError(
-            f"tracking.backend {name!r} is not ported to roadvision_tpu_torch "
-            f"yet (sort only)")
-    if cfg.get("gmc") or cfg.get("nsa"):
-        raise NotImplementedError("tracking.gmc / tracking.nsa are not "
-                                  "ported to roadvision_tpu_torch yet")
-    return make_sort_step(
-        float(cfg.get("iou_threshold", 0.3)),
-        float(cfg.get("max_staleness", 1.0)),
-        float(cfg.get("speed_window", 0.75)),
-        int(cfg.get("min_hits", 3)),
-        association=str(cfg.get("association", "greedy")))
+def state_from_jax(arrays: Mapping[str, np.ndarray],
+                   device=None) -> SortState:
+    """A :class:`SortState` from the JAX package's: ``arrays`` maps its
+    field names to numpy arrays (``SortState._asdict()`` through
+    ``np.asarray``, or a ``save_state`` file's arrays without the
+    ``sort_`` prefix). The fields both states hold are taken with the
+    dtypes :func:`init_state` uses; the JAX state's observation and
+    appearance memories are left behind."""
+    device = resolve_device(device)
+    ref = init_state(1, "cpu")
+    missing = [k for k in SortState._fields if k not in arrays]
+    if missing:
+        raise ValueError(f"state_from_jax: missing fields {missing}")
+    return SortState(*[
+        torch.from_numpy(np.array(arrays[k])).to(getattr(ref, k).dtype)
+        .to(device) for k in SortState._fields])

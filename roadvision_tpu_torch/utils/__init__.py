@@ -1,3 +1,7 @@
 from .device import resolve_device
+from .logging import get_logger
+from .resolutions import RES_WIDTH, res_width
+from .timing import StageTimer
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "StageTimer", "get_logger", "RES_WIDTH",
+           "res_width"]

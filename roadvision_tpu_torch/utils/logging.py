@@ -1,0 +1,18 @@
+"""Structured logging — a copy of ``roadvision_tpu/utils/logging.py``."""
+from __future__ import annotations
+
+import logging
+import sys
+
+_FORMAT = "%(asctime)s %(levelname).1s %(name)s: %(message)s"
+
+
+def get_logger(name: str = "roadvision", level: str = "INFO") -> logging.Logger:
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter(_FORMAT, datefmt="%H:%M:%S"))
+        logger.addHandler(handler)
+        logger.setLevel(getattr(logging, level.upper(), logging.INFO))
+        logger.propagate = False
+    return logger

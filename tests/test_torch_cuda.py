@@ -159,3 +159,136 @@ def test_median3_kernel_edge_paths_bit_equal(dev, shape, offset):
     before = launch_counts["median_k"]
     assert torch.equal(M.median_planes(x, 3), M.median_plain(x, 3))
     assert launch_counts["median_k"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the engine around the kernels: state files, the reader-side upload, the
+# pinned rings
+
+def _engine_cfg(batch=4):
+    from roadvision_tpu_torch.config import DEFAULTS, merge
+    h, w = 288, 480
+    return merge(DEFAULTS, {
+        "preprocess": {"enabled": True, "chain": [
+            {"name": "CLAHEDehaze", "params": {}},
+            {"name": "MedianDerain", "params": {"ksize": 3}}]},
+        "detect": {"enabled": True,
+                   "model": "assets/yolov8n_synthetic_256.npz", "imgsz": 160,
+                   "max_det": 20, "classes_keep": [2],
+                   "compute_dtype": "float32"},
+        "tracking": {"enabled": True, "max_staleness": 1.2,
+                     "iou_threshold": 0.35, "speed_window": 0.8},
+        "geometry": {"enabled": True, "projector": {
+            "type": "homography",
+            "image_points": [[0, h], [w, h], [0, 115], [w, 115]],
+            "world_points": [[0, 0], [20, 0], [0, 120], [20, 120]],
+            "origin": [10.0, 0.0], "max_distance": 1000.0}},
+        "tpu": {"batch_size": batch, "compute_dtype": "float32"}})
+
+
+def _batches(n, batch=4):
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    src = SyntheticRoadSource(480, 288, num_vehicles=6)
+    return [(np.stack([src.render(k * batch + i) for i in range(batch)]),
+             1000.0 + (k * batch + np.arange(batch)) / 30.0)
+            for k in range(n)]
+
+
+def _ids(results):
+    return [[d.track_id for d in r.detections] for r in results]
+
+
+@pytest.mark.parametrize("first,second", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_state_saved_on_one_device_loads_on_the_other(dev, tmp_path, first,
+                                                      second):
+    """Three batches on ``first``, ``save_state``; a fresh engine on
+    ``second`` loads the file and goes on with the same identities as
+    ``first`` going on by itself; the loaded tensors lie on ``second``
+    with the dtypes ``init_state`` uses."""
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.track import init_state
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches = _batches(5)
+    a = PipelineEngine(_engine_cfg(), device=first)
+    for f, t in batches[:3]:
+        a.process_batch(f, t, want_proc=False)
+    a.save_state(tmp_path / "s.npz")
+    b = PipelineEngine(_engine_cfg(), device=second)
+    b.load_state(tmp_path / "s.npz")
+    ref = init_state(4, second)
+    for k, v in b.sort_state._asdict().items():
+        assert v.device.type == second and v.dtype == getattr(ref, k).dtype
+        assert np.array_equal(v.cpu().numpy(),
+                              getattr(a.sort_state, k).cpu().numpy(),
+                              equal_nan=True), k
+    assert b._t0 == a._t0
+    for f, t in batches[3:]:
+        want = a.process_batch(f, t, want_proc=False)
+        got = b.process_batch(f, t, want_proc=False)
+        assert _ids(got) == _ids(want) and any(_ids(got))
+
+
+@pytest.mark.parametrize("want_proc", [False, True])
+def test_stream_with_reader_side_upload_equals_process_batch(dev, want_proc):
+    """``stream`` (reader thread uploads through the pinned ring, two
+    batches in flight) gives what ``process_batch`` gives for the same
+    frames and stamps, bit for bit, a short last batch included."""
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.tools.bench import ReplaySource
+    batches = _batches(7)
+    frames = [f for f, _ in batches]
+    n = 7 * 4 - 2
+    eng = PipelineEngine(_engine_cfg(), device=dev)
+    got = list(eng.stream(ReplaySource(frames), max_frames=n,
+                          want_proc=want_proc))
+    assert len(got) == n
+    ref = PipelineEngine(_engine_cfg(), device=dev)
+    src = ReplaySource(frames)
+    want = []
+    for k in range(7):
+        f, t, m = src.read_batch(4 if k < 6 else 2)
+        want += ref.process_batch(f, t, want_proc=want_proc)
+    for g, w in zip(got, want):
+        assert g.ts == w.ts and g.detections == w.detections
+        assert np.array_equal(g.proc, w.proc)
+        assert np.array_equal(g.raw, w.raw)
+    assert sum(len(r.detections) for r in got) > n
+    assert eng.timer.count["upload"] == 7
+
+
+def test_pinned_ring_is_not_overwritten_under_a_slow_consumer(dev):
+    """The consumer sleeps between results while the reader runs ahead:
+    every batch must still come out as its own frames gave it (a buffer
+    refilled too early would show another batch's frames), and results
+    already handed out must not change afterwards."""
+    import time
+
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.runtime.engine import UPLOAD_SLOTS
+    from roadvision_tpu_torch.tools.bench import ReplaySource
+    n_batches = 3 * UPLOAD_SLOTS
+    frames = [f for f, _ in _batches(n_batches)]
+    eng = PipelineEngine(_engine_cfg(), device=dev)
+    got, copies = [], []
+    for i, r in enumerate(eng.stream(ReplaySource(frames),
+                                     max_frames=n_batches * 4)):
+        got.append(r)
+        copies.append(r.proc.copy())
+        if i % 4 == 0:
+            time.sleep(0.05)
+    ref = PipelineEngine(_engine_cfg(), device="cpu")
+    src = ReplaySource(frames)
+    for k in range(n_batches):
+        f, t, _ = src.read_batch(4)
+        for j, w in enumerate(ref.process_batch(f, t)):
+            g = got[4 * k + j]
+            assert np.array_equal(g.proc, w.proc), (k, j)
+            assert np.array_equal(g.proc, copies[4 * k + j]), (k, j)
+            assert np.array_equal(g.raw, f[j])
+    assert len(eng._upload_ring) == UPLOAD_SLOTS
+    assert not any(s.uploaded for s in eng._upload_ring)
+    up = [eng.upload(frames[0]) for _ in range(UPLOAD_SLOTS)]
+    with pytest.raises(RuntimeError, match="waiting to be dispatched"):
+        eng.upload(frames[0])
+    assert torch.equal(up[0].frames.cpu(), torch.from_numpy(frames[0]))

@@ -359,6 +359,85 @@ def test_nms_single_fewer_anchors_than_max_det():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("keep", [None, (0, 2, 5)])
+@pytest.mark.parametrize("iou,max_det", [(0.7, 100), (0.3, 20)])
+def test_nms_batch_return_idx_matches_jax(keep, iou, max_det):
+    """The fifth output names each kept entry's source anchor: equal to
+    the JAX indices where valid, and it gathers the kept boxes."""
+    boxes, scores = _nms_inputs(int(iou * 10) + max_det)
+    kw = dict(conf_thres=0.25, iou_thres=iou, max_det=max_det, pre_topk=300,
+              classes_keep=keep, return_idx=True)
+    want = [np.asarray(w) for w in jnms.nms_batch(
+        jnp.asarray(boxes), jnp.asarray(scores), **kw)]
+    got = [g.numpy() for g in tnms.nms_batch(
+        torch.from_numpy(boxes), torch.from_numpy(scores), **kw)]
+    assert len(got) == 5 and got[4].dtype == np.int32
+    for w, g in zip(want[:4], got[:4]):
+        np.testing.assert_array_equal(g, w)
+    valid = got[3]
+    assert valid.any()
+    np.testing.assert_array_equal(got[4][valid], want[4][valid])
+    b_idx = np.nonzero(valid)[0]
+    np.testing.assert_array_equal(boxes[b_idx, got[4][valid]], got[0][valid])
+
+
+@pytest.mark.parametrize("n,max_det,keep", [
+    (400, 100, None), (400, 100, (0, 2, 5)), (400, 20, (1,)),
+    (40, 100, None), (7, 20, (0, 1, 2, 3, 4, 5)), (100, 100, None)])
+def test_select_topk_batch_bit_equal_with_ties(n, max_det, keep):
+    """Coarse scores give many exact ties: the lower index must come
+    first, as ``jax.lax.top_k`` orders them. N < max_det takes the pad
+    branch."""
+    boxes, scores = _nms_inputs(n + max_det, b=3, n=n)
+    scores[1] = 0.5                       # one image of nothing but ties
+    kw = dict(conf_thres=0.25, max_det=max_det, classes_keep=keep)
+    want = jnms.select_topk_batch(jnp.asarray(boxes), jnp.asarray(scores),
+                                  **kw)
+    got = tnms.select_topk_batch(torch.from_numpy(boxes),
+                                 torch.from_numpy(scores), **kw)
+    for w, g in zip(want, got):
+        assert tuple(g.shape) == w.shape and g.shape[1] == max_det
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[2].dtype == torch.int32 and got[3].dtype == torch.bool
+    assert bool(got[3].any())
+
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (270, 480), (320, 320),
+                                (97, 153), (720, 1280), (480, 640)])
+@pytest.mark.parametrize("rect", [False, True])
+@pytest.mark.parametrize("size", [640, 160])
+def test_letterbox_meta_matches_jax_and_the_transform(hw, rect, size):
+    want = jlb.letterbox_meta(*hw, size=size, rect=rect)
+    got = tlb.letterbox_meta(*hw, size=size, rect=rect)
+    assert got == want and isinstance(got[0], float)
+    if hw[0] <= 320:          # and it is what the transform itself returns
+        tfn = tlb.letterbox_rect_u8 if rect else tlb.letterbox_u8
+        _, ratio, pad = tfn(torch.zeros((1, *hw, 3), dtype=torch.uint8),
+                            size=size)
+        assert float(ratio) == np.float32(got[0])
+        assert tuple(pad.tolist()) == got[1]
+
+
+@pytest.mark.parametrize("hw,size", [((270, 480), 160), ((480, 480), 160),
+                                     ((320, 640), 160), ((97, 153), 64),
+                                     ((64, 64), 64), ((250, 333), 160)])
+def test_resize_stretch_u8_matches_jitted_jax(hw, size):
+    """Against the JAX function under ``jit`` (as decorated): the exact
+    plans (slice, 2-tap average, identity) bit for bit; the general plan
+    within 5e-5 of [0, 1], as the letterbox."""
+    rng = np.random.RandomState(hw[1])
+    frames = rng.randint(0, 256, (2, *hw, 3), dtype=np.uint8)
+    want = np.asarray(jlb.resize_stretch_u8(jnp.asarray(frames), size=size))
+    got = tlb.resize_stretch_u8(torch.from_numpy(frames), size=size)
+    assert tuple(got.shape) == want.shape == (2, size, size, 3)
+    assert got.dtype == torch.float32
+    plans = (tlb.axis_plan(hw[0], size), tlb.axis_plan(hw[1], size))
+    err = float(np.abs(got.numpy() - want).max())
+    assert err <= (5e-5 if ("general",) in plans else 0.0), (plans, err)
+    one = tlb.resize_stretch_u8(torch.from_numpy(frames[0]), size=size)
+    np.testing.assert_array_equal(one.numpy()[0], got.numpy()[0])
+
+
 def _proj_cfg():
     return {"type": "homography",
             "image_points": [[0, 480], [640, 480], [0, 192], [640, 192]],

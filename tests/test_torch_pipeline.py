@@ -199,7 +199,7 @@ def test_stream_over_synthetic_source():
     assert all(r.proc.shape == (64, 96, 3) for r in out)
     assert [r.ts for r in out] == sorted(r.ts for r in out)
     with pytest.raises(NotImplementedError):
-        VideoSource("video.mp4")
+        VideoSource("synthetic_fog:medium")
 
     class Broken:
         def read_batch(self, n):

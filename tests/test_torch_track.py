@@ -6,6 +6,12 @@ must be identical; distances and speeds agree within float32 noise
 (rtol 1e-3: the Kalman solve and hypot round differently in the two
 libraries). The same scenarios also go through
 ``tests/oracles/sort_oracle.py``, the float64 reading of the reference.
+
+The host API (``SortTracker``, the registry, ``interpolate_gaps``) and
+the NSA Kalman are held the same way: ids bit-equal, NSA's Kalman state
+within 1e-5 relative (of each array's largest magnitude), and a state
+taken over from the JAX step by ``state_from_jax`` continues with the
+JAX ids.
 """
 import numpy as np
 import pytest
@@ -15,8 +21,15 @@ import jax
 import jax.numpy as jnp
 
 from roadvision_tpu.geometry import build_projector as jbuild_projector
+from roadvision_tpu.detect.types import Detection as JDetection
+from roadvision_tpu.track import build_tracker as jbuild_tracker
 from roadvision_tpu.track import sort_tpu as jsort
+from roadvision_tpu.track.postprocess import interpolate_gaps as jinterp
+from roadvision_tpu_torch.detect import Detection
 from roadvision_tpu_torch.geometry import build_projector as tbuild_projector
+from roadvision_tpu_torch.track import (SortTracker, Tracker,
+                                        build_device_step, build_tracker,
+                                        interpolate_gaps)
 from roadvision_tpu_torch.track import sort as tsort
 from tests.oracles.sort_oracle import SortOracle
 
@@ -190,4 +203,184 @@ def test_iou_matrix_matches_jax():
                                  {"gmc": True}])
 def test_unported_tracking_configs_raise(cfg):
     with pytest.raises(NotImplementedError):
-        tsort.build_sort_step(cfg)
+        build_device_step(cfg)
+
+
+def test_registry_names():
+    with pytest.raises(NotImplementedError, match="botsort"):
+        build_tracker({"backend": "botsort"}, device="cpu")
+    with pytest.raises(ValueError, match="unknown tracking backend"):
+        build_tracker({"backend": "kalman9000"}, device="cpu")
+    with pytest.raises(ValueError, match="unknown tracking backend"):
+        build_device_step({"backend": "kalman9000"})
+    trk = build_tracker({"backend": "sort", "nsa": True}, device="cpu")
+    assert isinstance(trk, SortTracker) and isinstance(trk, Tracker)
+    assert trk.nsa and trk.track_slots == 100 and trk.det_capacity == 100
+    assert callable(build_device_step({"nsa": True}))
+
+
+def _conf_for(f, k):
+    return np.float32(0.35 + 0.6 * ((7 * f + 3 * k) % 10) / 10.0)
+
+
+@pytest.mark.parametrize("name", ["crossing", "many_objects",
+                                  "missed_then_reacquired"])
+def test_nsa_ids_bit_equal_and_kalman_state_close(name):
+    """NSA on, confidences varying per detection and frame (one at 1.0
+    hits the 1e-3 floor): ids bit-equal in every frame; the Kalman mean
+    and covariance stay within 1e-5 of each array's largest magnitude."""
+    cfg = dict(CFG, nsa=True)
+    jstep = jax.jit(jsort.make_sort_step(**cfg))
+    tstep = tsort.make_sort_step(**cfg)
+    jstate, tstate = jsort.init_state(T), tsort.init_state(T, device="cpu")
+    cls = np.full((D,), 2, np.int32)
+    t = 0.0
+    differs_from_plain = False
+    pstate = tsort.init_state(T, device="cpu")
+    pstep = tsort.make_sort_step(**CFG)
+    for f, (dt, boxes) in enumerate(SCENARIOS[name]):
+        t += dt
+        b, v = _pack(boxes)
+        conf = np.array([_conf_for(f, k) for k in range(D)], np.float32)
+        conf[0] = 1.0
+        jstate, jo = jstep(jstate, jnp.asarray(b), jnp.asarray(cls),
+                           jnp.asarray(conf), jnp.asarray(v),
+                           jnp.float32(t), None)
+        args = (torch.from_numpy(b), torch.from_numpy(cls),
+                torch.from_numpy(conf), torch.from_numpy(v),
+                torch.tensor(t, dtype=torch.float32), None)
+        tstate, to = tstep(tstate, *args)
+        pstate, _ = pstep(pstate, *args)
+        np.testing.assert_array_equal(to.track_id.numpy(),
+                                      np.asarray(jo.track_id))
+        for field in ("mean", "cov"):
+            want = np.asarray(getattr(jstate, field))
+            got = getattr(tstate, field).numpy()
+            alive = np.asarray(jstate.alive)
+            scale = np.abs(want[alive]).max() if alive.any() else 1.0
+            np.testing.assert_allclose(got[alive], want[alive], rtol=0,
+                                       atol=1e-5 * scale, err_msg=field)
+        differs_from_plain |= not torch.equal(tstate.mean, pstate.mean)
+    assert differs_from_plain        # NSA did change the update
+    np.testing.assert_array_equal(
+        tsort.nsa_r_scale(torch.tensor([0.0, 0.4, 0.9995, 1.0])).numpy(),
+        np.asarray(jsort.nsa_r_scale(jnp.asarray([0.0, 0.4, 0.9995, 1.0]))))
+
+
+def _dets(cls_type, boxes, f):
+    return [cls_type(*map(float, box), float(_conf_for(f, k)), 2, "car",
+                     track_id=99, distance_m=1.0, speed_kmh=2.0)
+            for k, box in enumerate(boxes)]
+
+
+@pytest.mark.parametrize("nsa", [False, True])
+@pytest.mark.parametrize("name", ["crossing", "many_objects",
+                                  "approach_with_speed"])
+def test_sort_tracker_matches_jax_tracker(name, nsa):
+    """The list-of-Detection API: stale enrichment cleared, ids equal,
+    distance and speed as the step test (rtol 1e-3), None for None."""
+    cfg = dict(CFG, min_hits=3, det_capacity=D, track_slots=T, nsa=nsa)
+    jtrk = jbuild_tracker(cfg)
+    ttrk = build_tracker(cfg, device="cpu")
+    jp = jbuild_projector(_proj_cfg())
+    tp = tbuild_projector(_proj_cfg(), device="cpu")
+    t = 1.7e9
+    seen_speed = False
+    for f, (dt, boxes) in enumerate(SCENARIOS[name]):
+        t += dt
+        want = jtrk.update(_dets(JDetection, boxes, f), t, projector=jp)
+        got = ttrk.update(_dets(Detection, boxes, f), t, projector=tp)
+        assert len(got) == len(want) == len(boxes)
+        for g, w in zip(got, want):
+            assert g.track_id == w.track_id and g.track_id != 99
+            for a, b in ((g.distance_m, w.distance_m),
+                         (g.speed_kmh, w.speed_kmh)):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert abs(a - b) <= 1e-3 * max(1.0, abs(b))
+            seen_speed |= g.speed_kmh is not None
+    assert seen_speed
+    for field in ("alive", "ids", "hits", "hit_streak", "next_id"):
+        np.testing.assert_array_equal(
+            getattr(ttrk.state, field).numpy(),
+            np.asarray(getattr(jtrk.state, field)), err_msg=field)
+    ttrk.reset()
+    assert not bool(ttrk.state.alive.any()) and int(ttrk.state.next_id) == 1
+    out = ttrk.update(_dets(Detection, [(0, 0, 10, 10)], 0), 5.0)
+    assert out[0].track_id == 1 and out[0].distance_m is None
+
+
+def test_sort_tracker_refuses_what_it_cannot_take():
+    trk = SortTracker({"det_capacity": 2, "track_slots": 4}, device="cpu")
+    with pytest.raises(ValueError, match="exceed det_capacity"):
+        trk.update(_dets(Detection, [(0, 0, 5, 5)] * 3, 0), 0.0)
+    with pytest.raises(TypeError, match="HomographyProjector"):
+        trk.update([], 0.0, projector=object())
+    with pytest.warns(UserWarning, match="track_slots=2 < det_capacity=8"):
+        SortTracker({"det_capacity": 8, "track_slots": 2}, device="cpu")
+    if torch.cuda.is_available():       # the card by default
+        assert SortTracker({}).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SortTracker({})
+
+
+def test_state_from_jax_continues_with_the_jax_ids():
+    """Half a scenario through the JAX step, the state carried over, the
+    rest through both: same ids, and the carried fields are the JAX
+    state's with the dtypes ``init_state`` uses."""
+    seq = SCENARIOS["many_objects"]
+    jp = jbuild_projector(_proj_cfg()).device_params()
+    tp = tbuild_projector(_proj_cfg(), device="cpu").device_params()
+    tstep = tsort.make_sort_step(**CFG)
+    jstate = jsort.init_state(T)
+    cls = np.full((D,), 2, np.int32)
+    conf = np.full((D,), 0.9, np.float32)
+    t = 0.0
+    tstate = None
+    for f, (dt, boxes) in enumerate(seq):
+        t += dt
+        b, v = _pack(boxes)
+        if f == 7:
+            arrays = {k: np.asarray(a) for k, a in jstate._asdict().items()}
+            tstate = tsort.state_from_jax(arrays, device="cpu")
+            ref = tsort.init_state(T, device="cpu")
+            for k in tsort.SortState._fields:
+                got = getattr(tstate, k)
+                assert got.dtype == getattr(ref, k).dtype, k
+                np.testing.assert_array_equal(got.numpy(), arrays[k])
+        jstate, jo = _JSTEP(jstate, jnp.asarray(b), jnp.asarray(cls),
+                            jnp.asarray(conf), jnp.asarray(v),
+                            jnp.float32(t), jp)
+        if tstate is not None:
+            tstate, to = tstep(
+                tstate, torch.from_numpy(b), torch.from_numpy(cls),
+                torch.from_numpy(conf), torch.from_numpy(v),
+                torch.tensor(t, dtype=torch.float32), tp)
+            np.testing.assert_array_equal(to.track_id.numpy(),
+                                          np.asarray(jo.track_id))
+            np.testing.assert_allclose(to.speed_kmh.numpy(),
+                                       np.asarray(jo.speed_kmh), rtol=1e-3,
+                                       atol=1e-3, equal_nan=True)
+    assert int(tstate.next_id) == int(jstate.next_id) > 6
+    with pytest.raises(ValueError, match="missing fields"):
+        tsort.state_from_jax({"mean": np.zeros((T, 7), np.float32)},
+                             device="cpu")
+
+
+@pytest.mark.parametrize("max_gap", [0, 1, 3, 10])
+def test_interpolate_gaps_equals_jax(max_gap):
+    rng = np.random.RandomState(max_gap)
+    frames = []
+    for f in range(14):
+        rows = []
+        for tid in (1, 2, 3, 7):
+            if (f * 3 + tid) % 5 < 2 or (tid == 7 and 3 < f < 9):
+                continue               # gaps of several lengths
+            x, y = rng.uniform(0, 300, 2)
+            rows.append((x, y, x + 30, y + 20, tid, rng.uniform(), x / 10))
+        frames.append(rows)
+    assert interpolate_gaps(frames, max_gap) == jinterp(frames, max_gap)
+    if max_gap >= 3:
+        assert sum(map(len, interpolate_gaps(frames, max_gap))) \
+            > sum(map(len, frames))
