@@ -52,7 +52,21 @@ Phases, in order; any failure exits non-zero:
      (``SortTracker.update`` over the engine's detections gives the
      engine's ids) and ``[bench]`` (the port bench in-process at a small
      iteration count);
-  6. print the kernels' JSON line, the card line, and last the ok line.
+  6. ``[detector]``: the same config with the detector swapped — (a)
+     YOLOv5n from its asset (conf 0.5), (b) YOLO11n, (c-e) v8n seg /
+     pose / obb, (f) int8 with ``int8_calibration: 8``, (g) TTA, (h)
+     tiling (tile 640, overlap 0.25, full frame) — each one float32 (f:
+     int8) batch on the card against the CPU path (TTA and tiling: the
+     CPU takes the first 2 frames; masks, keypoints and rotated boxes
+     held to the tolerances printed; int8 to float32's) and timed
+     bfloat16 (int8) batches as tools/bench.py times them (median, min
+     and max of 3 windows of 2 batches; stage ms of 3 batches), launches
+     1 / 1 / 1 per batch; (i) the
+     yolov8n asset as ONNX (``detect.backend: onnx``) and as a ``.pt``
+     state dict: detections ``==`` to the ``.npz`` run
+     (``chiprun_out/detector.json``);
+  7. print the command time, the kernels' JSON line, the card line, and
+     last the ok line.
 
 Options: ``--kernels-only`` stops after phase 3; ``--profile`` adds a
 torch.profiler pass over one bfloat16 batch (device busy share, kernel
@@ -89,6 +103,7 @@ K3_OPS_PER_PIXEL = 28
 L2_FLUSH_BYTES = 256 << 20         # well over the card's 50 MB L2
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 BOX_TOL, CONF_TOL = 0.05, 2e-3     # as tests/test_torch_pipeline.py
+T_START = time.perf_counter()
 GATE_RTOL = 1e-5                   # impulse statistic, card against CPU
 
 
@@ -831,6 +846,280 @@ def bench_phase(model: str, card: str) -> dict:
     return line
 
 
+# [detector]: per path, what the card's float32 batch is held to against
+# the CPU path beside the boxes and confidences (BOX_TOL, CONF_TOL):
+# masks at prototype resolution, keypoints (x, y px; visibility),
+# rotated boxes (cx, cy, w, h px; θ rad)
+MASK_TOL = 1e-3                # soft mask values inside both crops
+MASK_EDGE_SHARE = 1e-3         # pixels inside one crop only (box-edge ulps)
+KPT_TOL, VIS_TOL = 0.05, 2e-3
+RBOX_TOL, ANGLE_TOL = 0.05, 1e-4
+# timed bf16 (int8) runs per path, as tools/bench.py times the main
+# path: DET_WINDOWS windows of DET_ITERS batches (frames/s median, min,
+# max), and the stage ms of DET_WINDOWS single batches (median, min, max)
+DET_ITERS, DET_WINDOWS = 2, 3
+
+
+def _trained_task_tree(task: str, nc: int, tmp: Path) -> str:
+    """A v8n ``task`` tree, seeded, with the trained yolov8n's weights
+    wherever the two share a parameter: the shapes of a random head
+    (scores within 1e-4 of the prior everywhere) would leave the
+    card-vs-CPU comparison to the order of equal scores. The single
+    pose class takes the trained car row, the 15 obb classes the first
+    15 rows. Written as the repo's .npz; returns its path."""
+    from roadvision_tpu_torch.models.yolo import weights as W
+    assets = Path(__file__).resolve().parent / "assets"
+    trained = W.flatten_tree(W.import_npz(assets
+                                          / "yolov8n_synthetic_256.npz"))
+    tree = W.flatten_tree(W.tree_from_model(W.random_model("v8", task, "n",
+                                                           nc, seed=0)))
+    rows = {1: [2], 15: list(range(15)), 80: list(range(80))}[nc]
+    for k, v in tree.items():
+        if k not in trained:
+            continue                       # cv4 / proto: seeded random
+        t = trained[k]
+        if t.shape != v.shape:
+            # the class branch, 64 wide below 80 classes: its first
+            # channels, and the chosen class rows in the last conv
+            final = ".cv3." in k and k.rsplit(".", 2)[1] == "2"
+            t = t[tuple(rows if final and d == t.ndim - 1 else slice(0, n)
+                        for d, n in enumerate(v.shape))]
+        tree[k] = t
+    path = tmp / f"yolov8n-{task}.npz"
+    W.export_npz(W.unflatten_tree(tree), path)
+    return str(path)
+
+
+def _spread_yolo11_tree(frames: np.ndarray, tmp: Path) -> str:
+    """A seeded YOLO11n (nc 80) whose last box and class convs are
+    rescaled about their mean so that the logits spread (σ 1 and 3):
+    unscaled, every anchor's scores sit within 1e-4 of the prior.
+    Measured on the first frame through the CPU model."""
+    import torch
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.ops.letterbox import letterbox_rect_u8
+    model = W.random_model("11", "detect", "n", 80, seed=0).eval()
+    head = model.layers["23"]
+    finals = [(head.cv2[lvl][2], 1.0) for lvl in range(3)] \
+        + [(head.cv3[lvl][2], 3.0) for lvl in range(3)]
+    seen = {}
+    hooks = [conv.register_forward_hook(
+        lambda m, i, o: seen.__setitem__(m, o - m.bias[:, None, None]))
+        for conv, _ in finals]
+    imgs = letterbox_rect_u8(torch.from_numpy(frames[:1]), 640)[0]
+    with torch.no_grad():
+        model(imgs)
+        for conv, sigma in finals:
+            raw = seen[conv]
+            scale = sigma / float(raw.std())
+            conv.weight.mul_(scale)
+            conv.bias.sub_(scale * raw.mean(dim=(0, 2, 3)))
+    for h in hooks:
+        h.remove()
+    path = tmp / "yolo11n-spread.npz"
+    W.export_npz(W.tree_from_model(model), path)
+    return str(path)
+
+
+def detector_paths(frames: np.ndarray, tmp: Path) -> dict:
+    """(name → (detect overrides, frames the CPU side takes)) for (a)-(h)."""
+    assets = Path(__file__).resolve().parent / "assets"
+    v8 = str(assets / "yolov8n_synthetic_256.npz")
+    return {
+        "a yolov5n": ({"model": str(assets / "yolov5n_synthetic_256.npz"),
+                       "conf_thres": 0.5}, BATCH),
+        "b yolo11n": ({"model": _spread_yolo11_tree(frames, tmp)}, BATCH),
+        "c v8n-seg": ({"model": _trained_task_tree("segment", 80, tmp)},
+                      BATCH),
+        # the 64-wide class branch keeps 64 of the trained 80 channels:
+        # its best car scores reach ~0.16, so these two threshold at 0.01
+        "d v8n-pose": ({"model": _trained_task_tree("pose", 1, tmp),
+                        "conf_thres": 0.01}, BATCH),
+        "e v8n-obb": ({"model": _trained_task_tree("obb", 15, tmp),
+                       "conf_thres": 0.01}, BATCH),
+        "f int8": ({"model": v8, "compute_dtype": "int8",
+                    "int8_calibration": BATCH}, BATCH),
+        "g tta": ({"model": v8, "tta": True}, 2),
+        "h tiling": ({"model": v8, "tiling": {
+            "enable": True, "tile": 640, "overlap": 0.25,
+            "full_frame": True}}, 2),
+    }
+
+
+def compare_task_results(cpu, gpu, name: str) -> dict:
+    """The card's detections against the CPU path's: count, class and
+    track id equal; boxes and confidences within BOX_TOL / CONF_TOL (int8
+    too: both devices quantise the same activations to the same steps);
+    the task's side output within its own. Returns the largest errors."""
+    box_tol, conf_tol = BOX_TOL, CONF_TOL
+    worst = {"box": 0.0, "conf": 0.0}
+    for fi, (a, b) in enumerate(zip(cpu, gpu)):
+        if not np.array_equal(a.proc, b.proc):
+            fail(f"[detector] {name}: frame {fi}: processed frame differs")
+        if len(a.detections) != len(b.detections):
+            fail(f"[detector] {name}: frame {fi}: {len(a.detections)} CPU "
+                 f"detections vs {len(b.detections)} on the card")
+        for da, db in zip(a.detections, b.detections):
+            if (da.cls_id, da.track_id) != (db.cls_id, db.track_id):
+                fail(f"[detector] {name}: frame {fi}: class/track id "
+                     f"({da.cls_id},{da.track_id}) vs "
+                     f"({db.cls_id},{db.track_id})")
+            box = max(abs(p - q) for p, q in zip(
+                (da.x1, da.y1, da.x2, da.y2), (db.x1, db.y1, db.x2, db.y2)))
+            conf = abs(da.conf - db.conf)
+            worst["box"], worst["conf"] = max(worst["box"], box), \
+                max(worst["conf"], conf)
+            if box > box_tol or conf > conf_tol:
+                fail(f"[detector] {name}: frame {fi}: box err {box} / conf "
+                     f"err {conf} over {box_tol} / {conf_tol}")
+            if da.mask is not None:
+                ma, mb = np.asarray(da.mask), np.asarray(db.mask)
+                both = (ma > 0) & (mb > 0)
+                edge = float(((ma > 0) != (mb > 0)).mean())
+                err = float(np.abs(ma - mb)[both].max()) if both.any() \
+                    else 0.0
+                worst["mask"] = max(worst.get("mask", 0.0), err)
+                worst["mask_edge_share"] = max(
+                    worst.get("mask_edge_share", 0.0), edge)
+                if err > MASK_TOL or edge > MASK_EDGE_SHARE:
+                    fail(f"[detector] {name}: mask err {err} / edge share "
+                         f"{edge}")
+            if da.keypoints is not None:
+                ka, kb = np.asarray(da.keypoints), np.asarray(db.keypoints)
+                xy = float(np.abs(ka[:, :2] - kb[:, :2]).max())
+                vis = float(np.abs(ka[:, 2] - kb[:, 2]).max())
+                worst["kpt"] = max(worst.get("kpt", 0.0), xy)
+                worst["vis"] = max(worst.get("vis", 0.0), vis)
+                if xy > KPT_TOL or vis > VIS_TOL:
+                    fail(f"[detector] {name}: keypoint err {xy} / vis {vis}")
+            if da.rbox is not None:
+                ra, rb = np.asarray(da.rbox), np.asarray(db.rbox)
+                geo = float(np.abs(ra[:4] - rb[:4]).max())
+                ang = float(abs(ra[4] - rb[4]))
+                worst["rbox"] = max(worst.get("rbox", 0.0), geo)
+                worst["angle"] = max(worst.get("angle", 0.0), ang)
+                if geo > RBOX_TOL or ang > ANGLE_TOL:
+                    fail(f"[detector] {name}: rbox err {geo} / angle {ang}")
+    return worst
+
+
+def detector_phase(batches, card: str, tmp: Path) -> dict:
+    """(a)-(h) through ``process_batch`` at 1080p x 8 with the default
+    chain: one float32 (int8) batch on the card against the CPU path,
+    then timed bfloat16 (int8) batches; launches 1 / 1 / 1 per batch on
+    each path. (i): the yolov8n asset exported to ONNX and to a .pt
+    state dict gives detections equal to the .npz run."""
+    import torch
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.tools.bench import stage_ms, windows_fps
+    frames, ts = batches[0]
+    print(f"[detector] card vs CPU tolerances: boxes {BOX_TOL} px, conf "
+          f"{CONF_TOL}; masks {MASK_TOL} inside both crops, at most "
+          f"{MASK_EDGE_SHARE:.1%} of pixels inside one crop only; "
+          f"keypoints {KPT_TOL} px, visibility {VIS_TOL}; rboxes {RBOX_TOL} "
+          f"px, angle {ANGLE_TOL} rad; int8 as float32", flush=True)
+    out = {}
+    for name, (over, n_cpu) in detector_paths(frames, tmp).items():
+        t0 = time.perf_counter()
+        int8 = over.get("compute_dtype") == "int8"
+        cfg = merge(pipeline_cfg(over["model"]), {"detect": over})
+        cfg32 = merge(cfg, {"tpu": {"compute_dtype": "int8" if int8
+                                    else "float32"}})
+        gpu = PipelineEngine(cfg32, device="cuda")
+        cpu = PipelineEngine(cfg32, device="cpu")
+        with PathLaunches(f"[detector] {name}") as pl:
+            r_gpu = gpu.process_batch(frames, ts)
+            pl.check(1)
+        r_cpu = cpu.process_batch(frames[:n_cpu], ts[:n_cpu])
+        worst = compare_task_results(r_cpu, r_gpu[:n_cpu], name)
+        n_dets = sum(len(r.detections) for r in r_cpu)
+        if n_dets == 0:
+            fail(f"[detector] {name}: no detections to compare")
+        task = gpu.detector.task
+        # timed: bf16 (int8 stays int8, its scales already calibrated)
+        timed_eng = gpu if int8 else PipelineEngine(cfg, device="cuda")
+        timed_eng.process_batch(*batches[1], want_proc=False)  # warm-up
+        fed = iter(range(2 * BATCH, 10 ** 9, BATCH))   # next frame index
+
+        def window() -> int:
+            for _ in range(DET_ITERS):
+                k = next(fed)
+                timed_eng.process_batch(
+                    batches[2 + (k // BATCH - 2) % (len(batches) - 2)][0],
+                    1000.0 + (k + np.arange(BATCH)) / 30.0, want_proc=False)
+            return DET_ITERS * BATCH
+
+        with PathLaunches(f"[detector] {name} timed") as pl:
+            fps = windows_fps(window, DET_WINDOWS, torch.device("cuda"))
+            counts = pl.check(DET_ITERS * DET_WINDOWS)
+        runs = [stage_ms(timed_eng, *batches[1]) for _ in range(DET_WINDOWS)]
+        stages = {k: {"median": float(np.median([r[k] for r in runs])),
+                      "min": min(r[k] for r in runs),
+                      "max": max(r[k] for r in runs)} for k in runs[0]}
+        dtype = "int8" if int8 else "bfloat16"
+        print(f"[detector] {name} ({gpu.detector.arch}/{task}, "
+              f"{'int8' if int8 else 'float32'} vs CPU on {n_cpu} frames): "
+              f"{n_dets} detections match, worst "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+              + f"; {dtype} frames/s median {fps['median']:.1f} (min "
+              f"{fps['min']:.1f}, max {fps['max']:.1f}) over {DET_WINDOWS} "
+              f"windows of {DET_ITERS} batches, stage ms median [min, max] "
+              + json.dumps({k: [round(v["median"], 3), round(v["min"], 3),
+                                round(v["max"], 3)]
+                            for k, v in stages.items()})
+              + f"; launches {counts} ({card}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out[name] = {"task": task, "arch": gpu.detector.arch,
+                     "detections": n_dets, "cpu_frames": n_cpu,
+                     "worst": worst, "fps": fps, "dtype": dtype,
+                     "stage_ms": stages, "launches": counts}
+    out["i export"] = export_phase(batches, tmp, card)
+    return out
+
+
+def export_phase(batches, tmp: Path, card: str) -> dict:
+    """The yolov8n asset as ONNX (``detect.backend: onnx``) and as a .pt
+    state dict: float32 detections ``==`` to the .npz run's."""
+    import torch
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.models.yolo import onnx_io
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    npz = str(Path(__file__).resolve().parent / "assets"
+              / "yolov8n_synthetic_256.npz")
+    tree = W.import_npz(npz)
+    onnx = tmp / "yolov8n.onnx"
+    onnx_io.export_onnx(tree, onnx)
+    pt = tmp / "yolov8n.pt"
+    torch.save({k: torch.from_numpy(v) for k, v in
+                onnx_io.params_to_state_dict(tree).items()}, pt)
+    runs = {}
+    for name, over in (("npz", {"model": npz}),
+                       ("onnx", {"model": str(onnx), "backend": "onnx"}),
+                       ("pt", {"model": str(pt)})):
+        cfg = merge(pipeline_cfg(npz), {"detect": over,
+                                        "tpu": {"compute_dtype": "float32"}})
+        eng = PipelineEngine(cfg, device="cuda")
+        if not eng.detector.loaded:
+            fail(f"[detector] i export: {name} did not load")
+        with PathLaunches(f"[detector] i {name}") as pl:
+            runs[name] = [eng.process_batch(f, t, want_proc=False)
+                          for f, t in batches[:2]]
+            pl.check(2)
+    n = 0
+    for name in ("onnx", "pt"):
+        for a, b in zip(runs["npz"], runs[name]):
+            n = same_detections(a, b, f"[detector] i {name}")
+    if n == 0:
+        fail("[detector] i export: no detections to compare")
+    print(f"[detector] i export: the yolov8n asset as ONNX (backend onnx) "
+          f"and as a .pt state dict gives detections == to the .npz run "
+          f"over 2 batches ({n} in the last); launches 2 / 2 / 2 each "
+          f"({card})", flush=True)
+    return {"detections_last_batch": n}
+
+
 def profile_batch(engine, frames, ts) -> dict:
     """torch.profiler over one bf16 batch: device busy share, kernel
     launches, and the top kernels and host ops (full tables to
@@ -932,6 +1221,9 @@ def main() -> int:
             "tracker": tracker_phase(model, batches),
         }
     entries["bench"] = bench_phase(model, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        detector = detector_phase(batches, card, Path(tmp))
+    (out_dir / "detector.json").write_text(json.dumps(detector, indent=1))
 
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
@@ -997,6 +1289,8 @@ def main() -> int:
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
         "second_paths": paths, "entries": entries}
     (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
+          f"(the kernels' build included)", flush=True)
     print(json.dumps(line), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

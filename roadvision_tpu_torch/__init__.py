@@ -2,7 +2,10 @@
 
 The default realtime pipeline (BGR→YCrCb, CLAHE on luma, YCrCb→BGR,
 3×3 median, rect letterbox, YOLOv8, class-aware NMS, SORT, homography
-distance/speed) runs on an NVIDIA Hopper card, with hand-written CUDA
+distance/speed) runs on an NVIDIA Hopper card; the detector also runs
+YOLOv5 and YOLO11, the segment / pose / obb heads (and a classifier),
+int8, test-time augmentation and tiling, from ``.npz``, ``.pt`` or
+``.onnx`` weights. Hand-written CUDA
 kernels for the CLAHE tile-LUT build, the CLAHE LUT apply and the median
 (``roadvision_tpu_torch/csrc``). Every kernel has a plain PyTorch version
 beside it, which is what a tensor on the CPU runs.

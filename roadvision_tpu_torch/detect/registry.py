@@ -1,11 +1,13 @@
 """Detector registry — the port of ``roadvision_tpu/detect/registry.py``.
 
-"ultralytics" (the reference's name), "jax", "yolov8" and "torch" all
-resolve to :class:`YOLOTorch`, the YOLOv8 detect backend. The backends
-and model families the JAX package has and the port has not yet ("onnx",
-RT-DETR; YOLOv5, YOLO11 and the task heads inside ``YOLOTorch``) raise
-``NotImplementedError`` by name; an unknown backend is a ``ValueError``,
-as in the JAX package.
+"ultralytics" (the reference's name), "jax", "yolov8", "torch" and
+"onnx" resolve to :class:`YOLOTorch`. "onnx" reads the configured
+``.onnx`` export's weight initializers (models/yolo/onnx_io.py, no
+onnxruntime) into the same PyTorch model, and fails fast unless
+``detect.model`` names an existing ``.onnx`` file. RT-DETR models (by
+name, or an exported ``.npz`` whose keys start ``Lbackbone``) raise
+``NotImplementedError``: they are ROADMAP queue A item 6. "tensorrt" is
+a ``ValueError``, an unknown backend too, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 from ..utils.device import DeviceLike
 from .base import Detector
 
-BACKENDS = ("ultralytics", "jax", "yolov8", "torch")
+BACKENDS = ("ultralytics", "jax", "yolov8", "torch", "onnx")
 
 
 def _is_rtdetr(model: str) -> bool:
@@ -36,16 +38,27 @@ def build_detector(cfg: Dict[str, Any], device: DeviceLike = None,
                    seed: int = 0) -> Detector:
     backend = (cfg.get("backend") or "ultralytics").lower()
     if backend in BACKENDS:
-        if _is_rtdetr(str(cfg.get("model", ""))):
+        model = str(cfg.get("model", ""))
+        if backend == "onnx":
+            if not model.endswith(".onnx"):
+                raise ValueError(
+                    f"detect.backend 'onnx' needs detect.model to be a "
+                    f".onnx file (got {model!r})")
+            if not Path(model).exists():
+                # an explicitly configured interchange file: fail fast
+                # rather than run random-init weights
+                raise FileNotFoundError(
+                    f"detect.backend 'onnx': model file not found: {model}")
+        if _is_rtdetr(model):
             raise NotImplementedError(
-                "RT-DETR is not ported to roadvision_tpu_torch yet")
+                "RT-DETR is not ported to roadvision_tpu_torch yet "
+                "(ROADMAP queue A item 6)")
         from .yolo_torch import YOLOTorch
         return YOLOTorch(cfg, device=device, seed=seed)
-    if backend == "onnx":
-        raise NotImplementedError(
-            "detect.backend 'onnx' is not ported to roadvision_tpu_torch yet")
     if backend == "tensorrt":
         raise ValueError(
-            "detect.backend 'tensorrt' is not provided; use backend "
-            "'ultralytics' (alias 'torch'), which runs the PyTorch model")
+            "detect.backend 'tensorrt' is not provided: the port runs the "
+            "PyTorch model (cuDNN convolutions, hand-written CUDA kernels "
+            "for the preprocess chain); use backend 'ultralytics' (alias "
+            "'torch'), or 'onnx' to load an .onnx export's weights")
     raise ValueError(f"unknown detect backend: {backend}")

@@ -2,9 +2,8 @@
 
 ``Detection`` is the inter-layer contract: bbox + conf + class,
 progressively enriched by tracking (track_id), geometry (distance_m) and
-speed estimation (speed_kmh). The task-head fields (mask, keypoints,
-rbox) are carried so that overlays and round trips match the JAX
-package's; the heads that fill them are not ported yet.
+speed estimation (speed_kmh), and by the task heads (mask, keypoints,
+rbox) of the segment, pose and obb detectors.
 
 ``DetectionBatch`` is the struct-of-arrays form: fixed-capacity arrays
 with a validity mask. Conversion to and from the list-of-``Detection``
@@ -61,6 +60,10 @@ class Detection:
     # obb task only: (5,) rotated box — cx, cy, w, h in SOURCE-frame
     # pixels, θ radians; x1y1x2y2 then hold the enclosing AABB.
     rbox: Optional[np.ndarray] = None
+
+
+# a task head's Detection field → the DetectionBatch field that carries it
+BATCH_FIELD = {"mask": "masks", "keypoints": "keypoints", "rbox": "rboxes"}
 
 
 @dataclass

@@ -1,9 +1,15 @@
 """YOLOv8 as an ``nn.Module`` — the port of
-``roadvision_tpu/models/yolo/yolov8.py``.
+``roadvision_tpu/models/yolo/yolov8.py``, and what the families share.
 
 Conv+SiLU stem, C2f stages, SPPF, FPN/PAN neck, decoupled Detect head
 with DFL box regression at strides 8/16/32, sizes n/s/m/l/x. BatchNorm
 is fused into each conv's weight and bias, as in the JAX package.
+``YOLOBase`` holds the compute dtype and the NHWC boundary for YOLOv8,
+YOLO11 (yolo11.py) and YOLOv5 (yolov5.py); a task head attached to the
+detect layer (yolov8_seg.py, yolov8_pose.py, yolov8_obb.py) adds its
+outputs after the boxes and scores, as ``forward_fn`` dispatches in
+``yolo_jax.py``. ``Conv`` infers grouped (depthwise) convolutions from
+the kernel's input width, as ``_conv`` does.
 
 The public boundary keeps the JAX package's NHWC layout: ``forward``
 takes (B, H, W, 3) float in [0, 1] and returns (boxes (B, N, 4) xyxy in
@@ -59,19 +65,26 @@ def arch_spec(size: str = "n", nc: int = 80) -> Dict[str, Any]:
 
 
 class Conv(nn.Module):
-    """Fused Conv(+bias)(+SiLU), autopad k//2, NCHW."""
+    """Fused Conv(+bias)(+SiLU), autopad k//2 unless ``pad`` is given
+    (YOLOv5's 6×6 stem takes 2), NCHW. ``groups`` only shapes the
+    weight: the forward infers the group count from the input's width
+    over the weight's, as ``_conv`` does (yolov8.py:150-175), so a
+    depthwise kernel (C, 1, k, k) runs depthwise."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 act: bool = True):
+                 act: bool = True, groups: int = 1,
+                 pad: Optional[int] = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.stride = stride
-        self.pad = k // 2
+        self.pad = k // 2 if pad is None else pad
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, None, self.stride, self.pad)
+        x = x.to(self.weight.dtype)
+        y = F.conv2d(x, self.weight, None, self.stride, self.pad, 1,
+                     x.shape[1] // self.weight.shape[1])
         y = y.float() + self.bias[:, None, None]
         if not self.act:
             return y                      # head outputs stay f32
@@ -117,26 +130,34 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat([y, y1, y2, y3], dim=1))
 
 
+def branch(cin: int, c: int, cout: int) -> nn.ModuleList:
+    """A head branch: Conv k3 → Conv k3 → 1×1 to ``cout`` (no SiLU)."""
+    return nn.ModuleList([Conv(cin, c, 3), Conv(c, c, 3),
+                          Conv(c, cout, 1, act=False)])
+
+
+def run_branch(stages, x: torch.Tensor) -> torch.Tensor:
+    for m in stages:
+        x = m(x)
+    return x
+
+
 class Detect(nn.Module):
+    """Decoupled head: box (``cv2``) and class (``cv3``) branches per
+    level. The task heads attach a third per-level branch ``cv4`` (mask
+    coefficients, keypoints or the angle) and the segment task a
+    ``proto`` module (models/yolo/yolov8_{seg,pose,obb}.py)."""
+
     def __init__(self, ch_det: Sequence[int], c2: int, c3: int, nc: int):
         super().__init__()
-        self.cv2 = nn.ModuleList(nn.ModuleList(
-            [Conv(ch, c2, 3), Conv(c2, c2, 3),
-             Conv(c2, 4 * REG_MAX, 1, act=False)]) for ch in ch_det)
-        self.cv3 = nn.ModuleList(nn.ModuleList(
-            [Conv(ch, c3, 3), Conv(c3, c3, 3),
-             Conv(c3, nc, 1, act=False)]) for ch in ch_det)
+        self.cv2 = nn.ModuleList(branch(ch, c2, 4 * REG_MAX) for ch in ch_det)
+        self.cv3 = nn.ModuleList(branch(ch, c3, nc) for ch in ch_det)
+        self.cv4: Optional[nn.ModuleList] = None
+        self.proto: Optional[nn.Module] = None
 
     def forward(self, feats):
-        outs = []
-        for lvl, f in enumerate(feats):
-            b, c = f, f
-            for m in self.cv2[lvl]:
-                b = m(b)
-            for m in self.cv3[lvl]:
-                c = m(c)
-            outs.append((b, c))
-        return outs
+        return [(run_branch(self.cv2[lvl], f), run_branch(self.cv3[lvl], f))
+                for lvl, f in enumerate(feats)]
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
@@ -181,13 +202,56 @@ def decode(level_outputs, nc: int):
     return torch.cat([x1y1, x2y2], dim=-1), torch.sigmoid(cls_logits)
 
 
-class YOLOv8(nn.Module):
+class YOLOBase(nn.Module):
+    """What the families share: ``layers`` keyed by the ultralytics
+    indices, the compute dtype, and NHWC in / decoded outputs out.
+    ``task`` is "detect" unless a task head was attached."""
+
+    head_key = "22"
+
+    def __init__(self, size: str, nc: int):
+        super().__init__()
+        self.size, self.nc, self.task = size, nc, "detect"
+        self.compute_dtype = torch.float32
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "YOLOBase":
+        """Cast conv weights to ``dtype``; biases stay f32."""
+        self.compute_dtype = dtype
+        for m in self.modules():
+            if isinstance(m, Conv):
+                m.weight.data = m.weight.data.to(dtype)
+                m.bias.data = m.bias.data.to(torch.float32)
+        return self
+
+    def features_and_head(self, x_nhwc: torch.Tensor):
+        """NHWC [0, 1] input → (level features, per-level raw head
+        outputs, NCHW f32)."""
+        feats = self.forward_features(
+            x_nhwc.permute(0, 3, 1, 2).to(self.compute_dtype))
+        return feats, self.layers[self.head_key](feats)
+
+    def forward(self, x_nhwc: torch.Tensor):
+        """(B, H, W, 3) float [0, 1] → (boxes (B, N, 4), scores (B, N, nc))
+        for the detect task, and the task's side outputs after them."""
+        feats, outs = self.features_and_head(x_nhwc)
+        if self.task == "detect":
+            return decode(outs, self.nc)
+        # task heads (as yolo_jax.py's forward_fn dispatch)
+        if self.task == "segment":
+            from .yolov8_seg import seg_outputs as fn
+        elif self.task == "pose":
+            from .yolov8_pose import pose_outputs as fn
+        else:
+            from .yolov8_obb import obb_outputs as fn
+        return fn(self, feats, outs)
+
+
+class YOLOv8(YOLOBase):
     """YOLOv8 detect model; ``layers`` keyed by the ultralytics indices."""
 
     def __init__(self, size: str = "n", nc: int = 80):
-        super().__init__()
+        super().__init__(size, nc)
         spec = arch_spec(size, nc)
-        self.size, self.nc = size, nc
         w, n1, n2 = spec["widths"], spec["n1"], spec["n2"]
         self.layers = nn.ModuleDict({
             "0": Conv(3, w[0], 3, 2),
@@ -208,16 +272,6 @@ class YOLOv8(nn.Module):
             "21": C2f(w[4] + w[3], w[4], n1, False),
             "22": Detect(spec["ch_det"], spec["c2"], spec["c3"], nc),
         })
-        self.compute_dtype = torch.float32
-
-    def set_compute_dtype(self, dtype: torch.dtype) -> "YOLOv8":
-        """Cast conv weights to ``dtype``; biases stay f32."""
-        self.compute_dtype = dtype
-        for m in self.modules():
-            if isinstance(m, Conv):
-                m.weight.data = m.weight.data.to(dtype)
-                m.bias.data = m.bias.data.to(torch.float32)
-        return self
 
     def forward_features(self, x: torch.Tensor) -> List[torch.Tensor]:
         L = self.layers
@@ -233,43 +287,33 @@ class YOLOv8(nn.Module):
         out5 = L["21"](torch.cat([L["19"](out4), p5], dim=1))
         return [out3, out4, out5]
 
-    def forward_head(self, x_nhwc: torch.Tensor):
-        """NHWC [0, 1] input → per-level raw (box, cls) logits, NCHW f32."""
-        x = x_nhwc.permute(0, 3, 1, 2).to(self.compute_dtype)
-        return self.layers["22"](self.forward_features(x))
 
-    def forward(self, x_nhwc: torch.Tensor):
-        """(B, H, W, 3) float [0, 1] → (boxes (B, N, 4), scores (B, N, nc))."""
-        return decode(self.forward_head(x_nhwc), self.nc)
+def he_normal_(model: nn.Module, gen: torch.Generator) -> None:
+    """Seeded He-normal weights (fan-in = the kernel's input width × k²,
+    as ``_init_conv``) and zero biases for every ``Conv``."""
+    for m in model.modules():
+        if isinstance(m, Conv):
+            cout, cin, k, _ = m.weight.shape
+            std = math.sqrt(2.0 / (cin * k * k))
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * std)
+            m.bias.zero_()
 
 
-def random_init_(model: YOLOv8, seed: int = 0) -> YOLOv8:
-    """Seeded He-normal conv weights, zero biases, and the ultralytics
-    head biases (box 1.0, cls log(5/nc/(640/stride)²)) — the same recipe
-    as ``init_params``; the numbers differ from ``jax.random``'s."""
-    gen = torch.Generator().manual_seed(int(seed))
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, Conv):
-                cout, cin, k, _ = m.weight.shape
-                std = math.sqrt(2.0 / (cin * k * k))
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                               * std)
-                m.bias.zero_()
-        det = model.layers["22"]
-        for lvl, s in enumerate(STRIDES):
-            det.cv2[lvl][2].bias.fill_(1.0)
-            det.cv3[lvl][2].bias.fill_(
-                math.log(5.0 / model.nc / (640.0 / s) ** 2))
-    return model
+def head_bias_(det: Detect, nc: int) -> None:
+    """The ultralytics head biases: box 1.0, cls log(5/nc/(640/stride)²)."""
+    for lvl, s in enumerate(STRIDES):
+        det.cv2[lvl][2].bias.fill_(1.0)
+        det.cv3[lvl][2].bias.fill_(math.log(5.0 / nc / (640.0 / s) ** 2))
 
 
 def build_model(params: Optional[Dict[str, Any]] = None, size: str = "n",
                 nc: int = 80, seed: int = 0) -> YOLOv8:
-    """A YOLOv8 from a JAX-layout parameter tree, or seeded random init."""
-    model = YOLOv8(size, nc)
+    """A YOLOv8 from a JAX-layout parameter tree, or seeded random init
+    (``weights.random_model``: the same recipe as ``init_params``; the
+    numbers differ from ``jax.random``'s)."""
+    from .weights import params_from_jax, random_model
     if params is None:
-        return random_init_(model, seed)
-    from .weights import params_from_jax
+        return random_model("v8", "detect", size, nc, seed)
+    model = YOLOv8(size, nc)
     model.load_state_dict(params_from_jax(params))
     return model

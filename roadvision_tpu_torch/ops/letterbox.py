@@ -56,19 +56,26 @@ def linear_weight_matrix(src: int, dst: int) -> np.ndarray:
     return np.where(inside[None, :], wts, np.float32(0.0)).astype(np.float32)
 
 
+def resize_linear(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """(B, H, W, C) float32 → (B, new_h, new_w, C) by the weight matrices
+    ``jax.image.resize(method="linear", antialias=False)`` contracts
+    with, rows first."""
+    h, w = x.shape[1], x.shape[2]
+    if h != new_h:
+        wy = torch.from_numpy(linear_weight_matrix(h, new_h)).to(x.device)
+        x = torch.einsum("bhwc,hH->bHwc", x, wy)
+    if w != new_w:
+        wx = torch.from_numpy(linear_weight_matrix(w, new_w)).to(x.device)
+        x = torch.einsum("bhwc,wW->bhWc", x, wx)
+    return x
+
+
 def _bilinear_resize(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """(B, H, W, C) uint8 → (B, new_h, new_w, C) float32."""
     h, w = x.shape[1], x.shape[2]
     py, px = axis_plan(h, new_h), axis_plan(w, new_w)
     if "general" in (py[0], px[0]):
-        out = x.to(torch.float32)
-        if h != new_h:
-            wy = torch.from_numpy(linear_weight_matrix(h, new_h)).to(x.device)
-            out = torch.einsum("bhwc,hH->bHwc", out, wy)
-        if w != new_w:
-            wx = torch.from_numpy(linear_weight_matrix(w, new_w)).to(x.device)
-            out = torch.einsum("bhwc,wW->bhWc", out, wx)
-        return out
+        return resize_linear(x.to(torch.float32), new_h, new_w)
 
     def apply(v, plan, axis):
         if plan[0] == "id":

@@ -1,14 +1,36 @@
-"""Instance-mask pasting, the host half of
-``roadvision_tpu/ops/masks.py`` (``paste_masks`` and its numpy bilinear
-resize, copied). The overlay (``vis.draw_masks``) needs
-it; the device half (``compose_masks``) waits for the port of the
-segment head.
+"""Instance masks of the segment task — the port of
+``roadvision_tpu/ops/masks.py``: :func:`compose_masks` on the device
+(one batched product of the kept detections' coefficients with the
+prototypes, sigmoid, crop to the box by comparison with row / column
+grids, invalid slots zeroed) and the host half, :func:`paste_masks` with
+its numpy bilinear resize, copied.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def compose_masks(coeffs: torch.Tensor, protos: torch.Tensor,
+                  boxes: torch.Tensor, valid: torch.Tensor,
+                  stride: float = 4.0) -> torch.Tensor:
+    """coeffs (B, K, nm), protos (B, mh, mw, nm), boxes (B, K, 4) xyxy in
+    letterbox pixels, valid (B, K) → (B, K, mh, mw) float32 in [0, 1]:
+    sigmoid(coeffs · protos), zero outside the box (col ≥ x1 ∧ col < x2
+    on box / ``stride``) and for invalid slots."""
+    m = torch.sigmoid(torch.einsum("bkn,bhwn->bkhw", coeffs.float(),
+                                   protos.float()))
+    bb = boxes / stride
+    mh, mw = m.shape[2], m.shape[3]
+    col = torch.arange(mw, dtype=torch.float32, device=m.device)
+    row = torch.arange(mh, dtype=torch.float32, device=m.device)
+    x1, y1, x2, y2 = (bb[..., i][:, :, None, None] for i in range(4))
+    inside = (col >= x1) & (col < x2) & (row[:, None] >= y1) \
+        & (row[:, None] < y2)
+    return torch.where(inside & valid[:, :, None, None], m,
+                       torch.zeros((), device=m.device))
 
 
 def _bilinear_resize(m: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

@@ -41,6 +41,63 @@ def iou_matrix_xyxy(boxes: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(union))
 
 
+def select_candidates(scores: torch.Tensor, conf_thres: float,
+                      pre_topk: int):
+    """scores (B, N, nc) → the top ``pre_topk`` anchors by best class
+    score, candidates (score > conf_thres) first, equal scores by index:
+    (scores, anchor index, class int32, valid), each (B, k)."""
+    n = scores.shape[1]
+    conf = scores.max(dim=-1).values
+    cls = scores.argmax(dim=-1).to(torch.int32)
+    masked = torch.where(conf > conf_thres, conf, torch.full_like(conf, -1.0))
+    k = min(pre_topk, n)
+    sel_scores, sel_idx = torch.sort(masked, dim=1, descending=True,
+                                     stable=True)
+    sel_scores, sel_idx = sel_scores[:, :k], sel_idx[:, :k]
+    return sel_scores, sel_idx, torch.gather(cls, 1, sel_idx), sel_scores > 0.0
+
+
+def greedy_keep(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
+    """The exact greedy keep mask over score-sorted candidates: ``over``
+    (B, k, k) says which pairs overlap past the threshold; a candidate is
+    kept unless an earlier kept one overlaps it. The Jacobi fixpoint,
+    one host sync per round."""
+    k = sel_valid.shape[1]
+    ar = torch.arange(k, device=sel_valid.device)
+    suppress = over & (ar[:, None] < ar[None, :]) \
+        & sel_valid[:, :, None] & sel_valid[:, None, :]
+    keep = sel_valid
+    for _ in range(k + 1):   # converges in (longest chain + 1) rounds
+        new = sel_valid & ~(suppress & keep[:, :, None]).any(dim=1)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep
+
+
+def compact(keep, sel_boxes, sel_scores, sel_cls, sel_idx, max_det: int,
+            nc: int, classes_keep: Optional[Sequence[int]] = None):
+    """Kept candidates first (stable), capped at ``max_det``, then
+    ``classes_keep``: (boxes, conf, cls, valid, source anchor index)."""
+    bsz, width = sel_boxes.shape[0], sel_boxes.shape[-1]
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+    order = order[:, :max_det]
+    m = order.shape[1]
+    kept_boxes = torch.gather(sel_boxes, 1,
+                              order[..., None].expand(bsz, m, width))
+    kept_cls = torch.gather(sel_cls, 1, order)
+    kept_valid = torch.gather(keep, 1, order)
+    if classes_keep:
+        # ids past the model's classes keep nothing (JAX drops the
+        # out-of-range ``.at[].set``), e.g. [0, 2, 3, 5, 7] on a
+        # one-class pose model
+        allowed = torch.zeros(nc, dtype=torch.bool, device=keep.device)
+        allowed[[int(c) for c in classes_keep if 0 <= int(c) < nc]] = True
+        kept_valid = kept_valid & allowed[kept_cls.long()]
+    return (kept_boxes, torch.gather(sel_scores, 1, order), kept_cls,
+            kept_valid, torch.gather(sel_idx, 1, order).to(torch.int32))
+
+
 def nms_batch(boxes: torch.Tensor, scores: torch.Tensor,
               conf_thres: float = 0.25, iou_thres: float = 0.7,
               max_det: int = 100, pre_topk: int = 300,
@@ -52,48 +109,16 @@ def nms_batch(boxes: torch.Tensor, scores: torch.Tensor,
     carries each kept entry's source anchor index (B, M) int32
     (arbitrary where not valid): the handle per-anchor side outputs are
     gathered with."""
-    bsz, n, _ = boxes.shape
-    conf = scores.max(dim=-1).values
-    cls = scores.argmax(dim=-1).to(torch.int32)
-    masked = torch.where(conf > conf_thres, conf, torch.full_like(conf, -1.0))
-    k = min(pre_topk, n)
-    sel_scores, sel_idx = torch.sort(masked, dim=1, descending=True,
-                                     stable=True)
-    sel_scores, sel_idx = sel_scores[:, :k], sel_idx[:, :k]
-    sel_boxes = torch.gather(boxes, 1, sel_idx[..., None].expand(bsz, k, 4))
-    sel_cls = torch.gather(cls, 1, sel_idx)
-    sel_valid = sel_scores > 0.0
-
+    sel_scores, sel_idx, sel_cls, sel_valid = select_candidates(
+        scores, conf_thres, pre_topk)
+    k = sel_idx.shape[1]
+    sel_boxes = torch.gather(boxes, 1, sel_idx[..., None].expand(-1, k, 4))
     offset = sel_cls.to(torch.float32)[..., None] * MAX_WH
-    iou = iou_matrix_xyxy(sel_boxes + offset)
-    ar = torch.arange(k, device=boxes.device)
-    lower = ar[:, None] < ar[None, :]
-    suppress = (iou > iou_thres) & lower \
-        & sel_valid[:, :, None] & sel_valid[:, None, :]
-
-    keep = sel_valid
-    for _ in range(k + 1):   # converges in (longest chain + 1) rounds
-        new = sel_valid & ~(suppress & keep[:, :, None]).any(dim=1)
-        if torch.equal(new, keep):
-            break
-        keep = new
-
-    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
-    order = order[:, :max_det]
-    m = order.shape[1]
-    kept_boxes = torch.gather(sel_boxes, 1, order[..., None].expand(bsz, m, 4))
-    kept_conf = torch.gather(sel_scores, 1, order)
-    kept_cls = torch.gather(sel_cls, 1, order)
-    kept_valid = torch.gather(keep, 1, order)
-    if classes_keep:
-        allowed = torch.zeros(scores.shape[-1], dtype=torch.bool,
-                              device=boxes.device)
-        allowed[list(int(c) for c in classes_keep)] = True
-        kept_valid = kept_valid & allowed[kept_cls.long()]
-    if return_idx:
-        kept_idx = torch.gather(sel_idx, 1, order).to(torch.int32)
-        return kept_boxes, kept_conf, kept_cls, kept_valid, kept_idx
-    return kept_boxes, kept_conf, kept_cls, kept_valid
+    keep = greedy_keep(iou_matrix_xyxy(sel_boxes + offset) > iou_thres,
+                       sel_valid)
+    out = compact(keep, sel_boxes, sel_scores, sel_cls, sel_idx, max_det,
+                  scores.shape[-1], classes_keep)
+    return out if return_idx else out[:4]
 
 
 def nms_single(boxes: torch.Tensor, scores: torch.Tensor, **kw):

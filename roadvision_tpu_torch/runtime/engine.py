@@ -33,10 +33,19 @@ op evaluates only the letterbox's sample grid and
 full processed frame. An ``auto_gate.contrast_thresh: "auto"`` gate is
 calibrated from the first batch, on the host, before that batch runs.
 
+The detector's pass is ``YOLOTorch.run``: one letterboxed forward, the
+three augmented ones (``detect.tta``), or the tiles of every frame in
+one batch plus the full frames (``detect.tiling``); for the segment,
+pose and obb tasks an 8th device output (masks at prototype resolution,
+keypoints, rotated boxes) rides the copy back into ``Detection``. With
+``compute_dtype: int8`` and ``int8_calibration: N`` the first N frames
+calibrate the static activation scales (the JAX engine ignores that key;
+its ``YOLOJax.infer_batch`` reads it).
+
 Config keys as in the JAX engine. Not ported yet, and raising at
-construction: ``detect.temporal_gate``, ``tracking.gmc``, the tracker
-backends other than greedy SORT (``tracking.nsa`` is ported), and what
-the detector registry refuses.
+construction: ``detect.temporal_gate`` (ROADMAP queue A item 3),
+``tracking.gmc``, the tracker backends other than greedy SORT
+(``tracking.nsa`` is ported), and RT-DETR in the detector registry.
 """
 from __future__ import annotations
 
@@ -51,8 +60,7 @@ import torch
 from ..detect.types import COCO_NAMES, Detection
 from ..geometry.projector import (HomographyProjector, build_projector,
                                   distance_device, project_boxes_device)
-from ..ops.letterbox import (axis_plan, finish_letterbox, letterbox_meta,
-                             scale_boxes)
+from ..ops.letterbox import axis_plan, finish_letterbox, letterbox_meta
 from ..preprocess import PreprocessPipeline
 from ..track.registry import build_device_step
 from ..track.sort import SortState, init_state, state_from_jax
@@ -74,11 +82,15 @@ class FrameResult(NamedTuple):
     ts: float
 
 
-def unpack_detections(arrays, names: List[str],
-                      b: int) -> List[List[Detection]]:
+def unpack_detections(arrays, names: List[str], b: int,
+                      extra_field: Optional[str] = None
+                      ) -> List[List[Detection]]:
     """Masked fixed-shape arrays (boxes, conf, cls, valid, ids, dist,
-    speed) → per-frame ``Detection`` lists."""
-    boxes, conf, cls_id, valid, ids, dist, speed = arrays
+    speed[, extra]) → per-frame ``Detection`` lists. An 8th array is a
+    task head's side output and fills the ``Detection`` field
+    ``extra_field`` (the detector's ``extra_field``)."""
+    boxes, conf, cls_id, valid, ids, dist, speed = arrays[:7]
+    extra = extra_field if len(arrays) == 8 else None
     fi, sj = np.nonzero(valid)
     vb = boxes[fi, sj].tolist()
     vconf = conf[fi, sj].tolist()
@@ -95,7 +107,8 @@ def unpack_detections(arrays, names: List[str],
             names[k] if 0 <= k < len(names) else str(k),
             track_id=vids[n] if vids[n] > 0 else None,
             distance_m=vdist[n] if dist_ok[n] else None,
-            speed_kmh=vspeed[n] if speed_ok[n] else None))
+            speed_kmh=vspeed[n] if speed_ok[n] else None,
+            **({extra: arrays[7][i, sj[n]]} if extra else {})))
     return per_frame
 
 
@@ -142,7 +155,8 @@ class PipelineEngine:
                            tpu_cfg.get("compute_dtype", "bfloat16"))
         if (det_cfg.get("temporal_gate") or {}).get("enable"):
             raise NotImplementedError("detect.temporal_gate is not ported to "
-                                      "roadvision_tpu_torch yet")
+                                      "roadvision_tpu_torch yet (ROADMAP "
+                                      "queue A item 3)")
         self.detector = None
         if det_cfg.get("enabled", False):
             from ..detect.registry import build_detector
@@ -223,7 +237,7 @@ class PipelineEngine:
         chain can sample, and the resize is a pure slice on both axes."""
         det, pre = self.detector, self.pipeline
         if not self._sampled_pre or det is None or want_proc \
-                or pre.identity or not pre.supports_sampled():
+                or det.tile_cfg or pre.identity or not pre.supports_sampled():
             return None
         r = min(det.imgsz / h, det.imgsz / w)
         new_h, new_w = round(h * r), round(w * r)
@@ -254,17 +268,19 @@ class PipelineEngine:
                                       device=self.device),
                           torch.zeros((b, md), dtype=torch.int32,
                                       device=self.device), nan, nan.clone())
+        lb = None
         if plans is not None:
             small = torch.stack(
                 self.pipeline.sampled_planes_fn(*plans)(frames_u8), dim=-1)
-            imgs, ratio, pad = finish_letterbox(
-                small, (h, w), size=det.imgsz, rect=det.rect)
-        else:
-            imgs, ratio, pad = det.letterbox(proc)
-        boxes, conf, cls_id, valid = det.detect(imgs)
-        boxes = scale_boxes(boxes, ratio, pad, (h, w))
+            lb = finish_letterbox(small, (h, w), size=det.imgsz,
+                                  rect=det.rect)
+        # the detector's whole pass: plain, TTA, tiled, or a task head
+        # with its side output (masks, keypoints or rboxes) as ``extra``
+        boxes, conf, cls_id, valid, extra = det.run(
+            frames_u8 if proc is None else proc, lb)
         ids, dist, speed = self._dets_tail(b, boxes, conf, cls_id, valid, ts)
-        return proc, (boxes, conf, cls_id, valid, ids, dist, speed)
+        outs = (boxes, conf, cls_id, valid, ids, dist, speed)
+        return proc, outs if extra is None else outs + (extra,)
 
     def lb_meta(self, h: int, w: int):
         """(ratio, (left, top)) the device step letterboxes (h, w) frames
@@ -407,7 +423,9 @@ class PipelineEngine:
                          for i in range(self.detector.nc)]
             else:
                 names = list(COCO_NAMES)
-            per_frame = unpack_detections(arrays, names, b)
+            per_frame = unpack_detections(
+                arrays, names, b,
+                extra_field=getattr(self.detector, "extra_field", None))
             return [FrameResult(frames[i],
                                 proc[i] if proc is not None else frames[i],
                                 per_frame[i], float(timestamps[i]))

@@ -26,12 +26,13 @@ as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
 prints them.
 
 Other modes: ``preprocess`` (the chain alone), ``detect`` (no chain, no
-tracker), ``nopre`` (the pipeline without the chain) run the same three
-measurements; ``sort`` (the tracker step over synthetic detections),
-``geometry`` (homography + distance calls/s) and ``record`` (host
-overlay + compare canvas + MJPEG encode frames/s) time one layer. The
-JAX bench's ``gate``, ``streams``, ``seg``, ``pose`` and ``obb`` modes
-wait for their ports and raise ``NotImplementedError``.
+tracker), ``nopre`` (the pipeline without the chain), and ``seg``,
+``pose``, ``obb`` (the pipeline with a random-init task head, as the
+JAX bench) run the same three measurements; ``sort`` (the tracker step
+over synthetic detections), ``geometry`` (homography + distance
+calls/s) and ``record`` (host overlay + compare canvas + MJPEG encode
+frames/s) time one layer. The JAX bench's ``gate`` and ``streams``
+modes wait for their ports and raise ``NotImplementedError``.
 
 Timing: warm-up outside every window, ``torch.cuda.synchronize()`` at
 both ends of a window, host clock between. ``--device cpu`` rehearses the
@@ -55,15 +56,13 @@ import torch
 from .. import kernels
 from ..config import DEFAULTS, merge, project_root
 from ..io_video import DeviceSyntheticSource, SyntheticRoadSource
-from ..ops.letterbox import scale_boxes
-from ..ops.nms import nms_batch
 from ..runtime import PipelineEngine
 from ..utils.device import resolve_device
 from ..utils.resolutions import res_width
 
-FULL_MODES = ("full", "preprocess", "detect", "nopre")
+FULL_MODES = ("full", "preprocess", "detect", "nopre", "seg", "pose", "obb")
 LAYER_MODES = ("sort", "geometry", "record")
-NOT_PORTED_MODES = ("gate", "streams", "seg", "pose", "obb")
+NOT_PORTED_MODES = ("gate", "streams")
 FPS = 30.0
 DEMO_MODEL = "assets/yolov8n_synthetic_256.npz"
 
@@ -102,6 +101,13 @@ MODE_OVERRIDES = {
                "tracking": {"enabled": False},
                "geometry": {"enabled": False}},
     "nopre": {"preprocess": {"enabled": False}},
+    # the full pipeline with a task head (random init, as the JAX bench):
+    # masks, keypoints or rotated boxes ride the copy back as an 8th array
+    "seg": {"detect": {"model": "yolov8n-seg.pt", "task": "segment"}},
+    "pose": {"detect": {"model": "yolov8n-pose.pt", "task": "pose",
+                        "classes_keep": []}},
+    "obb": {"detect": {"model": "yolov8n-obb.pt", "task": "obb",
+                       "classes_keep": []}},
 }
 
 
@@ -227,13 +233,12 @@ def stage_ms(engine, frames: np.ndarray, ts: np.ndarray) -> Dict[str, float]:
         proc = timed("preprocess", lambda: engine.pipeline.apply_batch(x))
         if det is None:
             return out
-        imgs, ratio, pad = timed("letterbox", lambda: det.letterbox(proc))
-        raw = timed("forward", lambda: det.forward(imgs))
-        b, c, k, v = timed("nms", lambda: nms_batch(
-            *raw, conf_thres=det.conf, iou_thres=det.iou,
-            max_det=det.max_det, pre_topk=300,
-            classes_keep=det.keep or None))
-        b = scale_boxes(b, ratio, pad, (h, w))
+        lb = timed("letterbox", lambda: det.letterbox(proc))
+        # the detector's forwards (TTA's three, every tile), then its NMS
+        # and the task's side output
+        raw, ratio, pad = timed("forward", lambda: det.candidates(proc, lb))
+        b, c, k, v, _ = timed("nms", lambda: det.postprocess(
+            raw, ratio, pad, (h, w)))
         state = engine.sort_state
         timed("sort_geometry",
               lambda: engine._dets_tail(frames.shape[0], b, c, k, v, tsd))

@@ -7,9 +7,10 @@ Usage:
   python -m roadvision_tpu_torch.tools.detect --source synthetic \
       --frames 30 --out out_dir
 
-Same flags as the JAX tool plus ``--device``; the values the port has not
-got yet (``--dtype int8``, ``--task segment|pose|obb``, ``--tile``,
-``--tta``) raise ``NotImplementedError`` from the detector.
+Same flags as the JAX tool (``--dtype bfloat16|float32|int8``, ``--task
+auto|detect|segment|pose|obb``, ``--tile N`` with ``--tile-overlap``,
+``--tta``) plus ``--device``. Segment masks are pasted with the
+detector's ``last_letterbox_meta``.
 """
 from __future__ import annotations
 
@@ -92,7 +93,10 @@ def main(argv=None) -> int:
             break
         dets = det.infer(fr.image)
         img = np.ascontiguousarray(fr.image)
-        draw_overlays(img, dets, mask_alpha=args.mask_alpha)
+        draw_overlays(img, dets,
+                      lb_meta=(det.last_letterbox_meta()
+                               if det.task == "segment" else None),
+                      mask_alpha=args.mask_alpha)
         Image.fromarray(img[..., ::-1]).save(out_dir / f"frame_{i:05d}.jpg")
         if args.json:
             records.append([dict(

@@ -243,11 +243,10 @@ def jax_tree_to_numpy(tree):
 
 
 @pytest.mark.parametrize("cfg,err", [
-    ({"backend": "onnx", "model": "w.onnx"}, NotImplementedError),
+    ({"backend": "onnx", "model": "w.onnx"}, FileNotFoundError),
     ({"backend": "ultralytics", "model": "rtdetr-l.pt"}, NotImplementedError),
-    ({"backend": "torch", "model": "yolo11n.pt"}, NotImplementedError),
-    ({"backend": "jax", "model": "yolov8n.pt", "compute_dtype": "int8"},
-     NotImplementedError),
+    ({"backend": "onnx", "model": "yolo11n.pt"}, ValueError),
+    ({"backend": "jax", "model": "yolov5n.pt", "task": "pose"}, ValueError),
     ({"backend": "tensorrt"}, ValueError),
     ({"backend": "caffe"}, ValueError)])
 def test_detector_registry_names(cfg, err):
@@ -481,9 +480,9 @@ def test_detect_and_track_tools(tmp_path):
     assert len(records) == 2 and all(
         {"bbox", "conf", "cls_id", "cls_name"} <= set(d)
         for frame in records for d in frame)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mutually exclusive"):
         detect.main(["--source", "synthetic", "--out", str(out), "--tta",
-                     "--device", "cpu"])
+                     "--tile", "64", "--device", "cpu"])
     mot = tmp_path / "mot" / "t.txt"
     rc = track.main(["--source", "synthetic:6", "--frames", "12", "--out",
                      str(mot), "--config", _write_cfg(tmp_path), "--width",

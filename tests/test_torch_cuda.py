@@ -7,6 +7,8 @@ is present. Run them on a machine with an NVIDIA card:
 
 Every check is bit-equality: the kernels and their plain versions are
 integer-exact, and the "cv2" blend rounds each float operation alone.
+The int8 convolution (``torch._int_mm`` on the card) is bit-equal too up
+to its SiLU, which is held within an ulp.
 """
 import numpy as np
 import pytest
@@ -292,3 +294,40 @@ def test_pinned_ring_is_not_overwritten_under_a_slow_consumer(dev):
     with pytest.raises(RuntimeError, match="waiting to be dispatched"):
         eng.upload(frames[0])
     assert torch.equal(up[0].frames.cpu(), torch.from_numpy(frames[0]))
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,groups,pad,hw", [
+    (3, 16, 3, 2, 1, None, (64, 96)),      # the v8 stem: K = 27 → 32
+    (64, 255, 1, 1, 1, None, (12, 20)),    # the v5 head: N = 255 → 256
+    (32, 32, 3, 1, 32, None, (20, 24)),    # depthwise: int32 elementwise
+    (3, 16, 6, 2, 1, 2, (64, 96)),         # the v5 6 × 6 stem
+    (256, 64, 3, 1, 1, None, (4, 4)),      # K = 2304, M = 16 → 17 rows
+])
+def test_int8_conv_on_the_card_equals_the_cpu_path(dev, cin, cout, k, stride,
+                                                    groups, pad, hw):
+    """``torch._int_mm`` on the card (K and N padded to multiples of 8, M
+    past 16 rows): int32 accumulators equal to the CPU path's, the
+    dequantised output bit-equal, SiLU (f64, rounded once) within an
+    ulp."""
+    from roadvision_tpu_torch.models.yolo import quant
+    from roadvision_tpu_torch.models.yolo.yolov8 import Conv
+    g = torch.Generator().manual_seed(cin + cout + k)
+    conv = Conv(cin, cout, k, stride, groups=groups, pad=pad)
+    conv.weight.data = torch.randn(conv.weight.shape, generator=g) * 0.1
+    conv.bias.data = torch.randn(cout, generator=g) * 0.1
+    q = quant.QConv(conv)
+    x = torch.randn((1, cin) + hw, generator=g)
+    x_i8 = torch.randint(-127, 128, x.shape, generator=g, dtype=torch.int8)
+    p = q.pad
+    acc = quant.int8_conv(x_i8, q.w_i8, stride, p)
+    acc_d = quant.int8_conv(x_i8.to(dev), q.w_i8.to(dev), stride, p)
+    assert acc_d.dtype == torch.int32
+    assert torch.equal(acc_d.cpu(), acc)
+    qd = quant.QConv(conv).to(dev)
+    for act in (False, True):
+        q.act = qd.act = act
+        want, got = q(x), qd(x.to(dev)).cpu()
+        if act:
+            assert torch.allclose(got, want, rtol=1.2e-7, atol=0.0)
+        else:
+            assert torch.equal(got, want)

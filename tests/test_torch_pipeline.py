@@ -147,9 +147,10 @@ def test_registry_aliases_and_unknown_name():
 
 
 @pytest.mark.parametrize("over", [
-    {"detect": {"enabled": True, "model": "yolov8n.pt", "tta": True}},
-    {"detect": {"enabled": True, "model": "yolov8n.pt",
-                "tiling": {"enable": True}}},
+    {"detect": {"enabled": True, "model": "yolov8n.pt"},
+     "tracking": {"enabled": True, "backend": "bytetrack"}},
+    {"detect": {"enabled": True, "model": "yolov8n.pt"},
+     "tracking": {"enabled": True, "backend": "deepsort"}},
     {"detect": {"enabled": True, "model": "rtdetr-l.pt"}},
     {"detect": {"enabled": True, "model": "yolov8n.pt"},
      "tracking": {"enabled": True, "gmc": True}},
