@@ -55,17 +55,32 @@ Phases, in order; any failure exits non-zero:
   6. ``[detector]``: the same config with the detector swapped — (a)
      YOLOv5n from its asset (conf 0.5), (b) YOLO11n, (c-e) v8n seg /
      pose / obb, (f) int8 with ``int8_calibration: 8``, (g) TTA, (h)
-     tiling (tile 640, overlap 0.25, full frame) — each one float32 (f:
-     int8) batch on the card against the CPU path (TTA and tiling: the
-     CPU takes the first 2 frames; masks, keypoints and rotated boxes
-     held to the tolerances printed; int8 to float32's) and timed
-     bfloat16 (int8) batches as tools/bench.py times them (median, min
-     and max of 3 windows of 2 batches; stage ms of 3 batches), launches
-     1 / 1 / 1 per batch; (i) the
-     yolov8n asset as ONNX (``detect.backend: onnx``) and as a ``.pt``
-     state dict: detections ``==`` to the ``.npz`` run
-     (``chiprun_out/detector.json``);
-  7. print the command time, the kernels' JSON line, the card line, and
+     tiling (tile 640, overlap 0.25, full frame), (j) RT-DETR-L from its
+     asset (stretch to 640, ``num_queries`` at its default), (k) the same
+     in int8 with ``int8_calibration: 8`` — each one float32 (f, k:
+     int8) batch on the card against the CPU path (TTA, tiling and
+     RT-DETR in float32: the CPU takes the first 2 frames; masks,
+     keypoints and rotated boxes held to the tolerances printed; int8 to
+     float32's; for RT-DETR the encoder's top-k anchors must be the same
+     set on the card and on the CPU, else the score gap at rank nq is
+     printed and the phase fails) and timed bfloat16 (int8) batches as
+     tools/bench.py times them (median, min and max of 3 windows of 2
+     batches; stage ms of 3 batches; RT-DETR also by backbone, encoder
+     and decoder), launches 1 / 1 / 1 per batch; (i) the yolov8n asset
+     as ONNX (``detect.backend: onnx``) and as a ``.pt`` state dict:
+     detections ``==`` to the ``.npz`` run (``chiprun_out/detector.json``);
+  7. ``[weather]``: ``synthetic_fog:heavy:6`` at 1080p, synthesized on the
+     card, through ``stream`` with weather_demo.yaml's gate and detector
+     in float32 against the CPU path on the same frames (processed
+     frames bit-equal, detections within BOX_TOL / CONF_TOL, the chain
+     run on every fogged frame), a batch of 4 clean and 4 fogged frames
+     that the gate must split, one frame's fog synthesized on the CPU
+     too (≤ 2 levels in ≤ 0.1 % of the pixels), launches 1 / 1 / 2 per
+     batch (the impulse statistic's median, then the chain's);
+     ``[entry] rtdetr_demo`` and ``[entry] weather_demo``: the preview
+     ``main`` on each shipped config, ``--max-frames 16 --no-show
+     --record``, the AVI checked, launches 1 / 1 / 2 per batch;
+  8. print the command time, the kernels' JSON line, the card line, and
      last the ok line.
 
 Options: ``--kernels-only`` stops after phase 3; ``--profile`` adds a
@@ -922,9 +937,11 @@ def _spread_yolo11_tree(frames: np.ndarray, tmp: Path) -> str:
 
 
 def detector_paths(frames: np.ndarray, tmp: Path) -> dict:
-    """(name → (detect overrides, frames the CPU side takes)) for (a)-(h)."""
+    """(name → (detect overrides, frames the CPU side takes)) for (a)-(h),
+    (j) and (k)."""
     assets = Path(__file__).resolve().parent / "assets"
     v8 = str(assets / "yolov8n_synthetic_256.npz")
+    rtdetr = str(assets / "rtdetr_l_synthetic_256.npz")
     return {
         "a yolov5n": ({"model": str(assets / "yolov5n_synthetic_256.npz"),
                        "conf_thres": 0.5}, BATCH),
@@ -943,6 +960,13 @@ def detector_paths(frames: np.ndarray, tmp: Path) -> dict:
         "h tiling": ({"model": v8, "tiling": {
             "enable": True, "tile": 640, "overlap": 0.25,
             "full_frame": True}}, 2),
+        # RT-DETR-L (trained at 256) at the main path's 640 stretch; it
+        # finds 21-22 cars a frame there, so 640 needs no fallback to 256
+        "j rtdetr": ({"model": rtdetr, "imgsz": 640}, 2),
+        # int8: the CPU calibrates on the same 8 frames as the card
+        "k rtdetr int8": ({"model": rtdetr, "imgsz": 640,
+                           "compute_dtype": "int8",
+                           "int8_calibration": BATCH}, BATCH),
     }
 
 
@@ -1037,6 +1061,8 @@ def detector_phase(batches, card: str, tmp: Path) -> dict:
         if n_dets == 0:
             fail(f"[detector] {name}: no detections to compare")
         task = gpu.detector.task
+        if getattr(gpu.detector, "nms_free", False):
+            worst["topk_gap_min"] = same_proposals(gpu, cpu, r_cpu, name)
         # timed: bf16 (int8 stays int8, its scales already calibrated)
         timed_eng = gpu if int8 else PipelineEngine(cfg, device="cuda")
         timed_eng.process_batch(*batches[1], want_proc=False)  # warm-up
@@ -1074,7 +1100,84 @@ def detector_phase(batches, card: str, tmp: Path) -> dict:
                      "detections": n_dets, "cpu_frames": n_cpu,
                      "worst": worst, "fps": fps, "dtype": dtype,
                      "stage_ms": stages, "launches": counts}
+        if getattr(gpu.detector, "nms_free", False):
+            out[name]["forward_stage_ms"] = rtdetr_stage_ms(
+                timed_eng, batches[1][0], name, card)
     out["i export"] = export_phase(batches, tmp, card)
+    return out
+
+
+def same_proposals(gpu, cpu, r_cpu, name: str) -> float:
+    """RT-DETR: the encoder's top-nq anchors of the card's and the CPU's
+    float pass on the CPU's frames (their processed frames, bit-equal)
+    are the same set on every frame. On a difference, print the gap of
+    the CPU's scores at rank nq and fail. Returns the smallest gap."""
+    import torch
+    proc = np.stack([r.proc for r in r_cpu])
+    sets, gaps = [], []
+    for eng in (cpu, gpu):
+        det = eng.detector
+        with torch.inference_mode():
+            imgs = det.letterbox(torch.from_numpy(proc).to(eng.device))[0]
+            _, _, top_val, topk, _, _ = det.model.dec.proposals(
+                det.model.features(imgs), det.num_queries)
+        sets.append([set(row) for row in topk.cpu().tolist()])
+        if eng is cpu:
+            s = torch.sort(top_val.float(), dim=1, descending=True).values
+            nq = topk.shape[1]
+            gaps = (s[:, nq - 1] - s[:, nq]).tolist() \
+                if s.shape[1] > nq else [float("inf")] * len(s)
+    for fi, (a, b) in enumerate(zip(*sets)):
+        if a != b:
+            fail(f"[detector] {name}: frame {fi}: the card's encoder top-"
+                 f"{len(a)} differs from the CPU's in {len(a ^ b) // 2} "
+                 f"anchors; the CPU's score gap at rank {len(a)} is "
+                 f"{gaps[fi]:.3e}")
+    return float(min(gaps))
+
+
+def rtdetr_stage_ms(engine, frames: np.ndarray, name: str,
+                    card: str) -> dict:
+    """RT-DETR's forward by stage on one letterboxed batch (backbone,
+    encoder, deformable decoder; host clock, synchronised), median
+    [min, max] of 5 runs."""
+    import torch
+    det = engine.detector
+    m = det.model
+    x = torch.from_numpy(frames).to(engine.device)
+    imgs = det.letterbox(engine.pipeline.apply_batch(x))[0]
+
+    @torch.inference_mode()
+    def one() -> dict:
+        out = {}
+
+        def timed(stage, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            out[stage] = (time.perf_counter() - t0) * 1e3
+            return r
+
+        taps = timed("backbone", lambda: m.backbone(
+            imgs.permute(0, 3, 1, 2).to(m.compute_dtype)))
+        feats = timed("encoder", lambda: m.enc(*taps))
+        timed("decoder", lambda: m.dec(feats, det.num_queries,
+                                       det.decoder_layers))
+        return out
+
+    one()                                                    # warm-up
+    runs = [one() for _ in range(5)]
+    out = {k: {"median": float(np.median([r[k] for r in runs])),
+               "min": min(r[k] for r in runs),
+               "max": max(r[k] for r in runs)} for k in runs[0]}
+    print(f"[detector] {name} forward stage ms (batch {len(frames)}, "
+          f"{det.imgsz}x{det.imgsz}, {det.num_queries} queries, "
+          f"{'int8' if det.int8 else str(det.dtype).split('.')[-1]}) "
+          f"median [min, max]: " + json.dumps(
+              {k: [round(v["median"], 3), round(v["min"], 3),
+                   round(v["max"], 3)] for k, v in out.items()})
+          + f" ({card})", flush=True)
     return out
 
 
@@ -1118,6 +1221,135 @@ def export_phase(batches, tmp: Path, card: str) -> dict:
           f"over 2 batches ({n} in the last); launches 2 / 2 / 2 each "
           f"({card})", flush=True)
     return {"detections_last_batch": n}
+
+
+def gated_counts(what: str, batches: int) -> dict:
+    """The kernels' launch counts after a gated path with the impulse
+    statistic: K1 and K2 once per batch, K3 twice (the statistic's
+    median on the gray subsample, then the chain)."""
+    from roadvision_tpu_torch import kernels
+    counts = dict(kernels.launch_counts)
+    want = {"clahe_tile_luts": batches, "clahe_apply": batches,
+            "median_k": 2 * batches}
+    if counts != want or batches < 1:
+        fail(f"{what}: launches {counts}, expected {want}")
+    return counts
+
+
+def weather_phase(card: str) -> dict:
+    """``[weather]``: the fogged synthetic road (heavy, 1080p, 6 vehicles,
+    synthesized on the card) through ``stream`` with weather_demo.yaml's
+    gate and detector, held to the CPU path on the same frames: gate
+    decisions equal, processed frames bit-equal, detections within
+    BOX_TOL / CONF_TOL; then a batch of 4 clean and 4 fogged frames, where
+    the gate must split. One 1080p frame is also synthesized on the CPU
+    and held to the card's within the fog tests' bound (≤ 2 levels in
+    ≤ 0.1 % of the pixels)."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.augment.fog import (CLI_OVERRIDES,
+                                                  EnhancedFogSynthesizer)
+    from roadvision_tpu_torch.config import load_config, merge
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource, VideoSource
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    root = Path(__file__).resolve().parent
+    cfg = merge(load_config(str(root / "configs" / "weather_demo.yaml")), {
+        "camera": {"width": WIDTH, "height": HEIGHT},
+        "detect": {"model": str(root / "assets"
+                                / "yolov8n_synthetic_256.npz")},
+        "tpu": {"compute_dtype": "float32"}})
+    gpu = PipelineEngine(cfg, device="cuda")
+    cam = cfg["camera"]
+    vs = VideoSource(cam["source"], WIDTH, HEIGHT, num_frames=2 * BATCH,
+                     device="cuda")
+    t0 = time.perf_counter()
+    src = vs._src
+    fog_frames = [src.render(i) for i in range(2)]
+    torch.cuda.synchronize()
+    synth_ms = (time.perf_counter() - t0) * 1e3 / 2
+    kernels.reset_launch_counts()
+    got = list(gpu.stream(vs, max_frames=2 * BATCH))
+    counts = gated_counts("[weather] stream", 2)
+    if len(got) != 2 * BATCH:
+        fail(f"[weather]: stream gave {len(got)} frames")
+    if not all(np.array_equal(got[i].raw, fog_frames[i]) for i in range(2)):
+        fail("[weather]: the stream's frames differ from the source's")
+    cpu = PipelineEngine(cfg, device="cpu")
+    want = []
+    for k in range(2):
+        rows = got[k * BATCH:(k + 1) * BATCH]
+        want += cpu.process_batch(np.stack([r.raw for r in rows]),
+                                  np.array([r.ts for r in rows]))
+    worst = compare_results(want, got)
+    ran = [not np.array_equal(r.proc, r.raw) for r in got]
+    if not all(ran):
+        fail(f"[weather]: the gate skipped fogged frames: {ran}")
+    n_dets = sum(len(r.detections) for r in want)
+    # clean and fogged frames in one batch: the gate must split them
+    clean = SyntheticRoadSource(WIDTH, HEIGHT, num_vehicles=6, seed=0)
+    mixed = np.stack([clean.render(i) for i in range(4)]
+                     + [got[i].raw for i in range(4)])
+    ts = 2000.0 + np.arange(BATCH) / 30.0
+    kernels.reset_launch_counts()
+    r_gpu = gpu.process_batch(mixed, ts)
+    gated_counts("[weather] mixed batch", 1)
+    r_cpu = cpu.process_batch(mixed, ts)
+    compare_results(r_cpu, r_gpu)
+    split = [not np.array_equal(r.proc, r.raw) for r in r_gpu]
+    if split != [False] * 4 + [True] * 4:
+        fail(f"[weather]: the gate ran the chain on {split}")
+    # the synthesizer itself, card against CPU, on one 1080p frame
+    base = SyntheticRoadSource(WIDTH, HEIGHT, num_vehicles=6, seed=0).render(0)
+    t_cpu = time.perf_counter()
+    outs = [EnhancedFogSynthesizer(level="heavy", seed=0, device=d,
+                                   **CLI_OVERRIDES).synthesize(base)[0]
+            for d in ("cpu", "cuda")]
+    t_cpu = time.perf_counter() - t_cpu
+    diff = np.abs(outs[0].astype(np.int32) - outs[1].astype(np.int32))
+    share = float((diff > 0).mean())
+    if diff.max() > 2 or share > 1e-3 or not np.array_equal(outs[1],
+                                                             fog_frames[0]):
+        fail(f"[weather]: card fog vs CPU: max {diff.max()} levels, "
+             f"{share:.2e} of the pixels")
+    print(f"[weather] heavy fog at {WIDTH}x{HEIGHT}: {synth_ms:.1f} ms a "
+          f"frame to synthesize on the card (host clock); 2 batches through "
+          f"stream match the CPU path ({n_dets} detections, max box err "
+          f"{worst:.2e} px, processed frames bit-equal, the chain ran on "
+          f"every fogged frame); a 4 clean + 4 fogged batch splits as built; "
+          f"card fog vs CPU fog: max {diff.max()} levels in {share:.2e} of "
+          f"the pixels (CPU + card synthesis {t_cpu:.1f} s); launches "
+          f"{counts} in 2 batches ({card})", flush=True)
+    return {"fog_synth_ms_per_frame": synth_ms, "detections": n_dets,
+            "launches_2_batches": counts, "fog_max_levels": int(diff.max()),
+            "fog_diff_share": share}
+
+
+def entry_demo(name: str, tmp: Path) -> dict:
+    """``[entry] <name>``: the port's preview ``main`` on a shipped config
+    with ``--max-frames 16 --no-show --record``; the AVI is checked, the
+    launches are those of a gated path (impulse statistic on)."""
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.config import load_config
+    from roadvision_tpu_torch.tools import preview
+    cfg_path = Path(__file__).resolve().parent / "configs" / f"{name}.yaml"
+    cam = load_config(str(cfg_path))["camera"]
+    avi = tmp / f"{name}.avi"
+    n = 16
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
+                       "--no-show", "--record", str(avi)])
+    elapsed = time.perf_counter() - t0
+    counts = gated_counts(f"[entry] {name}", n // BATCH)
+    if rc != 0:
+        fail(f"[entry] {name}: main returned {rc}")
+    check_avi(avi, n, (2 * cam["width"] + 4, cam["height"]))
+    print(f"[entry] {name}: {n} frames of {cam['source']} at "
+          f"{cam['width']}x{cam['height']} recorded to a valid MJPEG AVI and "
+          f"read back; {n / elapsed:.1f} frames/s with overlay, canvas and "
+          f"JPEG encode; launches {counts}", flush=True)
+    return {"launches": counts, "batches": n // BATCH,
+            "fps_with_record": n / elapsed}
 
 
 def profile_batch(engine, frames, ts) -> dict:
@@ -1224,6 +1456,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         detector = detector_phase(batches, card, Path(tmp))
     (out_dir / "detector.json").write_text(json.dumps(detector, indent=1))
+    entries["weather"] = weather_phase(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("rtdetr_demo", "weather_demo"):
+            entries[name] = entry_demo(name, Path(tmp))
 
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True

@@ -79,6 +79,7 @@ class Pipeline:
             fps_request=cam.get("fps_request", 30),
             backend=cam.get("backend", "auto"),
             num_frames=max_frames,
+            device=self.engine.device,
         )
 
     def __call__(self, source: Union[None, int, str, VideoSource] = None,

@@ -5,17 +5,16 @@
 ``.onnx`` export's weight initializers (models/yolo/onnx_io.py, no
 onnxruntime) into the same PyTorch model, and fails fast unless
 ``detect.model`` names an existing ``.onnx`` file. RT-DETR models (by
-name, or an exported ``.npz`` whose keys start ``Lbackbone``) raise
-``NotImplementedError``: they are ROADMAP queue A item 6. "tensorrt" is
-a ``ValueError``, an unknown backend too, as in the JAX package.
+name, or an exported ``.npz`` whose keys start ``Lbackbone``) resolve to
+:class:`RTDETRTorch`. "tensorrt" is a ``ValueError``, an unknown backend
+too, as in the JAX package.
 """
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any, Dict
 
-import numpy as np
-
+from ..models.rtdetr import is_rtdetr_npz
 from ..utils.device import DeviceLike
 from .base import Detector
 
@@ -25,13 +24,7 @@ BACKENDS = ("ultralytics", "jax", "yolov8", "torch", "onnx")
 def _is_rtdetr(model: str) -> bool:
     """By name, or by content for an exported .npz (top keys
     ``Lbackbone…``), so a renamed RT-DETR file is still recognised."""
-    if "rtdetr" in model.lower():
-        return True
-    p = Path(model)
-    if p.suffix != ".npz" or not p.exists():
-        return False
-    with np.load(p) as z:
-        return any(k.startswith("Lbackbone") for k in z.files)
+    return "rtdetr" in model.lower() or is_rtdetr_npz(model)
 
 
 def build_detector(cfg: Dict[str, Any], device: DeviceLike = None,
@@ -50,9 +43,9 @@ def build_detector(cfg: Dict[str, Any], device: DeviceLike = None,
                 raise FileNotFoundError(
                     f"detect.backend 'onnx': model file not found: {model}")
         if _is_rtdetr(model):
-            raise NotImplementedError(
-                "RT-DETR is not ported to roadvision_tpu_torch yet "
-                "(ROADMAP queue A item 6)")
+            # the ultralytics wrapper's other detector family, by name
+            from .rtdetr_torch import RTDETRTorch
+            return RTDETRTorch(cfg, device=device, seed=seed)
         from .yolo_torch import YOLOTorch
         return YOLOTorch(cfg, device=device, seed=seed)
     if backend == "tensorrt":

@@ -66,10 +66,6 @@ class YOLOTorch(Detector):
 
         model_ref = str(cfg.get("model", "yolov8n.pt"))
         name = model_ref.lower()
-        if "rtdetr" in name:
-            raise NotImplementedError(
-                "RT-DETR is not ported to roadvision_tpu_torch yet "
-                "(ROADMAP queue A item 6)")
         arch_hint = "v5" if "yolov5" in name \
             else "11" if "yolo11" in name else "v8"
         task = str(cfg.get("task", "auto"))

@@ -13,8 +13,9 @@ codec-free sources, so the package runs without OpenCV:
   * ``OpenCVSource`` — cameras / video files when cv2 is available;
   * ``.y4m`` and MJPEG ``.avi`` files through their own readers.
 
-``synthetic_fog:<level>`` is not ported yet (it needs the fog
-synthesizer) and raises ``NotImplementedError``.
+  * ``FoggedSyntheticRoadSource`` — the synthetic scene through the fog
+    synthesizer (``synthetic_fog:<level>[:<num_vehicles>]``), synthesized
+    on the ``device`` the source is given (the card by default).
 
 ``VideoSource`` keeps the reference's constructor signature and ``read() ->
 Frame(ok, image, ts)`` contract, and adds ``read_batch(n)``, which returns
@@ -136,6 +137,35 @@ class SyntheticRoadSource(_BaseSource):
         img = self.render(self.idx)
         self.idx += 1
         return True, img
+
+
+class FoggedSyntheticRoadSource(SyntheticRoadSource):
+    """The synthetic road scene degraded by the reference's fog model
+    (``camera.source: "synthetic_fog:<level>[:<num_vehicles>]"``, level
+    light / medium / heavy). The fog is frozen in time: one seed,
+    re-applied to every frame, with the reference tool's constructor
+    overrides (global_veil 0.5; tools/fog_batch.py). Each frame is
+    synthesized on ``device`` (the card unless "cpu" is asked for)."""
+
+    def __init__(self, level: str = "medium", width: int = 640,
+                 height: int = 480, num_vehicles: int = 4,
+                 num_frames: Optional[int] = None, seed: int = 0,
+                 device=None):
+        super().__init__(width, height, num_vehicles=num_vehicles,
+                         num_frames=num_frames, seed=seed)
+        if level not in ("light", "medium", "heavy"):
+            raise ValueError(f"unknown fog level {level!r} "
+                             f"(light/medium/heavy)")
+        from ..utils.device import resolve_device
+        self.level = level
+        self.device = resolve_device(device)
+
+    def render(self, idx: int) -> np.ndarray:
+        from ..augment.fog import CLI_OVERRIDES, EnhancedFogSynthesizer
+        clean = super().render(idx)
+        synth = EnhancedFogSynthesizer(level=self.level, seed=self.seed,
+                                       device=self.device, **CLI_OVERRIDES)
+        return synth.synthesize(clean)[0]
 
 
 class NpyVideoSource(_BaseSource):
@@ -262,7 +292,8 @@ class OpenCVSource(_BaseSource):
             self.cap.release()
 
 
-def _resolve(source, width, height, fps_request, num_frames=None) -> _BaseSource:
+def _resolve(source, width, height, fps_request, num_frames=None,
+             device=None) -> _BaseSource:
     if isinstance(source, str):
         low = source.lower()
         # exactly "synthetic" or "synthetic:<num_vehicles>" — a real asset
@@ -273,9 +304,13 @@ def _resolve(source, width, height, fps_request, num_frames=None) -> _BaseSource
             return SyntheticRoadSource(width, height, num_vehicles=n,
                                        num_frames=num_frames)
         if low.startswith("synthetic_fog:"):
-            raise NotImplementedError(
-                f"frame source {source!r}: the fogged synthetic source is "
-                f"not ported to roadvision_tpu_torch yet")
+            parts = low.split(":")  # synthetic_fog:<level>[:<vehicles>]
+            n = int(parts[2]) if len(parts) > 2 and parts[2].isdigit() \
+                else 4
+            return FoggedSyntheticRoadSource(parts[1], width, height,
+                                             num_vehicles=n,
+                                             num_frames=num_frames,
+                                             device=device)
         if low.startswith("ffmpeg:"):
             return FFmpegPipeSource(source.split(":", 1)[1], width, height)
         p = Path(source)
@@ -312,12 +347,17 @@ class VideoSource:
     corrupt every dt-derived quantity downstream (Kalman F/Q, speed
     windows, the FPS meter). The reference never hits this because its
     loop is processing-paced; PTS is what its math assumed.
+
+    ``device`` is where a source that computes its frames (the fogged
+    synthetic scene) computes them; the others ignore it.
     """
 
     def __init__(self, source=0, width=1280, height=720, fps_request=30,
-                 backend: str = "auto", num_frames: Optional[int] = None):
+                 backend: str = "auto", num_frames: Optional[int] = None,
+                 device=None):
         del backend  # reserved, as in the reference
-        self._src = _resolve(source, width, height, fps_request, num_frames)
+        self._src = _resolve(source, width, height, fps_request, num_frames,
+                             device)
         self._is_camera = isinstance(self._src, OpenCVSource) \
             and isinstance(source, int)
         # a file's own frame rate (e.g. the y4m header) wins over the request

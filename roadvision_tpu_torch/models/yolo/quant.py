@@ -14,7 +14,11 @@ The same symmetric scheme:
     int8 values is not (a 3×3×256 sum of 127² products passes 2²⁴);
   * dequantised as ``acc · (a_scale · w_scale) + b``: the scales'
     product first, then one fused multiply-add (:func:`dequantize`), as
-    XLA compiles the JAX expression; then SiLU, rounded once from f64.
+    XLA compiles the JAX expression; then the conv's activation
+    (``conv_i8``'s: SiLU for ``True`` or "silu", "relu", tanh-form
+    "gelu", none for ``False`` / None), rounded once from f64. The
+    output is f32 whatever the activation: the int8 paths compute
+    everything around the quantised convs in f32.
 
 The integer convolution (:func:`int8_conv`) is an im2col and
 ``torch._int_mm`` (a library product, as ``lax.conv`` is in the JAX
@@ -37,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.activations import gelu
 from .yolov8 import Conv
 
 
@@ -108,6 +113,10 @@ def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
         / torch.full((), 127.0, device=x.device)
 
 
+# ``conv_i8``'s activations (quant.py:96-101); False / None is none
+_ACTS = {"silu": F.silu, "relu": F.relu, "gelu": gelu}
+
+
 class QConv(nn.Module):
     """The int8 counterpart of ``Conv`` (``conv_i8``, quant.py:66)."""
 
@@ -137,10 +146,12 @@ class QConv(nn.Module):
         x_i8 = torch.clamp(torch.round(xf / a), -127, 127).to(torch.int8)
         acc = int8_conv(x_i8, self.w_i8, self.stride, self.pad)
         out = dequantize(acc, a * self.w_scale, self.bias)
-        # SiLU of the f32 value, evaluated in f64 and rounded once: the
-        # correctly rounded result on the card and on the CPU alike, so
-        # the two devices quantise the next layer's input the same way
-        return F.silu(out.double()).float() if self.act else out
+        act = _ACTS.get("silu" if self.act is True else self.act)
+        # the activation of the f32 value, evaluated in f64 and rounded
+        # once: the correctly rounded result on the card and on the CPU
+        # alike, so the two devices quantise the next layer's input the
+        # same way
+        return act(out.double()).float() if act is not None else out
 
 
 def quantize_model_(model: nn.Module) -> nn.Module:

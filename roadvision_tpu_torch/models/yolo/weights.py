@@ -15,9 +15,10 @@ parameter tree and the port's modules.
     or a key mismatch runs a seeded random init (pose nc 1, obb nc 15)
     unless ``allow_random=False``;
   * :func:`params_from_jax` / :func:`tree_from_model` — tree ↔ state
-    dict (HWIO ↔ OIHW); :func:`describe` reads (arch, task, size, nc)
-    off a tree; :func:`model_from_params` and :func:`random_model` build
-    the ``nn.Module``.
+    dict (HWIO ↔ OIHW), RT-DETR's trees and modules included
+    (models/rtdetr.py); :func:`describe` reads (arch, task, size, nc)
+    off a YOLO tree; :func:`model_from_params` and :func:`random_model`
+    build the ``nn.Module``.
 """
 from __future__ import annotations
 
@@ -435,7 +436,12 @@ _LEAF_FROM_TORCH = {"weight": ("w", (2, 3, 1, 0)), "bias": ("b", None),
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """A tree in the JAX package's layout (numpy, or anything
-    ``np.asarray`` takes) → the port's state dict, ``layers.``-prefixed."""
+    ``np.asarray`` takes) → the port's state dict, ``layers.``-prefixed;
+    an RT-DETR tree (top keys backbone / enc / dec) → RT-DETR's
+    (models/rtdetr.py)."""
+    if "backbone" in tree:
+        from ..rtdetr import params_from_tree
+        return params_from_tree(tree)
     sd: Dict[str, torch.Tensor] = {}
     for key, arr in flatten_tree(tree).items():
         stem, leaf = key.rsplit(".", 1)
@@ -451,6 +457,10 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
 def tree_from_model(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of :func:`params_from_jax`: a float model's state dict
     → the JAX-layout tree of float32 numpy arrays."""
+    from ..rtdetr import RTDETR
+    if isinstance(model, RTDETR):
+        from ..rtdetr import tree_from_model as rtdetr_tree
+        return rtdetr_tree(model)
     flat = {}
     for key, t in model.state_dict().items():
         stem, leaf = key[len("layers."):].rsplit(".", 1)
@@ -538,7 +548,11 @@ def random_model(arch: str, task: str, size: str, nc: int,
 
 
 def model_from_params(tree) -> torch.nn.Module:
-    """The module a tree describes, with the tree's weights."""
+    """The module a tree describes, with the tree's weights (RT-DETR's
+    too)."""
+    if "backbone" in tree:
+        from ..rtdetr import model_from_params as rtdetr_model
+        return rtdetr_model(tree)
     model = new_model(*describe(tree))
     model.load_state_dict(params_from_jax(tree))
     return model

@@ -9,12 +9,17 @@ Half-pixel bilinear resize without antialias (cv2 INTER_LINEAR, what
 ultralytics letterboxes with), BGR→RGB, gray-114 pad, /255, NHWC float32
 out. An exact integer downscale with an odd stride is a strided slice of
 the uint8 frame (1080p → 360×640 is stride 3), an even stride a 2-tap
-average; anything else ("general") contracts each axis with the weight
-matrix ``jax.image.resize(method="linear", antialias=False)`` builds,
-computed here in numpy float32 the same way.
+average; anything else ("general") applies the weight matrix
+``jax.image.resize(method="linear", antialias=False)`` builds (computed
+here in numpy float32 the same way) by its nonzero taps: without
+antialias each output sample has at most two, so the axis is two
+gathers, two products and a sum, each rounded alone — the same bits on
+the card and on the CPU, where a dense contraction would sum in another
+order on each (and take ~20 ms for a 1080p batch on the card).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -56,32 +61,60 @@ def linear_weight_matrix(src: int, dst: int) -> np.ndarray:
     return np.where(inside[None, :], wts, np.float32(0.0)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def linear_taps(src: int, dst: int, device: torch.device):
+    """:func:`linear_weight_matrix` by its nonzero entries, on ``device``
+    (built once per geometry): (index (k, dst) int64, weight (k, dst)
+    float32), k the most taps any output sample has; unused taps point
+    at row 0 with weight 0."""
+    wm = linear_weight_matrix(src, dst)
+    nz = wm != 0
+    k = max(1, int(nz.sum(axis=0).max()))
+    idx = np.zeros((k, dst), np.int64)
+    wts = np.zeros((k, dst), np.float32)
+    for j in range(dst):
+        rows = np.nonzero(nz[:, j])[0]
+        idx[:len(rows), j] = rows
+        wts[:len(rows), j] = wm[rows, j]
+    return torch.from_numpy(idx).to(device), torch.from_numpy(wts).to(device)
+
+
+def _resize_axis_taps(v: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """The general plan on one axis of (B, H, W, C): Σ_t w_t · v[idx_t],
+    tap by tap, in float32."""
+    idx, wts = linear_taps(v.shape[axis], n, v.device)
+    shape = [1] * v.dim()
+    shape[axis] = n
+    out = None
+    for i, w in zip(idx, wts):
+        g = v.index_select(axis, i).to(torch.float32) * w.reshape(shape)
+        out = g if out is None else out + g
+    return out
+
+
 def resize_linear(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
-    """(B, H, W, C) float32 → (B, new_h, new_w, C) by the weight matrices
-    ``jax.image.resize(method="linear", antialias=False)`` contracts
-    with, rows first."""
-    h, w = x.shape[1], x.shape[2]
-    if h != new_h:
-        wy = torch.from_numpy(linear_weight_matrix(h, new_h)).to(x.device)
-        x = torch.einsum("bhwc,hH->bHwc", x, wy)
-    if w != new_w:
-        wx = torch.from_numpy(linear_weight_matrix(w, new_w)).to(x.device)
-        x = torch.einsum("bhwc,wW->bhWc", x, wx)
-    return x
+    """(B, H, W, C) → (B, new_h, new_w, C) float32, as
+    ``jax.image.resize(method="linear", antialias=False)``: the weight
+    matrices applied by their taps, rows first."""
+    if x.shape[1] != new_h:
+        x = _resize_axis_taps(x, 1, new_h)
+    if x.shape[2] != new_w:
+        x = _resize_axis_taps(x, 2, new_w)
+    return x.to(torch.float32)
 
 
 def _bilinear_resize(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """(B, H, W, C) uint8 → (B, new_h, new_w, C) float32."""
     h, w = x.shape[1], x.shape[2]
     py, px = axis_plan(h, new_h), axis_plan(w, new_w)
-    if "general" in (py[0], px[0]):
-        return resize_linear(x.to(torch.float32), new_h, new_w)
 
     def apply(v, plan, axis):
         if plan[0] == "id":
             return v
-        s, off = plan[1], plan[2]
         n = new_h if axis == 1 else new_w
+        if plan[0] == "general":
+            return _resize_axis_taps(v, axis, n)
+        s, off = plan[1], plan[2]
         idx = torch.arange(off, off + s * n, s, device=v.device)
         if plan[0] == "slice":
             return v.index_select(axis, idx)
@@ -89,6 +122,8 @@ def _bilinear_resize(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
         b = v.index_select(axis, idx + 1).to(torch.float32)
         return (a + b) * 0.5
 
+    # slices first (they shrink the frame and are exact), then rows
+    # before columns, as the JAX resize contracts them
     plans = sorted(((py, 1), (px, 2)), key=lambda p: p[0][0] != "slice")
     for plan, axis in plans:
         x = apply(x, plan, axis)

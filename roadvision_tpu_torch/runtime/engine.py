@@ -37,15 +37,21 @@ The detector's pass is ``YOLOTorch.run``: one letterboxed forward, the
 three augmented ones (``detect.tta``), or the tiles of every frame in
 one batch plus the full frames (``detect.tiling``); for the segment,
 pose and obb tasks an 8th device output (masks at prototype resolution,
-keypoints, rotated boxes) rides the copy back into ``Detection``. With
-``compute_dtype: int8`` and ``int8_calibration: N`` the first N frames
-calibrate the static activation scales (the JAX engine ignores that key;
-its ``YOLOJax.infer_batch`` reads it).
+keypoints, rotated boxes) rides the copy back into ``Detection``. An
+NMS-free detector (RT-DETR, ``RTDETRTorch.run``) stretches instead of
+letterboxing and selects its top-k without NMS; the sampled preprocess
+path does not apply to it and :meth:`PipelineEngine.lb_meta` is the
+identity. With ``compute_dtype: int8`` and ``int8_calibration: N`` the
+first N frames calibrate the static activation scales (the JAX engine
+ignores that key; its ``YOLOJax.infer_batch`` reads it).
 
-Config keys as in the JAX engine. Not ported yet, and raising at
-construction: ``detect.temporal_gate`` (ROADMAP queue A item 3),
-``tracking.gmc``, the tracker backends other than greedy SORT
-(``tracking.nsa`` is ported), and RT-DETR in the detector registry.
+Config keys as in the JAX engine. A tracker or projector that fails to
+build is logged ("tracker init failed", "projector init failed") and the
+engine runs without it, as the JAX engine does; a failing frame source
+ends :meth:`PipelineEngine.stream` with a log line. Not ported yet, and
+raising ``NotImplementedError`` at construction: ``detect.temporal_gate``
+(ROADMAP queue A item 3), ``tracking.gmc`` and the tracker backends
+other than greedy SORT (``tracking.nsa`` is ported).
 """
 from __future__ import annotations
 
@@ -174,15 +180,24 @@ class PipelineEngine:
         track_cfg = cfg.get("tracking", {}) or {}
         self.track_enabled = bool(track_cfg.get("enabled", False)) \
             and self.detector is not None
-        self._sort_step = build_device_step(track_cfg) \
-            if self.track_enabled else None
+        self._sort_step = None
+        if self.track_enabled:
+            try:
+                self._sort_step = build_device_step(track_cfg)
+            except NotImplementedError:
+                raise      # a backend not ported yet says so by name
+            except Exception as exc:   # soft fail, as the reference does
+                log.warning("tracker init failed: %s", exc)
+                self.track_enabled = False
 
         geom_cfg = cfg.get("geometry", {}) or {}
         self.projector: Optional[HomographyProjector] = None
         if geom_cfg.get("enabled", False):
             try:
                 self.projector = build_projector(geom_cfg, device=self.device)
-            except ValueError as exc:   # soft fail, as the reference does
+            except NotImplementedError:
+                raise
+            except Exception as exc:   # soft fail, as the reference does
                 log.warning("projector init failed: %s", exc)
 
         self.sort_state = init_state(self.track_slots, self.device) \
@@ -237,7 +252,8 @@ class PipelineEngine:
         chain can sample, and the resize is a pure slice on both axes."""
         det, pre = self.detector, self.pipeline
         if not self._sampled_pre or det is None or want_proc \
-                or det.tile_cfg or pre.identity or not pre.supports_sampled():
+                or det.tile_cfg or getattr(det, "nms_free", False) \
+                or pre.identity or not pre.supports_sampled():
             return None
         r = min(det.imgsz / h, det.imgsz / w)
         new_h, new_w = round(h * r), round(w * r)
@@ -284,9 +300,12 @@ class PipelineEngine:
 
     def lb_meta(self, h: int, w: int):
         """(ratio, (left, top)) the device step letterboxes (h, w) frames
-        with, computed on the host; None when no detector is configured."""
+        with, computed on the host; the identity for a stretch-resize
+        detector (RT-DETR), None when no detector is configured."""
         if self.detector is None:
             return None
+        if getattr(self.detector, "nms_free", False):
+            return 1.0, (0.0, 0.0)
         return letterbox_meta(h, w, size=self.detector.imgsz,
                               rect=self.detector.rect)
 
@@ -444,7 +463,9 @@ class PipelineEngine:
                want_proc: bool = True) -> Iterator[FrameResult]:
         """Decode on a reader thread, which also starts each batch's
         upload; two batches in flight on the card. A failure of the
-        source ends the stream and is raised here."""
+        source is logged and ends the stream, as in the JAX engine: the
+        batches read before it are still yielded. A failure of the
+        upload is the engine's own and is raised here."""
         q: "queue.Queue" = queue.Queue(maxsize=2)
         stop = threading.Event()
         failed: List[BaseException] = []
@@ -458,8 +479,12 @@ class PipelineEngine:
                         n = min(n, max_frames - count)
                         if n <= 0:
                             break
-                    with self.timer.stage("decode"):
-                        frames, ts, m = source.read_batch(n)
+                    try:
+                        with self.timer.stage("decode"):
+                            frames, ts, m = source.read_batch(n)
+                    except Exception as exc:   # a decode failure ends
+                        log.warning("frame source failed: %s", exc)
+                        break                  # the stream
                     if m == 0:
                         break
                     # the copy runs on the upload stream and overlaps
@@ -487,7 +512,7 @@ class PipelineEngine:
             while pending:
                 yield from self.collect_batch(pending.pop(0))
             if failed:
-                raise RuntimeError("frame source failed") from failed[0]
+                raise failed[0]
         finally:
             stop.set()
             for inflight in pending:    # abandoned: hand the buffers back

@@ -6,7 +6,10 @@
 
 The configuration is ``bench.py::_cfg(1080, 1920, 8)``, the default
 realtime pipeline (CLAHE → median → YOLOv8n → NMS → SORT → geometry),
-with the checked-in demo checkpoint unless ``--model`` names another.
+with the checked-in demo checkpoint unless ``--model`` names another
+(an RT-DETR checkpoint runs the NMS-free detector; ``RVT_BENCH_NQ`` and
+``RVT_BENCH_DECL`` set its ``num_queries`` and ``decoder_layers``, as
+the JAX bench reads them).
 ``--mode full`` gives, each as the median of ``--windows`` windows of
 ``--iters`` batches with the windows' minimum and maximum beside it:
 
@@ -67,6 +70,19 @@ FPS = 30.0
 DEMO_MODEL = "assets/yolov8n_synthetic_256.npz"
 
 
+def _rtdetr_overrides(model: str) -> Dict[str, Any]:
+    """``RVT_BENCH_NQ`` (detect.num_queries) and ``RVT_BENCH_DECL``
+    (detect.decoder_layers), read as ``bench.py`` reads them: RT-DETR
+    knobs, which the YOLO families ignore (a warning says so)."""
+    nq, decl = os.environ.get("RVT_BENCH_NQ"), os.environ.get("RVT_BENCH_DECL")
+    if (nq or decl) and "rtdetr" not in os.path.basename(model).lower():
+        print("[bench] RVT_BENCH_NQ / RVT_BENCH_DECL are set but --model is "
+              "not an rtdetr checkpoint: they only affect the rtdetr "
+              "family and will be ignored", file=sys.stderr)
+    return {"num_queries": int(nq) if nq else None,
+            "decoder_layers": int(decl) if decl else None}
+
+
 def bench_cfg(height: int, width: int, batch: int, model: str,
               dtype: str = "bfloat16") -> Dict[str, Any]:
     """``bench.py::_cfg(height, width, batch)`` with ``model``."""
@@ -78,7 +94,8 @@ def bench_cfg(height: int, width: int, batch: int, model: str,
         ]},
         "detect": {"enabled": True, "model": model, "conf_thres": 0.25,
                    "iou_thres": 0.7, "max_det": 100,
-                   "classes_keep": [0, 2, 3, 5, 7]},
+                   "classes_keep": [0, 2, 3, 5, 7],
+                   **_rtdetr_overrides(model)},
         "tracking": {"enabled": True, "max_staleness": 1.2, "min_hits": 3,
                      "iou_threshold": 0.35, "speed_window": 0.8},
         "geometry": {"enabled": True, "projector": {

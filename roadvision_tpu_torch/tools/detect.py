@@ -83,7 +83,7 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
 
     vs = VideoSource(source=args.source, width=640, height=480,
-                     num_frames=args.frames)
+                     num_frames=args.frames, device=args.device)
     from PIL import Image
     records = []
     i = 0

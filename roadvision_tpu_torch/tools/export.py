@@ -4,8 +4,10 @@ port of ``tools/export.py``.
 Any YOLO checkpoint the port loads (an ultralytics ``.pt`` state dict,
 the repo's ``.npz``, an ultralytics ``.onnx`` export) is written again as
 the repo's ``.npz`` or as an ONNX weights carrier with ultralytics-style
-fused initializer names. Refuses to overwrite its input; RT-DETR is
-refused (ROADMAP queue A item 6). Runs on the host only.
+fused initializer names. RT-DETR checkpoints (by name, or an ``.npz``
+sniffed by content) go to ``.npz`` only: no ONNX weight-carrier name
+scheme exists for its decoder. Refuses to overwrite its input. Runs on
+the host only.
 
     python -m roadvision_tpu_torch.tools.export --weights yolov8n.pt \
         --format onnx --out w.onnx
@@ -19,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from ..detect.registry import _is_rtdetr
+from ..models.rtdetr import load_params_rtdetr
 from ..models.yolo import onnx_io, weights
 
 
@@ -32,11 +35,20 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if _is_rtdetr(str(args.weights)):
-        print("[roadvision] RT-DETR is not ported to roadvision_tpu_torch "
-              "yet (ROADMAP queue A item 6)", file=sys.stderr)
-        return 2
-    params, arch, size, _ = weights.load_params(args.weights,
-                                                allow_random=False)
+        if args.format == "onnx":
+            print("[roadvision] rtdetr supports --format npz only",
+                  file=sys.stderr)
+            return 2
+        params, nc, loaded = load_params_rtdetr(args.weights)
+        if not loaded:
+            print(f"[roadvision] cannot load weights from {args.weights}",
+                  file=sys.stderr)
+            return 2
+        label, extra = "rtdetr-l", f", nc={nc}"
+    else:
+        params, arch, size, _ = weights.load_params(args.weights,
+                                                    allow_random=False)
+        label, extra = f"yolo{arch}{size}", ""
     out = Path(args.out) if args.out else \
         Path(args.weights).with_suffix(f".{args.format}")
     if out.resolve() == Path(args.weights).resolve():
@@ -48,7 +60,7 @@ def main(argv=None) -> int:
     else:
         onnx_io.export_onnx(params, out, arch=arch)
     n = sum(np.asarray(v).size for v in weights.flatten_tree(params).values())
-    print(f"[roadvision] exported yolo{arch}{size} ({n:,} params) -> {out}")
+    print(f"[roadvision] exported {label} ({n:,} params{extra}) -> {out}")
     return 0
 
 

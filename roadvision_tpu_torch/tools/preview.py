@@ -136,6 +136,7 @@ def main(argv=None) -> int:
         fps_request=cam_cfg.get("fps_request", 30),
         backend=cam_cfg.get("backend", "auto"),
         num_frames=args.max_frames,
+        device=args.device,
     )
     fpsm = FPSMeter(alpha=0.1)
     engine = PipelineEngine(cfg, device=args.device)

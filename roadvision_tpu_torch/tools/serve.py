@@ -257,6 +257,7 @@ def _pipeline_loop(cfg, hub: FrameHub, max_frames, quality: int,
             fps_request=cam_cfg.get("fps_request", 30),
             backend=cam_cfg.get("backend", "auto"),
             num_frames=max_frames,
+            device=device,
         )
         engine = PipelineEngine(cfg, device=device)
         fpsm = FPSMeter(alpha=0.1)

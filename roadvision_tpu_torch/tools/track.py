@@ -86,7 +86,7 @@ def main(argv=None) -> int:
                      width=args.width or cam.get("width", 1280),
                      height=args.height or cam.get("height", 720),
                      fps_request=cam.get("fps_request", 30),
-                     num_frames=args.frames)
+                     num_frames=args.frames, device=args.device)
     engine = PipelineEngine(cfg, device=args.device)
     writer = make_writer(args.record) if args.record else None
 

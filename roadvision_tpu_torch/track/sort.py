@@ -266,10 +266,13 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
     """``step(state, boxes (D,4), cls (D,), conf (D,), dvalid (D,), ts (),
     proj) -> (state', SortOutput)``; proj is None or (H, origin, maxd).
     ``nsa`` turns on the confidence-scaled measurement noise."""
-    if association != "greedy":
+    if association == "hungarian":
         raise NotImplementedError(
             f"tracking.association {association!r} is not ported to "
             f"roadvision_tpu_torch yet (greedy only)")
+    if association != "greedy":
+        raise ValueError(f"unknown association: {association!r} "
+                         f"(expected 'greedy' or 'hungarian')")
     thresh = float(iou_threshold)
     staleness = float(max_staleness)
     window = max(0.05, float(speed_window))

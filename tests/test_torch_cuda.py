@@ -8,7 +8,10 @@ is present. Run them on a machine with an NVIDIA card:
 Every check is bit-equality: the kernels and their plain versions are
 integer-exact, and the "cv2" blend rounds each float operation alone.
 The int8 convolution (``torch._int_mm`` on the card) is bit-equal too up
-to its SiLU, which is held within an ulp.
+to its activation (SiLU, ReLU, GELU), which is held within an ulp.
+RT-DETR-L's forward (float32, TF32 off), its deformable sampling and the
+fog synthesizer run float ops in another order on the card: they are
+held to the CPU path within the tolerances stated in each test.
 """
 import numpy as np
 import pytest
@@ -331,3 +334,82 @@ def test_int8_conv_on_the_card_equals_the_cpu_path(dev, cin, cout, k, stride,
             assert torch.allclose(got, want, rtol=1.2e-7, atol=0.0)
         else:
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu"])
+def test_int8_conv_activations_on_the_card_equal_the_cpu_path(dev, act):
+    """``QConv`` with each of ``conv_i8``'s activations (RT-DETR's convs):
+    the card's output within an ulp of the CPU path's (the activation in
+    f64, rounded once; GELU as x·σ(2z), which does not cancel), bit-equal
+    without one."""
+    from roadvision_tpu_torch.models import rtdetr
+    from roadvision_tpu_torch.models.yolo import quant
+    g = torch.Generator().manual_seed(7)
+    conv = rtdetr.Conv(48, 32, 3, 1, act=act)
+    conv.weight.data = torch.randn(conv.weight.shape, generator=g) * 0.1
+    conv.bias.data = torch.randn(32, generator=g) * 0.1
+    q, qd = quant.QConv(conv), quant.QConv(conv).to(dev)
+    x = torch.randn((2, 48, 20, 24), generator=g)
+    want, got = q(x), qd(x.to(dev)).cpu()
+    if act is None:
+        assert torch.equal(got, want)
+    else:
+        assert torch.allclose(got, want, rtol=1.2e-7, atol=1e-30)
+
+
+@pytest.mark.parametrize("bf16_vals", [False, True])
+def test_deform_attn_on_the_card_equals_the_cpu_path(dev, bf16_vals):
+    from roadvision_tpu_torch.models import rtdetr as T
+    g = torch.Generator().manual_seed(3)
+    p = T.DeformAttn()
+    for lin in (p.off, p.attw, p.val, p.out):
+        lin.weight.data = torch.randn(lin.weight.shape, generator=g) * 0.1
+    shapes = [(20, 20), (10, 10), (5, 5)]
+    n = sum(a * b for a, b in shapes)
+    args = (torch.randn(2, 100, T.HD, generator=g),
+            torch.rand(2, 100, 4, generator=g) * 0.9 + 0.05,
+            torch.randn(2, n, T.NH, T.HD // T.NH, generator=g))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        want = T.deform_attn(p, *args, shapes, bf16_vals=bf16_vals)
+        got = T.deform_attn(p.to(dev), *(a.to(dev) for a in args), shapes,
+                            bf16_vals=bf16_vals).cpu()
+    assert (got - want).abs().max() < 1e-4
+
+
+def test_rtdetr_forward_on_the_card_equals_the_cpu_path(dev):
+    """RT-DETR-L from the asset in float32 (TF32 off) at 2 × 128²: the
+    encoder's top-100 anchors equal, boxes and scores within 1e-4."""
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    from roadvision_tpu_torch.models import rtdetr as T
+    tree, _, _ = T.load_params_rtdetr("assets/rtdetr_l_synthetic_256.npz")
+    cpu = T.model_from_params(tree).eval()
+    gpu = T.model_from_params(tree).eval().to(dev)
+    src = SyntheticRoadSource(128, 128, num_vehicles=5, seed=0)
+    x = torch.from_numpy(np.stack([src.render(5 * i) for i in range(2)])
+                         [..., ::-1].astype(np.float32) / 255.0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        k_cpu = cpu.dec.proposals(cpu.features(x), 100)[3]
+        k_gpu = gpu.dec.proposals(gpu.features(x.to(dev)), 100)[3].cpu()
+        b_cpu, s_cpu = cpu(x, num_queries=100)
+        b_gpu, s_gpu = gpu(x.to(dev), num_queries=100)
+    assert torch.equal(k_gpu, k_cpu)
+    assert (b_gpu.cpu() - b_cpu).abs().max() < 1e-4
+    assert (s_gpu.cpu() - s_cpu).abs().max() < 1e-4
+
+
+def test_fog_synthesis_on_the_card_equals_the_cpu_path(dev):
+    """The synthesizer on the card: the same RandomState draws, uint8
+    output within the bound tests/test_torch_fog.py holds it to against
+    the JAX synthesizer (≤ 2 levels in ≤ 0.1 % of the pixels)."""
+    from roadvision_tpu_torch.augment.fog import (CLI_OVERRIDES,
+                                                  EnhancedFogSynthesizer)
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    img = SyntheticRoadSource(320, 240, num_vehicles=5, seed=0).render(4)
+    outs = [EnhancedFogSynthesizer(level="heavy", seed=5, device=d,
+                                   **CLI_OVERRIDES).synthesize(img)[0]
+            for d in ("cpu", dev)]
+    diff = np.abs(outs[0].astype(np.int32) - outs[1].astype(np.int32))
+    assert diff.max() <= 2 and (diff > 0).mean() <= 1e-3

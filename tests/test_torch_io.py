@@ -323,8 +323,12 @@ def test_video_source_ends_and_refuses():
     assert vs.read_batch(8)[2] == 3
     frames, ts, m = vs.read_batch(8)
     assert m == 0 and frames.shape == (0, 0, 0, 3) and ts.shape == (0,)
-    with pytest.raises(NotImplementedError, match="fogged synthetic source"):
-        tio.VideoSource("synthetic_fog:medium")
+    fog = tio.VideoSource("synthetic_fog:heavy", 40, 24, num_frames=1,
+                          device="cpu")
+    assert isinstance(fog._src, tcap.FoggedSyntheticRoadSource)
+    assert fog.read_batch(4)[0].shape == (1, 24, 40, 3)
+    with pytest.raises(ValueError, match="unknown fog level"):
+        tio.VideoSource("synthetic_fog:foggy", device="cpu")
     noisy = tcap.SyntheticRoadSource(64, 48, 3, noise=0.05, seed=2)
     np.testing.assert_array_equal(
         noisy.render(4),

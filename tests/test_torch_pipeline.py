@@ -26,6 +26,7 @@ from roadvision_tpu.preprocess import PreprocessPipeline as JPipeline
 from roadvision_tpu.runtime import PipelineEngine as JEngine
 from roadvision_tpu_torch.config import DEFAULTS, merge
 from roadvision_tpu_torch.io_video import SyntheticRoadSource, VideoSource
+from roadvision_tpu_torch.io_video.capture import FoggedSyntheticRoadSource
 from roadvision_tpu_torch.kernels import _build
 from roadvision_tpu_torch.ops import clahe as tclahe
 from roadvision_tpu_torch.ops import median as tmedian
@@ -151,7 +152,8 @@ def test_registry_aliases_and_unknown_name():
      "tracking": {"enabled": True, "backend": "bytetrack"}},
     {"detect": {"enabled": True, "model": "yolov8n.pt"},
      "tracking": {"enabled": True, "backend": "deepsort"}},
-    {"detect": {"enabled": True, "model": "rtdetr-l.pt"}},
+    {"detect": {"enabled": True, "model": "yolov8n.pt"},
+     "tracking": {"enabled": True, "association": "hungarian"}},
     {"detect": {"enabled": True, "model": "yolov8n.pt"},
      "tracking": {"enabled": True, "gmc": True}},
     {"detect": {"enabled": True, "model": "yolov8n.pt",
@@ -199,15 +201,144 @@ def test_stream_over_synthetic_source():
     assert len(out) == 7
     assert all(r.proc.shape == (64, 96, 3) for r in out)
     assert [r.ts for r in out] == sorted(r.ts for r in out)
-    with pytest.raises(NotImplementedError):
-        VideoSource("synthetic_fog:medium")
+    fog = VideoSource("synthetic_fog:medium:3", 48, 32, device="cpu")
+    assert isinstance(fog._src, FoggedSyntheticRoadSource)
+    assert (fog._src.level, fog._src.n_veh) == ("medium", 3)
 
     class Broken:
         def read_batch(self, n):
             raise OSError("decoder lost")
 
-    with pytest.raises(RuntimeError, match="frame source failed"):
-        list(eng.stream(Broken()))
+    # a failing source is logged and ends the stream, as in the JAX engine
+    assert list(eng.stream(Broken())) == []
+
+
+_NPZ = "assets/yolov8n_synthetic_256.npz"
+
+
+@pytest.mark.parametrize("over,tracks,projects", [
+    ({"tracking": {"backend": "nosuch"}}, False, True),
+    ({"tracking": {"iou_threshold": "abc"}}, False, True),
+    ({"tracking": {"association": "nosuch"}}, False, True),
+    ({"geometry": {"projector": "x"}}, True, False),
+])
+def test_engine_construction_soft_fails_as_jax(over, tracks, projects):
+    """A tracker or projector that fails to build is logged and left out,
+    as the JAX engine does; the rest of the engine runs."""
+    cfg = merge(merge(DEFAULTS, {
+        "detect": {"enabled": True, "model": _NPZ, "imgsz": 64,
+                   "compute_dtype": "float32", "device": "cpu"},
+        "tracking": {"enabled": True},
+        "geometry": {"enabled": True, "projector": {
+            "type": "homography",
+            "image_points": [[0, 48], [64, 48], [0, 20], [64, 20]],
+            "world_points": [[0, 0], [6, 0], [0, 60], [6, 60]]}}}), over)
+    jeng = JEngine(jmerge(JDEFAULTS, cfg))
+    eng = PipelineEngine(cfg, device="cpu")
+    assert (jeng.track_enabled, jeng.projector is not None) \
+        == (eng.track_enabled, eng.projector is not None) \
+        == (tracks, projects)
+    out = eng.process_batch(np.zeros((2, 48, 64, 3), np.uint8),
+                            np.array([0.0, 0.1]))
+    assert len(out) == 2
+
+
+def test_engine_construction_lets_not_ported_through():
+    """``NotImplementedError`` is not soft-failed: a backend not ported yet
+    says so by name (the JAX engine builds the hungarian association)."""
+    cfg = merge(DEFAULTS, {
+        "detect": {"enabled": True, "model": _NPZ, "imgsz": 64},
+        "tracking": {"enabled": True, "association": "hungarian"}})
+    with pytest.raises(NotImplementedError, match="hungarian"):
+        PipelineEngine(cfg, device="cpu")
+    from roadvision_tpu_torch.track.sort import make_sort_step
+    with pytest.raises(ValueError, match="unknown association"):
+        make_sort_step(0.3, 1.0, 0.75, association="nosuch")
+
+
+class _FailsAfter:
+    """A source that gives ``good`` frames, then fails as a truncated
+    file does."""
+
+    def __init__(self, good: int):
+        self.src = SyntheticRoadSource(64, 48, 2, seed=1)
+        self.i, self.good = 0, good
+
+    def read_batch(self, n):
+        if self.i >= self.good:
+            raise OSError("truncated")
+        m = min(n, self.good - self.i)
+        frames = np.stack([self.src.render(self.i + k) for k in range(m)])
+        ts = 1000.0 + (self.i + np.arange(m)) / 30.0
+        self.i += m
+        return frames, ts, m
+
+
+def test_source_failure_ends_the_stream_as_in_jax():
+    """The frames read before the failure come out, then the stream ends
+    without raising, in the JAX engine and in the port alike."""
+    over = {"preprocess": {"enabled": True, "chain": CHAIN},
+            "tpu": {"batch_size": 2}}
+    jout = list(JEngine(jmerge(JDEFAULTS, over)).stream(_FailsAfter(5)))
+    out = list(PipelineEngine(merge(DEFAULTS, over), device="cpu")
+               .stream(_FailsAfter(5)))
+    assert len(out) == len(jout) == 5
+    for a, b in zip(jout, out):
+        np.testing.assert_array_equal(np.asarray(a.proc), b.proc)
+
+
+def test_upload_failure_is_raised_not_taken_for_a_short_source():
+    """Only the source's own read soft-fails: a fault of the engine's
+    upload (a broken ring, a card error in the copy) reaches the caller
+    instead of ending the stream as if the video were short."""
+    over = {"preprocess": {"enabled": True, "chain": CHAIN},
+            "tpu": {"batch_size": 2}}
+    eng = PipelineEngine(merge(DEFAULTS, over), device="cpu")
+    calls = []
+    real_upload = eng.upload
+
+    def upload(frames):
+        calls.append(len(frames))
+        if len(calls) == 2:
+            raise RuntimeError("4 uploads are waiting to be dispatched")
+        return real_upload(frames)
+
+    eng.upload = upload
+    with pytest.raises(RuntimeError, match="uploads are waiting"):
+        list(eng.stream(_FailsAfter(6)))
+    assert calls == [2, 2]
+
+
+def test_truncated_video_ends_pipeline_and_serve_normally(tmp_path):
+    """A y4m with three frames and then garbage: ``Pipeline.__call__``
+    yields the JAX pipeline's frames (the first batch of two; the batch
+    the failure cuts is dropped in both) and ``tools/serve.py::main``
+    returns 0, as the JAX tools do."""
+    from roadvision_tpu_torch import Pipeline
+    from roadvision_tpu_torch.io_video import Y4MWriter
+    from roadvision_tpu_torch.tools import serve
+    path = tmp_path / "cut.y4m"
+    w = Y4MWriter(str(path))
+    src = SyntheticRoadSource(32, 24, 2, seed=0)
+    for i in range(3):
+        w.write(src.render(i))
+    w.release()
+    with open(path, "ab") as fh:
+        fh.write(b"GARBAGE\n" + bytes(100))
+    cfg = merge(DEFAULTS, {"camera": {"source": str(path)},
+                           "preprocess": {"enabled": True, "chain": CHAIN},
+                           "tpu": {"batch_size": 2}})
+    from roadvision_tpu.api import Pipeline as JPipeline_
+    jout = list(JPipeline_(cfg)())
+    out = list(Pipeline(cfg, device="cpu")())
+    assert len(out) == len(jout) == 2
+    for a, b in zip(jout, out):
+        np.testing.assert_array_equal(np.asarray(a.proc), b.proc)
+    cfg_path = tmp_path / "cut.yaml"
+    import yaml
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    assert serve.main(["--config", str(cfg_path), "--port", "0",
+                       "--device", "cpu"]) == 0
 
 
 def test_synthetic_source_is_a_copy_of_the_jax_one():

@@ -106,12 +106,12 @@ def test_closing_the_hub_stops_an_endless_pipeline():
 
 
 def test_pipeline_failure_is_kept_and_the_server_still_answers():
-    cfg = _tiny_cfg(camera={"source": "synthetic_fog:medium"})
+    cfg = _tiny_cfg(camera={"source": "synthetic_fog:foggy"})
     server, hub, worker = serve.serve_background(cfg, port=0, max_frames=4,
                                                  device="cpu")
     try:
         worker.join(timeout=60)
-        assert isinstance(hub.error, NotImplementedError) and hub.done
+        assert isinstance(hub.error, ValueError) and hub.done
         host, port = server.server_address[:2]
         stats = json.loads(_get(f"http://{host}:{port}", "/stats")[1])
         assert stats["done"] and stats["frames"] == 0

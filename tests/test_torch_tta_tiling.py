@@ -2,8 +2,8 @@
 (``ops/tiling.py``) vs the JAX package (CPU, float32), with the trained
 ``assets/yolov8n_synthetic_256.npz`` on the synthetic road scene.
 
-``scale_img`` contracts the same weight matrices as
-``jax.image.resize(antialias=False)``: within 1e-5 (a few float32 ulps
+``scale_img`` applies, by their nonzero taps, the same weight matrices
+``jax.image.resize(antialias=False)`` contracts: within 1e-5 (a few float32 ulps
 of values in [0, 1]: XLA sums in another order; measured 1.7e-6). The
 tile grid and the anchor trim are the same integers. The candidates (three augmented
 passes; every tile plus the full frame in one batch) within 1e-4 in
