@@ -48,10 +48,28 @@ Phases, in order; any failure exits non-zero:
      server on 127.0.0.1 port 0: ``/stats``, ``/detections``, three
      parts of ``/stream``, shutdown with every thread joined),
      ``[state]`` (three batches, ``save_state``, three more; a fresh
-     engine, ``load_state``, the same three: bit-equal), ``[tracker]``
+     engine, ``load_state``, the same three: bit-equal; the file holds
+     the JAX format's 25 ``sort_*`` arrays by name; again with OC-SORT
+     and GMC, ``gmc_prev`` included), ``[tracker]``
      (``SortTracker.update`` over the engine's detections gives the
-     engine's ids) and ``[bench]`` (the port bench in-process at a small
-     iteration count);
+     engine's ids), ``[entry] track --gt`` (``tools/track.py`` over 16
+     frames with the synthetic road's ground truth on the card and on
+     the CPU: MOTA, IDF1, HOTA equal to 1e-6) and ``[bench]`` (the port
+     bench in-process at a small iteration count);
+  5b. the tracker family, each path with its launch counts:
+     ``[tracker] <backend>`` for sort, hungarian, bytetrack, ocsort,
+     deepsort, strongsort (GMC on), botsort (GMC on) and deepsort with
+     ``reid_weights: assets/reid_synthetic.npz`` (three float32 batches
+     against the CPU path: ids equal, distance and speed within
+     TRACK_RTOL; bfloat16 frames/s as ``tools/bench.py`` times a path,
+     the SORT + geometry stage ms, the association's host syncs in one
+     batch); ``[gmc]`` (a pan by known shifts through strongsort: the
+     card's shifts equal the CPU's and the known ones); ``[gate]``
+     (``detect.temporal_gate`` on a static and a moving scene through
+     ``stream``: the same coasted frames on the card and on the CPU, > 0
+     and 0, ids included; then ``tools/bench.py --mode gate``
+     in-process). The CPU engines of 5b share one preprocess + detector
+     pass per distinct batch (``SharedFront``);
   6. ``[detector]``: the same config with the detector swapped — (a)
      YOLOv5n from its asset (conf 0.5), (b) YOLO11n, (c-e) v8n seg /
      pose / obb, (f) int8 with ``int8_calibration: 8``, (g) TTA, (h)
@@ -64,8 +82,8 @@ Phases, in order; any failure exits non-zero:
      float32's; for RT-DETR the encoder's top-k anchors must be the same
      set on the card and on the CPU, else the score gap at rank nq is
      printed and the phase fails) and timed bfloat16 (int8) batches as
-     tools/bench.py times them (median, min and max of 3 windows of 2
-     batches; stage ms of 3 batches; RT-DETR also by backbone, encoder
+     tools/bench.py times them (median, min and max of 2 windows of 2
+     batches; stage ms of 2 batches; RT-DETR also by backbone, encoder
      and decoder), launches 1 / 1 / 1 per batch; (i) the yolov8n asset
      as ONNX (``detect.backend: onnx``) and as a ``.pt`` state dict:
      detections ``==`` to the ``.npz`` run (``chiprun_out/detector.json``);
@@ -760,17 +778,30 @@ def entry_serve(model: str) -> dict:
     return {"launches": counts, "frames": frames}
 
 
-def state_phase(model: str, batches, tmp: Path) -> dict:
+def state_phase(model: str, batches, tmp: Path, tracking=None) -> dict:
+    """``[state]``: three batches, ``save_state``, three more; a fresh
+    engine, ``load_state``, the same three: bit-equal. The file carries
+    the JAX format's 25 ``sort_*`` arrays (and ``gmc_prev`` with GMC on)
+    by name, and loads on the CPU path too."""
+    from roadvision_tpu_torch.config import merge
     from roadvision_tpu_torch.runtime import PipelineEngine
-    cfg = pipeline_cfg(model)
+    cfg = merge(pipeline_cfg(model), {"tracking": tracking or {}})
+    label = "[state]" if not tracking else \
+        f"[state] {json.dumps(tracking, sort_keys=True)}"
     first = PipelineEngine(cfg)
     seen = set()
-    with PathLaunches("[state]") as pl:
+    with PathLaunches(label) as pl:
         for frames, ts in batches[:3]:
             for r in first.process_batch(frames, ts, want_proc=False):
                 seen |= {d.track_id for d in r.detections}
-        path = tmp / "state.npz"
+        path = tmp / f"state_{len(tracking or {})}.npz"
         first.save_state(path)
+        with np.load(path) as z:
+            want_keys = {f"sort_{k}" for k in JAX_SORT_FIELDS} | {"t0"} \
+                | ({"gmc_prev"} if first.gmc_enabled else set())
+            if set(z.files) != want_keys:
+                fail(f"{label}: the file holds {sorted(z.files)}, the JAX "
+                     f"format {sorted(want_keys)}")
         want = [first.process_batch(f, t, want_proc=False)
                 for f, t in batches[3:6]]
         second = PipelineEngine(cfg)
@@ -778,24 +809,29 @@ def state_phase(model: str, batches, tmp: Path) -> dict:
         got = [second.process_batch(f, t, want_proc=False)
                for f, t in batches[3:6]]
         counts = pl.check(9)
-    n = sum(same_detections(a, b, "[state]") for a, b in zip(want, got))
+    n = sum(same_detections(a, b, label) for a, b in zip(want, got))
     ids = {d.track_id for rs in got for r in rs for d in r.detections}
     speeds = sum(d.speed_kmh is not None
                  for rs in got for r in rs for d in r.detections)
-    if n == 0 or None in ids or speeds == 0 or not ids & seen:
-        fail(f"[state]: nothing carried over (ids {sorted(ids)} after "
-             f"{sorted(seen)}, {speeds} speeds)")
+    # OC-SORT starts tracks from confident detections only: the others
+    # keep no id
+    if n == 0 or (None in ids and not tracking) or speeds == 0 \
+            or not (ids & seen) - {None}:
+        fail(f"{label}: nothing carried over (ids {sorted(ids, key=str)} "
+             f"after {sorted(seen, key=str)}, {speeds} speeds)")
     # the file also loads on the CPU path
     cpu = PipelineEngine(cfg, device="cpu")
     cpu.load_state(path)
     with np.load(path) as z:
         if cpu.sort_state.ids.device.type != "cpu" or not np.array_equal(
                 cpu.sort_state.ids.numpy(), z["sort_ids"]):
-            fail("[state]: the CPU engine did not take the state over")
-    print(f"[state] three batches after load_state equal the uninterrupted "
+            fail(f"{label}: the CPU engine did not take the state over")
+    print(f"{label} three batches after load_state equal the uninterrupted "
           f"run bit for bit ({n} detections: {len(ids)} ids, "
           f"{len(ids & seen)} of them from before the save, boxes, "
-          f"distance, speed); launches {counts}", flush=True)
+          f"distance, speed); the file holds the JAX format's 25 sort_* "
+          f"arrays{' and gmc_prev' if first.gmc_enabled else ''}; launches "
+          f"{counts}", flush=True)
     return {"launches": counts, "batches": 9, "detections": n}
 
 
@@ -861,6 +897,353 @@ def bench_phase(model: str, card: str) -> dict:
     return line
 
 
+# ----------------------------------------------------------------------
+# the tracker family, GMC, the temporal gate, MOT scoring
+
+TRACK_RTOL = 1e-3      # distance and speed, card against CPU (as the tests)
+REID_NPZ = "assets/reid_synthetic.npz"
+# name → tracking overrides; strongsort turns GMC on by default
+TRACKER_PATHS = {
+    "sort": {},
+    "hungarian": {"association": "hungarian"},
+    "bytetrack": {"backend": "bytetrack"},
+    "ocsort": {"backend": "ocsort"},
+    "deepsort": {"backend": "deepsort"},
+    "strongsort": {"backend": "strongsort"},
+    "botsort": {"backend": "botsort", "gmc": True},
+    "deepsort reid": {"backend": "deepsort", "reid_weights": REID_NPZ},
+}
+# the JAX SortState's fields, in its order (roadvision_tpu/track/
+# sort_tpu.py:79-111): a state file must carry each as sort_<name>
+JAX_SORT_FIELDS = (
+    "mean", "cov", "alive", "ids", "last_predict_ts", "last_update_ts",
+    "hits", "hit_streak", "cls_id", "conf", "dist", "speed", "hist_ts",
+    "hist_x", "hist_y", "hist_head", "hist_len", "next_id", "last_obs",
+    "last_obs_ts", "prev_obs", "prev_obs_ts", "obs_mean", "obs_cov", "app")
+
+
+class SharedFront:
+    """The CPU path's preprocess and detector, computed once per distinct
+    batch and shared by the CPU engines it is attached to: they run the
+    same chain and the same detector on the same frames, and only their
+    trackers (and what the trackers compute from the raw frames: GMC,
+    descriptors) differ, which each engine still runs itself."""
+
+    def __init__(self):
+        self.memo = {}
+
+    def _key(self, tag, t):
+        import hashlib
+        return tag, tuple(t.shape), hashlib.blake2b(
+            t.contiguous().numpy().tobytes(), digest_size=16).hexdigest()
+
+    def attach(self, engine):
+        apply, run = engine.pipeline.apply_batch, engine.detector.run
+
+        def shared_apply(frames):
+            key = self._key("pre", frames)
+            if key not in self.memo:
+                self.memo[key] = apply(frames)
+            return self.memo[key]
+
+        def shared_run(frames, lb=None):
+            key = self._key("det", frames) + (lb is None,)
+            if key not in self.memo:
+                self.memo[key] = run(frames, lb)
+            return self.memo[key]
+
+        engine.pipeline.apply_batch = shared_apply
+        engine.detector.run = shared_run
+        return engine
+
+
+def compare_tracks(cpu, gpu, worst: dict, what: str) -> int:
+    """``compare_results`` plus distance and speed within TRACK_RTOL;
+    updates ``worst`` and returns the number of detections."""
+    worst["box"] = max(worst["box"], compare_results(cpu, gpu))
+    n = 0
+    for a, b in zip(cpu, gpu):
+        for da, db in zip(a.detections, b.detections):
+            for k in ("distance_m", "speed_kmh"):
+                x, y = getattr(da, k), getattr(db, k)
+                if (x is None) != (y is None) or (x is not None and abs(
+                        x - y) > TRACK_RTOL * max(1.0, abs(x))):
+                    fail(f"{what}: {k} {y} on the card, {x} on the CPU")
+                if x is not None:
+                    worst[k] = max(worst[k], abs(x - y))
+            n += 1
+    return n
+
+
+def tracker_backends(model: str, batches, card: str, front) -> dict:
+    """``[tracker] <backend>``: three float32 batches on the card against
+    the CPU path (ids equal, distance and speed within TRACK_RTOL, the
+    state carried across), then bfloat16 timed as ``tools/bench.py``
+    times a path (frames/s of DET_WINDOWS windows of DET_ITERS batches,
+    SORT + geometry stage ms of DET_WINDOWS batches), the association's
+    host reads in one batch, launches 1 / 1 / 1 per batch."""
+    import torch
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.tools.bench import stage_ms, windows_fps
+    from roadvision_tpu_torch.track import sort as tsort
+    print(f"[tracker] card vs CPU tolerances: ids equal, boxes {BOX_TOL} "
+          f"px, conf {CONF_TOL}, distance and speed {TRACK_RTOL} relative",
+          flush=True)
+    out = {}
+    for name, over in TRACKER_PATHS.items():
+        t0 = time.perf_counter()
+        cfg = merge(pipeline_cfg(model), {"tracking": over})
+        cfg32 = merge(cfg, {"tpu": {"compute_dtype": "float32"}})
+        gpu = PipelineEngine(cfg32, device="cuda")
+        cpu = front.attach(PipelineEngine(cfg32, device="cpu"))
+        if "reid_weights" in over and gpu._embed_fn.__name__ != "embed":
+            fail(f"[tracker] {name}: the learned embedder did not load")
+        worst = {"box": 0.0, "distance_m": 0.0, "speed_kmh": 0.0}
+        n, ids = 0, set()
+        with PathLaunches(f"[tracker] {name}") as pl:
+            for frames, ts in batches[:3]:
+                r_gpu = gpu.process_batch(frames, ts)
+                n += compare_tracks(cpu.process_batch(frames, ts), r_gpu,
+                                    worst, f"[tracker] {name}")
+                ids |= {d.track_id for r in r_gpu for d in r.detections}
+            pl.check(3)
+        if n == 0 or len(ids - {None}) < 3:
+            fail(f"[tracker] {name}: {n} detections, ids {sorted(ids, key=str)}")
+        eng = PipelineEngine(cfg, device="cuda")
+        eng.process_batch(*batches[3], want_proc=False)       # warm-up
+        fed = iter(range(4 * BATCH, 10 ** 9, BATCH))
+
+        def window() -> int:
+            for _ in range(DET_ITERS):
+                k = next(fed)
+                eng.process_batch(batches[3 + (k // BATCH) % 3][0],
+                                  1000.0 + (k + np.arange(BATCH)) / 30.0,
+                                  want_proc=False)
+            return DET_ITERS * BATCH
+
+        with PathLaunches(f"[tracker] {name} timed") as pl:
+            fps = windows_fps(window, DET_WINDOWS, torch.device("cuda"))
+            k = next(fed)
+            tsort.reset_host_syncs()
+            eng.process_batch(batches[4][0],
+                              1000.0 + (k + np.arange(BATCH)) / 30.0,
+                              want_proc=False)
+            syncs = tsort.host_syncs
+            counts = pl.check(DET_ITERS * DET_WINDOWS + 1)
+        sort_ms = [stage_ms(eng, *batches[5])["sort_geometry"]
+                   for _ in range(DET_WINDOWS)]
+        row = {"fps": fps, "sort_geometry_ms": {
+            "median": float(np.median(sort_ms)), "min": min(sort_ms),
+            "max": max(sort_ms)}, "host_syncs_per_batch": syncs,
+            "detections": n, "ids": len(ids - {None}), "worst": worst,
+            "launches": counts}
+        out[name] = row
+        print(f"[tracker] {name}: {n} detections of 3 float32 batches match "
+              f"the CPU path ({len(ids - {None})} ids; worst "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+              + f"); bfloat16 frames/s median {fps['median']:.1f} (min "
+              f"{fps['min']:.1f}, max {fps['max']:.1f}), SORT + geometry "
+              f"{row['sort_geometry_ms']['median']:.2f} ms [min "
+              f"{min(sort_ms):.2f}, max {max(sort_ms):.2f}], {syncs} host "
+              f"syncs in one batch; launches {counts} ({card}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def pan_batches(batches, n: int, seed: int = 3):
+    """``n`` batches of a pan: each frame's top 1024 rows rolled by a
+    cumulative known shift of whole thumbnail blocks (15 x 8 px at 1080p,
+    so the gray thumbnail rolls exactly), the last 56 rows repeating the
+    first. A fixed grain of ±16 levels on the scene gives the correlation
+    texture (the sky is flat and the lane dashes repeat along y).
+    Returns [(frames, ts, shifts (B, 2) source px)]."""
+    from roadvision_tpu_torch.track.gmc import GMC_SIZE
+    sx, sy = WIDTH // GMC_SIZE, HEIGHT // GMC_SIZE
+    rows = sy * GMC_SIZE
+    rng = np.random.RandomState(seed)
+    grain = rng.randint(-16, 17, (rows, WIDTH, 1))
+    cam = np.zeros(2, int)
+    out = []
+    for b in range(n):
+        frames, shifts = [], []
+        for i in range(BATCH):
+            d = rng.randint(-3, 4, 2) if (b, i) != (0, 0) else np.zeros(2, int)
+            cam += d
+            scene = np.clip(batches[b][0][i][:rows] + grain, 0, 255)
+            top = np.roll(scene.astype(np.uint8),
+                          (cam[1] * sy, cam[0] * sx), axis=(0, 1))
+            frames.append(np.concatenate([top, top[:HEIGHT - rows]]))
+            shifts.append(d * (sx, sy))
+        out.append((np.stack(frames), batches[b][1],
+                    np.array(shifts, np.float32)))
+    return out
+
+
+def gmc_phase(model: str, batches, card: str, front) -> dict:
+    """``[gmc]``: a panned source through strongsort (GMC on) in float32:
+    each batch's shifts on the card equal the CPU's and the known pan;
+    ids equal; launches 1 / 1 / 1 per batch."""
+    import torch
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.track.gmc import batch_shifts, gray_thumbnail
+    cfg = merge(pipeline_cfg(model), {
+        "tracking": {"backend": "strongsort"},
+        "tpu": {"compute_dtype": "float32"}})
+    gpu = PipelineEngine(cfg, device="cuda")
+    cpu = front.attach(PipelineEngine(cfg, device="cpu"))
+    worst = {"box": 0.0, "distance_m": 0.0, "speed_kmh": 0.0}
+    n = 0
+    with PathLaunches("[gmc]") as pl:
+        for frames, ts, known in pan_batches(batches, 3):
+            got = []
+            for eng in (gpu, cpu):
+                g = gray_thumbnail(torch.from_numpy(frames).to(eng.device))
+                prev = eng._gmc_prev if eng._gmc_prev is not None \
+                    else torch.zeros_like(g[0])
+                got.append(batch_shifts(
+                    prev, g, torch.tensor(float(eng._gmc_prev is not None),
+                                          device=eng.device),
+                    (WIDTH // 128, HEIGHT // 128)).cpu().numpy())
+            if not (np.array_equal(got[0], got[1])
+                    and np.array_equal(got[0], known)):
+                fail(f"[gmc]: shifts card {got[0].tolist()}, CPU "
+                     f"{got[1].tolist()}, known {known.tolist()}")
+            n += compare_tracks(cpu.process_batch(frames, ts),
+                                gpu.process_batch(frames, ts), worst, "[gmc]")
+        counts = pl.check(3)
+    print(f"[gmc] a pan of 24 frames through strongsort: the card's shifts "
+          f"equal the CPU's and the known ones (up to "
+          f"{int(np.abs(known).max())} px a frame); {n} detections match "
+          f"(worst {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}"
+          f"); launches {counts}", flush=True)
+    return {"detections": n, "worst": worst, "launches": counts}
+
+
+class ListSource:
+    """Batches from a list, for ``PipelineEngine.stream``."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def read_batch(self, n):
+        if not self.batches:
+            return None, None, 0
+        frames, ts = self.batches.pop(0)[:2]
+        return frames, ts, len(frames)
+
+    def release(self):
+        pass
+
+
+def gate_phase(model: str, batches, card: str, front) -> dict:
+    """``[gate]``: ``detect.temporal_gate`` on a static and a moving scene
+    through ``PipelineEngine.stream`` in float32, card against CPU: the
+    same coasted frames (> 0 static, 0 moving) and detections, ids on the
+    coasted frames included; launches 1 / 1 / 1 per batch (the chain runs
+    on coasted batches too); then ``tools/bench.py --mode gate``
+    in-process at a small iteration count."""
+    import contextlib
+    import io
+
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.tools import bench
+    cfg = merge(pipeline_cfg(model), {
+        "detect": {"temporal_gate": {"enable": True}},
+        "tpu": {"compute_dtype": "float32"}})
+    still = np.repeat(batches[0][0][:1], BATCH, axis=0)
+    scenes = {"static": [(still, batches[k][1]) for k in range(5)],
+              "moving": [b[:2] for b in batches[:4]]}
+    out = {}
+    for scene, clip in scenes.items():
+        gpu = PipelineEngine(cfg, device="cuda")
+        cpu = front.attach(PipelineEngine(cfg, device="cpu"))
+        worst = {"box": 0.0, "distance_m": 0.0, "speed_kmh": 0.0}
+        with PathLaunches(f"[gate] {scene}") as pl:
+            r_gpu = list(gpu.stream(ListSource(clip), want_proc=False))
+            counts = pl.check(len(clip))
+        r_cpu = list(cpu.stream(ListSource(clip), want_proc=False))
+        n = compare_tracks(r_cpu, r_gpu, worst, f"[gate] {scene}")
+        coasted = (gpu.gate_frames_coasted, cpu.gate_frames_coasted)
+        if coasted[0] != coasted[1] or (coasted[0] > 0) != (
+                scene == "static") or n == 0:
+            fail(f"[gate] {scene}: coasted frames card {coasted[0]}, CPU "
+                 f"{coasted[1]}; {n} detections")
+        print(f"[gate] {scene} scene, {len(clip)} batches through stream: "
+              f"{coasted[0]} frames coasted on the card and on the CPU; "
+              f"{n} detections match, ids included; launches {counts}",
+              flush=True)
+        out[scene] = {"coasted": coasted[0], "detections": n,
+                      "launches": counts}
+    buf = io.StringIO()
+    with PathLaunches("[gate] bench") as pl, contextlib.redirect_stdout(buf):
+        rc = bench.main(["--mode", "gate", "--iters", "2", "--windows", "2",
+                         "--warmup", "1", "--model", model])
+        counts = pl.check(1, at_least=True)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or line["card"] != card or not line["static"][
+            "coasted_share"] > 0 or line["moving"]["coasted_share"] != 0:
+        fail(f"[gate] bench: rc {rc}, line {line}")
+    out["bench"] = line
+    print("[gate] bench " + json.dumps({
+        k: line[k] for k in ("static", "moving", "staleness")}), flush=True)
+    return out
+
+
+def entry_track_gt(model: str, tmp: Path) -> dict:
+    """``[entry] track --gt``: ``tools/track.py`` over 16 frames of the
+    synthetic road at 1080p with its ground truth, in float32 on the card
+    and on the CPU: MOTA, IDF1 and HOTA equal to 1e-6, launches 1 / 1 / 1
+    per batch on the card."""
+    import contextlib
+    import io
+
+    import yaml
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    from roadvision_tpu_torch.tools import track
+    from roadvision_tpu_torch.track.eval import evaluate_all
+    n = 2 * BATCH
+    src = SyntheticRoadSource(WIDTH, HEIGHT, num_vehicles=6)
+    gt = tmp / "gt.txt"
+    gt.write_text("".join(
+        f"{f + 1},{v + 1},{x1:.2f},{y1:.2f},{x2 - x1:.2f},{y2 - y1:.2f},1,"
+        f"-1,-1,-1\n" for f in range(n)
+        for x1, y1, x2, y2, v in src.gt_boxes(f)))
+    cfg_path = tmp / "track.yaml"       # float32 on both devices
+    cfg = pipeline_cfg(model)
+    cfg["tpu"]["compute_dtype"] = "float32"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    scores, lines = {}, {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        out = tmp / f"mot_{dev}.txt"
+        with PathLaunches("[entry] track --gt") as pl, \
+                contextlib.redirect_stdout(buf):
+            rc = track.main(["--source", "synthetic:6", "--frames", str(n),
+                             "--out", str(out), "--config", str(cfg_path),
+                             "--width", str(WIDTH), "--height", str(HEIGHT),
+                             "--gt", str(gt), "--device", dev])
+            if dev == "cuda":
+                counts = pl.check(2)
+        lines[dev] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        scores[dev] = evaluate_all(track.read_mot(gt, n),
+                                   track.read_mot(out, n))
+        if rc != 0:
+            fail(f"[entry] track --gt on {dev}: rc {rc}")
+    gap = max(abs(scores["cuda"][k] - scores["cpu"][k])
+              for k in ("mota", "idf1", "hota"))
+    if gap > 1e-6 or lines["cuda"] != lines["cpu"] \
+            or scores["cuda"]["matches"] == 0:
+        fail(f"[entry] track --gt: card {scores['cuda']}, CPU "
+             f"{scores['cpu']}")
+    print(f"[entry] track --gt: {n} frames at {WIDTH}x{HEIGHT}, card "
+          + json.dumps(lines["cuda"]) + f" equal to the CPU's (max gap "
+          f"{gap:.1e}); launches {counts}", flush=True)
+    return {"scores": lines["cuda"], "launches": counts}
+
+
 # [detector]: per path, what the card's float32 batch is held to against
 # the CPU path beside the boxes and confidences (BOX_TOL, CONF_TOL):
 # masks at prototype resolution, keypoints (x, y px; visibility),
@@ -872,7 +1255,7 @@ RBOX_TOL, ANGLE_TOL = 0.05, 1e-4
 # timed bf16 (int8) runs per path, as tools/bench.py times the main
 # path: DET_WINDOWS windows of DET_ITERS batches (frames/s median, min,
 # max), and the stage ms of DET_WINDOWS single batches (median, min, max)
-DET_ITERS, DET_WINDOWS = 2, 3
+DET_ITERS, DET_WINDOWS = 2, 2
 
 
 def _trained_task_tree(task: str, nc: int, tmp: Path) -> str:
@@ -1450,9 +1833,20 @@ def main() -> int:
             "preview": entry_preview(model, Path(tmp)),
             "serve": entry_serve(model),
             "state": state_phase(model, batches, Path(tmp)),
+            "state ocsort gmc": state_phase(
+                model, batches, Path(tmp),
+                {"backend": "ocsort", "gmc": True}),
             "tracker": tracker_phase(model, batches),
+            "track --gt": entry_track_gt(model, Path(tmp)),
         }
     entries["bench"] = bench_phase(model, card)
+    # the tracker family, GMC and the gate: the CPU engines share one
+    # preprocess + detector pass per distinct batch
+    front = SharedFront()
+    entries["trackers"] = tracker_backends(model, batches, card, front)
+    entries["gmc"] = gmc_phase(model, batches, card, front)
+    entries["gate"] = gate_phase(model, batches, card, front)
+    front.memo.clear()
     with tempfile.TemporaryDirectory() as tmp:
         detector = detector_phase(batches, card, Path(tmp))
     (out_dir / "detector.json").write_text(json.dumps(detector, indent=1))

@@ -169,7 +169,7 @@ class Pipeline:
         multi-stream engine)."""
         raise NotImplementedError(
             "Pipeline.streams (runtime/multi_engine.py) is not ported to "
-            "roadvision_tpu_torch yet")
+            "roadvision_tpu_torch yet (ROADMAP A8)")
 
     def reset(self) -> None:
         """Clear tracker state (between independent clips)."""

@@ -46,12 +46,12 @@ def bench(argv: Optional[list] = None) -> int:
 
 def train(argv: Optional[list] = None) -> int:
     raise NotImplementedError("training (tools/train.py) is not ported to "
-                              "roadvision_tpu_torch yet")
+                              "roadvision_tpu_torch yet (ROADMAP A7)")
 
 
 def analyze(argv: Optional[list] = None) -> int:
     raise NotImplementedError("analytics (tools/analyze.py) is not ported "
-                              "to roadvision_tpu_torch yet")
+                              "to roadvision_tpu_torch yet (ROADMAP A11)")
 
 
 if __name__ == "__main__":  # python -m roadvision_tpu_torch.cli <name> [args]

@@ -45,13 +45,30 @@ identity. With ``compute_dtype: int8`` and ``int8_calibration: N`` the
 first N frames calibrate the static activation scales (the JAX engine
 ignores that key; its ``YOLOJax.infer_batch`` reads it).
 
+Tracking runs every backend of ``track/registry.py``. The re-id
+backends (deepsort, strongsort, botsort) get per-detection descriptors
+computed on the device from the RAW frames: the grid descriptor, or the
+learned embedder when ``tracking.reid_weights`` names a usable file (an
+unusable one is logged and the grid descriptor kept, as in JAX).
+``tracking.gmc`` (on by default for strongsort) estimates each frame's
+camera shift by phase correlation of gray thumbnails and carries the
+last thumbnail across batches (``gmc_prev`` in the state file).
+
+``detect.temporal_gate`` (plain detect task, no tiling, not with GMC)
+skips the detector on near-static scenes: the motion score of batch i,
+read on the host when batch i is collected, decides whether a later
+batch coasts (:meth:`PipelineEngine.build_coast_step`: preprocess and
+the tracker tail on the last full batch's final-frame detections, kept
+on the device); skips are counted at dispatch, at most
+``max_skip_batches`` in a row; ``gate_frames_coasted`` counts the
+coasted frames. :meth:`PipelineEngine.build_gated_scan_step` is the
+bench's gate, deciding per batch on that batch's own score: torch has no
+``lax.cond``, so it reads the one flag on the host (one sync a batch).
+
 Config keys as in the JAX engine. A tracker or projector that fails to
 build is logged ("tracker init failed", "projector init failed") and the
 engine runs without it, as the JAX engine does; a failing frame source
-ends :meth:`PipelineEngine.stream` with a log line. Not ported yet, and
-raising ``NotImplementedError`` at construction: ``detect.temporal_gate``
-(ROADMAP queue A item 3), ``tracking.gmc`` and the tracker backends
-other than greedy SORT (``tracking.nsa`` is ported).
+ends :meth:`PipelineEngine.stream` with a log line.
 """
 from __future__ import annotations
 
@@ -68,8 +85,9 @@ from ..geometry.projector import (HomographyProjector, build_projector,
                                   distance_device, project_boxes_device)
 from ..ops.letterbox import axis_plan, finish_letterbox, letterbox_meta
 from ..preprocess import PreprocessPipeline
+from ..track.gmc import GMC_SIZE, batch_shifts, gray_thumbnail
 from ..track.registry import build_device_step
-from ..track.sort import SortState, init_state, state_from_jax
+from ..track.sort import SortState, init_state, read_flag, state_from_jax
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import get_logger
 from ..utils.timing import StageTimer
@@ -79,6 +97,7 @@ log = get_logger("roadvision.engine")
 # pinned/device buffer pairs for uploads: stream() can hold two batches
 # dispatched, two queued and one being filled
 UPLOAD_SLOTS = 5
+GATE_BLOCK = 8   # motion-probe pooling block (thumbnail px per side)
 
 
 class FrameResult(NamedTuple):
@@ -86,6 +105,27 @@ class FrameResult(NamedTuple):
     proc: np.ndarray         # (H, W, 3) uint8 BGR
     detections: List[Detection]
     ts: float
+
+
+def _motion_score(frames_u8: torch.Tensor, prev_thumb: torch.Tensor,
+                  prev_valid: float):
+    """Temporal-gate motion probe → (score (), last thumbnail (G, G)), as
+    ``roadvision_tpu/runtime/engine.py::_motion_score``: the max over
+    consecutive gray-thumbnail pairs (the carried previous thumbnail
+    first, when ``prev_valid``) of the max GATE_BLOCK-blockwise mean abs
+    difference, in u8 levels; +inf when no pair is observable."""
+    g = gray_thumbnail(frames_u8)                      # (B, G, G)
+    prev = torch.cat([prev_thumb[None], g[:-1]], dim=0)
+    d = (g - prev).abs()
+    nb = GMC_SIZE // GATE_BLOCK
+    b = d.shape[0]
+    blocks = d.reshape(b, nb, GATE_BLOCK, nb, GATE_BLOCK).mean(dim=(2, 4))
+    per_pair = blocks.amax(dim=(1, 2))                 # (B,)
+    inf = torch.tensor(float("inf"), device=g.device)
+    first = per_pair[0] if prev_valid > 0 else -inf
+    rest = per_pair[1:].max() if b > 1 else -inf
+    score = torch.maximum(first, rest)
+    return torch.where(torch.isinf(score), inf, score), g[-1]
 
 
 def unpack_detections(arrays, names: List[str], b: int,
@@ -159,10 +199,6 @@ class PipelineEngine:
         det_cfg = dict(cfg.get("detect", {}) or {})
         det_cfg.setdefault("compute_dtype",
                            tpu_cfg.get("compute_dtype", "bfloat16"))
-        if (det_cfg.get("temporal_gate") or {}).get("enable"):
-            raise NotImplementedError("detect.temporal_gate is not ported to "
-                                      "roadvision_tpu_torch yet (ROADMAP "
-                                      "queue A item 3)")
         self.detector = None
         if det_cfg.get("enabled", False):
             from ..detect.registry import build_detector
@@ -189,6 +225,54 @@ class PipelineEngine:
             except Exception as exc:   # soft fail, as the reference does
                 log.warning("tracker init failed: %s", exc)
                 self.track_enabled = False
+
+        # per-detection descriptors for the re-id backends: the grid
+        # descriptor, or the learned embedder from tracking.reid_weights
+        self._embed_fn = None
+        if getattr(self._sort_step, "needs_embeddings", False):
+            from ..track.appearance import box_embeddings
+            self._embed_fn = box_embeddings
+            reid_w = track_cfg.get("reid_weights")
+            if reid_w:
+                try:
+                    from ..track.reid import load_reid_params, make_reid_embed
+                    self._embed_fn = make_reid_embed(
+                        load_reid_params(reid_w, device=self.device))
+                    log.info("re-id: learned embedder from %s", reid_w)
+                except Exception as exc:  # soft fail, keep grid descriptor
+                    log.warning("re-id weights %s unusable (%s); using "
+                                "the grid descriptor", reid_w, exc)
+
+        # camera-motion compensation: the previous batch's last thumbnail
+        backend_name = str(track_cfg.get("backend") or "sort").lower()
+        self.gmc_enabled = self.track_enabled \
+            and bool(track_cfg.get("gmc", backend_name == "strongsort"))
+        self._gmc_prev: Optional[torch.Tensor] = None
+
+        # temporal gate: host policy with one batch of lag
+        gcfg = (det_cfg.get("temporal_gate") or {}) \
+            if self.detector is not None else {}
+        self._gate_cfg: Optional[Dict[str, float]] = None
+        if gcfg.get("enable"):
+            if getattr(self.detector, "task", "detect") != "detect" \
+                    or getattr(self.detector, "tile_cfg", None):
+                raise ValueError(
+                    "detect.temporal_gate supports the plain detect task "
+                    "without tiling (coasting has no defined semantics "
+                    "for masks/keypoints/rboxes or tiled candidates)")
+            if self.gmc_enabled:
+                raise ValueError(
+                    "detect.temporal_gate and tracking.gmc are mutually "
+                    "exclusive (camera motion raises the gate's motion "
+                    "score, so the scene never qualifies as static)")
+            self._gate_cfg = dict(
+                thresh=float(gcfg.get("thresh", 1.5)),
+                max_skip=int(gcfg.get("max_skip_batches", 3)))
+        self._gate_score: Optional[float] = None
+        self._gate_skips = 0
+        self._gate_dets = None          # device (boxes, conf, cls, valid)
+        self._gate_thumb: Optional[torch.Tensor] = None
+        self.gate_frames_coasted = 0
 
         geom_cfg = cfg.get("geometry", {}) or {}
         self.projector: Optional[HomographyProjector] = None
@@ -221,17 +305,25 @@ class PipelineEngine:
         self._result_free: Dict[tuple, List[List[torch.Tensor]]] = {}
 
     # ------------------------------------------------------------------
-    def _dets_tail(self, b: int, boxes, conf, cls_id, valid, ts):
-        """Detections → (track ids, distance, speed), (B, max_det) each."""
+    def _dets_tail(self, b: int, boxes, conf, cls_id, valid, ts,
+                   frames_u8: Optional[torch.Tensor] = None,
+                   shifts: Optional[torch.Tensor] = None):
+        """Detections → (track ids, distance, speed), (B, max_det) each,
+        one tracker step per frame. ``frames_u8`` are the RAW frames the
+        re-id backends' descriptors are computed from; ``shifts`` (B, 2)
+        the GMC camera shifts in source px."""
         proj = self.projector.device_params() if self.projector else None
         max_det = boxes.shape[1]
         dev = boxes.device
         if self.track_enabled:
+            emb = self._embed_fn(frames_u8, boxes, valid) \
+                if self._embed_fn is not None else None
             outs = []
             for i in range(b):
                 self.sort_state, o = self._sort_step(
                     self.sort_state, boxes[i], cls_id[i], conf[i], valid[i],
-                    ts[i], proj)
+                    ts[i], proj, None if emb is None else emb[i],
+                    None if shifts is None else shifts[i])
                 outs.append(o)
             return (torch.stack([o.track_id for o in outs]),
                     torch.stack([o.distance_m for o in outs]),
@@ -244,6 +336,20 @@ class PipelineEngine:
             return ids, distance_device(ground, gvalid & valid, origin,
                                         maxd), nan
         return ids, nan, nan.clone()
+
+    def _gmc_shifts(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """The batch's per-frame camera shifts (B, 2) in source px against
+        the carried thumbnail; the batch's last thumbnail is carried on."""
+        h, w = frames_u8.shape[1:3]
+        grays = gray_thumbnail(frames_u8)
+        prev = self._gmc_prev if self._gmc_prev is not None else \
+            torch.zeros((GMC_SIZE, GMC_SIZE), device=grays.device)
+        valid = torch.tensor(0.0 if self._gmc_prev is None else 1.0,
+                             device=grays.device)
+        shifts = batch_shifts(prev, grays, valid,
+                              (max(1, w // GMC_SIZE), max(1, h // GMC_SIZE)))
+        self._gmc_prev = grays[-1]
+        return shifts
 
     def sampled_plans(self, h: int, w: int, want_proc: bool):
         """The letterbox's (stride, offset, count) sample grid per axis
@@ -294,9 +400,93 @@ class PipelineEngine:
         # with its side output (masks, keypoints or rboxes) as ``extra``
         boxes, conf, cls_id, valid, extra = det.run(
             frames_u8 if proc is None else proc, lb)
-        ids, dist, speed = self._dets_tail(b, boxes, conf, cls_id, valid, ts)
+        shifts = self._gmc_shifts(frames_u8) if self.gmc_enabled else None
+        ids, dist, speed = self._dets_tail(b, boxes, conf, cls_id, valid, ts,
+                                           frames_u8, shifts)
         outs = (boxes, conf, cls_id, valid, ids, dist, speed)
         return proc, outs if extra is None else outs + (extra,)
+
+    # ------------------------------------------------------------------
+    # temporal gating (detect.temporal_gate)
+    def build_coast_step(self, shape, want_proc: bool = True):
+        """The gated step: preprocess runs (display and recording need
+        it), the detector is SKIPPED, and the tracker tail runs on one
+        reused (max_det,) detection set replicated over the batch's
+        frames; timestamps advance, so speeds decay toward zero.
+        ``step(frames_u8, ts, boxes1, conf1, cls1, valid1, prev_thumb,
+        prev_valid) → (proc, outs, (score, thumb))``."""
+        b = shape[0]
+
+        @torch.inference_mode()
+        def step(frames_u8, ts, boxes1, conf1, cls1, valid1, prev_thumb,
+                 prev_valid):
+            proc = self.pipeline.apply_batch(frames_u8)
+            dets = tuple(t[None].expand(b, *t.shape)
+                         for t in (boxes1, conf1, cls1, valid1))
+            ids, dist, speed = self._dets_tail(b, *dets, ts, frames_u8)
+            return (proc if want_proc else None, dets + (ids, dist, speed),
+                    _motion_score(frames_u8, prev_thumb, prev_valid))
+
+        return step
+
+    def build_gated_scan_step(self, shape):
+        """The bench's temporal gate: each batch's own score against the
+        carried thumbnail decides whether THIS batch coasts (on the last
+        full batch's final-frame detections) or runs the detector. JAX
+        branches inside the compiled step (``lax.cond``); here the one
+        ``coast`` flag is read on the host, one sync a batch.
+
+        Returns ``(step, init_carry)``: ``step(carry, frames_u8, ts) ->
+        (outs, coasted, carry)`` with outs the 7 arrays of
+        :meth:`step`; the carry holds (sort_state, thumb, thumb_valid,
+        skips, gate_dets, gate_valid)."""
+        if self._gate_cfg is None:
+            raise ValueError("detect.temporal_gate is not enabled")
+        b = shape[0]
+        det = self.detector
+        thresh = self._gate_cfg["thresh"]
+        max_skip = self._gate_cfg["max_skip"]
+        dev = self.device
+
+        def init_carry():
+            gdets = (torch.zeros((det.max_det, 4), device=dev),
+                     torch.zeros((det.max_det,), device=dev),
+                     torch.zeros((det.max_det,), dtype=torch.int32,
+                                 device=dev),
+                     torch.zeros((det.max_det,), dtype=torch.bool,
+                                 device=dev))
+            state = self.sort_state if self.sort_state is not None \
+                else init_state(self.track_slots, dev)
+            return (state, torch.zeros((GMC_SIZE, GMC_SIZE), device=dev),
+                    0.0, 0, gdets, False)
+
+        @torch.inference_mode()
+        def step(carry, frames_u8, ts):
+            sort_state, prev_thumb, prev_valid, skips, gdets, gvalid = carry
+            score, last_thumb = _motion_score(frames_u8, prev_thumb,
+                                              prev_valid)
+            proc = self.pipeline.apply_batch(frames_u8)
+            coast = gvalid and skips < max_skip \
+                and read_flag(score < thresh)
+            if coast:
+                dets = tuple(g[None].expand(b, *g.shape) for g in gdets)
+                skips += 1
+            else:
+                boxes, conf, cls_id, valid, _ = det.run(proc)
+                dets = (boxes, conf, cls_id, valid)
+                gdets = tuple(a[-1] for a in dets)
+                skips = 0
+            saved, self.sort_state = self.sort_state, sort_state
+            try:
+                ids, dist, speed = self._dets_tail(b, *dets, ts, frames_u8)
+                sort_state = self.sort_state
+            finally:
+                self.sort_state = saved
+            return dets + (ids, dist, speed), coast, \
+                (sort_state, last_thumb, 1.0, skips, gdets,
+                 gvalid or not coast)
+
+        return step, init_carry
 
     def lb_meta(self, h: int, w: int):
         """(ratio, (left, top)) the device step letterboxes (h, w) frames
@@ -393,8 +583,40 @@ class PipelineEngine:
         ts = torch.from_numpy(ts_rel).to(self.device, non_blocking=True)
         if up.ready is not None:
             torch.cuda.current_stream(self.device).wait_event(up.ready)
-        proc, arrays = self.step(up.frames, ts, want_proc)
-        out = [proc if want_proc else None, *arrays]
+        gate = self._gate_cfg
+        coasted = gate is not None \
+            and self._gate_score is not None \
+            and self._gate_score < gate["thresh"] \
+            and self._gate_skips < gate["max_skip"] \
+            and self._gate_dets is not None
+        score = None
+        if gate is not None:
+            prev = self._gate_thumb if self._gate_thumb is not None \
+                else torch.zeros((GMC_SIZE, GMC_SIZE), device=self.device)
+            pvalid = 0.0 if self._gate_thumb is None else 1.0
+            b = frames.shape[0]
+            if coasted:
+                proc, arrays, (score, self._gate_thumb) = \
+                    self.build_coast_step((b,), want_proc)(
+                        up.frames, ts, *self._gate_dets, prev, pvalid)
+                # skips are counted at dispatch: counted at collect they
+                # would lag a batch in the stream and overshoot the budget
+                self._gate_skips += 1
+                self.gate_frames_coasted += b
+            else:
+                proc, arrays = self.step(up.frames, ts, want_proc)
+                with torch.inference_mode():
+                    score, self._gate_thumb = _motion_score(up.frames, prev,
+                                                            pvalid)
+                self._gate_skips = 0
+                # the reusable set: the final frame's detections, kept on
+                # the device
+                self._gate_dets = tuple(a[b - 1] for a in arrays[:4])
+        else:
+            proc, arrays = self.step(up.frames, ts, want_proc)
+        # the gate's score rides the copy back, read at collect time
+        out = [proc if want_proc else None, *arrays] \
+            + ([] if score is None else [score])
         key, done = None, None
         if self.device.type == "cuda":
             out, key, done = self.download(out)
@@ -402,12 +624,12 @@ class PipelineEngine:
             # after the copy back too: with no preprocessing the
             # processed frames are the slot's own buffer
             up.slot.consumed, up.slot.uploaded = done, False
-        shape_key = (tuple(frames.shape[:3]), want_proc)
-        return frames, timestamps, out, done, key, shape_key
+        shape_key = (tuple(frames.shape[:3]), want_proc, coasted)
+        return frames, timestamps, out, done, key, shape_key, score is not None
 
     def collect_batch(self, inflight) -> List[FrameResult]:
         """Wait for an in-flight batch and unpack its results."""
-        frames, timestamps, out, done, key, shape_key = inflight
+        frames, timestamps, out, done, key, shape_key, has_score = inflight
         dog = None
         if self._watchdog_s > 0 and shape_key in self._warmed:
             def bark():
@@ -435,6 +657,9 @@ class PipelineEngine:
                 self.recycle(key, out)
             else:
                 host = [None if t is None else t.numpy() for t in out]
+            if has_score:
+                # the score of THIS batch gates a later dispatch
+                self._gate_score = float(host.pop())
             proc, arrays = host[0], host[1:]
             b = frames.shape[0]
             if self.detector is not None:
@@ -535,26 +760,38 @@ class PipelineEngine:
     def reset(self) -> None:
         if self.track_enabled:
             self.sort_state = init_state(self.track_slots, self.device)
+        self._gmc_prev = None
         self._t0 = None
+        # a new stream neither coasts on the last stream's detections or
+        # score nor counts its coasted frames
+        self._gate_score = None
+        self._gate_skips = 0
+        self._gate_dets = None
+        self._gate_thumb = None
+        self.gate_frames_coasted = 0
 
     def save_state(self, path) -> None:
         """Checkpoint the device-resident stream state (the whole
-        ``SortState`` and the stream's timestamp epoch) as an ``.npz``
-        with the JAX engine's key names (``sort_<field>``, ``t0``), so a
-        long-running deployment can stop and resume exactly. A file saved
-        on the card loads on the CPU path, and the other way round."""
+        ``SortState``, the GMC thumbnail when GMC is on, and the stream's
+        timestamp epoch) as an ``.npz`` with the JAX engine's key names
+        (``sort_<field>`` for all 25 fields, ``gmc_prev``, ``t0``), so a
+        long-running deployment can stop and resume exactly, in this
+        package or in the JAX one. A file saved on the card loads on the
+        CPU path, and the other way round."""
         data = {}
         if self.sort_state is not None:
             for k, v in zip(SortState._fields, self.sort_state):
                 data[f"sort_{k}"] = v.cpu().numpy()
         data["t0"] = np.asarray(
             np.nan if self._t0 is None else self._t0, np.float64)
+        if self._gmc_prev is not None:
+            data["gmc_prev"] = self._gmc_prev.cpu().numpy()
         np.savez(path, **data)
 
     def load_state(self, path) -> None:
-        """Restore a :meth:`save_state` checkpoint (or one the JAX engine
-        saved: the fields the port's ``SortState`` holds are read). The
-        tracker slot count must match the current config."""
+        """Restore a :meth:`save_state` checkpoint, or one the JAX engine
+        saved. The tracker slot count must match the current config; a
+        file that lacks a tracker field is a ``ValueError`` naming it."""
         with np.load(path) as z:
             if self.sort_state is not None:
                 missing = [k for k in SortState._fields
@@ -574,3 +811,5 @@ class PipelineEngine:
                     device=self.device)
             t0 = float(z["t0"])
             self._t0 = None if np.isnan(t0) else t0
+            self._gmc_prev = torch.from_numpy(z["gmc_prev"]).to(
+                self.device) if "gmc_prev" in z.files else None

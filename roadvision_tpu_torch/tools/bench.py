@@ -34,8 +34,18 @@ tracker), ``nopre`` (the pipeline without the chain), and ``seg``,
 JAX bench) run the same three measurements; ``sort`` (the tracker step
 over synthetic detections), ``geometry`` (homography + distance
 calls/s) and ``record`` (host overlay + compare canvas + MJPEG encode
-frames/s) time one layer. The JAX bench's ``gate`` and ``streams``
-modes wait for their ports and raise ``NotImplementedError``.
+frames/s) time one layer. ``gate`` is the JAX bench's temporal-gate
+A/B (``bench.py::gate_fps``): the gated step
+(``PipelineEngine.build_gated_scan_step``, each batch decided on its own
+motion score, one host read a batch) against the plain step on a static
+scene (one corner pixel's lowest bit flipped per frame, so the detector
+input changes while the gate sees no motion) and on the moving scene,
+frames/s each with the coasted share; then the staleness of coasted
+boxes on a slow scene (the demo checkpoint and scene when present, one
+scene step every 4 batches): matched IoU of the coasted detections
+against the fresh ones. ``RVT_BENCH_GATE_SKIP`` sets
+``max_skip_batches`` (default 7). The JAX bench's ``streams`` mode waits
+for its port and raises ``NotImplementedError``.
 
 Timing: warm-up outside every window, ``torch.cuda.synchronize()`` at
 both ends of a window, host clock between. ``--device cpu`` rehearses the
@@ -64,8 +74,8 @@ from ..utils.device import resolve_device
 from ..utils.resolutions import res_width
 
 FULL_MODES = ("full", "preprocess", "detect", "nopre", "seg", "pose", "obb")
-LAYER_MODES = ("sort", "geometry", "record")
-NOT_PORTED_MODES = ("gate", "streams")
+LAYER_MODES = ("sort", "geometry", "record", "gate")
+NOT_PORTED_MODES = ("streams",)
 FPS = 30.0
 DEMO_MODEL = "assets/yolov8n_synthetic_256.npz"
 
@@ -256,10 +266,13 @@ def stage_ms(engine, frames: np.ndarray, ts: np.ndarray) -> Dict[str, float]:
         raw, ratio, pad = timed("forward", lambda: det.candidates(proc, lb))
         b, c, k, v, _ = timed("nms", lambda: det.postprocess(
             raw, ratio, pad, (h, w)))
-        state = engine.sort_state
-        timed("sort_geometry",
-              lambda: engine._dets_tail(frames.shape[0], b, c, k, v, tsd))
-        engine.sort_state = state     # the probe leaves no trace
+        state, gmc_prev = engine.sort_state, engine._gmc_prev
+        # the tracker tail with what it computes beside the steps: the
+        # re-id descriptors and the GMC shifts, as the engine runs it
+        timed("sort_geometry", lambda: engine._dets_tail(
+            frames.shape[0], b, c, k, v, tsd, x,
+            engine._gmc_shifts(x) if engine.gmc_enabled else None))
+        engine.sort_state, engine._gmc_prev = state, gmc_prev   # no trace
     return out
 
 
@@ -463,11 +476,156 @@ def bench_record(args) -> Dict[str, Any]:
             "host_cpus": os.cpu_count()}
 
 
+def _best_ious(got: np.ndarray, want: np.ndarray) -> List[float]:
+    """For each box of ``got``, its best IoU against ``want`` (0 when
+    ``want`` is empty)."""
+    out = []
+    for a in got:
+        if len(want) == 0:
+            out.append(0.0)
+            continue
+        ix = np.maximum(0, np.minimum(a[2], want[:, 2])
+                        - np.maximum(a[0], want[:, 0]))
+        iy = np.maximum(0, np.minimum(a[3], want[:, 3])
+                        - np.maximum(a[1], want[:, 1]))
+        inter = ix * iy
+        ua = ((a[2] - a[0]) * (a[3] - a[1])
+              + (want[:, 2] - want[:, 0]) * (want[:, 3] - want[:, 1]) - inter)
+        out.append(float((inter / np.maximum(ua, 1e-9)).max()))
+    return out
+
+
+def bench_gate(args, device: torch.device) -> Dict[str, Any]:
+    """The temporal-gate A/B of ``bench.py::gate_fps``: gated against
+    ungated on a static and on a moving scene, and the staleness of the
+    coasted boxes on a slow one."""
+    from ..config import load_config
+    height, width, batch = args.res, res_width(args.res), args.batch
+    base = bench_cfg(height, width, batch, args.model, args.dtype)
+    gate = {"enable": True, "max_skip_batches": int(
+        os.environ.get("RVT_BENCH_GATE_SKIP", "7"))}
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+    eng_on = PipelineEngine(merge(base, {"detect": {"temporal_gate": gate}}),
+                            device=device, seed=args.seed)
+    eng_off = PipelineEngine(base, device=device, seed=args.seed)
+    shape = (batch, height, width)
+    step, init_carry = eng_on.build_gated_scan_step(shape)
+    render_at = DeviceSyntheticSource(width, height, num_vehicles=6,
+                                      seed=args.seed,
+                                      device=device).make_render_at_fn()
+    steps = torch.arange(batch, device=device)
+    out: Dict[str, Any] = {}
+
+    for scene in ("static", "moving"):
+        still = render_at(torch.zeros((batch,), dtype=torch.long,
+                                      device=device))
+        box = {"k": 0, "carry": init_carry(), "coasted": 0, "frames": 0}
+
+        def frames_at(k: int) -> torch.Tensor:
+            idx = k * batch + steps
+            if scene == "moving":
+                return render_at(idx)
+            # flip one corner pixel's lowest bit per frame: the detector
+            # input changes every batch, the gate's thumbnail does not
+            f = still.clone()
+            f[:, 0, 0, 0] = (idx % 2).to(torch.uint8)
+            return f
+
+        def gated() -> int:
+            for _ in range(args.iters):
+                k = box["k"]
+                ts = (k * batch + steps).to(torch.float32) / FPS
+                outs, coast, box["carry"] = step(box["carry"], frames_at(k),
+                                                 ts)
+                box["coasted"] += batch if coast else 0
+                box["frames"] += batch
+                box["k"] += 1
+            return args.iters * batch
+
+        def plain() -> int:
+            for _ in range(args.iters):
+                k = box["k"]
+                ts = (k * batch + steps).to(torch.float32) / FPS
+                eng_off.step(frames_at(k), ts, want_proc=False)
+                box["k"] += 1
+            return args.iters * batch
+
+        for run in (gated, plain):
+            box["k"] = 0
+            for _ in range(args.warmup):
+                run()
+        box.update(k=args.warmup * args.iters, coasted=0, frames=0)
+        eng_off.reset()
+        on = windows_fps(gated, args.windows, device)
+        off = windows_fps(plain, args.windows, device)
+        out[scene] = {"gated_fps": on, "ungated_fps": off,
+                      "speedup": on["median"] / off["median"],
+                      "coasted_share": box["coasted"] / max(1, box["frames"]),
+                      "frames_coasted": box["coasted"]}
+        print(f"[bench] gate, {scene} {height}p scene: "
+              f"{on['median']:.1f} frames/s gated vs {off['median']:.1f} "
+              f"ungated, {box['coasted']} of {box['frames']} frames coasted",
+              file=sys.stderr)
+
+    # staleness on a slow scene: real detections from the demo checkpoint
+    # and its scene when present, one scene step every 4 batches
+    s_base, s_w, s_h, n_veh = base, width, height, 6
+    demo = project_root() / "configs" / "synthetic_demo.yaml"
+    ckpt = project_root() / DEMO_MODEL
+    if demo.exists() and ckpt.exists():
+        s_base = load_config(str(demo))
+        s_base["tpu"]["batch_size"] = batch
+        s_base["detect"]["model"] = str(ckpt)
+        s_h, s_w = int(s_base["camera"]["height"]), \
+            int(s_base["camera"]["width"])
+        tail = str(s_base["camera"]["source"]).rpartition(":")[2]
+        n_veh = int(tail) if tail.isdigit() else 4
+    s_on = PipelineEngine(merge(s_base, {"detect": {"temporal_gate": {
+        "enable": True, "max_skip_batches": 7}}}), device=device,
+        seed=args.seed)
+    s_off = PipelineEngine(s_base, device=device, seed=args.seed)
+    s_step, s_init = s_on.build_gated_scan_step((batch, s_h, s_w))
+    s_render = DeviceSyntheticSource(s_w, s_h, num_vehicles=n_veh,
+                                     device=device).make_render_at_fn()
+    slow = 4 * batch
+    carry = s_init()
+    ious, n_coasted = [], 0
+    n_stale = min(max(args.iters, 2) * 2, 16)
+    for k in range(n_stale):
+        idx = k * batch + steps
+        frames = s_render(idx // slow)
+        ts = idx.to(torch.float32) / FPS
+        outs_g, coast, carry = s_step(carry, frames, ts)
+        _, outs_p = s_off.step(frames, ts, want_proc=False)
+        if not coast:
+            continue
+        gb, gv, pb, pv = (t.cpu().numpy() for t in
+                          (outs_g[0], outs_g[3], outs_p[0], outs_p[3]))
+        for f in range(batch):
+            n_coasted += 1
+            ious += _best_ious(gb[f][gv[f]], pb[f][pv[f]])
+    out["staleness"] = {
+        "coast_frac": n_coasted / (n_stale * batch),
+        "iou_mean": float(np.mean(ious)) if ious else 1.0,
+        "iou_min": float(np.min(ious)) if ious else 1.0,
+        "n_dets": len(ious), "slow_factor": slow}
+    print(f"[bench] gate staleness on a slow scene (1 scene step per {slow} "
+          f"frames): coast_frac={out['staleness']['coast_frac']:.2f}, "
+          f"matched IoU vs fresh mean={out['staleness']['iou_mean']:.3f} "
+          f"min={out['staleness']['iou_min']:.3f} over "
+          f"{out['staleness']['n_dets']} coasted dets", file=sys.stderr)
+    out.update({"metric": f"gate_static_{height}p_fps",
+                "value": out["static"]["gated_fps"]["median"],
+                "unit": "frames/sec"})
+    return out
+
+
 def run(args) -> Dict[str, Any]:
     if args.mode in NOT_PORTED_MODES:
         raise NotImplementedError(
             f"bench mode {args.mode!r} is not ported to roadvision_tpu_torch "
-            f"yet")
+            f"yet (ROADMAP A8)")
     device = resolve_device(args.device)
     if args.model is None:
         args.model = str(project_root() / DEMO_MODEL)
@@ -477,6 +635,8 @@ def run(args) -> Dict[str, Any]:
         out = bench_sort(args, device)
     elif args.mode == "geometry":
         out = bench_geometry(args, device)
+    elif args.mode == "gate":
+        out = bench_gate(args, device)
     else:
         out = bench_record(args)
     on_card = device.type == "cuda"

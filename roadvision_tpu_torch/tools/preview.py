@@ -91,7 +91,7 @@ def run_multi(args, cfg) -> int:
     raise NotImplementedError(
         "the multi-camera preview (tpu.mesh.enable with several "
         "camera.sources; runtime/multi_engine.py) is not ported to "
-        "roadvision_tpu_torch yet")
+        "roadvision_tpu_torch yet (ROADMAP A8)")
 
 
 def main(argv=None) -> int:
@@ -116,7 +116,7 @@ def main(argv=None) -> int:
     cfg = load_config(args.config)
     if (cfg.get("analytics", {}) or {}).get("enabled"):
         raise NotImplementedError("analytics is not ported to "
-                                  "roadvision_tpu_torch yet")
+                                  "roadvision_tpu_torch yet (ROADMAP A11)")
     tpu_cfg = cfg.get("tpu", {}) or {}
     mesh_cfg = tpu_cfg.get("mesh", {}) or {}
     if bool(mesh_cfg.get("enable", False)) \

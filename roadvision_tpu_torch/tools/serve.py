@@ -346,10 +346,10 @@ def _check_ported(cfg) -> None:
         raise NotImplementedError(
             "the multi-camera serve loop (tpu.mesh.enable with several "
             "camera.sources; runtime/multi_engine.py) is not ported to "
-            "roadvision_tpu_torch yet")
+            "roadvision_tpu_torch yet (ROADMAP A8)")
     if (cfg.get("analytics", {}) or {}).get("enabled"):
         raise NotImplementedError("analytics is not ported to "
-                                  "roadvision_tpu_torch yet")
+                                  "roadvision_tpu_torch yet (ROADMAP A11)")
 
 
 def main(argv=None) -> int:

@@ -13,10 +13,12 @@ Usage:
   python -m roadvision_tpu_torch.tools.track --source synthetic:4 \
       --frames 64 --out t.txt --weights assets/yolov8n_synthetic_256.npz \
       --record annotated.avi [--device cuda|cpu]
+  python -m roadvision_tpu_torch.tools.track --source clip.avi --out t.txt \
+      --gt gt/gt.txt
+      # scores the run in-process: MOTA, IDF1, HOTA, id switches, misses,
+      # false positives (one JSON line on stdout)
 
-Same flags as the JAX tool plus ``--device``. Not ported yet, raising
-``NotImplementedError``: ``--gt`` scoring (track/eval.py) and the tracker
-backends other than ``sort``.
+Same flags as the JAX tool plus ``--device``.
 """
 from __future__ import annotations
 
@@ -48,9 +50,9 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--conf", type=float, default=None)
-    from ..track.registry import BACKENDS, NOT_PORTED
+    from ..track.registry import BACKENDS
     ap.add_argument("--backend", default=None,
-                    choices=sorted((*BACKENDS, *NOT_PORTED)),
+                    choices=sorted(BACKENDS),
                     help="override tracking.backend")
     ap.add_argument("--record", default=None,
                     help="also write an annotated video here")
@@ -67,9 +69,6 @@ def main(argv=None) -> int:
                     help="the card (default; raises without one) or the "
                          "plain PyTorch path on the CPU")
     args = ap.parse_args(argv)
-    if args.gt:
-        raise NotImplementedError("--gt scoring (track/eval.py) is not "
-                                  "ported to roadvision_tpu_torch yet")
 
     cfg = load_config(args.config)
     cfg.setdefault("detect", {})["enabled"] = True
@@ -145,7 +144,38 @@ def main(argv=None) -> int:
     log.info("wrote %d MOT rows (%d tracks over %d frames) to %s",
              len(lines), len(n_tracks), n_frames, out)
 
+    if args.gt:
+        import json
+
+        from ..track.eval import evaluate_all
+        gt_frames = read_mot(args.gt, n_frames)
+        pred_frames = read_mot(out, n_frames)
+        result = evaluate_all(gt_frames, pred_frames,
+                              iou_thres=args.eval_iou)
+        print(json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                          for k, v in result.items()}))
     return 0
+
+
+def read_mot(path, n_frames: int):
+    """MOT Challenge text → frames[f] = [(x1,y1,x2,y2,id)], 0-based frames
+    (``tools/track.py::read_mot``). Rows with conf == 0 are ignored (the
+    MOT gt convention for don't-care regions); frames beyond
+    ``n_frames`` extend the list."""
+    frames: list = [[] for _ in range(n_frames)]
+    for ln in Path(path).read_text().splitlines():
+        parts = ln.replace(" ", "").split(",")
+        if len(parts) < 6 or not parts[0]:
+            continue
+        f = int(float(parts[0])) - 1
+        tid = int(float(parts[1]))
+        x, y, w, h = (float(v) for v in parts[2:6])
+        if len(parts) > 6 and float(parts[6]) == 0.0:
+            continue
+        while f >= len(frames):
+            frames.append([])
+        frames[f].append((x, y, x + w, y + h, tid))
+    return frames
 
 
 if __name__ == "__main__":

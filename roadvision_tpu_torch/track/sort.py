@@ -1,5 +1,6 @@
 """SORT multi-object tracking on tensors — the port of
-``roadvision_tpu/track/sort_tpu.py:79-466`` (greedy association).
+``roadvision_tpu/track/sort_tpu.py`` (greedy and ε-auction association,
+the strategy hooks the other trackers are built from).
 
 A fixed-capacity slot array (:class:`SortState`) carries every track;
 one :func:`make_sort_step` call runs a frame: Kalman predict of alive
@@ -26,12 +27,20 @@ kept:
   * overflow beyond the slot count keeps id assignment but drops tracks.
 
 The association rounds read one flag back to the host per round (JAX
-runs them as a device ``while_loop``). ``nsa=True`` is the NSA Kalman of
-StrongSORT: measurement noise scaled per track by ``1 − conf``
-(:func:`nsa_r_scale`). The observation and appearance memories of the
-JAX ``SortState`` stay with the trackers that read them and wait for
-their ports; :func:`state_from_jax` takes over the fields both states
-hold.
+runs them as a device ``while_loop``); the ε-auction reads one flag per
+block of :data:`AUCTION_BLOCK` rounds. Every such read adds one to
+:data:`host_syncs` so a caller can count them per batch.
+``nsa=True`` is the NSA Kalman of StrongSORT: measurement noise scaled
+per track by ``1 − conf`` (:func:`nsa_r_scale`).
+
+:class:`SortState` holds the JAX state's 25 fields in the JAX order: the
+18 of SORT, the observation memory the observation-centric strategies
+read (``last_obs``, ``prev_obs`` and their stamps, the posterior at the
+last observation) and the appearance memory of the re-id strategies
+(``app``, an EMA of the matched descriptors, renormalised).
+:func:`make_sort_step`'s hooks (``associate_fn``, ``new_track_fn``,
+``update_fn``) and its trailing ``emb`` / ``shift`` arguments are the
+JAX step's (sort_tpu.py:396-650).
 """
 from __future__ import annotations
 
@@ -45,6 +54,33 @@ from ..utils.device import resolve_device
 HISTORY = 32
 STATE_DIM = 7
 MEAS_DIM = 4
+# appearance-descriptor width (track/appearance.py); checked against
+# appearance.EMB_DIM at import so a change to one cannot surface as a
+# shape error inside the step
+_EMB_DIM = 108
+APP_EMA = 0.9          # matched-track appearance EMA factor
+AUCTION_BLOCK = 8      # ε-auction rounds between two reads of "done"
+# reads of a device flag by the association loops since the last reset
+host_syncs = 0
+
+
+def _check_emb_dim() -> None:
+    from .appearance import EMB_DIM
+    assert EMB_DIM == _EMB_DIM, (
+        f"appearance.EMB_DIM={EMB_DIM} != sort._EMB_DIM={_EMB_DIM}: "
+        f"update both (SortState.app width must match the descriptor)")
+
+
+def reset_host_syncs() -> None:
+    global host_syncs
+    host_syncs = 0
+
+
+def read_flag(flag: torch.Tensor) -> bool:
+    """One device flag read on the host, counted in :data:`host_syncs`."""
+    global host_syncs
+    host_syncs += 1
+    return bool(flag)
 
 _R_DIAG = (1.0, 1.0, 10.0, 10.0)
 _P0_DIAG = (10.0, 10.0, 10.0, 10.0, 1e4, 1e4, 1e4)
@@ -69,6 +105,15 @@ class SortState(NamedTuple):
     hist_head: torch.Tensor   # (T,) i32
     hist_len: torch.Tensor    # (T,) i32
     next_id: torch.Tensor     # () i32
+    # observation memory (every backend keeps it; ocsort.py reads it)
+    last_obs: torch.Tensor    # (T, 4) f32 xyxy of the last observation
+    last_obs_ts: torch.Tensor  # (T,) f32
+    prev_obs: torch.Tensor    # (T, 4) f32 the observation before that
+    prev_obs_ts: torch.Tensor  # (T,) f32
+    obs_mean: torch.Tensor    # (T, 7) f32 KF posterior at last observation
+    obs_cov: torch.Tensor     # (T, 7, 7) f32
+    # appearance memory (kept when the step gets descriptors)
+    app: torch.Tensor         # (T, appearance.EMB_DIM) f32
 
 
 class SortOutput(NamedTuple):
@@ -101,7 +146,11 @@ def init_state(num_slots: int, device=None) -> SortState:
         cls_id=z(t, dtype=i32), conf=z(t), dist=nan.clone(), speed=nan,
         hist_ts=z(t, HISTORY), hist_x=z(t, HISTORY), hist_y=z(t, HISTORY),
         hist_head=z(t, dtype=i32), hist_len=z(t, dtype=i32),
-        next_id=torch.ones((), dtype=i32, device=device))
+        next_id=torch.ones((), dtype=i32, device=device),
+        last_obs=z(t, MEAS_DIM), last_obs_ts=z(t),
+        prev_obs=z(t, MEAS_DIM), prev_obs_ts=z(t),
+        obs_mean=z(t, STATE_DIM), obs_cov=_p0(device).repeat(t, 1, 1),
+        app=z(t, _EMB_DIM))
 
 
 def bbox_to_z(boxes: torch.Tensor) -> torch.Tensor:
@@ -152,7 +201,7 @@ def greedy_associate(iou: torch.Tensor, alive: torch.Tensor,
         rval = mat.max(dim=1).values
         mutual = (cbest[rbest].to(torch.int32) == t_ids) \
             & (rval >= thresh) & (rval > -0.5)
-        if not bool(mutual.any()):
+        if not read_flag(mutual.any()):
             break
         t_for_d = torch.full((num_d,), -1, dtype=torch.int32, device=dev) \
             .scatter_reduce(0, rbest, torch.where(mutual, t_ids, -1),
@@ -164,6 +213,77 @@ def greedy_associate(iou: torch.Tensor, alive: torch.Tensor,
         mat = torch.where(mutual[:, None] | taken_d[None, :],
                           torch.full_like(mat, -1.0), mat)
     return det2trk
+
+
+def auction_associate(iou: torch.Tensor, alive: torch.Tensor,
+                      dvalid: torch.Tensor, thresh: float,
+                      eps: float = 0.01, max_iters: int = 512
+                      ) -> torch.Tensor:
+    """Optimal-assignment association (``association: hungarian``) by
+    the parallel ε-auction of sort_tpu.py:233-311: every unassigned
+    valid detection bids ``best − second best + ε`` for its best-value
+    column, each column goes to its highest bidder (first index on
+    ties); D dummy columns at −1 let every detection end assigned; pairs
+    on a dummy column or below ``thresh`` are unmatched afterwards.
+    Returns det→track (D,) int32, -1 unmatched.
+
+    JAX runs the rounds as a device ``while_loop`` that stops when no
+    valid detection is unassigned or after ``max_iters`` rounds. Here
+    the rounds run in blocks of :data:`AUCTION_BLOCK` with one read of
+    that flag per block. This is exact: once every valid detection is
+    assigned, nobody bids, so a further round changes neither prices nor
+    assignments (``has_bid`` is false everywhere, hence no eviction and
+    no win); and ``max_iters`` is cut at the same round count, the last
+    block shortened if needed."""
+    num_t, num_d = iou.shape
+    dev = iou.device
+    neg = -1e9
+    cols = num_t + num_d
+    col_ids = torch.arange(cols, device=dev)
+    det_ids = torch.arange(num_d, device=dev)
+    w_real = torch.where(alive[:, None] & dvalid[None, :], iou,
+                         torch.full_like(iou, neg)).T
+    w = torch.cat([w_real, torch.full((num_d, num_d), -1.0,
+                                      dtype=torch.float32, device=dev)],
+                  dim=1)
+    prices = torch.zeros((cols,), dtype=torch.float32, device=dev)
+    assigned = torch.full((num_d,), -1, dtype=torch.int64, device=dev)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+
+    def round_(prices, assigned):
+        values = w - prices[None, :]
+        best_c = values.argmax(dim=1)
+        v1 = values.max(dim=1).values
+        rest = values.clone()
+        rest[det_ids, best_c] = neg
+        v2 = rest.max(dim=1).values
+        bidding = (assigned < 0) & dvalid
+        incr = v1 - v2 + eps
+        bid_mat = torch.where(
+            bidding[:, None] & (best_c[:, None] == col_ids[None, :]),
+            incr[:, None], neg_inf)
+        top_bid = bid_mat.max(dim=0).values
+        winner = bid_mat.argmax(dim=0)
+        has_bid = top_bid > float("-inf")
+        prices = torch.where(has_bid, prices + top_bid, prices)
+        own_c = assigned.clamp(0, cols - 1)
+        evicted = (assigned >= 0) & has_bid[own_c] \
+            & (winner[own_c] != det_ids)
+        assigned = torch.where(evicted, -1, assigned)
+        won = bidding & has_bid[best_c] & (winner[best_c] == det_ids)
+        assigned = torch.where(won, best_c, assigned)
+        return prices, assigned
+
+    it = 0
+    while it < max_iters and read_flag((dvalid & (assigned < 0)).any()):
+        for _ in range(min(AUCTION_BLOCK, max_iters - it)):
+            prices, assigned = round_(prices, assigned)
+        it += AUCTION_BLOCK
+
+    real = (assigned >= 0) & (assigned < num_t)
+    trk = assigned.clamp(0, num_t - 1)
+    good = real & (iou.T[det_ids, trk] >= thresh) & alive[trk] & dvalid
+    return torch.where(good, trk, -1).to(torch.int32)
 
 
 def _kf_predict(mean, cov, dt):
@@ -262,29 +382,64 @@ def _put_rows(buf: torch.Tensor, index: torch.Tensor, values) -> torch.Tensor:
 
 def make_sort_step(iou_threshold: float, max_staleness: float,
                    speed_window: float, min_hits: int = 3,
-                   association: str = "greedy", nsa: bool = False):
+                   association: str = "greedy",
+                   associate_fn=None, new_track_fn=None, update_fn=None,
+                   nsa: bool = False):
     """``step(state, boxes (D,4), cls (D,), conf (D,), dvalid (D,), ts (),
-    proj) -> (state', SortOutput)``; proj is None or (H, origin, maxd).
-    ``nsa`` turns on the confidence-scaled measurement noise."""
-    if association == "hungarian":
-        raise NotImplementedError(
-            f"tracking.association {association!r} is not ported to "
-            f"roadvision_tpu_torch yet (greedy only)")
-    if association != "greedy":
-        raise ValueError(f"unknown association: {association!r} "
-                         f"(expected 'greedy' or 'hungarian')")
+    proj, emb=None, shift=None) -> (state', SortOutput)``; proj is None
+    or (H, origin, maxd); ``emb`` (D, EMB_DIM) per-detection descriptors
+    (kept in ``state.app`` and handed to ``associate_fn``); ``shift``
+    (2,) the camera's translation in source px since the previous frame
+    (track/gmc.py), applied to the position memory before the predict.
+
+    ``association``: "greedy" (the reference) or "hungarian" (the
+    ε-auction, :func:`auction_associate`). The hooks, as in JAX:
+    ``associate_fn(iou (T,D), alive, dvalid, conf, ctx) → det→track``
+    with ``ctx = (state, boxes, ts, emb)`` after the predict (replaces
+    the association); ``new_track_fn(dvalid, matched_d, conf) → (D,)``
+    bool (who starts a track); ``update_fn(state, boxes, det_idx (T,),
+    matched_t (T,), ts, conf) → (mean, cov)`` (the measurement update;
+    rows of unmatched tracks are ignored). ``nsa`` turns on the
+    confidence-scaled measurement noise of the default update."""
     thresh = float(iou_threshold)
     staleness = float(max_staleness)
     window = max(0.05, float(speed_window))
     del min_hits   # tracked by the reference but never gates output
+    if associate_fn is None:
+        if association not in ("greedy", "hungarian"):
+            raise ValueError(f"unknown association: {association!r} "
+                             f"(expected 'greedy' or 'hungarian')")
+        base_assoc = greedy_associate if association == "greedy" \
+            else auction_associate
+
+        def associate_fn(iou, alive, dvalid, conf, ctx):
+            return base_assoc(iou, alive, dvalid, thresh)
+    if new_track_fn is None:
+        def new_track_fn(dvalid, matched_d, conf):
+            return dvalid & ~matched_d
+    use_nsa = bool(nsa)
+    if update_fn is None:
+        def update_fn(state, boxes, det_idx, matched_t, ts, conf):
+            return _kf_update(state.mean, state.cov, bbox_to_z(boxes)[det_idx],
+                              nsa_r_scale(conf[det_idx]) if use_nsa else None)
 
     from ..geometry.projector import project_boxes_device
 
-    def step(state: SortState, boxes, cls_id, conf, dvalid, ts, proj=None):
+    def step(state: SortState, boxes, cls_id, conf, dvalid, ts, proj=None,
+             emb=None, shift=None):
         num_t = state.mean.shape[0]
         num_d = boxes.shape[0]
         dev = boxes.device
         nan_t = torch.full((num_t,), float("nan"), device=dev)
+
+        # 0. camera-motion compensation: move the position memory
+        if shift is not None:
+            d4 = torch.cat([shift, shift])
+            d7 = torch.cat([shift, shift.new_zeros(STATE_DIM - 2)])
+            state = state._replace(
+                mean=state.mean + d7[None], obs_mean=state.obs_mean + d7[None],
+                last_obs=state.last_obs + d4[None],
+                prev_obs=state.prev_obs + d4[None])
 
         # 1. predict all alive tracks at ts
         dt = torch.clamp(ts - state.last_predict_ts, min=1e-3)
@@ -295,9 +450,10 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             cov=torch.where(alive[:, None, None], pcov, state.cov),
             last_predict_ts=torch.where(alive, ts, state.last_predict_ts))
 
-        # 2. greedy association on IoU of predicted vs detected boxes
-        det2trk = greedy_associate(iou_matrix(x_to_bbox(state.mean), boxes),
-                                   state.alive, dvalid, thresh)
+        # 2. association on IoU of predicted vs detected boxes
+        det2trk = associate_fn(iou_matrix(x_to_bbox(state.mean), boxes),
+                               state.alive, dvalid, conf,
+                               (state, boxes, ts, emb))
         matched_d = det2trk >= 0
         trk2det = _put_rows(
             torch.full((num_t,), -1, dtype=torch.int32, device=dev),
@@ -305,14 +461,14 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             torch.arange(num_d, dtype=torch.int32, device=dev))
         matched_t = trk2det >= 0
 
-        # 3. measurement update for matched tracks
+        # 3. measurement update for matched tracks, observation memory
         det_idx = trk2det.clamp(0, num_d - 1).long()
-        umean, ucov = _kf_update(
-            state.mean, state.cov, bbox_to_z(boxes)[det_idx],
-            nsa_r_scale(conf[det_idx]) if nsa else None)
+        umean, ucov = update_fn(state, boxes, det_idx, matched_t, ts, conf)
+        sel_t = matched_t[:, None]
+        sel_c = matched_t[:, None, None]
         state = state._replace(
-            mean=torch.where(matched_t[:, None], umean, state.mean),
-            cov=torch.where(matched_t[:, None, None], ucov, state.cov),
+            mean=torch.where(sel_t, umean, state.mean),
+            cov=torch.where(sel_c, ucov, state.cov),
             last_update_ts=torch.where(matched_t, ts, state.last_update_ts),
             hits=state.hits + matched_t.to(torch.int32),
             hit_streak=torch.where(
@@ -320,7 +476,23 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
                 torch.where(state.alive, torch.zeros_like(state.hit_streak),
                             state.hit_streak)),
             cls_id=torch.where(matched_t, cls_id[det_idx], state.cls_id),
-            conf=torch.where(matched_t, conf[det_idx], state.conf))
+            conf=torch.where(matched_t, conf[det_idx], state.conf),
+            prev_obs=torch.where(sel_t, state.last_obs, state.prev_obs),
+            prev_obs_ts=torch.where(matched_t, state.last_obs_ts,
+                                    state.prev_obs_ts),
+            last_obs=torch.where(sel_t, boxes[det_idx], state.last_obs),
+            last_obs_ts=torch.where(matched_t, ts, state.last_obs_ts),
+            obs_mean=torch.where(sel_t, umean, state.obs_mean),
+            obs_cov=torch.where(sel_c, ucov, state.obs_cov))
+        if emb is not None:
+            # appearance EMA on matched tracks, renormalised; an empty
+            # memory adopts the detection's descriptor
+            mixed = APP_EMA * state.app + (1.0 - APP_EMA) * emb[det_idx]
+            empty = (state.app * state.app).sum(dim=-1) < 1e-9
+            mixed = torch.where(empty[:, None], emb[det_idx], mixed)
+            nrm = torch.sqrt((mixed * mixed).sum(dim=-1, keepdim=True))
+            mixed = mixed / torch.clamp(nrm, min=1e-6)
+            state = state._replace(app=torch.where(sel_t, mixed, state.app))
 
         # 4. metrics for matched tracks from the DET box
         if proj is not None:
@@ -342,8 +514,9 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
         state = state._replace(
             alive=state.alive & ((ts - state.last_update_ts) <= staleness))
 
-        # 6. new tracks for unmatched valid dets, ids in det order
-        is_new = dvalid & ~matched_d
+        # 6. new tracks for the detections new_track_fn picks, ids in
+        # det order
+        is_new = new_track_fn(dvalid, matched_d, conf)
         rank = torch.cumsum(is_new.to(torch.int32), dim=0) - 1
         new_ids = state.next_id + rank
         free_order = torch.argsort(state.alive.to(torch.int32), stable=True)
@@ -371,7 +544,16 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             speed=_put_rows(state.speed, slot, float("nan")),
             hist_head=_put_rows(state.hist_head, slot, 0),
             hist_len=_put_rows(state.hist_len, slot, 0),
-            next_id=state.next_id + is_new.sum().to(torch.int32))
+            next_id=state.next_id + is_new.sum().to(torch.int32),
+            # first observation: prev == last (no velocity yet)
+            last_obs=_put_rows(state.last_obs, slot, boxes),
+            last_obs_ts=_put_rows(state.last_obs_ts, slot, ts_d),
+            prev_obs=_put_rows(state.prev_obs, slot, boxes),
+            prev_obs_ts=_put_rows(state.prev_obs_ts, slot, ts_d),
+            obs_mean=_put_rows(state.obs_mean, slot, init_mean),
+            obs_cov=_put_rows(state.obs_cov, slot, p0),
+            app=(_put_rows(state.app, slot, emb) if emb is not None
+                 else state.app))
 
         # metrics for brand-new tracks (first history entry, speed None)
         if proj is not None:
@@ -425,9 +607,9 @@ def state_from_jax(arrays: Mapping[str, np.ndarray],
     """A :class:`SortState` from the JAX package's: ``arrays`` maps its
     field names to numpy arrays (``SortState._asdict()`` through
     ``np.asarray``, or a ``save_state`` file's arrays without the
-    ``sort_`` prefix). The fields both states hold are taken with the
-    dtypes :func:`init_state` uses; the JAX state's observation and
-    appearance memories are left behind."""
+    ``sort_`` prefix). All 25 fields are read, with the dtypes
+    :func:`init_state` uses; a missing one is a ``ValueError`` naming
+    it."""
     device = resolve_device(device)
     ref = init_state(1, "cpu")
     missing = [k for k in SortState._fields if k not in arrays]
@@ -436,3 +618,6 @@ def state_from_jax(arrays: Mapping[str, np.ndarray],
     return SortState(*[
         torch.from_numpy(np.array(arrays[k])).to(getattr(ref, k).dtype)
         .to(device) for k in SortState._fields])
+
+
+_check_emb_dim()

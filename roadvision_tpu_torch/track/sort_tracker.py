@@ -54,14 +54,23 @@ class SortTracker(Tracker):
     PyTorch path."""
 
     def __init__(self, cfg: dict, device: DeviceLike = None):
-        parse_common_cfg(self, cfg)
+        self._parse(cfg)
         self.device = resolve_device(device)
-        self.association = str(cfg.get("association", "greedy"))
-        self._step = make_sort_step(
-            self.iou_threshold, self.max_staleness, self.speed_window,
-            self.min_hits, association=self.association, nsa=self.nsa)
+        self._step = self._make_step(cfg)
         self._state: SortState = init_state(self.track_slots, self.device)
         self._t0: Optional[float] = None
+
+    def _parse(self, cfg: dict) -> None:
+        """The backend's config knobs (the other backends add theirs)."""
+        parse_common_cfg(self, cfg)
+        self.association = str(cfg.get("association", "greedy"))
+
+    def _make_step(self, cfg: dict):
+        """The backend's single-frame step (``sort.make_sort_step``'s
+        contract)."""
+        return make_sort_step(
+            self.iou_threshold, self.max_staleness, self.speed_window,
+            self.min_hits, association=self.association, nsa=self.nsa)
 
     @property
     def state(self) -> SortState:

@@ -12,6 +12,7 @@ detector's host API, the config loader, the watchdog, and the entry
 points (preview, detect, track, bench, cli) on the CPU.
 """
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -470,7 +471,7 @@ def test_config_watcher_reloads_hot_sections(tmp_path):
     assert preview.ConfigWatcher(None, cfg).poll() is None
 
 
-def test_detect_and_track_tools(tmp_path):
+def test_detect_and_track_tools(tmp_path, capsys):
     out = tmp_path / "det"
     rc = detect.main(["--source", "synthetic:3", "--frames", "2", "--out",
                       str(out), "--weights", MODEL, "--imgsz", "160",
@@ -498,10 +499,17 @@ def test_detect_and_track_tools(tmp_path):
     assert {int(r[0]) for r in rows} <= set(range(1, 13))
     assert any(float(r[7]) != -1.0 for r in rows)     # ground coordinates
     assert np.load(tmp_path / "trk.npy").shape == (12, H, W, 3)
-    for extra in (["--gt", str(mot)], ["--backend", "ocsort"]):
-        with pytest.raises(NotImplementedError):
-            track.main(["--source", "synthetic", "--out", str(mot),
-                        "--device", "cpu", *extra])
+    # --gt and the other backends raised NotImplementedError before they
+    # were ported (their parity: tests/test_torch_{gate,trackers}.py)
+    gt = tmp_path / "gt.txt"
+    shutil.copy(mot, gt)
+    for extra in (["--gt", str(gt)], ["--backend", "ocsort"]):
+        assert track.main(["--source", "synthetic:6", "--frames", "4",
+                           "--out", str(mot), "--config",
+                           _write_cfg(tmp_path), "--width", str(W),
+                           "--height", str(H), "--device", "cpu",
+                           *extra]) == 0
+    assert capsys.readouterr().out.count('"mota"') == 1
 
 
 def test_bench_rehearsal_line_and_modes(capsys):
@@ -534,8 +542,8 @@ def test_bench_rehearsal_line_and_modes(capsys):
                            "--windows", "1", "--mode", mode]) == 0
         got = json.loads(capsys.readouterr().out.strip())
         assert got["mode"] == mode and got[key]["median"] > 0
-    with pytest.raises(NotImplementedError, match="'gate'"):
-        bench.main(["--device", "cpu", "--mode", "gate"])
+    with pytest.raises(NotImplementedError, match="'streams'"):
+        bench.main(["--device", "cpu", "--mode", "streams"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             bench.main(["--iters", "1"])

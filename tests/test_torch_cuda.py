@@ -413,3 +413,139 @@ def test_fog_synthesis_on_the_card_equals_the_cpu_path(dev):
             for d in ("cpu", dev)]
     diff = np.abs(outs[0].astype(np.int32) - outs[1].astype(np.int32))
     assert diff.max() <= 2 and (diff > 0).mean() <= 1e-3
+
+
+# the tracker family, GMC and the gate: torch ops on the card against the
+# CPU path (TF32 off), ids equal, the Kalman state within rtol 1e-5,
+# atol 1e-4, the appearance memory within 1e-5, shifts and gate decisions
+# equal (this file imports no JAX: the card's machine has none)
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _track_sequence(n_frames=24, d=12, n=8, seed=7):
+    """Moving boxes of distinct sizes (one hidden for a while), varying
+    confidences, per-identity descriptors with noise, a camera pan."""
+    from roadvision_tpu_torch.track.appearance import EMB_DIM
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(40, 520, (n, 2))
+    vel = rng.uniform(-7, 7, (n, 2))
+    size = rng.uniform(30, 90, (n, 2))
+    ident = rng.normal(size=(n, EMB_DIM))
+    cam, t = np.zeros(2), 0.0
+    for f in range(n_frames):
+        shift = rng.uniform(-6, 6, 2).round() if f else np.zeros(2)
+        cam += shift
+        t += 1 / 30
+        boxes = np.zeros((d, 4), np.float32)
+        conf = np.zeros(d, np.float32)
+        emb = np.zeros((d, EMB_DIM), np.float32)
+        valid = np.zeros(d, bool)
+        for slot, k in enumerate(k for k in range(n)
+                                 if not (k == 3 and 6 <= f < 12)):
+            xy = pos[k] + vel[k] * f + cam
+            boxes[slot] = (*xy, *(xy + size[k]))
+            conf[slot] = rng.choice([rng.uniform(0.62, 0.98),
+                                     rng.uniform(0.15, 0.45)], p=[.8, .2])
+            e = ident[k] + rng.normal(0, 0.15, EMB_DIM)
+            emb[slot] = e / np.linalg.norm(e)
+            valid[slot] = True
+        yield (boxes, np.full(d, 2, np.int32), conf, valid,
+               np.float32(t)), emb, shift.astype(np.float32)
+
+
+@pytest.mark.parametrize("cfg", [
+    {}, {"association": "hungarian"}, {"backend": "bytetrack"},
+    {"backend": "ocsort"}, {"backend": "deepsort"},
+    {"backend": "strongsort"}, {"backend": "botsort"}])
+def test_tracker_step_on_the_card_equals_the_cpu_path(dev, no_tf32, cfg):
+    from roadvision_tpu_torch.track import registry as treg
+    from roadvision_tpu_torch.track import sort as tsort
+    step = treg.build_device_step(dict(cfg, max_staleness=1.2,
+                                       speed_window=0.8))
+    needs_emb = getattr(step, "needs_embeddings", False)
+    states = {d: tsort.init_state(24, device=d) for d in ("cpu", dev)}
+    for args, emb, shift in _track_sequence():
+        outs = {}
+        for d in states:
+            states[d], outs[d] = step(
+                states[d], *(torch.from_numpy(np.asarray(a)).to(d)
+                             for a in args), None,
+                torch.from_numpy(emb).to(d) if needs_emb else None,
+                torch.from_numpy(shift).to(d))
+        assert torch.equal(outs[dev].track_id.cpu(), outs["cpu"].track_id)
+    for k in tsort.SortState._fields:
+        a, b = getattr(states[dev], k).cpu(), getattr(states["cpu"], k)
+        if k == "app":
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+        elif a.dtype.is_floating_point:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-4, equal_nan=True, err_msg=k)
+        else:
+            assert torch.equal(a, b), k
+    assert int(states[dev].next_id) > 6
+
+
+def test_reid_and_gmc_on_the_card_equal_the_cpu_path(dev, no_tf32):
+    from roadvision_tpu_torch.track import gmc as tgmc
+    from roadvision_tpu_torch.track import reid as treid
+    rng = np.random.RandomState(8)
+    frame = rng.randint(0, 256, (96, 160, 3), np.uint8)
+    xy = rng.uniform(-10, 80, (7, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(3, 60, (7, 2))], 1) \
+        .astype(np.float32)
+    p = {d: treid.load_reid_params("assets/reid_synthetic.npz", device=d)
+         for d in ("cpu", dev)}
+    got = {d: treid.reid_embeddings(
+        p[d], torch.from_numpy(frame).to(d), torch.from_numpy(boxes).to(d),
+        torch.ones(7, dtype=torch.bool, device=d)).cpu().numpy() for d in p}
+    np.testing.assert_allclose(got[dev], got["cpu"], atol=1e-5)
+    tex = torch.nn.functional.avg_pool2d(
+        torch.from_numpy(rng.rand(3, 264, 392)).float()[None] * 255, 9, 1)[0]
+    base = tex.permute(1, 2, 0).to(torch.uint8).numpy()    # 256 x 384
+    rolls = [(0, 0), (3, -2), (-7, 5), (8, 0)]
+    frames = np.stack([np.roll(base, (dy * 2, dx * 3), axis=(0, 1))
+                       for dx, dy in rolls])
+    shifts = {}
+    for d in ("cpu", dev):
+        g = tgmc.gray_thumbnail(torch.from_numpy(frames).to(d))
+        shifts[d] = tgmc.batch_shifts(g[0], g[1:], torch.tensor(
+            1.0, device=d), (3, 2)).cpu().numpy()
+    np.testing.assert_array_equal(shifts[dev], shifts["cpu"])
+    np.testing.assert_array_equal(shifts["cpu"], np.diff(
+        np.array(rolls, np.float32), axis=0) * (3, 2))
+
+
+def test_gate_on_the_card_equals_the_cpu_path(dev, no_tf32):
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    cfg = {"detect": {"enabled": True,
+                      "model": "assets/yolov8n_synthetic_256.npz",
+                      "imgsz": 64, "conf_thres": 1e-6, "max_det": 8,
+                      "compute_dtype": "float32",
+                      "temporal_gate": {"enable": True,
+                                        "max_skip_batches": 3}},
+           "tracking": {"enabled": True}, "preprocess": {"enabled": False},
+           "tpu": {"batch_size": 2, "compute_dtype": "float32"}}
+    base = np.random.RandomState(0).randint(0, 255, (48, 64, 3), np.uint8)
+    clip = [(np.stack([base, base]), 0.1 * i + np.arange(2) / 30)
+            for i in range(6)]
+    clip += [(np.stack([np.roll(base, 5 * (2 * i + j), axis=1)
+                        for j in range(2)]), 1 + 0.1 * i + np.arange(2) / 30)
+             for i in range(3)]
+    eng = {d: PipelineEngine(cfg, device=d) for d in ("cpu", dev)}
+    res = {d: [r for f, t in clip for r in e.process_batch(f, t)]
+           for d, e in eng.items()}
+    assert eng[dev].gate_frames_coasted == eng["cpu"].gate_frames_coasted > 0
+    for a, b in zip(res[dev], res["cpu"]):
+        assert [(d.cls_id, d.track_id) for d in a.detections] == \
+            [(d.cls_id, d.track_id) for d in b.detections]
+        for da, db in zip(a.detections, b.detections):
+            assert abs(da.x1 - db.x1) < 0.05 and abs(da.conf - db.conf) < 2e-3

@@ -36,6 +36,15 @@ from roadvision_tpu_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W = 288, 480
+
+# The port's tests run torch on one intra-op thread. The suite runs in
+# several pytest-xdist workers that share the machine's cores, and each
+# worker imports every test module, so this holds in every worker: with
+# torch's default pool (one thread per core) in each of them the cores
+# are oversubscribed and every parallel region waits for descheduled
+# threads (a bench rehearsal took 68-71 s under the suite's load with 8
+# threads, 9.5 s with 1).
+torch.set_num_threads(1)
 BOX_TOL, CONF_TOL = 0.05, 2e-3
 CHAIN = [{"name": "CLAHEDehaze",
           "params": {"space": "YCrCb", "clip_limit": 2.0, "tile_grid": 8}},
@@ -162,8 +171,15 @@ def test_registry_aliases_and_unknown_name():
      "tracking": {"enabled": True, "backend": "ocsort"}},
 ])
 def test_engine_refuses_unported_configs(over):
-    with pytest.raises(NotImplementedError):
-        PipelineEngine(merge(DEFAULTS, over), device="cpu")
+    """These configs raised ``NotImplementedError`` before their backends,
+    GMC and the temporal gate were ported; now each builds and processes
+    a batch (their parity with JAX: tests/test_torch_{trackers,gmc_reid,
+    gate}.py)."""
+    over = merge(over, {"detect": {"model": _NPZ, "imgsz": 64}})
+    eng = PipelineEngine(merge(DEFAULTS, over), device="cpu")
+    out = eng.process_batch(np.zeros((2, 48, 64, 3), np.uint8),
+                            np.array([0.0, 0.1]))
+    assert len(out) == 2
 
 
 @pytest.mark.parametrize("over", [
@@ -243,13 +259,20 @@ def test_engine_construction_soft_fails_as_jax(over, tracks, projects):
     assert len(out) == 2
 
 
-def test_engine_construction_lets_not_ported_through():
-    """``NotImplementedError`` is not soft-failed: a backend not ported yet
-    says so by name (the JAX engine builds the hungarian association)."""
+def test_engine_construction_lets_not_ported_through(monkeypatch):
+    """``NotImplementedError`` is not soft-failed: a tracker that is not
+    ported says so by name (every backend is ported now, so one is
+    simulated); the hungarian association builds."""
     cfg = merge(DEFAULTS, {
         "detect": {"enabled": True, "model": _NPZ, "imgsz": 64},
         "tracking": {"enabled": True, "association": "hungarian"}})
-    with pytest.raises(NotImplementedError, match="hungarian"):
+    assert PipelineEngine(cfg, device="cpu").track_enabled
+    from roadvision_tpu_torch.runtime import engine as tengine
+
+    def not_ported(cfg):
+        raise NotImplementedError("tracking.backend 'x' is not ported")
+    monkeypatch.setattr(tengine, "build_device_step", not_ported)
+    with pytest.raises(NotImplementedError, match="not ported"):
         PipelineEngine(cfg, device="cpu")
     from roadvision_tpu_torch.track.sort import make_sort_step
     with pytest.raises(ValueError, match="unknown association"):

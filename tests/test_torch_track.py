@@ -202,13 +202,23 @@ def test_iou_matrix_matches_jax():
                                  {"association": "hungarian"},
                                  {"gmc": True}])
 def test_unported_tracking_configs_raise(cfg):
-    with pytest.raises(NotImplementedError):
-        build_device_step(cfg)
+    """These configs raised ``NotImplementedError`` before they were
+    ported; each now builds a step that runs a frame (held against JAX in
+    tests/test_torch_trackers.py)."""
+    step = build_device_step(cfg)
+    b, v = _pack([(0, 0, 10, 10), (50, 50, 70, 70)])
+    state, out = step(tsort.init_state(T, device="cpu"),
+                      torch.from_numpy(b), torch.zeros(D, dtype=torch.int32),
+                      torch.full((D,), 0.9), torch.from_numpy(v),
+                      torch.tensor(0.0), None, None,
+                      torch.zeros(2) if cfg.get("gmc") else None)
+    assert out.track_id[:2].tolist() == [1, 2]
 
 
 def test_registry_names():
-    with pytest.raises(NotImplementedError, match="botsort"):
-        build_tracker({"backend": "botsort"}, device="cpu")
+    from roadvision_tpu_torch.track import BotSortTracker
+    assert isinstance(build_tracker({"backend": "botsort"}, device="cpu"),
+                      BotSortTracker)
     with pytest.raises(ValueError, match="unknown tracking backend"):
         build_tracker({"backend": "kalman9000"}, device="cpu")
     with pytest.raises(ValueError, match="unknown tracking backend"):
