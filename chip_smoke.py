@@ -98,10 +98,33 @@ Phases, in order; any failure exits non-zero:
      ``[entry] rtdetr_demo`` and ``[entry] weather_demo``: the preview
      ``main`` on each shipped config, ``--max-frames 16 --no-show
      --record``, the AVI checked, launches 1 / 1 / 2 per batch;
-  8. print the command time, the kernels' JSON line, the card line, and
-     last the ok line.
+  7b. the camera fleet (configs/multi_stream.yaml: 4 synthetic streams at
+     720p, batch 8, the CLAHE + median chain, with the repo's yolov8n
+     checkpoint) and traffic analytics, each path with its launch
+     counts: ``[streams]`` (one float32 fleet batch on the card against
+     the CPU path and against 4 single-stream engines on the card; then
+     bfloat16 timed: aggregate and per-stream frames/s against one
+     stream alone, the fleet step's stage ms, host syncs a fleet batch;
+     K1, K2 and K3 exactly once per fleet batch), ``[streams] gate``
+     (the fleet gate on 4 static streams, then 3 static and 1 moving:
+     coasted frames equal on card and CPU), ``[entry] multi_preview``
+     (32 grid canvases recorded), ``[entry] analytics_demo`` (the shipped
+     config through the preview, ``tools/analyze.py`` on the card
+     against the CPU in float32, the server's /events and /metrics),
+     ``[entry] multi_serve``, ``[entry] streams_api``
+     (``Pipeline.streams`` bit-equal to ``process_batch``) and ``[bench]
+     streams`` (the port bench's fleet mode at 1080p x batch 8 for 1, 2,
+     4 and 8 streams); results also in chiprun_out/streams.json. The
+     kernel phase also holds K1, K2 and K3 bit-equal at the fleet's
+     folded shapes (32 luma planes and 96 colour planes, 720p and 1080p)
+     and times them there;
+  8. print the command time, the kernels' JSON line (each kernel's
+     launches summed over every path above), the card line, and last the
+     ok line.
 
-Options: ``--kernels-only`` stops after phase 3; ``--profile`` adds a
+Options: ``--kernels-only`` stops after phase 3; ``--fleet-cards`` runs
+only the fleet on every visible card against the same fleet on one
+(``fleet_cards_phase``; needs 2 cards or more); ``--profile`` adds a
 torch.profiler pass over one bfloat16 batch (device busy share, kernel
 launches, top kernels; tables in chiprun_out/profile.txt).
 The pass also prints the hand-written kernels' device times.
@@ -396,6 +419,43 @@ def check_kernels(frames: np.ndarray):
             return C.clahe_tile_luts(data, 8, 8, clip, scale)
         print(f"[kernels] clahe_tile_luts on {name}: {cuda_ms(fn, 50):.4f} "
               f"ms warm, {cuda_ms_flushed(fn):.4f} ms flushed", flush=True)
+    # the camera fleet's folded batches (4 streams x 8 frames: 32 luma
+    # planes, 96 colour planes) at multi_stream.yaml's 720p and at 1080p
+    for r in rows.values():
+        r["fleet"] = {}
+    for fh, fw in ((720, 1280), (HEIGHT, WIDTH)):
+        fp, fxe, fluts, fth, ftw, fclip, fscale = clahe_case(
+            f"fleet {fh}p", torch.cat([y[:, :fh, :fw]] * 4).contiguous(),
+            8, 8)
+        fc = torch.cat([planes[:, :fh, :fw]] * 4).contiguous()
+        same(M.median_planes(fc, 3), M.median_plain(fc, 3),
+             f"median_k k=3 (fleet {fh}p)")
+        work = {
+            "clahe_tile_luts": (
+                lambda: C.clahe_tile_luts(fxe, 8, 8, fclip, fscale),
+                lambda: C.tile_luts_plain(fxe, 8, 8, fclip, fscale),
+                bound(fxe.numel() + fluts.numel(),
+                      K1_OPS_PER_PIXEL * fxe.numel()
+                      + K1_OPS_PER_BIN * fluts.numel()), fxe.shape[0]),
+            "clahe_apply": (
+                lambda: C.clahe_apply(fp, fluts, fth, ftw, "cv2"),
+                lambda: C.apply_plain(fp, fluts, fth, ftw, "cv2"),
+                bound(2 * fp.numel() + fluts.numel() + 20 * (fh + fw),
+                      K2_OPS_PER_PIXEL * fp.numel()), fp.shape[0]),
+            "median_k": (
+                lambda: M.median_planes(fc, 3),
+                lambda: M.median_plain(fc, 3),
+                bound(2 * fc.numel(), K3_OPS_PER_PIXEL * fc.numel()),
+                fc.shape[0])}
+        for name, (fn, plain, bd, n_planes) in work.items():
+            row = dict(ms=cuda_ms(fn, 50), flushed_ms=cuda_ms_flushed(fn),
+                       plain_ms=cuda_ms(plain, 3, 1), **bd)
+            rows[name]["fleet"][f"{n_planes}x{fh}x{fw}"] = row
+            print(f"[kernels] {name} at the fleet shape {n_planes} x {fh} x "
+                  f"{fw}: bit-equal to plain; {row['ms']:.4f} ms warm, "
+                  f"{row['flushed_ms']:.4f} ms flushed, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
     for name, r in rows.items():
         r["max_abs_err"] = errs[name]
         print(f"[kernels] {name}: {r['ms']:.4f} ms kernel, "
@@ -523,7 +583,7 @@ def second_paths(model: str, batches, card: str) -> dict:
             gpu.process_batch(frames, ts, want_proc=want_proc)
         torch.cuda.synchronize()
         fps = 2 * BATCH / (time.perf_counter() - t0)
-        counts = dict(kernels.launch_counts)
+        counts = add_to_totals(dict(kernels.launch_counts))
         # per batch one launch of each kernel; the gate's impulse
         # statistic adds one of the median on the gray subsample
         want = {"clahe_tile_luts": 2, "clahe_apply": 2,
@@ -538,6 +598,17 @@ def second_paths(model: str, batches, card: str) -> dict:
         out[name] = {"fps_f32": fps, "launches_2_batches": counts,
                      "detections": n_dets}
     return out
+
+
+# every path's launches, read just after the path (launches made only to
+# compare a kernel with its plain version are not counted)
+PATH_TOTALS = {"clahe_tile_luts": 0, "clahe_apply": 0, "median_k": 0}
+
+
+def add_to_totals(counts: dict) -> dict:
+    for k, v in counts.items():
+        PATH_TOTALS[k] += v
+    return counts
 
 
 class PathLaunches:
@@ -561,7 +632,7 @@ class PathLaunches:
         if not ok or batches < 1:
             fail(f"{self.name}: launches {counts} for "
                  f"{'at least ' if at_least else ''}{batches} batches")
-        return counts
+        return add_to_totals(counts)
 
     def __exit__(self, *exc):
         return False
@@ -870,11 +941,13 @@ def bench_phase(model: str, card: str) -> dict:
     import contextlib
     import io
 
+    from roadvision_tpu_torch import kernels
     from roadvision_tpu_torch.tools import bench
     buf = io.StringIO()
     with PathLaunches("[bench]"), contextlib.redirect_stdout(buf):
         rc = bench.main(["--iters", "3", "--windows", "3", "--warmup", "1",
                          "--model", model])
+        add_to_totals(dict(kernels.launch_counts))
     lines = buf.getvalue().strip().splitlines()
     if rc != 0 or len(lines) != 1:
         fail(f"[bench]: rc {rc}, {len(lines)} lines on stdout")
@@ -1616,7 +1689,7 @@ def gated_counts(what: str, batches: int) -> dict:
             "median_k": 2 * batches}
     if counts != want or batches < 1:
         fail(f"{what}: launches {counts}, expected {want}")
-    return counts
+    return add_to_totals(counts)
 
 
 def weather_phase(card: str) -> dict:
@@ -1735,6 +1808,611 @@ def entry_demo(name: str, tmp: Path) -> dict:
             "fps_with_record": n / elapsed}
 
 
+# ----------------------------------------------------------------------
+# the camera fleet and traffic analytics
+
+FLEET_WINDOWS, FLEET_ITERS = 3, 2      # timed windows of fleet batches
+
+
+def multi_cfg(model: str, dtype: str = "bfloat16", **over):
+    """configs/multi_stream.yaml as shipped (4 synthetic sources at 720p,
+    batch 8, CLAHE + median, the fleet on all visible cards), with the
+    repo's checkpoint in place of its yolov8n.pt, which the repo does not
+    hold (random weights detect nothing to compare)."""
+    from roadvision_tpu_torch.config import load_config, merge
+    root = Path(__file__).resolve().parent
+    cfg = load_config(str(root / "configs" / "multi_stream.yaml"))
+    return merge(cfg, {"detect": {"model": model},
+                       "tpu": {"compute_dtype": dtype}, **over})
+
+
+def fleet_batches(cfg, n: int):
+    """``n`` fleet batches, (S, B, H, W, 3) frames and (S, B) stamps, read
+    from the config's sources."""
+    from roadvision_tpu_torch.runtime import build_sources
+    b = cfg["tpu"]["batch_size"]
+    srcs = build_sources(cfg["camera"], max_frames=n * b)
+    out = []
+    for _ in range(n):
+        reads = [src.read_batch(b) for src in srcs]
+        out.append((np.stack([r[0] for r in reads]),
+                    np.stack([r[1] for r in reads])))
+    for src in srcs:
+        src.release()
+    return out
+
+
+def compare_fleet(cpu, gpu, what: str) -> tuple:
+    """Per-stream result lists: ``compare_results`` on each stream (RAW
+    frames equal: the fleet returns no processed frame). Returns (max box
+    error, detections)."""
+    worst, n = 0.0, 0
+    if len(cpu) != len(gpu):
+        fail(f"{what}: {len(cpu)} streams against {len(gpu)}")
+    for a, b in zip(cpu, gpu):
+        worst = max(worst, compare_results(a, b))
+        n += sum(len(r.detections) for r in a)
+    return worst, n
+
+
+def streams_phase(model: str, card: str) -> dict:
+    """``[streams]``: multi_stream.yaml's fleet (4 x 720p x batch 8). One
+    float32 fleet batch on the card against the same fleet on the CPU
+    path (the folded preprocess output bit-equal, detections within
+    BOX_TOL / CONF_TOL, ids equal) and against 4 single-stream engines on
+    the card (the detector's batch-fold gap printed); then bfloat16 timed
+    through ``process_batch``: aggregate and per-stream frames/s (median,
+    min, max of FLEET_WINDOWS windows of FLEET_ITERS batches) against one
+    single-stream engine's on stream 0's frames, the fleet step's stage
+    ms and the association's host syncs in one fleet batch. K1, K2 and K3
+    launch exactly once per fleet batch."""
+    import torch
+    from roadvision_tpu_torch.runtime import MultiStreamEngine, PipelineEngine
+    from roadvision_tpu_torch.tools.bench import fleet_stage_ms, windows_fps
+    from roadvision_tpu_torch.track import sort as tsort
+    cfg32 = multi_cfg(model, "float32")
+    s, b = len(cfg32["camera"]["sources"]), cfg32["tpu"]["batch_size"]
+    fb = fleet_batches(cfg32, 3)
+    h, w = fb[0][0].shape[2:4]
+    gpu = MultiStreamEngine(cfg32, s)
+    if [d.type for d in gpu.devices] != ["cuda"] or gpu.padded_streams != s:
+        fail(f"[streams]: devices {gpu.devices}, {gpu.padded_streams} "
+             f"streams (one card, no padding expected)")
+    with PathLaunches("[streams] float32") as pl:
+        r_gpu = gpu.process_batch(*fb[0])
+        counts32 = pl.check(1)
+    cpu = MultiStreamEngine(cfg32, s, devices=["cpu"])
+    t_cpu = time.perf_counter()
+    r_cpu = cpu.process_batch(*fb[0])
+    t_cpu = time.perf_counter() - t_cpu
+    worst, n_dets = compare_fleet(r_cpu, r_gpu, "[streams] card vs CPU")
+    fold = torch.from_numpy(fb[0][0].reshape(s * b, h, w, 3))
+    if not torch.equal(gpu.engine.pipeline.apply_batch(fold.cuda()).cpu(),
+                       cpu.engine.pipeline.apply_batch(fold)):
+        fail("[streams]: the folded batch's processed frames differ")
+    if n_dets == 0:
+        fail("[streams]: no detections to compare")
+    # the same fleet as 4 independent single-stream engines on the card
+    gap = {"box": 0.0, "conf": 0.0}
+    for si in range(s):
+        one = PipelineEngine(cfg32, device="cuda")
+        one._t0 = gpu._t0                  # the fleet's time origin
+        ref = one.process_batch(fb[0][0][si], fb[0][1][si])
+        for ra, rb in zip(ref, r_gpu[si]):
+            if [(d.cls_id, d.track_id) for d in ra.detections] != \
+                    [(d.cls_id, d.track_id) for d in rb.detections]:
+                fail(f"[streams]: stream {si} differs from its "
+                     f"single-stream run in classes or ids")
+            for da, db in zip(ra.detections, rb.detections):
+                gap["box"] = max(gap["box"], max(abs(p - q) for p, q in zip(
+                    (da.x1, da.y1, da.x2, da.y2),
+                    (db.x1, db.y1, db.x2, db.y2))))
+                gap["conf"] = max(gap["conf"], abs(da.conf - db.conf))
+    if gap["box"] > BOX_TOL or gap["conf"] > CONF_TOL:
+        fail(f"[streams]: fleet vs single-stream runs {gap}")
+    print(f"[streams] float32 fleet batch ({s} x {w}x{h} x {b}): "
+          f"{n_dets} detections match the CPU path (max box err "
+          f"{worst:.2e} px, ids equal, the folded preprocess bit-equal; CPU "
+          f"fleet {t_cpu:.2f} s); against {s} single-stream engines on the "
+          f"card ids equal, gap {gap['box']:.2e} px / conf "
+          f"{gap['conf']:.2e}; launches {counts32}", flush=True)
+
+    # bfloat16, timed
+    torch.backends.cudnn.benchmark = True
+    cfg = multi_cfg(model)
+    eng = MultiStreamEngine(cfg, s)
+    eng.process_batch(*fb[0])                       # warm-up
+    fed = iter(range(1, 10 ** 9))
+
+    def shifted(k):
+        frames, ts = fb[k % 3]
+        return frames, ts + (k // 3) * 3 * b / 30.0
+
+    def window() -> int:
+        for _ in range(FLEET_ITERS):
+            eng.process_batch(*shifted(next(fed)))
+        return FLEET_ITERS * s * b
+
+    with PathLaunches("[streams] timed") as pl:
+        fps = windows_fps(window, FLEET_WINDOWS, torch.device("cuda"))
+        tsort.reset_host_syncs()
+        eng.process_batch(*shifted(next(fed)))
+        syncs = tsort.host_syncs
+        counts = pl.check(FLEET_ITERS * FLEET_WINDOWS + 1)
+    # the stages of the next fleet batch, on the fleet's running state
+    frames, ts = shifted(next(fed))
+    frames_d = torch.from_numpy(frames).cuda()
+    ts_d = torch.from_numpy((ts - eng._t0).astype(np.float32)).cuda()
+    grp = eng.groups[0]
+    stages = [fleet_stage_ms(grp.engine, frames_d, ts_d, grp.states)
+              for _ in range(FLEET_WINDOWS)]
+    stage = {k: float(np.median([x[k] for x in stages])) for k in stages[0]}
+    # one camera alone on the same card, stream 0's frames
+    one = PipelineEngine(cfg, device="cuda")
+    one.process_batch(fb[0][0][0], fb[0][1][0], want_proc=False)
+    alone = iter(range(1, 10 ** 9))
+
+    def single_window() -> int:
+        for _ in range(FLEET_ITERS):
+            k = next(alone)
+            one.process_batch(fb[k % 3][0][0],
+                              fb[k % 3][1][0] + (k // 3) * 3 * b / 30.0,
+                              want_proc=False)
+        return FLEET_ITERS * b
+
+    with PathLaunches("[streams] single stream") as pl:
+        fps1 = windows_fps(single_window, FLEET_WINDOWS, torch.device("cuda"))
+        pl.check(FLEET_ITERS * FLEET_WINDOWS)
+    per = {k: fps[k] / s for k in ("median", "min", "max")}
+    print(f"[streams] bfloat16: {s} streams x {w}x{h} x batch {b} through "
+          f"process_batch: {fps['median']:.1f} frames/s in all [min "
+          f"{fps['min']:.1f}, max {fps['max']:.1f}], {per['median']:.1f} a "
+          f"stream; one stream alone {fps1['median']:.1f} [{fps1['min']:.1f}"
+          f"-{fps1['max']:.1f}] ({fps['median'] / fps1['median']:.2f} x); "
+          f"{syncs} host syncs in one fleet batch; fleet stage ms "
+          + json.dumps({k: round(v, 2) for k, v in stage.items()})
+          + f"; launches {counts} ({card})", flush=True)
+    return {"float32": {"detections": n_dets, "max_box_err": worst,
+                        "single_stream_gap": gap, "launches": counts32},
+            "fps": fps, "per_stream_fps": per, "single_stream_fps": fps1,
+            "host_syncs_per_batch": syncs, "stage_ms": stage,
+            "launches": counts}
+
+
+def streams_gate_phase(model: str, card: str) -> dict:
+    """``[streams] gate``: the fleet gate (``detect.temporal_gate`` on
+    multi_stream.yaml, float32) on 4 static streams (the first batch runs,
+    the next two coast) and on 3 static streams and 1 moving (none
+    coasts): the coasted frames and the detections equal on the card and
+    on the CPU; launches once per batch that runs the detector, none on a
+    coasted one."""
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    cfg = multi_cfg(model, "float32", detect={"model": model,
+                                              "temporal_gate": {
+                                                  "enable": True}})
+    fb = fleet_batches(cfg, 2)
+    still = np.repeat(fb[0][0][:, :1], fb[0][0].shape[1], axis=1)
+    moving = [still.copy() for _ in fb]
+    for k, (frames, _) in enumerate(fb):
+        moving[k][-1] = frames[-1]
+    s, b = still.shape[:2]
+    scenes = {"static": ([still] * 3, 1, 2 * s * b),
+              "one moving": (moving, 2, 0)}
+    out = {}
+    for scene, (clip, full, want) in scenes.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            eng = MultiStreamEngine(cfg, s, devices=[dev])
+            stamps = [fb[0][1] + k * b / 30.0 for k in range(len(clip))]
+            if dev == "cuda":
+                with PathLaunches(f"[streams] gate {scene}") as pl:
+                    got = [eng.process_batch(f, t)
+                           for f, t in zip(clip, stamps)]
+                    counts = pl.check(full)
+            else:
+                got = [eng.process_batch(f, t) for f, t in zip(clip, stamps)]
+            res[dev] = (got, eng.gate_frames_coasted)
+        if res["cuda"][1] != res["cpu"][1] or res["cuda"][1] != want:
+            fail(f"[streams] gate {scene}: coasted frames card "
+                 f"{res['cuda'][1]}, CPU {res['cpu'][1]}, expected {want}")
+        n = sum(compare_fleet(c, g, f"[streams] gate {scene}")[1]
+                for c, g in zip(res["cpu"][0], res["cuda"][0]))
+        if n == 0:
+            fail(f"[streams] gate {scene}: no detections")
+        print(f"[streams] gate, {scene}: {len(clip)} fleet batches, "
+              f"{want} frames coasted on the card and on the CPU; {n} "
+              f"detections match; launches {counts} ({card})", flush=True)
+        out[scene] = {"coasted": want, "detections": n, "launches": counts}
+    return out
+
+
+def write_multi_yaml(model: str, tmp: Path, **over) -> Path:
+    import yaml
+    path = tmp / "multi_stream.yaml"
+    path.write_text(yaml.safe_dump(multi_cfg(model, **over)))
+    return path
+
+
+def grid_size(cfg) -> tuple:
+    """(w, h) of the fleet's tiled canvas."""
+    from roadvision_tpu_torch.vis import tile_streams
+    cam = cfg["camera"]
+    tiles = [np.zeros((cam["height"], cam["width"], 3), np.uint8)
+             for _ in cam["sources"]]
+    h, w = tile_streams(tiles, [f"CAM{i}" for i in range(len(tiles))]
+                        ).shape[:2]
+    return w, h
+
+
+def entry_multi_preview(model: str, tmp: Path) -> dict:
+    """``[entry] multi_preview``: the preview ``main`` on the fleet config
+    with ``--max-frames 32 --no-show --record``: a valid AVI of 32 grid
+    canvases, one launch of each kernel per fleet batch."""
+    from roadvision_tpu_torch.tools import preview
+    cfg_path = write_multi_yaml(model, tmp)
+    avi = tmp / "fleet.avi"
+    n = 32
+    b = multi_cfg(model)["tpu"]["batch_size"]
+    with PathLaunches("[entry] multi_preview") as pl:
+        t0 = time.perf_counter()
+        rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
+                           "--no-show", "--record", str(avi)])
+        elapsed = time.perf_counter() - t0
+        counts = pl.check(n // b)
+    if rc != 0:
+        fail(f"[entry] multi_preview: main returned {rc}")
+    size = grid_size(multi_cfg(model))
+    check_avi(avi, n, size)
+    print(f"[entry] multi_preview: {n} grid canvases {size[0]}x{size[1]} of "
+          f"4 streams recorded to a valid MJPEG AVI and read back; "
+          f"{n / elapsed:.1f} canvases/s with overlays, grid and JPEG; "
+          f"launches {counts}", flush=True)
+    return {"launches": counts, "canvases_per_s": n / elapsed}
+
+
+def http_json(host, port, path):
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=30.0)
+    try:
+        conn.request("GET", path, headers={"Connection": "close"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            fail(f"GET {path} -> {resp.status}")
+        body = resp.read()
+        return body if path == "/metrics" else json.loads(body)
+    finally:
+        conn.close()
+
+
+def serve_until_done(cfg, max_frames: int, parts: int = 0):
+    """The server on 127.0.0.1 port 0 with ``cfg``: read ``parts`` stream
+    parts, wait for the pipeline to end, read /stats, /events and
+    /metrics, shut down with every thread joined."""
+    from roadvision_tpu_torch.tools import serve
+    before = set(threading.enumerate())
+    server, hub, worker = serve.serve_background(cfg, port=0,
+                                                 max_frames=max_frames)
+    host, port = server.server_address[:2]
+    try:
+        got = serve.read_stream_parts(host, port, parts, timeout=60.0) \
+            if parts else []
+        worker.join(timeout=300.0)
+        answers = {p: http_json(host, port, p)
+                   for p in ("/stats", "/events", "/metrics")}
+    finally:
+        hub.close()
+        server.shutdown()
+        server.server_close()
+        worker.join(timeout=60.0)
+        server.thread.join(timeout=60.0)
+    if worker.is_alive() or server.thread.is_alive():
+        fail("serve: a thread did not stop")
+    if hub.error is not None:
+        fail(f"serve: the pipeline failed: {hub.error!r}")
+    deadline = time.time() + 20.0
+    while set(threading.enumerate()) - before and time.time() < deadline:
+        time.sleep(0.05)
+    left = set(threading.enumerate()) - before
+    if left:
+        fail(f"serve: threads still alive: {left}")
+    return got, answers
+
+
+def entry_multi_serve(model: str) -> dict:
+    """``[entry] multi_serve``: the server on the fleet config: three
+    ``/stream`` parts decode to the grid canvas, ``/stats`` counts the
+    canvases, clean shutdown."""
+    import io
+
+    from PIL import Image
+    cfg = multi_cfg(model)
+    n = 64
+    with PathLaunches("[entry] multi_serve") as pl:
+        parts, ans = serve_until_done(cfg, n, parts=3)
+        counts = pl.check(n // cfg["tpu"]["batch_size"])
+    size = grid_size(cfg)
+    if len(parts) != 3 or any(Image.open(io.BytesIO(p)).size != size
+                              for p in parts):
+        fail(f"[entry] multi_serve: {len(parts)} parts, not the grid {size}")
+    if ans["/stats"]["frames"] != n or not ans["/stats"]["done"]:
+        fail(f"[entry] multi_serve: /stats {ans['/stats']}")
+    print(f"[entry] multi_serve: 3 stream parts decode to the {size[0]}x"
+          f"{size[1]} grid; /stats {ans['/stats']}; every thread joined; "
+          f"launches {counts}", flush=True)
+    return {"launches": counts, "stats": ans["/stats"]}
+
+
+def entry_streams_api(model: str) -> dict:
+    """``[entry] streams_api``: ``Pipeline.streams`` over 2.5 batches of
+    each stream (the last batch short, uploaded through the pinned ring
+    while a full one may still wait to be dispatched), bit-equal to
+    ``MultiStreamEngine.process_batch`` on the same frames and stamps."""
+    import roadvision_tpu_torch as rvt
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    cfg = multi_cfg(model)
+    b = cfg["tpu"]["batch_size"]
+    pipe = rvt.Pipeline(cfg)
+    n_frames = 2 * b + b // 2
+    with PathLaunches("[entry] streams_api") as pl:
+        got = list(pipe.streams(max_frames=n_frames))
+        counts = pl.check(3)
+    if [len(batch[0]) for batch in got] != [b, b, b // 2]:
+        fail(f"[entry] streams_api: batches of "
+             f"{[len(batch[0]) for batch in got]} frames")
+    ref = MultiStreamEngine(cfg, len(cfg["camera"]["sources"]))
+    n = 0
+    for batch in got:
+        frames = np.stack([[r.raw for r in st] for st in batch])
+        ts = np.array([[r.ts for r in st] for st in batch])
+        want = ref.process_batch(frames, ts)
+        for si, (a, c) in enumerate(zip(want, batch)):
+            n += same_detections(a, c, f"[entry] streams_api stream {si}")
+    if n == 0:
+        fail("[entry] streams_api: no detections to compare")
+    print(f"[entry] streams_api: Pipeline.streams over {n_frames} frames "
+          f"(batches {b}, {b}, {b // 2}) of "
+          f"{len(got[0])} streams equals MultiStreamEngine.process_batch bit "
+          f"for bit ({n} detections); launches {counts}", flush=True)
+    return {"launches": counts, "detections": n}
+
+
+def entry_analytics_demo(tmp: Path) -> dict:
+    """``[entry] analytics_demo``: configs/analytics_demo.yaml as shipped
+    (256², deepsort with the learned re-id, no preprocess chain: no
+    kernel launches) through the preview (60 frames: the summary and the
+    event count); ``tools/analyze.py`` on the card and on the CPU over
+    the same 60 frames in float32 with TF32 off and the wall clock the
+    sources stamp from pinned: the reports equal (counts exact, float
+    statistics within 1e-3 relative); the server: /events non-empty,
+    ``roadvision_analytics_events_total`` in /metrics."""
+    import yaml
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.config import load_config
+    from roadvision_tpu_torch.tools import analyze, preview
+    root = Path(__file__).resolve().parent
+    demo = root / "configs" / "analytics_demo.yaml"
+    real = preview.Analytics
+    made = []
+
+    class Counting(real):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.n_events = 0
+            made.append(self)
+
+        def update(self, detections, timestamp):
+            events = super().update(detections, timestamp)
+            self.n_events += len(events)
+            return events
+
+    avi = tmp / "analytics.avi"
+    kernels.reset_launch_counts()
+    preview.Analytics = Counting
+    try:
+        rc = preview.main(["--config", str(demo), "--max-frames", "60",
+                           "--no-show", "--record", str(avi)])
+    finally:
+        preview.Analytics = real
+    if rc != 0 or len(made) != 1 or set(kernels.launch_counts.values()) != {0}:
+        fail(f"[entry] analytics_demo: rc {rc}, {len(made)} aggregates, "
+             f"launches {dict(kernels.launch_counts)}")
+    check_avi(avi, 60, (2 * 256 + 4, 256))
+    summary = made[0].summary()
+    print(f"[entry] analytics_demo preview: 60 frames, {made[0].n_events} "
+          f"events; summary {json.dumps(summary)}", flush=True)
+
+    cfg32 = load_config(str(demo))
+    cfg32["tpu"]["compute_dtype"] = "float32"
+    path32 = tmp / "analytics32.yaml"
+    path32.write_text(yaml.safe_dump(cfg32))
+    args = ["--config", str(path32), "--source", "synthetic:4", "--width",
+            "256", "--height", "256", "--frames", "60"]
+    wall = time.time
+    time.time = lambda: 1000.0      # the sources stamp frames from it
+    try:
+        for dev in ("cuda", "cpu"):
+            analyze.main(args + ["--out", str(tmp / f"{dev}.json"),
+                                 "--device", dev])
+    finally:
+        time.time = wall
+    reports = [json.loads((tmp / f"{d}.json").read_text())
+               for d in ("cuda", "cpu")]
+
+    def close(a, b, where):
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                fail(f"[entry] analyze: keys differ at {where}")
+            for k in a:
+                close(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, list):
+            if len(a) != len(b):
+                fail(f"[entry] analyze: lengths differ at {where}")
+            for i, (x, y) in enumerate(zip(a, b)):
+                close(x, y, f"{where}[{i}]")
+        elif isinstance(a, float):
+            if abs(a - b) > 1e-3 * max(abs(a), abs(b), 1e-9):
+                fail(f"[entry] analyze: {where} {a} on the card, {b} on the "
+                     f"CPU")
+        elif a != b:
+            fail(f"[entry] analyze: {where} {a} on the card, {b} on the CPU")
+
+    close(reports[0], reports[1], "report")
+    if reports[0]["frames"] != 60 or not reports[0]["detections_total"]:
+        fail(f"[entry] analyze: report {str(reports[0])[:300]}")
+    print(f"[entry] analyze: the card's report equals the CPU's (60 frames, "
+          f"{reports[0]['detections_total']} detections, "
+          f"{reports[0]['unique_track_ids']} ids, "
+          f"{len(reports[0]['events'])} events)", flush=True)
+
+    _, ans = serve_until_done(load_config(str(demo)), 60)
+    metrics = ans["/metrics"].decode()
+    events = ans["/events"]["events"]
+    if not events or f"roadvision_analytics_events_total {len(events)}" \
+            not in metrics or "analytics" not in ans["/stats"]:
+        fail(f"[entry] analytics_demo serve: {len(events)} events; "
+             f"{metrics[-200:]}")
+    print(f"[entry] analytics_demo serve: /events gives {len(events)} "
+          f"events, /metrics counts them, /stats carries the analytics",
+          flush=True)
+    return {"preview_events": made[0].n_events, "summary": summary,
+            "report": {k: reports[0][k] for k in
+                       ("frames", "detections_total", "unique_track_ids")},
+            "served_events": len(events)}
+
+
+def bench_streams_phase(model: str, card: str) -> dict:
+    """``[bench] streams``: the port bench's fleet mode in-process at
+    1080p, batch 8, for S = 1, 2, 4 and 8 streams: aggregate frames/s
+    against S, one launch of each kernel per fleet batch."""
+    import contextlib
+    import io
+    import os
+
+    from roadvision_tpu_torch.tools import bench
+    out = {}
+    for s in (1, 2, 4, 8):
+        os.environ["RVT_BENCH_STREAMS"] = str(s)
+        os.environ["RVT_BENCH_RES"] = str(HEIGHT)
+        buf = io.StringIO()
+        with PathLaunches(f"[bench] streams {s}") as pl:
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main(["--mode", "streams", "--iters", "2",
+                                 "--windows", "3", "--warmup", "1",
+                                 "--model", model])
+            pl.check(1, at_least=True)
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0 or line["card"] != card \
+                or line["metric"] != f"streams{s}_{HEIGHT}p_fps" \
+                or set(line["launches_per_batch"].values()) != {1.0} \
+                or not line["streams_fps"]["median"] > 0:
+            fail(f"[bench] streams {s}: rc {rc}, line {line}")
+        out[s] = line
+        print(f"[bench] streams {s} x {HEIGHT}p x batch {BATCH}: "
+              f"{line['streams_fps']['median']:.1f} frames/s in all [min "
+              f"{line['streams_fps']['min']:.1f}, max "
+              f"{line['streams_fps']['max']:.1f}], "
+              f"{line['per_stream_fps']['median']:.1f} a stream, "
+              f"{line['host_syncs_per_batch']} host syncs a fleet batch, "
+              f"stage ms " + json.dumps({k: round(v, 2) for k, v in
+                                          line["stage_ms"].items()})
+              + f" ({card})", flush=True)
+    for key in ("RVT_BENCH_STREAMS", "RVT_BENCH_RES"):
+        os.environ.pop(key)
+    return out
+
+
+def fleet_cards_phase(model: str, card: str) -> dict:
+    """``--fleet-cards``: the fleet on every visible card (``tpu.mesh.
+    devices: null``; one contiguous group of streams per card) against
+    the same fleet on card 0 alone, 2 streams per card: one float32
+    fleet batch each (counts, classes and ids equal, boxes within
+    BOX_TOL, confidences within CONF_TOL), one launch of each kernel per
+    card per fleet batch; the fleet gate on static streams and with one
+    moving stream on the last card (coasted frames equal to the one-card
+    fleet's); an uneven stream count padded; then bfloat16 frames/s of
+    both fleets over FLEET_WINDOWS windows of FLEET_ITERS batches."""
+    import torch
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    from roadvision_tpu_torch.tools.bench import windows_fps
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"--fleet-cards: {n} card(s) visible, needs 2 or more")
+    s = 2 * n
+    cams = {"camera": {"sources": [f"synthetic:{6 + i}" for i in range(s)]}}
+    cfg32 = merge(multi_cfg(model, "float32"), cams)
+    fb = fleet_batches(cfg32, 2)
+    b = cfg32["tpu"]["batch_size"]
+    out = {"cards": n, "streams": s}
+    many = MultiStreamEngine(cfg32, s)
+    one = MultiStreamEngine(cfg32, s, devices=["cuda:0"])
+    if len(many.devices) != n or many.padded_streams != s:
+        fail(f"--fleet-cards: devices {many.devices}")
+    with PathLaunches("[fleet cards] float32") as pl:
+        got = many.process_batch(*fb[0])
+        counts = pl.check(n)
+    want = one.process_batch(*fb[0])
+    worst, n_dets = compare_fleet(want, got, "[fleet cards]")
+    if n_dets == 0:
+        fail("[fleet cards]: no detections")
+    print(f"[fleet cards] float32 fleet of {s} x 720p x {b} on {n} cards "
+          f"equals the one-card fleet ({n_dets} detections, max box err "
+          f"{worst:.2e} px, ids equal); launches {counts} (one per card)",
+          flush=True)
+    out["float32"] = {"detections": n_dets, "max_box_err": worst,
+                      "launches": counts}
+    # the fleet gate: one decision over every card's streams
+    gcfg = merge(cfg32, {"detect": {"temporal_gate": {"enable": True}}})
+    still = np.repeat(fb[0][0][:, :1], b, axis=1)
+    moving = still.copy()
+    moving[-1] = fb[1][0][-1]                 # the last card's last stream
+    coasted = {}
+    for name, devs in (("cards", None), ("one", ["cuda:0"])):
+        eng = MultiStreamEngine(gcfg, s, devices=devs)
+        for k, frames in enumerate((still, still, moving, still)):
+            eng.process_batch(frames, fb[0][1] + k * b / 30.0)
+        coasted[name] = eng.gate_frames_coasted
+    # the second batch coasts; the moving stream keeps the last two awake
+    if coasted["cards"] != coasted["one"] or coasted["one"] != s * b:
+        fail(f"[fleet cards] gate: coasted {coasted}, expected {s * b}")
+    print(f"[fleet cards] gate: static, static, one moving stream on the "
+          f"last card, static: {coasted['cards']} frames coasted on {n} "
+          f"cards and on one", flush=True)
+    out["gate_coasted"] = coasted["cards"]
+    uneven = MultiStreamEngine(cfg32, s + 1)
+    if uneven.padded_streams != 3 * n:
+        fail(f"[fleet cards]: {s + 1} streams padded to "
+             f"{uneven.padded_streams}")
+    extra = np.concatenate([fb[0][0], fb[0][0][:1]])
+    stamps = np.concatenate([fb[0][1], fb[0][1][:1]])
+    r_uneven = uneven.process_batch(extra, stamps)
+    compare_fleet(want, r_uneven[:s], "[fleet cards] uneven")
+    # bfloat16, timed: the same fleet on every card and on one
+    torch.backends.cudnn.benchmark = True
+    cfg = merge(multi_cfg(model), cams)
+    fps = {}
+    for name, devs in (("cards", None), ("one", ["cuda:0"]),
+                       ("cards again", None)):
+        eng = MultiStreamEngine(cfg, s, devices=devs)
+        eng.process_batch(*fb[0])
+        fed = iter(range(1, 10 ** 9))
+
+        def window() -> int:
+            for _ in range(FLEET_ITERS):
+                k = next(fed)
+                eng.process_batch(fb[k % 2][0],
+                                  fb[k % 2][1] + (k // 2) * 2 * b / 30.0)
+            return FLEET_ITERS * s * b
+
+        fps[name] = windows_fps(window, FLEET_WINDOWS, torch.device("cuda"))
+        print(f"[fleet cards] bfloat16, {s} streams x 720p x {b} on "
+              f"{len(eng.devices)} card(s): {fps[name]['median']:.1f} "
+              f"frames/s [min {fps[name]['min']:.1f}, max "
+              f"{fps[name]['max']:.1f}] ({card})", flush=True)
+    out["fps"] = fps
+    return out
+
+
 def profile_batch(engine, frames, ts) -> dict:
     """torch.profiler over one bf16 batch: device busy share, kernel
     launches, and the top kernels and host ops (full tables to
@@ -1791,6 +2469,18 @@ def main() -> int:
     print(f"[build] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    if "--fleet-cards" in sys.argv[1:]:
+        model = str(Path(__file__).resolve().parent / "assets"
+                    / "yolov8n_synthetic_256.npz")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        line = fleet_cards_phase(model, card)
+        Path("chiprun_out").mkdir(exist_ok=True)
+        Path("chiprun_out/fleet_cards.json").write_text(
+            json.dumps(line, indent=1))
+        print(json.dumps(line), flush=True)
+        print(card_line(), flush=True)
+        return 0
     batches = render_batches(6)
     rows = check_kernels(batches[0][0])
     if "--kernels-only" in sys.argv[1:]:
@@ -1854,6 +2544,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("rtdetr_demo", "weather_demo"):
             entries[name] = entry_demo(name, Path(tmp))
+    # the camera fleet and traffic analytics
+    fleet = {"streams": streams_phase(model, card),
+             "streams gate": streams_gate_phase(model, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet["multi_preview"] = entry_multi_preview(model, Path(tmp))
+        fleet["analytics_demo"] = entry_analytics_demo(Path(tmp))
+    fleet["multi_serve"] = entry_multi_serve(model)
+    fleet["streams_api"] = entry_streams_api(model)
+    fleet["bench streams"] = bench_streams_phase(model, card)
+    (out_dir / "streams.json").write_text(json.dumps(fleet, indent=1))
+    entries.update(fleet)
 
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
@@ -1873,7 +2574,7 @@ def main() -> int:
             n_timed += 1
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(kernels.launch_counts)
+    counts = add_to_totals(dict(kernels.launch_counts))
     fps = n_timed * BATCH / elapsed
     for name, c in counts.items():
         if c != n_timed:       # one launch of each kernel per batch
@@ -1911,10 +2612,12 @@ def main() -> int:
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
-         "replaces": replaces[name][1], "launches": counts[name],
+         "replaces": replaces[name][1], "launches": PATH_TOTALS[name],
+         "launches_main_path": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None, "flushed_ms": r["flushed_ms"]}
+         "library_ms": None, "flushed_ms": r["flushed_ms"],
+         "fleet": r["fleet"]}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
         "second_paths": paths, "entries": entries}

@@ -11,8 +11,11 @@ kernels for the CLAHE tile-LUT build, the CLAHE LUT apply and the median
 beside it, which is what a tensor on the CPU runs.
 
 Around the engine: ``Pipeline`` (the library API), frame sources and
-recorders (``io_video``), overlays (``vis``), and the entry points under
-``roadvision_tpu_torch.tools`` (preview, serve, detect, track, bench).
+recorders (``io_video``), overlays (``vis``), the camera fleet
+(``runtime.MultiStreamEngine``: several streams batched on a card),
+traffic analytics (``analytics``), and the entry points under
+``roadvision_tpu_torch.tools`` (preview, serve, detect, track, bench,
+analyze).
 
 Entry points default to ``device="cuda"`` and raise when no card is
 present; pass ``device="cpu"`` (``--device cpu``) to run the plain path.

@@ -63,6 +63,8 @@ class Pipeline:
             cfg = merge(cfg, sanitize_none(overrides))
         self.cfg = cfg
         self.engine = PipelineEngine(cfg, device=device, seed=seed)
+        self._seed = seed
+        self._multi_engines: Dict[int, Any] = {}   # fleets by stream count
 
     # ------------------------------------------------------------------
     def open_source(self, source: Union[None, int, str, VideoSource] = None,
@@ -165,13 +167,44 @@ class Pipeline:
     # ------------------------------------------------------------------
     def streams(self, sources: Optional[list] = None,
                 max_frames: Optional[int] = None) -> Iterator[list]:
-        """Multi-camera lockstep streaming: not ported yet (it needs the
-        multi-stream engine)."""
-        raise NotImplementedError(
-            "Pipeline.streams (runtime/multi_engine.py) is not ported to "
-            "roadvision_tpu_torch yet (ROADMAP A8)")
+        """Multi-camera lockstep streaming on the card (or on each card of
+        ``tpu.mesh.devices``).
+
+        ``sources`` is a list of source specs (or VideoSources); None
+        uses ``camera.sources`` from the config. Each yielded item is
+        the per-batch result: ``results[stream][frame]`` FrameResult
+        lists (runtime/multi_engine.py). The fleet engine is built once
+        per stream count; sources the caller passed as VideoSources are
+        the caller's to release."""
+        from .runtime.multi_engine import (MultiStreamEngine, build_sources,
+                                           devices_from_config)
+
+        cam = dict(self.cfg.get("camera", {}) or {})
+        caller_owned = (sources is not None
+                        and all(isinstance(s, VideoSource)
+                                for s in sources))
+        if caller_owned:
+            vss = list(sources)
+        else:
+            if sources is not None:
+                cam["sources"] = list(sources)
+            vss = build_sources(cam, max_frames=max_frames)
+        engine = self._multi_engines.get(len(vss))
+        if engine is None:
+            engine = self._multi_engines[len(vss)] = MultiStreamEngine(
+                self.cfg, len(vss), devices=devices_from_config(
+                    self.cfg.get("tpu", {}) or {}, self.engine.device.type),
+                seed=self._seed)
+        try:
+            yield from engine.stream(vss, max_frames=max_frames)
+        finally:
+            if not caller_owned:
+                for v in vss:
+                    v.release()
 
     def reset(self) -> None:
         """Clear tracker state (between independent clips)."""
         self.engine.reset()
         self._t_next = 0.0
+        for eng in self._multi_engines.values():
+            eng.reset()

@@ -5,12 +5,13 @@
     python -m roadvision_tpu_torch.cli track     (offline tracking, MOT output)
     python -m roadvision_tpu_torch.cli serve     (headless MJPEG live server)
     python -m roadvision_tpu_torch.cli bench     (the port's benchmark)
+    python -m roadvision_tpu_torch.cli analyze   (offline analytics report)
 
 each the ``main`` of ``roadvision_tpu_torch.tools.<name>``. They are not
 declared under ``[project.scripts]``: ``tests/test_cli.py`` holds every
-script declared there to ``roadvision_tpu.cli``. ``train`` and
-``analyze`` are not ported yet and raise ``NotImplementedError``. Every
-entry takes ``--device cuda|cpu`` and runs on the card by default.
+script declared there to ``roadvision_tpu.cli``. ``train`` is not
+ported yet and raises ``NotImplementedError``. Every entry takes
+``--device cuda|cpu`` and runs on the card by default.
 """
 from __future__ import annotations
 
@@ -50,8 +51,7 @@ def train(argv: Optional[list] = None) -> int:
 
 
 def analyze(argv: Optional[list] = None) -> int:
-    raise NotImplementedError("analytics (tools/analyze.py) is not ported "
-                              "to roadvision_tpu_torch yet (ROADMAP A11)")
+    return _run("analyze", argv)
 
 
 if __name__ == "__main__":  # python -m roadvision_tpu_torch.cli <name> [args]

@@ -168,14 +168,15 @@ class Upload(NamedTuple):
 
 
 class _UploadSlot:
-    """One pinned host buffer and the device buffer it is copied to.
-    ``uploaded`` is set while an upload waits to be dispatched;
+    """One flat pinned host buffer and the device buffer it is copied to;
+    a batch of fewer frames than the slot holds takes a contiguous prefix
+    of both. ``uploaded`` is set while an upload waits to be dispatched;
     ``copied`` is the event after the last host→device copy, ``consumed``
     the event after the step that read the device buffer."""
 
-    def __init__(self, shape, device):
-        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-        self.dev = torch.empty(shape, dtype=torch.uint8, device=device)
+    def __init__(self, numel, device):
+        self.host = torch.empty(numel, dtype=torch.uint8, pin_memory=True)
+        self.dev = torch.empty(numel, dtype=torch.uint8, device=device)
         self.uploaded = False
         self.copied: Optional[torch.cuda.Event] = None
         self.consumed: Optional[torch.cuda.Event] = None
@@ -299,19 +300,21 @@ class PipelineEngine:
 
         self._upload_lock = threading.Lock()
         self._upload_ring: List[_UploadSlot] = []
+        self._upload_key: Optional[tuple] = None
         self._upload_next = 0
         self._upload_stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
         self._result_free: Dict[tuple, List[List[torch.Tensor]]] = {}
 
     # ------------------------------------------------------------------
-    def _dets_tail(self, b: int, boxes, conf, cls_id, valid, ts,
-                   frames_u8: Optional[torch.Tensor] = None,
-                   shifts: Optional[torch.Tensor] = None):
-        """Detections → (track ids, distance, speed), (B, max_det) each,
-        one tracker step per frame. ``frames_u8`` are the RAW frames the
-        re-id backends' descriptors are computed from; ``shifts`` (B, 2)
-        the GMC camera shifts in source px."""
+    def _tail(self, state: Optional[SortState], b: int, boxes, conf, cls_id,
+              valid, ts, frames_u8: Optional[torch.Tensor] = None,
+              shifts: Optional[torch.Tensor] = None):
+        """Detections → (state', track ids, distance, speed), (B, max_det)
+        each, one tracker step per frame from ``state`` (None without a
+        tracker). ``frames_u8`` are the RAW frames the re-id backends'
+        descriptors are computed from; ``shifts`` (B, 2) the GMC camera
+        shifts in source px."""
         proj = self.projector.device_params() if self.projector else None
         max_det = boxes.shape[1]
         dev = boxes.device
@@ -320,12 +323,12 @@ class PipelineEngine:
                 if self._embed_fn is not None else None
             outs = []
             for i in range(b):
-                self.sort_state, o = self._sort_step(
-                    self.sort_state, boxes[i], cls_id[i], conf[i], valid[i],
+                state, o = self._sort_step(
+                    state, boxes[i], cls_id[i], conf[i], valid[i],
                     ts[i], proj, None if emb is None else emb[i],
                     None if shifts is None else shifts[i])
                 outs.append(o)
-            return (torch.stack([o.track_id for o in outs]),
+            return (state, torch.stack([o.track_id for o in outs]),
                     torch.stack([o.distance_m for o in outs]),
                     torch.stack([o.speed_kmh for o in outs]))
         ids = torch.zeros((b, max_det), dtype=torch.int32, device=dev)
@@ -333,22 +336,39 @@ class PipelineEngine:
         if proj is not None:
             h_mat, origin, maxd = proj
             ground, gvalid = project_boxes_device(h_mat, boxes)
-            return ids, distance_device(ground, gvalid & valid, origin,
-                                        maxd), nan
-        return ids, nan, nan.clone()
+            return state, ids, distance_device(ground, gvalid & valid,
+                                               origin, maxd), nan
+        return state, ids, nan, nan.clone()
+
+    def _dets_tail(self, b: int, boxes, conf, cls_id, valid, ts,
+                   frames_u8: Optional[torch.Tensor] = None,
+                   shifts: Optional[torch.Tensor] = None):
+        """:meth:`_tail` on the engine's own track state: detections →
+        (track ids, distance, speed)."""
+        self.sort_state, ids, dist, speed = self._tail(
+            self.sort_state, b, boxes, conf, cls_id, valid, ts, frames_u8,
+            shifts)
+        return ids, dist, speed
+
+    def _shifts(self, frames_u8: torch.Tensor,
+                prev: Optional[torch.Tensor]):
+        """Per-frame camera shifts (B, 2) in source px against the
+        thumbnail ``prev`` (None: no previous frame), and the batch's last
+        thumbnail, to carry on."""
+        h, w = frames_u8.shape[1:3]
+        grays = gray_thumbnail(frames_u8)
+        valid = torch.tensor(0.0 if prev is None else 1.0,
+                             device=grays.device)
+        if prev is None:
+            prev = torch.zeros((GMC_SIZE, GMC_SIZE), device=grays.device)
+        shifts = batch_shifts(prev, grays, valid,
+                              (max(1, w // GMC_SIZE), max(1, h // GMC_SIZE)))
+        return shifts, grays[-1]
 
     def _gmc_shifts(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """The batch's per-frame camera shifts (B, 2) in source px against
         the carried thumbnail; the batch's last thumbnail is carried on."""
-        h, w = frames_u8.shape[1:3]
-        grays = gray_thumbnail(frames_u8)
-        prev = self._gmc_prev if self._gmc_prev is not None else \
-            torch.zeros((GMC_SIZE, GMC_SIZE), device=grays.device)
-        valid = torch.tensor(0.0 if self._gmc_prev is None else 1.0,
-                             device=grays.device)
-        shifts = batch_shifts(prev, grays, valid,
-                              (max(1, w // GMC_SIZE), max(1, h // GMC_SIZE)))
-        self._gmc_prev = grays[-1]
+        shifts, self._gmc_prev = self._shifts(frames_u8, self._gmc_prev)
         return shifts
 
     def sampled_plans(self, h: int, w: int, want_proc: bool):
@@ -368,28 +388,29 @@ class PipelineEngine:
             return None
         return (py[1], py[2], new_h), (px[1], px[2], new_w)
 
-    @torch.inference_mode()
-    def step(self, frames_u8: torch.Tensor, ts: torch.Tensor,
-             want_proc: bool = True):
-        """The device step: (B, H, W, 3) uint8 + (B,) float32 stamps →
-        (proc, (boxes, conf, cls, valid, ids, dist, speed)); ``proc`` is
-        None on the sampled preprocess path."""
-        b, h, w = frames_u8.shape[:3]
+    def empty_outs(self, b: int):
+        """The 7 per-frame arrays of a batch without detections."""
+        md, dev = self.max_det, self.device
+        nan = torch.full((b, md), float("nan"), device=dev)
+        return (torch.zeros((b, md, 4), device=dev),
+                torch.zeros((b, md), device=dev),
+                torch.zeros((b, md), dtype=torch.int32, device=dev),
+                torch.zeros((b, md), dtype=torch.bool, device=dev),
+                torch.zeros((b, md), dtype=torch.int32, device=dev),
+                nan, nan.clone())
+
+    def front(self, frames_u8: torch.Tensor, want_proc: bool = True):
+        """Preprocess and the detector's whole pass over (N, H, W, 3)
+        uint8 frames → (proc, (boxes, conf, cls, valid, extra)); ``proc``
+        is None on the sampled preprocess path, the detections None
+        without a detector."""
+        n, h, w = frames_u8.shape[:3]
         plans = self.sampled_plans(h, w, want_proc)
         proc = None if plans is not None \
             else self.pipeline.apply_batch(frames_u8)
         det = self.detector
         if det is None:
-            md = self.max_det
-            z = torch.zeros((b, md), device=self.device)
-            nan = torch.full((b, md), float("nan"), device=self.device)
-            return proc, (torch.zeros((b, md, 4), device=self.device), z,
-                          torch.zeros((b, md), dtype=torch.int32,
-                                      device=self.device),
-                          torch.zeros((b, md), dtype=torch.bool,
-                                      device=self.device),
-                          torch.zeros((b, md), dtype=torch.int32,
-                                      device=self.device), nan, nan.clone())
+            return proc, None
         lb = None
         if plans is not None:
             small = torch.stack(
@@ -398,8 +419,19 @@ class PipelineEngine:
                                   rect=det.rect)
         # the detector's whole pass: plain, TTA, tiled, or a task head
         # with its side output (masks, keypoints or rboxes) as ``extra``
-        boxes, conf, cls_id, valid, extra = det.run(
-            frames_u8 if proc is None else proc, lb)
+        return proc, det.run(frames_u8 if proc is None else proc, lb)
+
+    @torch.inference_mode()
+    def step(self, frames_u8: torch.Tensor, ts: torch.Tensor,
+             want_proc: bool = True):
+        """The device step: (B, H, W, 3) uint8 + (B,) float32 stamps →
+        (proc, (boxes, conf, cls, valid, ids, dist, speed)); ``proc`` is
+        None on the sampled preprocess path."""
+        b = frames_u8.shape[0]
+        proc, dets = self.front(frames_u8, want_proc)
+        if dets is None:
+            return proc, self.empty_outs(b)
+        boxes, conf, cls_id, valid, extra = dets
         shifts = self._gmc_shifts(frames_u8) if self.gmc_enabled else None
         ids, dist, speed = self._dets_tail(b, boxes, conf, cls_id, valid, ts,
                                            frames_u8, shifts)
@@ -476,12 +508,8 @@ class PipelineEngine:
                 dets = (boxes, conf, cls_id, valid)
                 gdets = tuple(a[-1] for a in dets)
                 skips = 0
-            saved, self.sort_state = self.sort_state, sort_state
-            try:
-                ids, dist, speed = self._dets_tail(b, *dets, ts, frames_u8)
-                sort_state = self.sort_state
-            finally:
-                self.sort_state = saved
+            sort_state, ids, dist, speed = self._tail(sort_state, b, *dets,
+                                                      ts, frames_u8)
             return dets + (ids, dist, speed), coast, \
                 (sort_state, last_thumb, 1.0, skips, gdets,
                  gvalid or not coast)
@@ -501,27 +529,33 @@ class PipelineEngine:
 
     # ------------------------------------------------------------------
     def upload(self, frames: np.ndarray) -> Upload:
-        """Start the host→device copy of a (B, H, W, 3) uint8 batch and
-        return at once. On the card the frames go through the next slot
-        of the pinned ring, on the engine's upload stream; the call
-        blocks only while that slot's previous batch is still being
-        computed on. Safe to call from a thread other than the one that
-        dispatches."""
+        """Start the host→device copy of a (B, H, W, 3) uint8 batch — or
+        a fleet's (S, B, H, W, 3) — and return at once. On the card the
+        frames go through the next slot of the pinned ring, on the
+        engine's upload stream; the call blocks only while that slot's
+        previous batch is still being computed on. The ring's slots hold
+        up to ``tpu.batch_size`` frames a stream (more when a batch is
+        larger), so a clip's short last batch fits the slots of the full
+        ones; they are made anew when any other dimension changes. Safe to
+        call from a thread other than the one that dispatches."""
         frames = np.ascontiguousarray(frames)
         if self.device.type != "cuda":
             return Upload(torch.from_numpy(frames), None, None)
-        b = frames.shape[0]
+        axis = frames.ndim - 4                  # the batch (time) axis
+        b = frames.shape[axis]
+        key = frames.shape[:axis] + frames.shape[axis + 1:]
         with self._upload_lock, self.timer.stage("upload"):
             ring = self._upload_ring
-            if not ring or ring[0].host.shape[1:] != frames.shape[1:] \
-                    or ring[0].host.shape[0] < b:
+            if not ring or self._upload_key != key \
+                    or ring[0].host.numel() < frames.size:
                 torch.cuda.synchronize(self.device)
                 if any(s.uploaded for s in ring):
                     raise RuntimeError("frame shape changed while uploads "
                                        "were waiting to be dispatched")
-                shape = (max(b, self.batch_size), *frames.shape[1:])
-                ring[:] = [_UploadSlot(shape, self.device)
+                numel = frames.size // b * max(b, self.batch_size)
+                ring[:] = [_UploadSlot(numel, self.device)
                            for _ in range(UPLOAD_SLOTS)]
+                self._upload_key = key
                 self._upload_next = 0
             slot = ring[self._upload_next]
             if slot.uploaded:
@@ -534,13 +568,15 @@ class PipelineEngine:
                     event.synchronize()
             slot.consumed = None
             slot.uploaded = True
-            slot.host[:b].copy_(torch.from_numpy(frames))
+            host = slot.host[:frames.size].view(frames.shape)
+            dev = slot.dev[:frames.size].view(frames.shape)
+            host.copy_(torch.from_numpy(frames))
             ready = torch.cuda.Event()
             with torch.cuda.stream(self._upload_stream):
-                slot.dev[:b].copy_(slot.host[:b], non_blocking=True)
+                dev.copy_(host, non_blocking=True)
                 ready.record()
             slot.copied = ready
-            return Upload(slot.dev[:b], ready, slot)
+            return Upload(dev, ready, slot)
 
     def download(self, out: List[Optional[torch.Tensor]]):
         """Queue the copy of device tensors (None entries pass through)

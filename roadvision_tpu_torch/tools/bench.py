@@ -44,8 +44,12 @@ frames/s each with the coasted share; then the staleness of coasted
 boxes on a slow scene (the demo checkpoint and scene when present, one
 scene step every 4 batches): matched IoU of the coasted detections
 against the fresh ones. ``RVT_BENCH_GATE_SKIP`` sets
-``max_skip_batches`` (default 7). The JAX bench's ``streams`` mode waits
-for its port and raises ``NotImplementedError``.
+``max_skip_batches`` (default 7). ``streams`` is the camera fleet
+(``bench_streams``): ``RVT_BENCH_STREAMS`` streams (default 4) at
+``RVT_BENCH_RES`` lines (default 480; ``--res`` does not apply, as in the
+JAX bench) through one fleet step, aggregate frames/s
+(``streams{S}_{res}p_fps``), frames/s per stream, launches and host
+syncs per fleet batch, and the fleet step's stage ms.
 
 Timing: warm-up outside every window, ``torch.cuda.synchronize()`` at
 both ends of a window, host clock between. ``--device cpu`` rehearses the
@@ -74,8 +78,7 @@ from ..utils.device import resolve_device
 from ..utils.resolutions import res_width
 
 FULL_MODES = ("full", "preprocess", "detect", "nopre", "seg", "pose", "obb")
-LAYER_MODES = ("sort", "geometry", "record", "gate")
-NOT_PORTED_MODES = ("streams",)
+LAYER_MODES = ("sort", "geometry", "record", "gate", "streams")
 FPS = 30.0
 DEMO_MODEL = "assets/yolov8n_synthetic_256.npz"
 
@@ -621,11 +624,122 @@ def bench_gate(args, device: torch.device) -> Dict[str, Any]:
     return out
 
 
+def fleet_stage_ms(engine, frames: torch.Tensor, ts: torch.Tensor,
+                   states) -> Dict[str, float]:
+    """Host-clock ms of each stage of one fleet step, synchronised
+    between: the folded (S·B) batch through preprocess, letterbox, the
+    detector's forward and NMS, then every stream's tracker tail on a
+    copy of ``states``, the fleet's running state (left as it was, as
+    :func:`stage_ms` leaves the engine's)."""
+    from ..parallel.inference import _fold, _stream_tails, _unfold
+    from ..track.sort import SortState
+    if states is not None:
+        states = SortState(*[t.clone() for t in states])
+    dev = engine.device
+    s = frames.shape[0]
+    out: Dict[str, float] = {}
+
+    def timed(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(dev)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    det = engine.detector
+    h, w = frames.shape[2:4]
+    with torch.inference_mode():
+        proc = timed("preprocess",
+                     lambda: engine.pipeline.apply_batch(_fold(frames)))
+        lb = timed("letterbox", lambda: det.letterbox(proc))
+        raw, ratio, pad = timed("forward", lambda: det.candidates(proc, lb))
+        dets4 = timed("nms", lambda: det.postprocess(raw, ratio, pad, (h, w)))
+        dets4 = tuple(_unfold(a, s) for a in dets4[:4])
+        timed("sort_geometry", lambda: _stream_tails(
+            engine, states, frames.shape[1], dets4, ts, frames))
+    return out
+
+
+def bench_streams(args, device: torch.device) -> Dict[str, Any]:
+    """The camera fleet (``bench.py::streams_fps``): ``RVT_BENCH_STREAMS``
+    streams (default 4) of ``RVT_BENCH_RES``-line frames (default 480)
+    rendered on the device, through the fleet step
+    (``parallel/inference.py::make_stream_step``: one folded batch for
+    preprocess and the detector, the tracker tail per stream), results
+    copied back through pinned buffers, two batches in flight. Reports
+    the aggregate frames/s of all streams, frames/s per stream, the
+    kernels' launches and the association's host syncs per fleet batch,
+    and the fleet step's stage ms."""
+    from ..parallel.inference import make_stream_step
+    from ..track import sort as tsort
+    n_streams = int(os.environ.get("RVT_BENCH_STREAMS", "4"))
+    height = int(os.environ.get("RVT_BENCH_RES", "480"))
+    width, batch = res_width(height), args.batch
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+    engine = PipelineEngine(bench_cfg(height, width, batch, args.model,
+                                      args.dtype), device=device,
+                            seed=args.seed)
+    step, init_states = make_stream_step(engine, (batch, height, width))
+    render = DeviceSyntheticSource(width, height, num_vehicles=6,
+                                   seed=args.seed, device=device) \
+        .make_render_fn(n_streams * batch)
+    fleet = n_streams * batch
+    state = {"k": 0, "states": init_states(n_streams)}
+
+    def inputs(k: int):
+        # as the JAX bench: S·B consecutive scene frames, stamped by index
+        idx0 = k * fleet
+        frames = render(idx0).reshape(n_streams, batch, height, width, 3)
+        ts = (idx0 + torch.arange(fleet, dtype=torch.float32, device=device)
+              ).reshape(n_streams, batch) / FPS
+        return frames, ts
+
+    def finish(item) -> None:
+        bufs, key, done = item
+        done.synchronize()
+        engine.recycle(key, bufs)
+
+    def run_batches(iters: int) -> int:
+        pending: list = []
+        for _ in range(iters):
+            outs, state["states"] = step(state["states"], *inputs(state["k"]))
+            state["k"] += 1
+            if device.type == "cuda":
+                pending.append(engine.download(list(outs)))
+                if len(pending) >= 2:
+                    finish(pending.pop(0))
+        for item in pending:
+            finish(item)
+        return iters * fleet
+
+    run_batches(args.warmup)
+    kernels.reset_launch_counts()
+    fps = windows_fps(lambda: run_batches(args.iters), args.windows, device)
+    out: Dict[str, Any] = {"streams": n_streams, "res": height,
+                           "streams_fps": fps}
+    out["launches_per_batch"] = {
+        k: v / (args.iters * args.windows)
+        for k, v in kernels.launch_counts.items()}
+    out["per_stream_fps"] = {k: fps[k] / n_streams
+                             for k in ("median", "min", "max")}
+    tsort.reset_host_syncs()
+    run_batches(1)
+    out["host_syncs_per_batch"] = tsort.host_syncs
+    out["stage_ms"] = fleet_stage_ms(engine, *inputs(state["k"]),
+                                     state["states"])
+    print(f"[bench] streams: {n_streams} x {height}p x batch {batch}: "
+          f"{fps['median']:.1f} frames/s in all, "
+          f"{out['per_stream_fps']['median']:.1f} a stream; "
+          f"{out['host_syncs_per_batch']} host syncs a fleet batch",
+          file=sys.stderr)
+    out.update({"metric": f"streams{n_streams}_{height}p_fps",
+                "value": fps["median"], "unit": "frames/sec"})
+    return out
+
+
 def run(args) -> Dict[str, Any]:
-    if args.mode in NOT_PORTED_MODES:
-        raise NotImplementedError(
-            f"bench mode {args.mode!r} is not ported to roadvision_tpu_torch "
-            f"yet (ROADMAP A8)")
     device = resolve_device(args.device)
     if args.model is None:
         args.model = str(project_root() / DEMO_MODEL)
@@ -637,11 +751,14 @@ def run(args) -> Dict[str, Any]:
         out = bench_geometry(args, device)
     elif args.mode == "gate":
         out = bench_gate(args, device)
+    elif args.mode == "streams":
+        out = bench_streams(args, device)
     else:
         out = bench_record(args)
     on_card = device.type == "cuda"
     out.update({
-        "mode": args.mode, "res": args.res, "batch": args.batch,
+        "mode": args.mode, "res": out.get("res", args.res),
+        "batch": args.batch,
         "iters": args.iters, "windows": args.windows, "dtype": args.dtype,
         "model": os.path.basename(args.model),
         "card": card_line() if on_card else None,
@@ -655,7 +772,7 @@ def run(args) -> Dict[str, Any]:
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="full",
-                    choices=[*FULL_MODES, *LAYER_MODES, *NOT_PORTED_MODES])
+                    choices=[*FULL_MODES, *LAYER_MODES])
     ap.add_argument("--res", type=int, default=1080,
                     help="frame height; the width follows the bench table")
     ap.add_argument("--batch", type=int, default=8)

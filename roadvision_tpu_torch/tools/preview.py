@@ -7,26 +7,32 @@ round trip per batch). The preview window requires OpenCV; without it,
 use --record or --max-frames for headless runs (q/Esc quit only applies
 to the cv2 window).
 
+With ``tpu.mesh.enable`` and several ``camera.sources`` it runs the camera
+fleet (``runtime/multi_engine.py``) and shows the streams tiled in a
+grid; ``analytics.enabled`` adds the lines, zones and stopped-vehicle
+alerts to the overlay and logs their summary at the end.
+
 Usage:
   python -m roadvision_tpu_torch.tools.preview [--config configs/default.yaml]
       [--max-frames N] [--record out.avi] [--no-show] [--device cuda|cpu]
-
-Not ported yet, raising ``NotImplementedError``: the multi-camera preview
-(``tpu.mesh.enable`` with several ``camera.sources``) and ``analytics``.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from pathlib import Path
 
 import numpy as np
 
+from ..analytics import Analytics
 from ..config import load_config
 from ..io_video import FPSMeter, VideoSource, make_writer
-from ..runtime import PipelineEngine
+from ..runtime import MultiStreamEngine, PipelineEngine, build_sources
+from ..runtime.multi_engine import devices_from_config
 from ..utils import get_logger
-from ..vis import draw_overlays, make_canvas
+from ..vis import make_canvas
+from ..vis.annotate import annotate, fleet_canvas
 
 log = get_logger("roadvision.preview")
 
@@ -86,12 +92,98 @@ class ConfigWatcher:
 
 
 def run_multi(args, cfg) -> int:
-    """Multi-camera preview: not ported yet (it needs the multi-stream
-    engine)."""
-    raise NotImplementedError(
-        "the multi-camera preview (tpu.mesh.enable with several "
-        "camera.sources; runtime/multi_engine.py) is not ported to "
-        "roadvision_tpu_torch yet (ROADMAP A8)")
+    """Multi-camera preview: ``tpu.mesh.enable`` + ``camera.sources``.
+    The fleet's streams run batched on the card (or on each card of
+    ``tpu.mesh.devices``); the preview tiles the per-stream overlays into
+    one grid canvas, with one analytics aggregate and one trail renderer
+    per stream."""
+    cam_cfg = cfg.get("camera", {})
+    preview_cfg = cfg.get("preview", {}) or {}
+    record_cfg = preview_cfg.get("record", {}) or {}
+    draw_cfg = (cfg.get("vis", {}) or {}).get("draw", {}) or {}
+
+    sources = build_sources(cam_cfg, max_frames=args.max_frames)
+    engine = MultiStreamEngine(
+        cfg, num_streams=len(sources),
+        devices=devices_from_config(cfg.get("tpu", {}) or {}, args.device))
+    log.info("multi-stream mode: %d sources over %d device(s)",
+             len(sources), len(engine.devices))
+    fpsm = FPSMeter(alpha=0.1)
+    ana_cfg = cfg.get("analytics", {}) or {}
+    analytics = None
+    if ana_cfg.get("enabled"):
+        analytics = [Analytics(ana_cfg) for _ in sources]  # per stream
+
+    writer = None
+    gated = False
+    min_det = int(record_cfg.get("min_detections", 1))
+    if bool(record_cfg.get("enable", False)) or args.record:
+        path = args.record or record_cfg.get("path", "out_compare.avi")
+        writer = make_writer(path, fps=record_cfg.get("fps", 30),
+                             quality=int(record_cfg.get("quality", 85)))
+        gated = bool(record_cfg.get("events_only", False))
+        if gated:
+            from ..io_video import EventGatedWriter
+            writer = EventGatedWriter(
+                writer, pre_roll=int(record_cfg.get("pre_roll", 30)),
+                post_roll=int(record_cfg.get("post_roll", 60)))
+        log.info("recording to %s%s", path,
+                 " (event-gated)" if gated else "")
+    show = _HAS_CV2 and not args.no_show
+
+    trails = None
+    if int(draw_cfg.get("trails", 0)) > 0:
+        from ..vis import TrailRenderer
+        trails = [TrailRenderer(length=int(draw_cfg["trails"]))
+                  for _ in sources]
+
+    n_frames = 0
+    labels = [f"CAM{i}" for i in range(len(sources))]
+    try:
+        for batch in engine.stream(sources, max_frames=args.max_frames):
+            b = len(batch[0])
+            lb_meta = engine.engine.lb_meta(*batch[0][0].proc.shape[:2])
+            for i in range(b):
+                fps = fpsm.tick(batch[0][i].ts)
+                canvas, events = fleet_canvas(
+                    batch, i, draw_cfg, lb_meta, labels,
+                    fps=fps if preview_cfg.get("show_fps", True) else None,
+                    analytics=analytics, trails=trails)
+                trig = bool(events) or any(
+                    len(st[i].detections) >= min_det for st in batch)
+                if writer:
+                    if gated:
+                        writer.write_gated(canvas, trig)
+                    else:
+                        writer.write(canvas)
+                if show:
+                    cv2.imshow("Multi-Stream Preview", canvas)
+                    if (cv2.waitKey(1) & 0xFF) in (27, ord("q")):
+                        raise KeyboardInterrupt
+                n_frames += 1
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if writer:
+            writer.release()
+        for src in sources:
+            src.release()
+        if show:
+            cv2.destroyAllWindows()
+        log.info("processed %d frames x %d streams; stage times: %s",
+                 n_frames, len(sources), engine.timer.summary())
+        if engine.fleet_gate:
+            log.info("fleet temporal gate: %d frame-slots coasted "
+                     "(detector skipped fleet-wide while ALL streams "
+                     "were static)", engine.gate_frames_coasted)
+        if gated and writer is not None:
+            log.info("event-gated recording: %s", writer.summary())
+        if analytics is not None:
+            log.info("analytics: %s", json.dumps(
+                [a.summary() for a in analytics]))
+            for a in analytics:
+                a.close()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -114,9 +206,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
-    if (cfg.get("analytics", {}) or {}).get("enabled"):
-        raise NotImplementedError("analytics is not ported to "
-                                  "roadvision_tpu_torch yet (ROADMAP A11)")
     tpu_cfg = cfg.get("tpu", {}) or {}
     mesh_cfg = tpu_cfg.get("mesh", {}) or {}
     if bool(mesh_cfg.get("enable", False)) \
@@ -171,6 +260,9 @@ def main(argv=None) -> int:
 
     watcher = ConfigWatcher(args.config, cfg) if args.watch_config else None
 
+    ana_cfg = cfg.get("analytics", {}) or {}
+    analytics = Analytics(ana_cfg) if ana_cfg.get("enabled") else None
+
     n_frames = 0
     tail_s = 0.0
     t_first = None
@@ -195,20 +287,13 @@ def main(argv=None) -> int:
             if not proc.flags.writeable or np.shares_memory(proc, res.raw):
                 proc = proc.copy()   # no-preprocess path: keep RAW clean
             tr_n = int(draw_cfg.get("trails", 0))
-            if tr_n > 0:
-                if trails is None or trails.length != max(2, tr_n):
-                    from ..vis import TrailRenderer
-                    trails = TrailRenderer(length=tr_n)
-                trails.update(res.detections, res.ts)
-                trails.draw(proc,
-                            thickness=int(draw_cfg.get("thickness", 2)))
-            if draw_cfg.get("det", True) and res.detections:
-                draw_overlays(
-                    proc, res.detections,
-                    lb_meta=engine.lb_meta(*proc.shape[:2]),
-                    thickness=int(draw_cfg.get("thickness", 2)),
-                    font_scale=float(draw_cfg.get("font_scale", 0.6)),
-                    mask_alpha=float(draw_cfg.get("mask_alpha", 0.45)))
+            if tr_n > 0 and (trails is None
+                             or trails.length != max(2, tr_n)):
+                from ..vis import TrailRenderer
+                trails = TrailRenderer(length=tr_n)
+            ana_events = annotate(proc, res, draw_cfg,
+                                  engine.lb_meta(*proc.shape[:2]),
+                                  analytics, trails if tr_n > 0 else None)
             fps = fpsm.tick(res.ts)
 
             if want_compare:
@@ -222,7 +307,8 @@ def main(argv=None) -> int:
 
             if writer:
                 if gated:
-                    trig = len(res.detections) >= min_det
+                    trig = (len(res.detections) >= min_det
+                            or bool(ana_events))
                     writer.write_gated(canvas, trig)
                 else:
                     writer.write(canvas)
@@ -247,6 +333,9 @@ def main(argv=None) -> int:
                  n_frames, engine.timer.summary())
         if gated and writer is not None:
             log.info("event-gated recording: %s", writer.summary())
+        if analytics is not None:
+            log.info("analytics: %s", json.dumps(analytics.summary()))
+            analytics.close()
         if n_frames > 1 and t_first is not None:
             wall = time.perf_counter() - t_first
             log.info("sustained %.2f fps end-to-end (%d frames after "

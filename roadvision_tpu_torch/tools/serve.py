@@ -16,7 +16,8 @@ Endpoints:
                {"ts": ..., "frame": N, "detections": [{"bbox": [x1,y1,x2,y2],
                "conf": ..., "cls_id": ..., "name": ..., "track_id": ...,
                "distance_m": ..., "speed_kmh": ...}, ...]}
-  /events      the analytics event log (empty until analytics is ported)
+  /events      the analytics event log (line crossings, zone enter/exit,
+               stopped vehicles); ?since=<id> returns only newer ones
   /metrics     Prometheus text exposition of the live counters
 
 Usage:
@@ -24,8 +25,10 @@ Usage:
       [--port 8000] [--host 0.0.0.0] [--quality 85] [--max-frames N]
       [--device cuda|cpu]
 
-Not ported yet, raising ``NotImplementedError``: the multi-camera loop
-(``tpu.mesh.enable`` with several ``camera.sources``) and ``analytics``.
+With ``tpu.mesh.enable`` and several ``camera.sources`` the stream is the
+camera fleet's tiled grid (``runtime/multi_engine.py``) instead of the
+compare canvas; with ``analytics.enabled`` the overlay carries the
+lines, zones and stopped vehicles, and the events reach ``/events``.
 """
 from __future__ import annotations
 
@@ -38,13 +41,16 @@ from typing import Optional
 
 import numpy as np
 
+from ..analytics import Analytics
 from ..config import load_config
 from ..io_video import FPSMeter, VideoSource
 from ..io_video.writer import encode_jpeg_bgr
-from ..runtime import PipelineEngine
+from ..runtime import MultiStreamEngine, PipelineEngine, build_sources
+from ..runtime.multi_engine import devices_from_config
 from ..utils import get_logger
 from ..utils.device import DeviceLike
-from ..vis import draw_overlays, make_canvas
+from ..vis import make_canvas
+from ..vis.annotate import annotate, fleet_canvas
 
 # no client socket may block its handler thread for ever
 SOCKET_TIMEOUT_S = 10.0
@@ -248,7 +254,7 @@ def _pipeline_loop(cfg, hub: FrameHub, max_frames, quality: int,
     compare_cfg = preview_cfg.get("compare", {}) or {}
     draw_cfg = (cfg.get("vis", {}) or {}).get("draw", {}) or {}
 
-    vs = None
+    vs = analytics = None
     try:
         vs = VideoSource(
             source=cam_cfg.get("source", 0),
@@ -262,19 +268,17 @@ def _pipeline_loop(cfg, hub: FrameHub, max_frames, quality: int,
         engine = PipelineEngine(cfg, device=device)
         fpsm = FPSMeter(alpha=0.1)
         want_compare = bool(compare_cfg.get("enable", True))
+        ana_cfg = cfg.get("analytics", {}) or {}
+        if ana_cfg.get("enabled"):
+            analytics = Analytics(ana_cfg)
         for res in engine.stream(vs, max_frames=max_frames):
             if hub.done:        # closed from outside: stop the pipeline
                 break
             proc = np.ascontiguousarray(res.proc)
             if not proc.flags.writeable or np.shares_memory(proc, res.raw):
                 proc = proc.copy()   # no-preprocess path: keep RAW clean
-            if draw_cfg.get("det", True) and res.detections:
-                draw_overlays(
-                    proc, res.detections,
-                    lb_meta=engine.lb_meta(*proc.shape[:2]),
-                    thickness=int(draw_cfg.get("thickness", 2)),
-                    font_scale=float(draw_cfg.get("font_scale", 0.6)),
-                    mask_alpha=float(draw_cfg.get("mask_alpha", 0.45)))
+            ana_events = annotate(proc, res, draw_cfg,
+                                  engine.lb_meta(*proc.shape[:2]), analytics)
             fps = fpsm.tick(res.ts)
             if want_compare:
                 canvas = make_canvas(
@@ -289,26 +293,96 @@ def _pipeline_loop(cfg, hub: FrameHub, max_frames, quality: int,
                 canvas = proc
             n_tracks = sum(1 for d in res.detections
                            if d.track_id is not None)
-            dets = [dict(
-                {"bbox": [d.x1, d.y1, d.x2, d.y2], "conf": d.conf,
-                 "cls_id": d.cls_id, "name": d.cls_name,
-                 "track_id": d.track_id, "distance_m": d.distance_m,
-                 "speed_kmh": d.speed_kmh},
-                **({"rbox": np.asarray(d.rbox).tolist()}
-                   if d.rbox is not None else {}),
-                **({"keypoints": np.asarray(d.keypoints).tolist()}
-                   if d.keypoints is not None else {}),
-            ) for d in res.detections]
+            if engine._gate_cfg is not None:
+                # temporal-gate observability (detect.temporal_gate)
+                hub.stats["frames_coasted"] = engine.gate_frames_coasted
             hub.publish(encode_jpeg_bgr(canvas, quality), fps, n_tracks,
-                        detections=dets, ts=res.ts)
+                        detections=[_det_json(d) for d in res.detections],
+                        ts=res.ts,
+                        analytics=(analytics.summary()
+                                   if analytics is not None else None),
+                        events=ana_events)
     except Exception as exc:   # the server outlives its pipeline
         hub.error = exc
         log.warning("pipeline loop ended: %s", exc, exc_info=True)
     finally:
         if vs is not None:
             vs.release()
+        if analytics is not None:
+            analytics.close()
         hub.close()
         log.info("pipeline done after %d frames", hub.stats["frames"])
+
+
+def _det_json(d, **extra) -> dict:
+    """One detection as ``/detections`` reports it."""
+    return dict(
+        {**extra, "bbox": [d.x1, d.y1, d.x2, d.y2], "conf": d.conf,
+         "cls_id": d.cls_id, "name": d.cls_name, "track_id": d.track_id,
+         "distance_m": d.distance_m, "speed_kmh": d.speed_kmh},
+        **({"rbox": np.asarray(d.rbox).tolist()}
+           if d.rbox is not None else {}),
+        **({"keypoints": np.asarray(d.keypoints).tolist()}
+           if d.keypoints is not None else {}))
+
+
+def _multi_pipeline_loop(cfg, hub: FrameHub, max_frames, quality: int,
+                         device: DeviceLike = None) -> None:
+    """Camera-fleet loop: ``tpu.mesh.enable`` + ``camera.sources`` stream
+    the tiled per-stream overlay grid instead of the compare canvas."""
+    cam_cfg = cfg.get("camera", {}) or {}
+    preview_cfg = cfg.get("preview", {}) or {}
+    draw_cfg = (cfg.get("vis", {}) or {}).get("draw", {}) or {}
+
+    sources, analytics = [], None
+    try:
+        sources = build_sources(cam_cfg, max_frames=max_frames)
+        engine = MultiStreamEngine(
+            cfg, num_streams=len(sources),
+            devices=devices_from_config(cfg.get("tpu", {}) or {}, device))
+        log.info("multi-stream serve: %d sources over %d device(s)",
+                 len(sources), len(engine.devices))
+        fpsm = FPSMeter(alpha=0.1)
+        labels = [f"CAM{i}" for i in range(len(sources))]
+        ana_cfg = cfg.get("analytics", {}) or {}
+        if ana_cfg.get("enabled"):
+            analytics = [Analytics(ana_cfg) for _ in sources]  # per stream
+        for batch in engine.stream(sources, max_frames=max_frames):
+            lb_meta = engine.engine.lb_meta(*batch[0][0].proc.shape[:2])
+            for i in range(len(batch[0])):
+                if hub.done:    # closed from outside: stop the pipeline
+                    return
+                fps = fpsm.tick(batch[0][i].ts)
+                canvas, ana_events = fleet_canvas(
+                    batch, i, draw_cfg, lb_meta, labels,
+                    fps=fps if preview_cfg.get("show_fps", True) else None,
+                    analytics=analytics)
+                all_dets = [_det_json(d, stream=s)
+                            for s, st in enumerate(batch)
+                            for d in st[i].detections]
+                n_tracks = sum(1 for d in all_dets
+                               if d["track_id"] is not None)
+                if engine.fleet_gate:
+                    # fleet temporal-gate observability: frames served
+                    # from held detections (ALL streams were static)
+                    hub.stats["frames_coasted"] = \
+                        engine.gate_frames_coasted
+                hub.publish(encode_jpeg_bgr(canvas, quality), fps, n_tracks,
+                            detections=all_dets, ts=batch[0][i].ts,
+                            analytics=([a.summary() for a in analytics]
+                                       if analytics is not None else None),
+                            events=ana_events)
+    except Exception as exc:   # the server outlives its pipeline
+        hub.error = exc
+        log.warning("multi-stream loop ended: %s", exc, exc_info=True)
+    finally:
+        for src in sources:
+            src.release()
+        for a in analytics or []:
+            a.close()
+        hub.close()
+        log.info("multi-stream pipeline done after %d frames",
+                 hub.stats["frames"])
 
 
 def read_stream_parts(host: str, port: int, n: int,
@@ -339,17 +413,10 @@ def read_stream_parts(host: str, port: int, n: int,
     return parts
 
 
-def _check_ported(cfg) -> None:
+def _wants_multi(cfg) -> bool:
     mesh_cfg = (cfg.get("tpu", {}) or {}).get("mesh", {}) or {}
-    if bool(mesh_cfg.get("enable", False)) \
-            and len((cfg.get("camera", {}) or {}).get("sources") or []) > 1:
-        raise NotImplementedError(
-            "the multi-camera serve loop (tpu.mesh.enable with several "
-            "camera.sources; runtime/multi_engine.py) is not ported to "
-            "roadvision_tpu_torch yet (ROADMAP A8)")
-    if (cfg.get("analytics", {}) or {}).get("enabled"):
-        raise NotImplementedError("analytics is not ported to "
-                                  "roadvision_tpu_torch yet (ROADMAP A11)")
+    return (bool(mesh_cfg.get("enable", False))
+            and len((cfg.get("camera", {}) or {}).get("sources") or []) > 1)
 
 
 def main(argv=None) -> int:
@@ -395,7 +462,6 @@ def serve_background(cfg, host="127.0.0.1", port=0, quality=85,
     To stop: ``hub.close()``, ``server.shutdown()``,
     ``server.server_close()``, then join both. A failure of the pipeline
     is kept in ``hub.error``."""
-    _check_ported(cfg)
     if device is None or str(device) != "cpu":
         from ..utils.device import resolve_device
         resolve_device(device)      # no card: raise here, not in a thread
@@ -405,7 +471,7 @@ def serve_background(cfg, host="127.0.0.1", port=0, quality=85,
     server.thread = threading.Thread(target=server.serve_forever,
                                      daemon=True)
     worker = threading.Thread(
-        target=_pipeline_loop,
+        target=_multi_pipeline_loop if _wants_multi(cfg) else _pipeline_loop,
         args=(cfg, hub, max_frames, quality, device), daemon=True)
     server.thread.start()
     worker.start()

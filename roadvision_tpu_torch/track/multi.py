@@ -1,0 +1,97 @@
+"""Multi-stream (multi-camera) tracking over one stacked state — the
+counterpart of ``roadvision_tpu/track/multi.py``.
+
+A fleet of S camera streams keeps one :class:`SortState` whose fields
+carry a leading stream axis. JAX lifts the single-stream step over that
+axis with ``jax.vmap``; here :func:`over_streams` runs the step once
+per stream on that stream's slice (:func:`stream_states`) and stacks the
+results back (:func:`stack_states`) — for every backend built on
+``make_sort_step``'s hooks, as the vmap does, and for the fleet step's
+tracker tail (``parallel/inference.py``).
+
+IDs are per stream (each stream carries its own ``next_id``), matching S
+independent trackers exactly.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
+from .sort import SortOutput, SortState, init_state, make_sort_step
+
+
+def init_multi_state(num_streams: int, num_slots: int,
+                     device=None) -> SortState:
+    """A stacked SortState with a leading stream axis, on ``device`` (the
+    card unless the caller names another)."""
+    one = init_state(num_slots, device)
+    return SortState(*[t.expand((num_streams,) + tuple(t.shape)).clone()
+                       for t in one])
+
+
+def stream_states(states: SortState) -> List[SortState]:
+    """A stacked state → one state per stream (views of its slices)."""
+    return [SortState(*[t[i] for t in states])
+            for i in range(states.mean.shape[0])]
+
+
+def stack_states(states: Sequence[Optional[SortState]]
+                 ) -> Optional[SortState]:
+    """Per-stream states → one stacked state (the inverse of
+    :func:`stream_states`); None (no tracker) stays None."""
+    if states[0] is None:
+        return None
+    return SortState(*[torch.stack(f) for f in zip(*states)])
+
+
+def over_streams(fn: Callable, states: Optional[SortState],
+                 num_streams: int, *args):
+    """Lift a per-stream function over the stream axis: for each stream
+    ``i``, ``fn(state_i, *(a[i] for a in args)) → (state_i', outs_i)``
+    (an argument of None stays None; a None state, no tracker, too) →
+    (stacked states', each of the outs stacked over S). The one lift of
+    the port: JAX's ``jax.vmap``."""
+    per = stream_states(states) if states is not None \
+        else [None] * num_streams
+    new, outs = [], []
+    for i, st in enumerate(per):
+        st, out = fn(st, *(None if a is None else a[i] for a in args))
+        new.append(st)
+        outs.append(out)
+    return stack_states(new), tuple(torch.stack(f) for f in zip(*outs))
+
+
+def make_multi_step(step: Callable, with_projector: bool = False):
+    """Lift a single-stream step (``track/registry.py::build_device_step``
+    or ``make_sort_step``) over the stream axis: ``multi(states, boxes
+    (S,D,4), cls (S,D), conf (S,D), valid (S,D), ts (S,), proj=None,
+    emb=None (S,D,E), shift=None (S,2)) → (states', SortOutput stacked
+    over S)``. The projector ``proj`` is shared by every stream, and is
+    given exactly when ``with_projector``."""
+    def multi(states, boxes, cls_id, conf, valid, ts, proj=None, emb=None,
+              shift=None):
+        if (proj is not None) != with_projector:
+            raise ValueError(f"the step was built with with_projector="
+                             f"{with_projector}")
+
+        def one(st, bx, c, cf, v, t, e, sh):
+            return step(st, bx, c, cf, v, t, proj, e, sh)
+
+        states, outs = over_streams(one, states, boxes.shape[0], boxes,
+                                    cls_id, conf, valid, ts, emb, shift)
+        return states, SortOutput(*outs)
+
+    return multi
+
+
+def make_multi_sort_step(iou_threshold: float, max_staleness: float,
+                         speed_window: float, min_hits: int = 3,
+                         with_projector: bool = False,
+                         association: str = "greedy"):
+    """step(states, boxes (S,D,4), cls (S,D), conf (S,D), valid (S,D),
+    ts (S,), proj?) → (states, SortOutput stacked over S), as the JAX
+    function; :func:`make_multi_step` lifts any other backend's step."""
+    return make_multi_step(
+        make_sort_step(iou_threshold, max_staleness, speed_window, min_hits,
+                       association=association), with_projector)

@@ -367,8 +367,9 @@ def test_watchdog_arms_only_on_a_warm_shape(monkeypatch):
 def test_pipeline_library_surface(pipes, tmp_path):
     jp, tp, _, _ = pipes
     assert rvt.Pipeline is type(tp) and rvt.Detection is Detection
-    with pytest.raises(NotImplementedError, match="multi_engine"):
-        next(tp.streams(["synthetic:1", "synthetic:2"]))
+    # the fleet runs (tests/test_torch_multi_stream.py holds it)
+    first = next(tp.streams(["synthetic:1", "synthetic:2"], max_frames=2))
+    assert len(first) == 2 and all(len(r) == 2 for r in first)
     with pytest.raises(AttributeError):
         rvt.NoSuchThing
     if not torch.cuda.is_available():
@@ -444,12 +445,13 @@ def test_preview_main_records_and_probes(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             preview.main(["--config", cfg, "--max-frames", "2", "--no-show"])
+    # analytics and the camera fleet run (they raised before their port)
     for over in ({"analytics": {"enabled": True}},
                  {"tpu": {"mesh": {"enable": True}},
                   "camera": {"sources": ["synthetic:1", "synthetic:2"]}}):
-        with pytest.raises(NotImplementedError):
-            preview.main(["--config", _write_cfg(tmp_path, **over),
-                          "--no-show", "--device", "cpu"])
+        assert preview.main(["--config", _write_cfg(tmp_path, **over),
+                             "--max-frames", "2", "--no-show",
+                             "--device", "cpu"]) == 0
 
 
 def test_config_watcher_reloads_hot_sections(tmp_path):
@@ -512,7 +514,7 @@ def test_detect_and_track_tools(tmp_path, capsys):
     assert capsys.readouterr().out.count('"mota"') == 1
 
 
-def test_bench_rehearsal_line_and_modes(capsys):
+def test_bench_rehearsal_line_and_modes(capsys, monkeypatch):
     """The port bench at a toy size on the CPU: one JSON line with the
     documented keys, named as a CPU run; nothing of it is a device
     number."""
@@ -542,8 +544,14 @@ def test_bench_rehearsal_line_and_modes(capsys):
                            "--windows", "1", "--mode", mode]) == 0
         got = json.loads(capsys.readouterr().out.strip())
         assert got["mode"] == mode and got[key]["median"] > 0
-    with pytest.raises(NotImplementedError, match="'streams'"):
-        bench.main(["--device", "cpu", "--mode", "streams"])
+    # the camera fleet (it raised before its port), at RVT_BENCH_RES
+    monkeypatch.setenv("RVT_BENCH_STREAMS", "2")
+    monkeypatch.setenv("RVT_BENCH_RES", "64")
+    assert bench.main(["--device", "cpu", "--res", "360", "--iters", "1",
+                       "--windows", "1", "--mode", "streams"]) == 0
+    got = json.loads(capsys.readouterr().out.strip())
+    assert got["metric"] == "streams2_64p_fps"
+    assert got["streams_fps"]["median"] > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             bench.main(["--iters", "1"])
@@ -562,10 +570,12 @@ def test_cli_names_the_tools():
     with pytest.raises(SystemExit) as ei:
         cli.preview(["--help"])
     assert ei.value.code == 0
-    for fn in (cli.train, cli.analyze):
-        with pytest.raises(NotImplementedError):
-            fn([])
-    for name in ("preview", "detect", "track", "serve", "bench"):
+    with pytest.raises(NotImplementedError):
+        cli.train([])
+    with pytest.raises(SystemExit) as ei:
+        cli.analyze(["--help"])
+    assert ei.value.code == 0
+    for name in ("preview", "detect", "track", "serve", "bench", "analyze"):
         assert callable(getattr(cli, name))
     p = subprocess.run([sys.executable, "-m", "roadvision_tpu_torch.cli"],
                        capture_output=True, text=True, cwd=ROOT)

@@ -549,3 +549,84 @@ def test_gate_on_the_card_equals_the_cpu_path(dev, no_tf32):
             [(d.cls_id, d.track_id) for d in b.detections]
         for da, db in zip(a.detections, b.detections):
             assert abs(da.x1 - db.x1) < 0.05 and abs(da.conf - db.conf) < 2e-3
+
+
+# the camera fleet: the fleet step on the card, and the kernels at the
+# fleet's folded shapes (S·B planes: 4 streams x 8 frames)
+
+def test_fleet_step_on_the_card_equals_the_cpu_path(dev, no_tf32):
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    cfg = merge(_engine_cfg(batch=2), {"tpu": {"mesh": {"enable": True}}})
+    s = 3
+    clip = _batches(2 * s, batch=2)
+    fleet = [(np.stack([clip[k * s + i][0] for i in range(s)]),
+              np.stack([clip[k * s + i][1] for i in range(s)]))
+             for k in range(2)]
+    eng = {d: MultiStreamEngine(cfg, s, devices=[d]) for d in ("cpu", dev)}
+    launch_counts.update({k: 0 for k in launch_counts})
+    got = [eng[dev].process_batch(f, t) for f, t in fleet]
+    # one launch of each kernel per fleet batch, not per stream
+    assert set(launch_counts.values()) == {2}
+    want = [eng["cpu"].process_batch(f, t) for f, t in fleet]
+    n = 0
+    for g, w in zip(got, want):
+        for gs, ws in zip(g, w):
+            assert _ids(gs) == _ids(ws)
+            for a, b in zip(gs, ws):
+                for da, db in zip(a.detections, b.detections):
+                    assert max(abs(p - q) for p, q in zip(
+                        (da.x1, da.y1, da.x2, da.y2),
+                        (db.x1, db.y1, db.x2, db.y2))) < 0.05
+                    assert abs(da.conf - db.conf) < 2e-3
+                    n += 1
+    assert n > 0
+
+
+def test_fleet_short_last_batch_through_the_pinned_ring(dev):
+    """A clip whose length is not a multiple of the batch: the fleet's
+    short last batch (S, m < B, H, W, 3) is uploaded while the full batch
+    before it still waits to be dispatched, and ``stream`` at 1.5 batches
+    ends on it; both give what ``process_batch`` gives, bit for bit."""
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    from roadvision_tpu_torch.tools.bench import ReplaySource
+    cfg = merge(_engine_cfg(batch=4), {"tpu": {"mesh": {"enable": True}}})
+    s, m = 3, 2
+    clip = [f for f, _ in _batches(2 * s)]
+
+    def sources():
+        return [ReplaySource([clip[i], clip[s + i]]) for i in range(s)]
+
+    reads = [[src.read_batch(n) for n in (4, m)] for src in sources()]
+    fleet = [(np.stack([r[k][0] for r in reads]),
+              np.stack([r[k][1] for r in reads])) for k in range(2)]
+    ref = MultiStreamEngine(cfg, s, devices=[dev])
+    want = [ref.process_batch(f, t) for f, t in fleet]
+    eng = MultiStreamEngine(cfg, s, devices=[dev])
+    ups = [eng.upload(f) for f, _ in fleet]     # both queued at once
+    got = [eng.collect_batch(eng.dispatch_batch(f, t, up))
+           for (f, t), up in zip(fleet, ups)]
+    eng.reset()
+    streamed = list(eng.stream(sources(), max_frames=4 + m))
+    assert [len(g[0]) for g in streamed] == [4, m]
+    for g, st, w in zip(got, streamed, want):
+        for gs, ss, ws in zip(g, st, w):
+            assert [r.detections for r in gs] == [r.detections for r in ws]
+            assert [r.detections for r in ss] == [r.detections for r in ws]
+    assert any(r.detections for ws in want[1] for r in ws)
+
+
+@pytest.mark.parametrize("h,w", [(720, 1280), (1080, 1920)])
+def test_kernels_bit_equal_at_fleet_shapes(dev, h, w):
+    n = 32                                   # S·B luma planes
+    plane = _plane((n, h, w), 5, dev)
+    pad_h, pad_w, th, tw = C.pad_plan(h, w, 8, 8)
+    xe = C._reflect_pad_101(plane, pad_h, pad_w)
+    clip, scale = C.clip_count(2.0, th * tw), C.lut_scale(th * tw)
+    luts = C.clahe_tile_luts(xe, 8, 8, clip, scale)
+    assert torch.equal(luts, C.tile_luts_plain(xe, 8, 8, clip, scale))
+    assert torch.equal(C.clahe_apply(plane, luts, th, tw, "cv2"),
+                       C.apply_plain(plane, luts, th, tw, "cv2"))
+    planes = _plane((3 * n, h, w), 6, dev)   # 3 colour planes a frame
+    assert torch.equal(M.median_planes(planes, 3), M.median_plain(planes, 3))

@@ -125,8 +125,14 @@ def test_pipeline_failure_is_kept_and_the_server_still_answers():
     {"tpu": {"mesh": {"enable": True}},
      "camera": {"sources": ["synthetic:1", "synthetic:2"]}}])
 def test_serve_refuses_what_is_not_ported(over):
-    with pytest.raises(NotImplementedError):
-        serve.serve_background(_tiny_cfg(**over), port=0, device="cpu")
+    # analytics and the camera fleet are ported: both configs now serve
+    server, hub, worker = serve.serve_background(
+        _tiny_cfg(**over), port=0, max_frames=2, device="cpu")
+    try:
+        worker.join(timeout=60)
+        assert hub.error is None and hub.stats["frames"] == 2
+    finally:
+        _stop(server, hub, worker)
 
 
 def test_serve_defaults_to_the_card():
