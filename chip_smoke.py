@@ -118,11 +118,28 @@ Phases, in order; any failure exits non-zero:
      kernel phase also holds K1, K2 and K3 bit-equal at the fleet's
      folded shapes (32 luma planes and 96 colour planes, 720p and 1080p)
      and times them there;
+  7c. training, with the kernels' counts 0 across it (no hand-written
+     kernel lies on this path): ``[train] <family>`` for v8n, yolo11n and
+     v5n at 640 x 16, v8n-seg / -pose / -obb at 640 x 8, RT-DETR-L at
+     640 x 4 and the re-id embedder — one float32 step (TF32 off) from the
+     same tree and batch on the card and on the CPU (2 images; RT-DETR 1):
+     loss, components and gradient norm within TRAIN_LOSS_RTOL,
+     parameters after the step within TRAIN_PARAM_ATOL; 10 steps on one
+     fixed batch on the card must lower the loss; warm steps timed (median,
+     min, max), split into forward + loss, assignment / matching, backward
+     and optimiser, images/s, peak memory, host syncs a step (by
+     ``torch.cuda.set_sync_debug_mode``); TF32 off throughout. Then
+     ``[entry] train``: ``cli.train`` at 640 x 16 for 20 steps with
+     ``--eval-every 10 --save-every 10``, ``--resume`` to step 30, a ``--fog
+     0.5`` run, ``train_reid``, and the ``.weights.npz`` serving one 1080p
+     batch in a ``PipelineEngine`` (one launch of each kernel); results
+     also in chiprun_out/training.json;
   8. print the command time, the kernels' JSON line (each kernel's
      launches summed over every path above), the card line, and last the
      ok line.
 
-Options: ``--kernels-only`` stops after phase 3; ``--fleet-cards`` runs
+Options: ``--kernels-only`` stops after phase 3; ``--train-only`` runs
+only phase 7c (training); ``--fleet-cards`` runs
 only the fleet on every visible card against the same fleet on one
 (``fleet_cards_phase``; needs 2 cards or more); ``--profile`` adds a
 torch.profiler pass over one bfloat16 batch (device busy share, kernel
@@ -2413,6 +2430,374 @@ def fleet_cards_phase(model: str, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# training (no hand-written kernel on this path: K1 / K2 / K3 launch 0)
+
+TRAIN_LOSS_RTOL = 1e-3     # loss, its components, the gradient norm
+TRAIN_PARAM_ATOL = 1e-5    # parameters after one step, card against CPU
+# RT-DETR's first moment per leaf, relative to the leaf's largest value:
+# the deformable sampling offsets' gradients go through bilinear corner
+# weights summed in another order (3 % between JAX and the port at 64²)
+TRAIN_MOMENT_RTOL_RTDETR = 5e-2
+TRAIN_STEPS, TRAIN_TIMED, TRAIN_PARTS = 10, 8, 3
+TRAIN_DEVICE = "cuda"
+TRAIN_ENTRY = ("640", "16")    # [entry] train: imgsz, batch
+
+
+def train_families(tmp: Path) -> dict:
+    """Per family: (JAX-layout tree, batch generator, full-width imgsz
+    and batch, the CPU parity batch, loss function or "rtdetr", lr).
+    v8n at ultralytics' 640 × 16, RT-DETR-L at 640 × 4, the task heads at
+    640 × 8. The learning rates are the tool's defaults (1e-3, RT-DETR
+    1e-4) but for the random YOLO11n, whose loss moves by 1e-4 in 10 steps
+    at 1e-3 (1e-2 there)."""
+    from roadvision_tpu_torch.detect import dataset as ds
+    from roadvision_tpu_torch.models.yolo import train as T
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.models.yolo.train_obb import obb_loss
+    from roadvision_tpu_torch.models.yolo.train_pose import pose_loss
+    from roadvision_tpu_torch.models.yolo.train_seg import segmentation_loss
+    from roadvision_tpu_torch.models.yolo.train_v5 import detection_loss_v5
+    assets = Path(__file__).resolve().parent / "assets"
+
+    def task(kind, nc):
+        return W.import_npz(_trained_task_tree(kind, nc, tmp))
+
+    return {
+        "v8n": (W.import_npz(assets / "yolov8n_synthetic_256.npz"),
+                ds.synthetic_batches, 640, 16, 2, T.detection_loss, 1e-3),
+        "yolo11n": (W.tree_from_model(W.random_model("11", "detect", "n",
+                                                     80, seed=0)),
+                    ds.synthetic_batches, 640, 16, 2, T.detection_loss,
+                    1e-2),
+        "v5n": (W.import_npz(assets / "yolov5n_synthetic_256.npz"),
+                ds.synthetic_batches, 640, 16, 2, detection_loss_v5, 1e-3),
+        "v8n-seg": (task("segment", 80), ds.synthetic_seg_batches, 640, 8,
+                    2, segmentation_loss, 1e-3),
+        "v8n-pose": (task("pose", 1), ds.synthetic_pose_batches, 640, 8, 2,
+                     pose_loss, 1e-3),
+        "v8n-obb": (task("obb", 15), ds.synthetic_obb_batches, 640, 8, 2,
+                    obb_loss, 1e-3),
+        "rtdetr-l": (W.import_npz(assets / "rtdetr_l_synthetic_256.npz"),
+                     ds.synthetic_batches, 640, 4, 1, "rtdetr", 1e-4),
+    }
+
+
+def count_syncs(fn) -> int:
+    """Device-to-host synchronisations inside ``fn()``, by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def step_times(step) -> list:
+    """Host ms of TRAIN_TIMED calls of ``step``, each between two device
+    synchronises."""
+    import torch
+    times = []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _on(batch, device):
+    import torch
+    imgs, *gts = batch
+    return (torch.from_numpy(np.ascontiguousarray(imgs)).to(device).float()
+            / 255.0, *(torch.from_numpy(np.asarray(g)).to(device)
+                       for g in gts))
+
+
+def _train_step(loss, lr):
+    from roadvision_tpu_torch.models import rtdetr_train as RT
+    from roadvision_tpu_torch.models.yolo import train as T
+    if loss == "rtdetr":
+        return RT.make_train_step_rtdetr(lr=lr), RT.init_opt_rtdetr
+    return T.make_train_step(loss, lr), T.init_momentum
+
+
+def _model(tree, device):
+    from roadvision_tpu_torch.models.yolo import weights as W
+    return W.model_from_params(tree).set_compute_dtype(
+        __import__("torch").float32).to(device).train()
+
+
+def train_parity(name, tree, gen, imgsz, nb, loss, lr) -> dict:
+    """One float32 step (TF32 off) from the same tree and batch on the
+    card and on the CPU: loss, components and gradient norm within
+    TRAIN_LOSS_RTOL; the optimiser state (SGD momentum, AdamW's first
+    moment: the clipped gradient scaled) per leaf within 1e-3 of its
+    largest value (RT-DETR: TRAIN_MOMENT_RTOL_RTDETR); the parameters
+    after the step within TRAIN_PARAM_ATOL. AdamW's first step moves a
+    parameter by ≈ lr · sign(g): where |g| is under that tolerance (float
+    noise, e.g. the attention key biases, whose true gradient is 0) only
+    ≤ 2 · lr is held."""
+    import torch
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.runtime.checkpoint import opt_state_tree
+    batch = next(gen(nb, imgsz=imgsz, seed=1))
+    out = {}
+    for dev in (TRAIN_DEVICE, "cpu"):
+        step, init = _train_step(loss, lr)
+        model = _model(tree, dev)
+        opt = init(model)
+        loss_v, aux = step(model, opt, *_on(batch, dev))
+        moment = opt_state_tree(opt)
+        out[dev] = (float(loss_v), {k: float(v) for k, v in aux.items()},
+                    W.flatten_tree(W.tree_from_model(model)),
+                    W.flatten_tree(moment["m"] if loss == "rtdetr"
+                                   else moment))
+    (lg, ag, pg, mg), (lc, ac, pc, mc) = out[TRAIN_DEVICE], out["cpu"]
+    worst = {"loss": abs(lg - lc) / max(abs(lc), 1e-12)}
+    for k, v in ac.items():
+        if k in ("num_fg", "ok"):
+            if ag[k] != v:
+                fail(f"[train] {name}: {k} {ag[k]} on the card, {v} on "
+                     f"the CPU")
+            continue
+        worst[k] = abs(ag[k] - v) / max(abs(v), 1e-12)
+    rel = {k: float(np.abs(mg[k] - mc[k]).max()
+                    / (np.abs(mc[k]).max() + 1e-9)) for k in mc}
+    worst["moment_rel"] = max(rel.values())
+    worst["moment_leaf"] = max(rel, key=rel.get)
+    moment_rtol = TRAIN_MOMENT_RTOL_RTDETR if loss == "rtdetr" else 1e-3
+    worst["param_abs"] = 0.0
+    for k in pc:
+        diff = np.abs(pg[k] - pc[k])
+        if loss == "rtdetr":
+            sure = np.abs(mc[k]) > moment_rtol * np.abs(mc[k]).max() \
+                + 1e-9
+            if diff.max() > 2 * lr + 1e-6:
+                fail(f"[train] {name}: {k} moved {diff.max()} apart")
+            diff = diff[sure] if sure.any() else np.zeros(1)
+        worst["param_abs"] = max(worst["param_abs"], float(diff.max()))
+    if max(v for k, v in worst.items() if k not in (
+            "param_abs", "moment_rel", "moment_leaf")) \
+            > TRAIN_LOSS_RTOL or worst["moment_rel"] > moment_rtol \
+            or worst["param_abs"] > TRAIN_PARAM_ATOL or not np.isfinite(lg):
+        fail(f"[train] {name}: card vs CPU {worst} (loss {lg} / {lc})")
+    return {"loss_card": lg, "loss_cpu": lc, "rel_err": worst,
+            "num_fg": ac["num_fg"]}
+
+
+def train_timed(name, tree, gen, imgsz, nb, loss, lr) -> dict:
+    """At full width on the card, TF32 off: 10 steps on one fixed batch
+    (the loss must fall), then TRAIN_TIMED warm steps timed whole (median
+    and spread), TRAIN_PARTS steps split into parts (a synchronise around
+    each part), peak memory, host syncs in one step."""
+    import torch
+    from roadvision_tpu_torch.models import rtdetr_train as RT
+    from roadvision_tpu_torch.models.yolo import train as T
+    dev = torch.device(TRAIN_DEVICE)
+    batch = _on(next(gen(nb, imgsz=imgsz, seed=2)), dev)
+    step, init = _train_step(loss, lr)
+    model = _model(tree, dev)
+    opt = init(model)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(model, opt, *batch)[0])
+              for _ in range(TRAIN_STEPS)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"[train] {name}: loss over {TRAIN_STEPS} steps on a fixed "
+             f"batch {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    RT.reset_host_syncs()
+    syncs = count_syncs(lambda: step(model, opt, *batch))
+    auction_reads = RT.host_syncs
+    times = step_times(lambda: step(model, opt, *batch))
+    T.PART_TIMER = T.PartTimer(dev)
+    try:
+        for _ in range(TRAIN_PARTS):
+            step(model, opt, *batch)
+        parts = {k: float(np.median(v)) for k, v in T.PART_TIMER.ms.items()}
+    finally:
+        T.PART_TIMER = None
+    med = float(np.median(times))
+    return {"imgsz": imgsz, "batch": nb, "losses": losses,
+            "step_ms": med, "step_ms_min": min(times),
+            "step_ms_max": max(times), "parts_ms": parts,
+            "images_per_s": nb / med * 1e3, "peak_mem_bytes": peak,
+            "host_syncs_per_step": syncs,
+            "auction_reads_per_step": auction_reads, "tf32": False}
+
+
+def train_reid_phase() -> dict:
+    """Re-id: one Adam step card vs CPU (loss TRAIN_LOSS_RTOL, the first
+    moment per leaf 1e-3 of its largest value, the parameters within
+    TRAIN_PARAM_ATOL where that moment is above 1e-3 of the largest and
+    within 2 · lr elsewhere: Adam's first step is ≈ lr · sign(g)), 10
+    steps on one batch lower the triplet loss, then timed steps (8
+    identities × 4 views, 64² frames, the tool's default batch)."""
+    import torch
+    from roadvision_tpu_torch.track import reid as R
+    lr = 1e-3
+    rng = np.random.default_rng(0)
+    frames, boxes, labels = R.synthetic_reid_batch(
+        rng, rng.choice(128, size=8, replace=False), 4)
+    res = {}
+    for dev in (TRAIN_DEVICE, "cpu"):
+        p = R.init_reid_params(0, dev)
+        st = R.init_adam(p)
+        b = [torch.from_numpy(a).to(dev) for a in (frames, boxes, labels)]
+        loss = float(R.reid_train_step(p, st, *b, lr=lr))
+        res[dev] = (loss, {k: v.cpu().numpy() for k, v in p.items()},
+                    {k: v.cpu().numpy() for k, v in st["mu"].items()}, p,
+                    st, b)
+    card, cpu = res[TRAIN_DEVICE], res["cpu"]
+    lerr = abs(card[0] - cpu[0]) / abs(cpu[0])
+    merr = perr = 0.0
+    for k, mu in cpu[2].items():
+        scale = np.abs(mu).max() + 1e-12
+        merr = max(merr, float(np.abs(card[2][k] - mu).max() / scale))
+        diff = np.abs(card[1][k] - cpu[1][k])
+        if diff.max() > 2 * lr + 1e-6:
+            fail(f"[train] re-id: {k} moved {diff.max()} apart")
+        sure = np.abs(mu) > 1e-3 * scale
+        perr = max(perr, float(diff[sure].max()) if sure.any() else 0.0)
+    if lerr > TRAIN_LOSS_RTOL or merr > 1e-3 or perr > TRAIN_PARAM_ATOL:
+        fail(f"[train] re-id: card vs CPU loss {lerr}, moment {merr}, "
+             f"params {perr}")
+    _, _, _, p, st, b = card
+    losses = [float(R.reid_train_step(p, st, *b, lr=lr)) for _ in range(10)]
+    if not losses[-1] < losses[0]:
+        fail(f"[train] re-id: triplet loss over 10 steps {losses}")
+    syncs = count_syncs(lambda: R.reid_train_step(p, st, *b, lr=lr))
+    torch.cuda.reset_peak_memory_stats()
+    times = step_times(lambda: R.reid_train_step(p, st, *b, lr=lr))
+    med = float(np.median(times))
+    return {"parity": {"loss_rel": lerr, "moment_rel": merr,
+                       "param_abs": perr},
+            "losses": losses, "step_ms": med, "step_ms_min": min(times),
+            "step_ms_max": max(times), "batch": len(labels),
+            "images_per_s": len(labels) / med * 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "host_syncs_per_step": syncs, "tf32": False}
+
+
+def train_phase(card: str, tmp: Path) -> dict:
+    """``[train] <family>``: parity, a falling loss and timings for every
+    family the trainer serves; the kernels' counts stay 0 throughout."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    kernels.reset_launch_counts()
+    out = {}
+    for name, fam in train_families(tmp).items():
+        t0 = time.perf_counter()
+        par = train_parity(name, *fam[:2], fam[2], fam[4], *fam[5:])
+        res = train_timed(name, *fam[:2], fam[2], fam[3], *fam[5:])
+        res["parity"] = par
+        out[name] = res
+        torch.cuda.empty_cache()
+        parts = {k: round(v, 2) for k, v in res["parts_ms"].items()}
+        print(f"[train] {name}: card = CPU within rel {TRAIN_LOSS_RTOL} / "
+              f"params {TRAIN_PARAM_ATOL} (worst {json.dumps(par['rel_err'])}"
+              f"); loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f} "
+              f"over {TRAIN_STEPS} steps at {res['imgsz']}x{res['imgsz']} "
+              f"x {res['batch']}; step {res['step_ms']:.2f} ms "
+              f"[{res['step_ms_min']:.2f}-{res['step_ms_max']:.2f}], parts "
+              f"{json.dumps(parts)}, {res['images_per_s']:.1f} images/s, peak "
+              f"{res['peak_mem_bytes'] / 2**30:.2f} GiB, host syncs a step "
+              f"{res['host_syncs_per_step']} (auction reads "
+              f"{res['auction_reads_per_step']}), TF32 off; "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    res = train_reid_phase()
+    out["re-id"] = res
+    print(f"[train] re-id: card = CPU ({json.dumps(res['parity'])}"
+          f"); triplet {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}; "
+          f"step {res['step_ms']:.2f} ms [{res['step_ms_min']:.2f}-"
+          f"{res['step_ms_max']:.2f}], {res['images_per_s']:.1f} crops/s, "
+          f"host syncs a step {res['host_syncs_per_step']} ({card})",
+          flush=True)
+    counts = add_to_totals(dict(kernels.launch_counts))
+    if any(counts.values()):
+        fail(f"[train] the preprocess kernels launched {counts}")
+    print(f"[train] kernels launched across training: {counts}", flush=True)
+    out["launches"] = counts
+    return out
+
+
+def entry_train(tmp: Path, card: str) -> dict:
+    """``[entry] train``: ``cli.train`` at 640 × 16 for 20 steps with
+    ``--eval-every 10 --save-every 10``, ``--resume`` to step 30, a
+    ``--fog 0.5`` run, ``train_reid``; the kernels launch 0 times. Then
+    the ``.weights.npz`` serves one 1080p batch in a ``PipelineEngine``
+    (one launch of each kernel)."""
+    import torch
+    from roadvision_tpu_torch import cli, kernels
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.runtime.checkpoint import load_train_state
+    from roadvision_tpu_torch.tools import train_reid
+    out = tmp / "train" / "run.npz"
+    # lr 1e-4: the asset, trained at 256², keeps detecting after 30 steps
+    common = ["--data", "synthetic", "--imgsz", TRAIN_ENTRY[0], "--batch",
+              TRAIN_ENTRY[1], "--lr", "1e-4",
+              "--weights", str(Path(__file__).resolve().parent / "assets"
+                               / "yolov8n_synthetic_256.npz")]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if cli.train(common + ["--steps", "20", "--eval-every", "10",
+                           "--save-every", "10", "--out", str(out)]) != 0:
+        fail("[entry] train: the 20-step run returned non-zero")
+    t_run = time.perf_counter() - t0
+    if load_train_state(out)[2] != 20:
+        fail("[entry] train: the saved state is not at step 20")
+    resumed = tmp / "train" / "resumed.npz"
+    if cli.train(common + ["--steps", "10", "--resume", str(out), "--out",
+                           str(resumed)]) != 0:
+        fail("[entry] train: --resume returned non-zero")
+    step = load_train_state(resumed)[2]
+    if step != 30:
+        fail(f"[entry] train: --resume ended at step {step}, not 30")
+    t1 = time.perf_counter()
+    if cli.train(common + ["--steps", "3", "--fog", "0.5", "--out",
+                           str(tmp / "train" / "fog.npz")]) != 0:
+        fail("[entry] train: the --fog 0.5 run returned non-zero")
+    t_fog = time.perf_counter() - t1
+    if train_reid.main(["--steps", "20", "--out",
+                        str(tmp / "train" / "reid.npz")]) != 0:
+        fail("[entry] train_reid returned non-zero")
+    counts = add_to_totals(dict(kernels.launch_counts))
+    if any(counts.values()):
+        fail(f"[entry] train: the preprocess kernels launched {counts}")
+    weights = str(resumed.with_suffix(".weights.npz"))
+    with PathLaunches("[entry] train serve") as pl:
+        engine = PipelineEngine(pipeline_cfg(weights), device="cuda")
+        frames, ts = render_batches(1, seed=5)[0]
+        res = engine.process_batch(frames, ts)
+        torch.cuda.synchronize()
+        serve_counts = pl.check(1)
+    dets = sum(len(r.detections) for r in res)
+    for r in res:
+        for d in r.detections:
+            if not all(np.isfinite(v) for v in (d.x1, d.y1, d.x2, d.y2,
+                                                 d.conf)):
+                fail("[entry] train: non-finite detection")
+    print(f"[entry] train: cli.train 20 steps at {TRAIN_ENTRY[0]}² x "
+          f"{TRAIN_ENTRY[1]} with eval and save every 10 in {t_run:.1f} s, "
+          f"--resume to step {step}, --fog 0.5 3 steps in {t_fog:.1f} s, train_reid 20 steps; launches "
+          f"{counts}; the .weights.npz served one 1080p batch of {BATCH} in "
+          f"a PipelineEngine: {dets} detections, launches {serve_counts} "
+          f"({card})", flush=True)
+    return {"run_s": t_run, "fog_s": t_fog, "resumed_step": step,
+            "launches": counts, "serve_launches": serve_counts,
+            "serve_detections": dets}
+
+
 def profile_batch(engine, frames, ts) -> dict:
     """torch.profiler over one bf16 batch: device busy share, kernel
     launches, and the top kernels and host ops (full tables to
@@ -2480,6 +2865,16 @@ def main() -> int:
             json.dumps(line, indent=1))
         print(json.dumps(line), flush=True)
         print(card_line(), flush=True)
+        return 0
+    if "--train-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            training = train_phase(card, Path(tmp))
+            training["entry"] = entry_train(Path(tmp), card)
+        Path("chiprun_out").mkdir(exist_ok=True)
+        Path("chiprun_out/training.json").write_text(
+            json.dumps(training, indent=1))
+        print(f"[time] chip_smoke.py --train-only ran "
+              f"{time.perf_counter() - T_START:.1f} s", flush=True)
         return 0
     batches = render_batches(6)
     rows = check_kernels(batches[0][0])
@@ -2556,6 +2951,12 @@ def main() -> int:
     (out_dir / "streams.json").write_text(json.dumps(fleet, indent=1))
     entries.update(fleet)
 
+    # training: every family, then the train entry points
+    with tempfile.TemporaryDirectory() as tmp:
+        training = train_phase(card, Path(tmp))
+        training["entry"] = entry_train(Path(tmp), card)
+    (out_dir / "training.json").write_text(json.dumps(training, indent=1))
+
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
     engine = PipelineEngine(pipeline_cfg(model), device="cuda")
@@ -2620,7 +3021,7 @@ def main() -> int:
          "fleet": r["fleet"]}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
-        "second_paths": paths, "entries": entries}
+        "second_paths": paths, "entries": entries, "training": training}
     (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
           f"(the kernels' build included)", flush=True)

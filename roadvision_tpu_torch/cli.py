@@ -4,13 +4,13 @@
     python -m roadvision_tpu_torch.cli detect    (offline detection)
     python -m roadvision_tpu_torch.cli track     (offline tracking, MOT output)
     python -m roadvision_tpu_torch.cli serve     (headless MJPEG live server)
+    python -m roadvision_tpu_torch.cli train     (train / fine-tune a detector)
     python -m roadvision_tpu_torch.cli bench     (the port's benchmark)
     python -m roadvision_tpu_torch.cli analyze   (offline analytics report)
 
 each the ``main`` of ``roadvision_tpu_torch.tools.<name>``. They are not
 declared under ``[project.scripts]``: ``tests/test_cli.py`` holds every
-script declared there to ``roadvision_tpu.cli``. ``train`` is not
-ported yet and raises ``NotImplementedError``. Every entry takes
+script declared there to ``roadvision_tpu.cli``. Every entry takes
 ``--device cuda|cpu`` and runs on the card by default.
 """
 from __future__ import annotations
@@ -46,8 +46,7 @@ def bench(argv: Optional[list] = None) -> int:
 
 
 def train(argv: Optional[list] = None) -> int:
-    raise NotImplementedError("training (tools/train.py) is not ported to "
-                              "roadvision_tpu_torch yet (ROADMAP A7)")
+    return _run("train", argv)
 
 
 def analyze(argv: Optional[list] = None) -> int:

@@ -390,8 +390,10 @@ def deform_attn(p: DeformAttn, query: torch.Tensor, refer_sig: torch.Tensor,
             xi = x0 + dx
             yi = y0 + dy
             inb = (xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)
+            # a NaN location (a non-finite batch in training) reads row 0
+            # with a NaN weight, where the int cast would leave the map
             idx = (yi.clamp(0, hl - 1) * wl + xi.clamp(0, wl - 1)) \
-                .to(torch.int64)
+                .nan_to_num(0.0).to(torch.int64)
             # (B, NQ, NH, NDP) → gather rows of the flattened map
             idxs.append(idx.transpose(2, 3).reshape(b, nq * NDP, NH))
             wgts.append(wgt * inb)
@@ -423,8 +425,9 @@ def anchors_for(shapes: Sequence[Tuple[int, int]], grid_size: float = 0.05,
             torch.arange(h, dtype=torch.float32, device=device),
             torch.arange(w, dtype=torch.float32, device=device),
             indexing="ij")
-        xy = (torch.stack([gx, gy], -1) + 0.5) / torch.tensor(
-            [w, h], dtype=torch.float32, device=device)
+        # divided by the level's sides as Python numbers: a (w, h) tensor
+        # built from a list would be one host upload (and sync) a level
+        xy = torch.stack([(gx + 0.5) / w, (gy + 0.5) / h], -1)
         wh = torch.full((h, w, 2), grid_size * (2.0 ** lvl),
                         dtype=torch.float32, device=device)
         anchors.append(torch.cat([xy, wh], -1).reshape(-1, 4))
@@ -479,11 +482,11 @@ class Decoder(nn.Module):
         self.qpos = nn.ModuleList([nn.Linear(4, 2 * HD),
                                    nn.Linear(2 * HD, HD)])
 
-    def proposals(self, feats, num_queries: Optional[int] = None):
-        """IoU-aware query selection → (memory (B, ΣHW, HD), level
-        shapes, top class logit per anchor (B, ΣHW), the top-nq anchor
-        indices (B, nq), their features (B, nq, HD), their boxes
-        (B, nq, 4) sigmoid cxcywh)."""
+    def select(self, feats, num_queries: Optional[int] = None):
+        """IoU-aware query selection → (memory (B, ΣHW, HD), level shapes,
+        class logits per anchor (B, ΣHW, nc), the top-nq anchor indices
+        (B, nq), their features (B, nq, HD), their box logits (B, nq, 4),
+        the anchor prior added: sigmoid gives cxcywh)."""
         shapes = [(f.shape[2], f.shape[3]) for f in feats]
         memory = torch.cat([proj(f).flatten(2).transpose(1, 2)
                             for proj, f in zip(self.input_proj, feats)],
@@ -491,36 +494,73 @@ class Decoder(nn.Module):
         anchors, valid = anchors_for(shapes, device=memory.device)
         feats_q = self.enc_output["ln"](
             self.enc_output["lin"](memory * valid[None]))
-        top_val = self.enc_score(feats_q).max(dim=-1).values
+        scores = self.enc_score(feats_q)
         nq = min(NQ if num_queries is None else int(num_queries),
                  memory.shape[1])
-        topk = topk_stable(top_val, nq)                    # (B, nq)
+        topk = topk_stable(scores.max(dim=-1).values, nq)   # (B, nq)
         output = torch.gather(feats_q, 1, topk[..., None].expand(-1, -1, HD))
-        refer = torch.sigmoid(mlp(output, self.enc_bbox) + anchors[topk])
-        return memory, shapes, top_val, topk, output, refer
+        refer_logit = mlp(output, self.enc_bbox) + anchors[topk]
+        return memory, shapes, scores, topk, output, refer_logit
+
+    def proposals(self, feats, num_queries: Optional[int] = None):
+        """:meth:`select` with the top class logit per anchor (B, ΣHW) and
+        the boxes as sigmoid cxcywh (B, nq, 4)."""
+        memory, shapes, scores, topk, output, refer_logit = self.select(
+            feats, num_queries)
+        return memory, shapes, scores.max(dim=-1).values, topk, output, \
+            torch.sigmoid(refer_logit)
+
+    def refine(self, i: int, memory, shapes, output, refer,
+               bf16_vals: Optional[bool]):
+        """Decoder layer ``i`` → (its output, its refined boxes)."""
+        lp = self.layers[i]
+        values = lp.ca.val(memory).reshape(output.shape[0], -1, NH, HD // NH)
+        pos = mlp(refer, self.qpos)
+        q = output + pos
+        output = lp.ln1(output + lp.sa(q, q, output))
+        ca = deform_attn(lp.ca, output + pos, refer, values, shapes,
+                         bf16_vals=bf16_vals)
+        output = lp.ln2(output + ca)
+        output = lp.ln3(output + lp.ffn2(F.relu(lp.ffn1(output))))
+        delta = mlp(output, self.dec_bbox[i])
+        return output, torch.sigmoid(delta + inverse_sigmoid(refer))
 
     def forward(self, feats, num_queries: Optional[int] = None,
                 decoder_layers: Optional[int] = None,
                 bf16_vals: Optional[bool] = None):
-        b = feats[0].shape[0]
         memory, shapes, _, _, output, refer = self.proposals(feats,
                                                              num_queries)
-        layers = list(self.layers)
+        n = len(self.layers)
         if decoder_layers is not None:
-            layers = layers[:max(1, min(int(decoder_layers), len(layers)))]
-        dh = HD // NH
-        for i, lp in enumerate(layers):
-            values = lp.ca.val(memory).reshape(b, -1, NH, dh)
-            pos = mlp(refer, self.qpos)
-            q = output + pos
-            output = lp.ln1(output + lp.sa(q, q, output))
-            ca = deform_attn(lp.ca, output + pos, refer, values, shapes,
-                             bf16_vals=bf16_vals)
-            output = lp.ln2(output + ca)
-            output = lp.ln3(output + lp.ffn2(F.relu(lp.ffn1(output))))
-            delta = mlp(output, self.dec_bbox[i])
-            refer = torch.sigmoid(delta + inverse_sigmoid(refer))
-        return refer, self.dec_score[len(layers) - 1](output)
+            n = max(1, min(int(decoder_layers), n))
+        for i in range(n):
+            output, refer = self.refine(i, memory, shapes, output, refer,
+                                        bf16_vals)
+        return refer, self.dec_score[n - 1](output)
+
+    def forward_train(self, feats) -> Dict[str, Any]:
+        """``decoder_forward(train=True)`` :584-615 → the aux dict of the
+        set-prediction loss: the encoder's top-nq boxes (sigmoid cxcywh)
+        and score logits, and every decoder layer's. The first query
+        features and reference boxes are detached, each layer's refined
+        box is detached before it feeds the next, and the deformable
+        sampling reads f32 values (``bf16_vals=False``)."""
+        memory, shapes, scores, topk, output, refer_logit = self.select(
+            feats)
+        aux: Dict[str, Any] = {
+            "enc_boxes": torch.sigmoid(refer_logit),
+            "enc_scores": torch.gather(
+                scores, 1, topk[..., None].expand(-1, -1, scores.shape[-1])),
+            "boxes": [], "scores": []}
+        output = output.detach()
+        refer = torch.sigmoid(refer_logit.detach())
+        for i in range(len(self.layers)):
+            output, refined = self.refine(i, memory, shapes, output, refer,
+                                          False)
+            aux["boxes"].append(refined)
+            aux["scores"].append(self.dec_score[i](output))
+            refer = refined.detach()
+        return aux
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +604,11 @@ class RTDETR(nn.Module):
                                  decoder_layers, bf16_vals)
         return box_xyxy(boxes), torch.sigmoid(logits)
 
+    def forward_train(self, x_nhwc: torch.Tensor) -> Dict[str, Any]:
+        """``forward_rtdetr_train`` :649: the decoder's aux dict
+        (:meth:`Decoder.forward_train`) for models/rtdetr_train.py."""
+        return self.dec.forward_train(self.features(x_nhwc))
+
 
 def box_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     """Sigmoid-space cxcywh → xyxy."""
@@ -596,8 +641,14 @@ def params_from_tree(tree) -> Dict[str, torch.Tensor]:
 
 def tree_from_model(model: nn.Module) -> Dict[str, Any]:
     """The inverse of :func:`params_from_tree` for a float model."""
+    return tree_from_state_dict(model.state_dict())
+
+
+def tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Tensors keyed by the model's parameter names (its state dict, its
+    gradients, an optimiser's moments) → the JAX-layout tree."""
     flat = {}
-    for key, t in model.state_dict().items():
+    for key, t in sd.items():
         stem, leaf = key.rsplit(".", 1)
         arr = t.detach().float().cpu().numpy()
         if leaf == "weight":

@@ -457,12 +457,19 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
 def tree_from_model(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of :func:`params_from_jax`: a float model's state dict
     → the JAX-layout tree of float32 numpy arrays."""
-    from ..rtdetr import RTDETR
-    if isinstance(model, RTDETR):
-        from ..rtdetr import tree_from_model as rtdetr_tree
-        return rtdetr_tree(model)
+    return tree_from_state_dict(model.state_dict())
+
+
+def tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Tensors keyed by the port's parameter names (a state dict, its
+    gradients, an optimiser's moments) → the JAX-layout tree of float32
+    numpy arrays; RT-DETR's names (``backbone.…``) go through
+    ``rtdetr.tree_from_state_dict``."""
+    if any(k.startswith("backbone.") for k in sd):
+        from ..rtdetr import tree_from_state_dict as rtdetr_tree
+        return rtdetr_tree(sd)
     flat = {}
-    for key, t in model.state_dict().items():
+    for key, t in sd.items():
         stem, leaf = key[len("layers."):].rsplit(".", 1)
         name, perm = _LEAF_FROM_TORCH.get(leaf, (leaf, None))
         arr = t.detach().float().cpu().numpy()

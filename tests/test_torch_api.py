@@ -570,12 +570,16 @@ def test_cli_names_the_tools():
     with pytest.raises(SystemExit) as ei:
         cli.preview(["--help"])
     assert ei.value.code == 0
-    with pytest.raises(NotImplementedError):
-        cli.train([])
+    with pytest.raises(SystemExit) as ei:
+        cli.train(["--help"])
+    assert ei.value.code == 0
+    with pytest.raises(NotImplementedError, match="A8b"):
+        cli.train(["--dp", "2"])
     with pytest.raises(SystemExit) as ei:
         cli.analyze(["--help"])
     assert ei.value.code == 0
-    for name in ("preview", "detect", "track", "serve", "bench", "analyze"):
+    for name in ("preview", "detect", "track", "serve", "bench", "analyze",
+                 "train"):
         assert callable(getattr(cli, name))
     p = subprocess.run([sys.executable, "-m", "roadvision_tpu_torch.cli"],
                        capture_output=True, text=True, cwd=ROOT)
