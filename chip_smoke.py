@@ -134,14 +134,36 @@ Phases, in order; any failure exits non-zero:
      0.5`` run, ``train_reid``, and the ``.weights.npz`` serving one 1080p
      batch in a ``PipelineEngine`` (one launch of each kernel); results
      also in chiprun_out/training.json;
+  7d. ``[parallel]``, multi-card parallelism over lists that repeat
+     cuda:0, float32 with TF32 off unless timed, the kernels' counts 0
+     throughout: the dp x tp train step ({data: 4, model: 2}) of v8n and
+     RT-DETR-L at the JAX dry run's 64² x 8 against one replica (loss
+     PAR_LOSS_RTOL, parameters and optimiser state PAR_RTOL / PAR_ATOL,
+     replicas identical); v8n, YOLO11n and v5n at 640² x 16 a replica,
+     dp 2 against dp 1 on the same images, v8n's timed; PipelinedYOLO (384 x 640 x 8) and
+     PipelinedRTDETR (640² x 8, 300 queries) at 2 and 4 stages and the
+     row bands of one 2176 x 3840 frame over 4 entries against the plain
+     forward (PAR_BOX_ATOL / PAR_SCORE_ATOL; RT-DETR PAR_RT_*), then
+     timed in bfloat16 against the plain bfloat16 forward; the bands'
+     224 x 160 (7 bands of 8 entries) and 256 x 192 (8 bands) cases; then
+     ``dryrun_multicard([cuda:0] * 8)`` and its ``[dryrun]`` lines;
+     results also in chiprun_out/parallel.json;
   8. print the command time, the kernels' JSON line (each kernel's
      launches summed over every path above), the card line, and last the
      ok line.
 
 Options: ``--kernels-only`` stops after phase 3; ``--train-only`` runs
-only phase 7c (training); ``--fleet-cards`` runs
+only phase 7c (training); ``--parallel-only`` only phase 7d;
+``--fleet-cards`` runs
 only the fleet on every visible card against the same fleet on one
-(``fleet_cards_phase``; needs 2 cards or more); ``--profile`` adds a
+(``fleet_cards_phase``; needs 2 cards or more); ``--multi-cards`` runs
+``multi_cards_phase`` on 2 and 4 distinct cards (needs 2 or more): the
+dp step and the dp x tp step against one replica, the dp step timed on
+1, 2 and 4 cards (images/s, step ms, peak memory a card, host syncs),
+``cli.train --dp n`` with a save and ``--resume``, ``forward_paths``
+over the cards, and profiler timelines of how long two cards or more
+were busy at once (chiprun_out/multi_cards.json,
+chiprun_out/pipeline_2cards_trace.json); ``--profile`` adds a
 torch.profiler pass over one bfloat16 batch (device busy share, kernel
 launches, top kernels; tables in chiprun_out/profile.txt).
 The pass also prints the hand-written kernels' device times.
@@ -158,6 +180,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -2798,6 +2821,528 @@ def entry_train(tmp: Path, card: str) -> dict:
             "serve_detections": dets}
 
 
+# ----------------------------------------------------------------------
+# multi-card parallelism (roadvision_tpu_torch/parallel): no hand-written
+# kernel on these paths (the dry run's fleet runs the config defaults,
+# whose preprocess is off, as JAX's dry run does)
+
+PAR_LOSS_RTOL = 1e-5               # dp x tp step against one replica, as
+PAR_RTOL, PAR_ATOL = 2e-4, 2e-6    # the tests: parameters
+# the optimiser state (after one step the clipped gradient) per leaf, of
+# its largest value, as [train]'s card-against-CPU momentum: at 640² x 64
+# one card's batch sum and four replicas' partial sums leave cancelling
+# elements 2.7e-4 of their leaf's largest apart
+PAR_STATE_RTOL = 1e-3
+# pipelines and row bands against the plain forward on the same card in
+# float32, TF32 off: cuDNN may pick another algorithm for a microbatch's
+# or a band's shape, so the card holds them looser than the CPU tests
+# (1e-3 px, 1e-6): YOLOv8n boxes in px, scores; RT-DETR-L boxes in
+# normalised units (1e-4 is 0.064 px at 640: the same queries), and its
+# scores 1e-3 (six decoder layers of attention amplify the reassociation;
+# the card-against-CPU phases hold them to 2e-3)
+PAR_BOX_ATOL, PAR_SCORE_ATOL = 1e-2, 1e-4
+PAR_RT_BOX_ATOL, PAR_RT_SCORE_ATOL = 1e-4, 1e-3
+PAR_TIMED = 8
+PAR_CARD = 16                      # v8n training images per replica (640²)
+SP_FRAME = (2160, 3840)            # one 4K frame, letterboxed to 2176 rows
+PAR_DEVICE = "cuda:0"
+
+
+def sync_all() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def call_ms(fn, n: int = PAR_TIMED) -> dict:
+    """Host ms of ``n`` calls of ``fn`` after one warm call, every card
+    synchronised around each: median, min, max."""
+    fn()
+    times = []
+    for _ in range(n):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"median": float(np.median(times)), "min": min(times),
+            "max": max(times)}
+
+
+def _fmt_ms(t: dict) -> str:
+    return f"{t['median']:.2f} ms [{t['min']:.2f}-{t['max']:.2f}]"
+
+
+def _flat_named(named) -> dict:
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.parallel import merge_shards
+    return W.flatten_tree(W.tree_from_state_dict(merge_shards(named)))
+
+
+def _excess(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got − want| / (PAR_ATOL + PAR_RTOL · |want|): ≤ 1 passes."""
+    return float((np.abs(got - want)
+                  / (PAR_ATOL + PAR_RTOL * np.abs(want))).max())
+
+
+def _leaf_excess(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got − want| / (PAR_ATOL + PAR_STATE_RTOL · max |want|): the
+    leaf's largest value sets the scale, as for a sum whose terms
+    cancel."""
+    return float(np.abs(got - want).max()
+                 / (PAR_ATOL + PAR_STATE_RTOL * np.abs(want).max()))
+
+
+def dp_parity(name, tree, make_step, batch, mesh, adamw_lr=None) -> dict:
+    """One step of ``DataParallelStep`` over ``mesh`` against the family's
+    single-device step from the same tree and batch on the mesh's first
+    device: loss and components within PAR_LOSS_RTOL, ``num_fg`` equal,
+    the gradient norm within PAR_RTOL (as the gradients: RT-DETR's
+    deformable sampling adds its gradients by atomics, in no fixed
+    order), every parameter within PAR_RTOL / PAR_ATOL, every
+    optimiser-state element within PAR_ATOL + PAR_STATE_RTOL × its
+    leaf's largest value.
+    AdamW's first step is ≈ lr · sign g: a parameter whose first moment
+    is under 1e-3 of its leaf's largest + 1e-6 (float noise, or near
+    AdamW's ε) is held to 2 · lr, as tests/test_torch_rtdetr_train.py
+    holds it.
+    The replicas must be identical after the step."""
+    import torch
+    from roadvision_tpu_torch.parallel import DataParallelStep
+    dev = mesh.grid[0][0]
+    step = make_step()
+    single = _model(tree, dev)
+    state = step.init(single)
+    loss, aux = step(single, state, *batch)
+    dp = DataParallelStep(step, _model(tree, dev), mesh)
+    dloss, daux = dp(*batch)
+    worst = {"loss": abs(float(dloss) - float(loss)) / abs(float(loss))}
+    for k, v in aux.items():
+        if k in ("num_fg", "ok"):
+            if float(daux[k]) != float(v):
+                fail(f"[parallel] {name}: {k} {float(daux[k])} against "
+                     f"{float(v)} on one replica")
+        else:
+            worst[k] = abs(float(daux[k]) - float(v)) / max(abs(float(v)),
+                                                            1e-12)
+    moment = (lambda st: st["m"]) if adamw_lr else (lambda st: st)
+    want_m, got_m = _flat_named(moment(state)), _flat_named(moment(dp.state))
+    want_p = _flat_named(single.state_dict())
+    got_p = _flat_named(dp.model.state_dict())
+    state = {k: _leaf_excess(got_m[k], want_m[k]) for k in want_m}
+    worst["state_leaf"] = max(state, key=state.get)
+    worst["state_excess"] = state[worst["state_leaf"]]
+    worst["param_excess"] = 0.0
+    for k in want_p:
+        diff_ok = np.ones(want_p[k].shape, bool)
+        if adamw_lr:
+            m = np.abs(want_m[k])
+            diff_ok = m > 1e-3 * m.max() + 1e-6
+            if np.abs(got_p[k] - want_p[k]).max() > 2 * adamw_lr + 1e-6:
+                fail(f"[parallel] {name}: {k} moved apart")
+        if diff_ok.any():
+            worst["param_excess"] = max(worst["param_excess"], _excess(
+                got_p[k][diff_ok], want_p[k][diff_ok]))
+    same = all(torch.equal(a, b.to(a.device)) for others in dp.params[1:]
+               for a, b in zip(dp.params[0], others))
+    rel = max(v for k, v in worst.items() if k not in (
+        "grad_norm", "state_leaf", "state_excess", "param_excess"))
+    if rel > PAR_LOSS_RTOL or worst["grad_norm"] > PAR_RTOL \
+            or worst["state_excess"] > 1 \
+            or worst["param_excess"] > 1 or not same \
+            or not np.isfinite(float(dloss)):
+        fail(f"[parallel] {name}: dp {mesh.shape} against one replica "
+             f"{worst}, replicas identical {same}")
+    return {"mesh": dict(mesh.shape), "loss": float(dloss),
+            "num_fg": float(daux["num_fg"]), "worst": worst}
+
+
+def dp_timed(tree, devices, per_card: int = PAR_CARD) -> dict:
+    """v8n at 640² × ``per_card`` images per replica, one replica per
+    entry of ``devices``, float32 TF32 off: PAR_TIMED warm steps on one
+    device-resident batch (median, min, max), images/s, peak memory per
+    card, host syncs a step."""
+    import torch
+    from roadvision_tpu_torch.detect import dataset as ds
+    from roadvision_tpu_torch.models.yolo import train as T
+    from roadvision_tpu_torch.parallel import DataParallelStep, make_mesh
+    n = len(devices)
+    batch = _on(next(ds.synthetic_batches(per_card * n, imgsz=640,
+                                          seed=2)), devices[0])
+    dp = DataParallelStep(T.make_train_step(lr=1e-3),
+                          _model(tree, devices[0]),
+                          make_mesh(devices=devices))
+    dp(*batch)
+    cards = sorted({d.index for d in devices})
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    syncs = count_syncs(lambda: dp(*batch))
+    ms = call_ms(lambda: dp(*batch))
+    return {"replicas": n, "cards": len(cards), "batch": per_card * n,
+            "step_ms": ms, "images_per_s": per_card * n / ms["median"] * 1e3,
+            "peak_mem_gib": {str(i): torch.cuda.max_memory_allocated(i)
+                             / 2 ** 30 for i in cards},
+            "host_syncs_per_step": syncs}
+
+
+def _out_err(got, want) -> tuple:
+    return tuple(float((a.float() - b.float().to(a.device)).abs().max())
+                 for a, b in zip(got, want))
+
+
+def pipeline_inputs() -> tuple:
+    """1080p synthetic road frames: letterboxed to 384 × 640 × 8 for
+    YOLOv8n, stretched to 640² × 8 for RT-DETR-L (float [0, 1] on card
+    0); one 4K frame letterboxed to 2176 × 3840 for the row bands."""
+    import torch
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    from roadvision_tpu_torch.ops.letterbox import (letterbox_rect_u8,
+                                                    resize_stretch_u8)
+    frames = torch.from_numpy(render_batches(1, seed=4)[0][0]).to(PAR_DEVICE)
+    src = SyntheticRoadSource(SP_FRAME[1], SP_FRAME[0], num_vehicles=12,
+                              seed=4)
+    big = torch.from_numpy(src.render(0)[None]).to(PAR_DEVICE)
+    return (letterbox_rect_u8(frames, 640)[0].contiguous(),
+            resize_stretch_u8(frames, 640).contiguous(),
+            letterbox_rect_u8(big, max(SP_FRAME))[0].contiguous())
+
+
+def forward_paths(devices, label: str) -> dict:
+    """PipelinedYOLO and PipelinedRTDETR at 2 and len(devices) ≤ 4 stages
+    and the row-sharded v8n forward over ``devices`` (one card repeated,
+    or distinct cards): float32 (TF32 off) against the plain forward on
+    the first card within PAR_BOX_ATOL / PAR_SCORE_ATOL, then bfloat16
+    timed against the plain bfloat16 forward (median [min–max] of
+    PAR_TIMED calls), host syncs a call. The 224- and 256-row edge cases
+    of the bands run over 8 entries of ``devices`` repeated."""
+    import torch
+    from roadvision_tpu_torch.models import rtdetr
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.parallel import (PipelinedRTDETR,
+                                               PipelinedYOLO, make_mesh,
+                                               make_spatial_forward,
+                                               spatial_sharding)
+    from roadvision_tpu_torch.parallel.pipeline import v8_detect_model
+    assets = Path(__file__).resolve().parent / "assets"
+    v8 = W.import_npz(assets / "yolov8n_synthetic_256.npz")
+    rt = W.import_npz(assets / "rtdetr_l_synthetic_256.npz")
+    nc_rt = rtdetr.nc_of(rt)
+    home = devices[0]
+    x_pp, x_rt, x_sp = (t.to(home) for t in pipeline_inputs())
+    out = {}
+    bf = torch.bfloat16
+
+    def plain_rt(dtype):
+        m = rtdetr.model_from_params(rt).set_compute_dtype(dtype)
+        m = m.to(home).eval()
+        return lambda x: m(x, num_queries=rtdetr.NQ)
+
+    kinds = {
+        "yolo": (lambda n, dt: PipelinedYOLO(v8, "n", 80, n, devices,
+                                             dtype=dt),
+                 lambda dt: v8_detect_model(v8, "n", 80, dt).to(home), x_pp,
+                 (PAR_BOX_ATOL, PAR_SCORE_ATOL)),
+        "rtdetr": (lambda n, dt: PipelinedRTDETR(rt, nc_rt, n, devices,
+                                                 dtype=dt),
+                   plain_rt, x_rt, (PAR_RT_BOX_ATOL, PAR_RT_SCORE_ATOL)),
+    }
+    stages = sorted({2, min(4, len(devices))})
+    with torch.inference_mode():
+        for kind, (make, plain, x, tol) in kinds.items():
+            want = plain(torch.float32)(x)
+            plain16 = plain(bf)
+            row = {"plain_bf16_ms": call_ms(lambda: plain16(x))}
+            for n in stages:
+                err = _out_err(make(n, torch.float32)(x), want)
+                if err[0] > tol[0] or err[1] > tol[1] \
+                        or not np.isfinite(err).all():
+                    fail(f"[parallel] {label} {kind} pipeline, {n} stages: "
+                         f"max |Δ| boxes {err[0]}, scores {err[1]}")
+                pipe = make(n, bf)
+                row[n] = {"max_err": err, "groups": [list(g) for g in
+                                                     pipe.groups],
+                          "bf16_ms": call_ms(lambda: pipe(x)),
+                          "host_syncs": count_syncs(lambda: pipe(x))}
+                print(f"[parallel] {label} {kind} pipeline, {n} stages "
+                      f"{row[n]['groups']} at {tuple(x.shape)}: float32 "
+                      f"= plain (max |Δ| boxes {err[0]:.2e}, scores "
+                      f"{err[1]:.2e}); bfloat16 "
+                      f"{_fmt_ms(row[n]['bf16_ms'])} against plain "
+                      f"{_fmt_ms(row['plain_bf16_ms'])}, "
+                      f"{x.shape[0] / row[n]['bf16_ms']['median'] * 1e3:.1f}"
+                      f" frames/s, host syncs a call "
+                      f"{row[n]['host_syncs']}", flush=True)
+            out[kind] = row
+        # the row bands: one 4K frame over min(4, n) devices
+        k = min(4, len(devices))
+        mesh = make_mesh(devices=devices[:k])
+        plain32 = v8_detect_model(v8, "n", 80, torch.float32).to(home)
+        err = _out_err(make_spatial_forward("n", 80, mesh)(v8, x_sp),
+                       plain32(x_sp))
+        if err[0] > PAR_BOX_ATOL or err[1] > PAR_SCORE_ATOL:
+            fail(f"[parallel] {label} row bands: max |Δ| {err}")
+        edges = {}
+        for h, w in ((224, 160), (256, 192)):
+            xe = x_sp[:, :h, :w].contiguous()
+            emesh = make_mesh(devices=(devices * 8)[:8])
+            eerr = _out_err(make_spatial_forward("n", 80, emesh)(v8, xe),
+                            plain32(xe))
+            bands = spatial_sharding(emesh, xe)
+            if eerr[0] > PAR_BOX_ATOL or eerr[1] > PAR_SCORE_ATOL \
+                    or len(bands.parts) != h // 32:
+                fail(f"[parallel] {label} bands {h}x{w}: {eerr}, "
+                     f"{len(bands.parts)} bands")
+            edges[f"{h}x{w}"] = {"bands": len(bands.parts),
+                                 "max_err": eerr}
+        run16 = make_spatial_forward("n", 80, mesh, dtype=bf)
+        plain16 = v8_detect_model(v8, "n", 80, bf).to(home)
+        out["spatial"] = {
+            "bands": k, "frame": list(x_sp.shape[1:3]), "max_err": err,
+            "edges": edges, "bf16_ms": call_ms(lambda: run16(v8, x_sp)),
+            "plain_bf16_ms": call_ms(lambda: plain16(x_sp)),
+            "host_syncs": count_syncs(lambda: run16(v8, x_sp))}
+    sp = out["spatial"]
+    print(f"[parallel] {label} row bands: one {sp['frame'][0]}x"
+          f"{sp['frame'][1]} frame over {k} bands: float32 = plain (max "
+          f"|Δ| boxes {err[0]:.2e}, scores {err[1]:.2e}); 224x160 over 7 "
+          f"bands and 256x192 over 8 = plain ({edges}); bfloat16 "
+          f"{_fmt_ms(sp['bf16_ms'])} against plain "
+          f"{_fmt_ms(sp['plain_bf16_ms'])}, host syncs a call "
+          f"{sp['host_syncs']}", flush=True)
+    return out
+
+
+def busy_overlap(fn, trace: Optional[Path] = None) -> dict:
+    """torch.profiler over ``fn()``: each card's busy ms (the union of its
+    kernels' and copies' intervals), the ms during which two cards or
+    more were busy at once, and the wall ms; the timeline to ``trace``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync_all()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync_all()
+    wall = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end, e.device_index)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
+    if not spans:
+        return {"device_events": 0, "wall_ms": wall}
+    edges = sorted([(a, 1, d) for a, _, d in spans]
+                   + [(b, -1, d) for _, b, d in spans])
+    open_by: dict = {}
+    busy: dict = {}
+    both = 0.0
+    last = edges[0][0]
+    for t, step, d in edges:
+        live = [k for k, v in open_by.items() if v > 0]
+        for k in live:
+            busy[k] = busy.get(k, 0.0) + (t - last)
+        if len(live) >= 2:
+            both += t - last
+        open_by[d] = open_by.get(d, 0) + step
+        last = t
+    return {"device_events": len(spans), "wall_ms": wall,
+            "busy_ms": {str(k): v / 1e3 for k, v in sorted(busy.items())},
+            "two_or_more_busy_ms": both / 1e3}
+
+
+def parallel_phase(card: str) -> dict:
+    """``[parallel]`` on one card, over lists that repeat cuda:0: the dp ×
+    tp step ({data: 4, model: 2}) for v8n and RT-DETR-L at the dry run's
+    shapes (64² × 8) against one replica; v8n, YOLO11n and v5n at 640² ×
+    16 a replica, dp 2 against dp 1 (v8n's timed); the pipelines, the row bands and their edge
+    cases (``forward_paths``); then ``dryrun_multicard([cuda:0] * 8)``.
+    The kernels' counts stay 0 throughout: the dry run's fleet runs the
+    config defaults, whose preprocess is off, as the JAX dry run's."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.detect import dataset as ds
+    from roadvision_tpu_torch.models import rtdetr
+    from roadvision_tpu_torch.models import rtdetr_train as RT
+    from roadvision_tpu_torch.models.yolo import train as T
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.parallel import dryrun_multicard, make_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    assets = Path(__file__).resolve().parent / "assets"
+    v8 = W.import_npz(assets / "yolov8n_synthetic_256.npz")
+    rt = W.import_npz(assets / "rtdetr_l_synthetic_256.npz")
+    one = [torch.device(PAR_DEVICE)]
+    kernels.reset_launch_counts()
+    out = {}
+    t0 = time.perf_counter()
+    mesh = make_mesh(model_parallel=2, devices=one * 8)
+    imgs, *gts = _on(next(ds.synthetic_batches(8, imgsz=64, seed=1)), one[0])
+    out["dp_tp v8n"] = dp_parity(
+        "v8n", v8, lambda: T.make_train_step(lr=1e-3), (imgs, *gts), mesh)
+    gts[1] = gts[1].clamp(max=rtdetr.nc_of(rt) - 1)
+    out["dp_tp rtdetr-l"] = dp_parity(
+        "rtdetr-l", rt, lambda: RT.make_train_step_rtdetr(lr=1e-4),
+        (imgs, *gts), mesh, adamw_lr=1e-4)
+    for name in ("dp_tp v8n", "dp_tp rtdetr-l"):
+        r = out[name]
+        print(f"[parallel] {name} {r['mesh']} over cuda:0 x 8, 64² x 8: "
+              f"one step = one replica's (loss {r['loss']:.4f}, num_fg "
+              f"{r['num_fg']:.0f}; worst {json.dumps(r['worst'])}; "
+              f"replicas identical) ({card})", flush=True)
+    batch = _on(next(ds.synthetic_batches(2 * PAR_CARD, imgsz=640,
+                                          seed=3)), one[0])
+    out["dp2 v8n 640"] = dp_parity(
+        "v8n 640", v8, lambda: T.make_train_step(lr=1e-3), batch,
+        make_mesh(devices=one * 2))
+    # YOLO11n and v5n through the same step: their normalisers differ
+    from roadvision_tpu_torch.models.yolo.train_v5 import detection_loss_v5
+    for name, tree, loss in (
+            ("yolo11n", W.tree_from_model(W.random_model(
+                "11", "detect", "n", 80, seed=0)), T.detection_loss),
+            ("v5n", W.import_npz(assets / "yolov5n_synthetic_256.npz"),
+             detection_loss_v5)):
+        r = out[f"dp2 {name} 640"] = dp_parity(
+            f"{name} 640", tree,
+            lambda loss=loss: T.make_train_step(loss, lr=1e-3), batch,
+            make_mesh(devices=one * 2))
+        print(f"[parallel] {name} 640² x {PAR_CARD} a replica, dp 2 over "
+              f"cuda:0 x 2 = dp 1 on the same {2 * PAR_CARD} images (worst "
+              f"{json.dumps(r['worst'])}) ({card})", flush=True)
+    timed = {n: dp_timed(v8, one * n) for n in (1, 2)}
+    out["dp timed"] = timed
+    print(f"[parallel] v8n 640² x {PAR_CARD} a replica, dp 2 over cuda:0 "
+          f"x 2 = dp 1 on the same {2 * PAR_CARD} images (worst "
+          f"{json.dumps(out['dp2 v8n 640']['worst'])}); step "
+          f"{_fmt_ms(timed[1]['step_ms'])} for dp 1, "
+          f"{_fmt_ms(timed[2]['step_ms'])} for dp 2 on one card "
+          f"({timed[1]['images_per_s']:.1f} / "
+          f"{timed[2]['images_per_s']:.1f} images/s), peak "
+          f"{timed[2]['peak_mem_gib']} GiB, host syncs a step "
+          f"{timed[2]['host_syncs_per_step']} ({card})", flush=True)
+    out.update(forward_paths(one * 4, "cuda:0 x 4"))
+    dryrun_multicard(one * 8)
+    torch.cuda.synchronize()
+    counts = add_to_totals(dict(kernels.launch_counts))
+    if any(counts.values()):
+        fail(f"[parallel] the preprocess kernels launched {counts}")
+    out["launches"] = counts
+    print(f"[parallel] dryrun_multicard([cuda:0] x 8) passed; kernels "
+          f"launched across the phase {counts}; phase "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return out
+
+
+def multi_cards_phase(card: str, tmp: Path) -> dict:
+    """``--multi-cards``: over 2 and (when visible) 4 distinct cards, the
+    v8n step dp n against dp 1 on the same images (one step, as
+    ``dp_parity``) and the dp × tp step at the dry run's shapes; the v8n
+    dp step timed against one card (images/s, step ms, peak memory a
+    card, host syncs); ``cli.train --dp n`` at 640² × 16 a card for 20
+    steps with a save at 10, then ``--resume`` for 10 more; the
+    pipelines and the row bands (``forward_paths``); then torch.profiler
+    timelines of the dp step, the pipelines and the bands: how long two
+    cards or more were busy at once (the 2-card pipeline's timeline to
+    chiprun_out/pipeline_2cards_trace.json)."""
+    import torch
+    from roadvision_tpu_torch import cli
+    from roadvision_tpu_torch.detect import dataset as ds
+    from roadvision_tpu_torch.models.yolo import train as T
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.parallel import (DataParallelStep,
+                                               PipelinedYOLO, make_mesh,
+                                               make_spatial_forward)
+    from roadvision_tpu_torch.runtime.checkpoint import load_train_state
+    visible = torch.cuda.device_count()
+    if visible < 2:
+        fail(f"--multi-cards: {visible} card(s) visible, needs 2 or more")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assets = Path(__file__).resolve().parent / "assets"
+    v8 = W.import_npz(assets / "yolov8n_synthetic_256.npz")
+    counts = [n for n in (2, 4) if n <= visible]
+    cards = {n: [torch.device("cuda", i) for i in range(n)]
+             for n in (1, *counts)}
+    out = {"visible": visible, "dp": {1: dp_timed(v8, cards[1])}}
+    for n in counts:
+        devs = cards[n]
+        batch = _on(next(ds.synthetic_batches(PAR_CARD * n, imgsz=640,
+                                              seed=3)), devs[0])
+        par = dp_parity(f"v8n 640 on {n} cards", v8,
+                        lambda: T.make_train_step(lr=1e-3), batch,
+                        make_mesh(devices=devs))
+        small = _on(next(ds.synthetic_batches(8, imgsz=64, seed=1)), devs[0])
+        par_tp = dp_parity(f"v8n dp x tp on {n} cards", v8,
+                           lambda: T.make_train_step(lr=1e-3), small,
+                           make_mesh(model_parallel=2, devices=devs * 2))
+        print(f"[multi-cards] v8n dp {n} on {n} cards = dp 1 on the same "
+              f"{PAR_CARD * n} images (worst {json.dumps(par['worst'])}); "
+              f"dp x tp {par_tp['mesh']} over {n} cards x 2 = one replica "
+              f"(worst {json.dumps(par_tp['worst'])}) ({card})", flush=True)
+        out["dp"][n] = dp_timed(v8, devs)
+        out["dp"][n]["parity"] = par
+        out["dp"][n]["parity_tp"] = par_tp
+        run = tmp / f"dp{n}.npz"
+        common = ["--dp", str(n), "--data", "synthetic", "--imgsz", "640",
+                  "--batch", str(PAR_CARD * n), "--lr", "1e-4", "--weights",
+                  str(assets / "yolov8n_synthetic_256.npz")]
+        t0 = time.perf_counter()
+        if cli.train(common + ["--steps", "20", "--save-every", "10",
+                               "--out", str(run)]) != 0:
+            fail(f"--multi-cards: cli.train --dp {n} returned non-zero")
+        t_run = time.perf_counter() - t0
+        resumed = tmp / f"dp{n}_resumed.npz"
+        if cli.train(common + ["--steps", "10", "--resume", str(run),
+                               "--out", str(resumed)]) != 0 \
+                or load_train_state(resumed)[2] != 30:
+            fail(f"--multi-cards: --dp {n} --resume did not reach step 30")
+        out["dp"][n]["cli_train_20_steps_s"] = t_run
+        out[f"forward {n} cards"] = forward_paths(devs, f"{n} cards")
+    for n in (1, *counts):
+        r = out["dp"][n]
+        print(f"[multi-cards] v8n dp {n} on {r['cards']} card(s), 640² x "
+              f"{r['batch']}: step {_fmt_ms(r['step_ms'])}, "
+              f"{r['images_per_s']:.1f} images/s "
+              f"({r['images_per_s'] / out['dp'][1]['images_per_s']:.2f} x "
+              f"one card), peak GiB a card {r['peak_mem_gib']}, host syncs "
+              f"a step {r['host_syncs_per_step']}"
+              + (f"; cli.train --dp {n} 20 steps with a save, then "
+                 f"--resume to 30 (20 steps in "
+                 f"{r['cli_train_20_steps_s']:.1f} s)" if n > 1 else "")
+              + f" ({card})", flush=True)
+    # timelines: do the cards work at the same time?
+    x_pp, _, x_sp = pipeline_inputs()
+    overlap = {}
+    with torch.inference_mode():
+        for n in counts:
+            pipe = PipelinedYOLO(v8, "n", 80, n, cards[n],
+                                 dtype=torch.bfloat16)
+            pipe(x_pp)
+            overlap[f"pipeline {n} cards"] = busy_overlap(
+                lambda: pipe(x_pp), Path("chiprun_out")
+                / "pipeline_2cards_trace.json" if n == 2 else None)
+            bands = make_spatial_forward("n", 80, make_mesh(devices=cards[n]),
+                                         dtype=torch.bfloat16)
+            bands(v8, x_sp)
+            overlap[f"bands {n} cards"] = busy_overlap(
+                lambda: bands(v8, x_sp))
+    for n in counts:
+        batch = _on(next(ds.synthetic_batches(PAR_CARD * n, imgsz=640,
+                                              seed=2)), cards[n][0])
+        dp = DataParallelStep(T.make_train_step(lr=1e-3),
+                              _model(v8, cards[n][0]),
+                              make_mesh(devices=cards[n]))
+        dp(*batch)
+        overlap[f"dp step {n} cards"] = busy_overlap(lambda: dp(*batch))
+    out["overlap"] = overlap
+    for name, ov in overlap.items():
+        print(f"[multi-cards] {name}, profiler timeline: two cards or more "
+              f"busy at once {ov.get('two_or_more_busy_ms', 0.0):.2f} ms of "
+              f"{ov['wall_ms']:.2f} ms wall; busy ms a card "
+              f"{json.dumps(ov.get('busy_ms'))} ({card})", flush=True)
+    return out
+
+
 def profile_batch(engine, frames, ts) -> dict:
     """torch.profiler over one bf16 batch: device busy share, kernel
     launches, and the top kernels and host ops (full tables to
@@ -2865,6 +3410,23 @@ def main() -> int:
             json.dumps(line, indent=1))
         print(json.dumps(line), flush=True)
         print(card_line(), flush=True)
+        return 0
+    if "--multi-cards" in sys.argv[1:]:
+        Path("chiprun_out").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            line = multi_cards_phase(card, Path(tmp))
+        Path("chiprun_out/multi_cards.json").write_text(
+            json.dumps(line, indent=1))
+        print(f"[time] chip_smoke.py --multi-cards ran "
+              f"{time.perf_counter() - T_START:.1f} s", flush=True)
+        print(card_line(), flush=True)
+        return 0
+    if "--parallel-only" in sys.argv[1:]:
+        Path("chiprun_out").mkdir(exist_ok=True)
+        Path("chiprun_out/parallel.json").write_text(
+            json.dumps(parallel_phase(card), indent=1))
+        print(f"[time] chip_smoke.py --parallel-only ran "
+              f"{time.perf_counter() - T_START:.1f} s", flush=True)
         return 0
     if "--train-only" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2957,6 +3519,10 @@ def main() -> int:
         training["entry"] = entry_train(Path(tmp), card)
     (out_dir / "training.json").write_text(json.dumps(training, indent=1))
 
+    # multi-card parallelism over lists that repeat cuda:0
+    parallel = parallel_phase(card)
+    (out_dir / "parallel.json").write_text(json.dumps(parallel, indent=1))
+
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
     engine = PipelineEngine(pipeline_cfg(model), device="cuda")
@@ -3021,7 +3587,8 @@ def main() -> int:
          "fleet": r["fleet"]}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
-        "second_paths": paths, "entries": entries, "training": training}
+        "second_paths": paths, "entries": entries, "training": training,
+        "parallel": parallel}
     (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
           f"(the kernels' build included)", flush=True)

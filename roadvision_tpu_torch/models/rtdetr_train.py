@@ -31,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .yolo.train import (detached, f32_product, grads_and_norm, guarded,
+from .yolo.train import (Objective, TrainStep, clipped, f32_product,
                          sigmoid_bce, timed)
 
 EPS = 1e-9
@@ -199,16 +199,17 @@ def _set_loss(pred_xyxy, pred_logits, gt_xyxy, gt_cls, gt_mask,
     return cls_loss, l1_loss, giou_loss
 
 
-def rtdetr_loss(model: nn.Module, images: torch.Tensor,
-                gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
-                gt_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """``rtdetr_loss`` :197: images (B, S, S, 3) float [0, 1]; gt_boxes
-    (B, M, 4) pixel xyxy; gt_cls (B, M); gt_mask (B, M) bool. All sets'
-    matches come from one batched auction."""
+def rtdetr_parts(model: nn.Module, images: torch.Tensor,
+                 gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
+                 gt_mask: torch.Tensor):
+    """The :class:`~.yolo.train.Objective` parts of ``rtdetr_loss`` :197:
+    images (B, S, S, 3) float [0, 1]; gt_boxes (B, M, 4) pixel xyxy;
+    gt_cls (B, M); gt_mask (B, M) bool. The class, L1 and GIoU sums over
+    every prediction set, and the gt count they are divided by. All
+    sets' matches come from one batched auction."""
     s = images.shape[1]
     gt_n = gt_boxes / float(s)
     aux = model.forward_train(images)
-    num_gt = gt_mask.sum().clamp(min=1).float()
     nc = aux["enc_scores"].shape[-1]
     sets = [(aux["enc_boxes"], aux["enc_scores"])] \
         + list(zip(aux["boxes"], aux["scores"]))
@@ -226,12 +227,21 @@ def rtdetr_loss(model: nn.Module, images: torch.Tensor,
         cls_t = cls_t + cl
         l1_t = l1_t + l1l
         giou_t = giou_t + gil
-    cls_t = GAIN_CLASS * cls_t / num_gt
-    l1_t = GAIN_BBOX * l1_t / num_gt
-    giou_t = GAIN_GIOU * giou_t / num_gt
-    total = cls_t + l1_t + giou_t
-    return total, {"cls": cls_t, "l1": l1_t, "giou": giou_t,
-                   "num_fg": gt_mask.sum()}
+    n_gt = gt_mask.sum()
+    return {"cls": cls_t, "l1": l1_t, "giou": giou_t}, {"gts": n_gt}, \
+        {"num_fg": n_gt}
+
+
+def rtdetr_total(sums: Dict, counts: Dict, nc: int):
+    """Each sum times its gain over the batch's gt count (at least 1)."""
+    num_gt = counts["gts"].clamp(min=1).float()
+    cls_t = GAIN_CLASS * sums["cls"] / num_gt
+    l1_t = GAIN_BBOX * sums["l1"] / num_gt
+    giou_t = GAIN_GIOU * sums["giou"] / num_gt
+    return cls_t + l1_t + giou_t, {"cls": cls_t, "l1": l1_t, "giou": giou_t}
+
+
+rtdetr_loss = Objective(rtdetr_parts, rtdetr_total)
 
 
 def init_opt_rtdetr(model: nn.Module) -> Dict:
@@ -244,57 +254,63 @@ def init_opt_rtdetr(model: nn.Module) -> Dict:
             "t": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+class AdamWStep(TrainStep):
+    """AdamW (decoupled weight decay on parameters with ndim ≥ 2 only); a
+    skipped batch keeps the moments and the step count."""
+
+    init = staticmethod(init_opt_rtdetr)
+
+    def __init__(self, lr: float, clip_norm: float, weight_decay: float,
+                 b1: float, b2: float):
+        super().__init__(rtdetr_loss, lr, clip_norm)
+        self.weight_decay, self.b1, self.b2 = weight_decay, b1, b2
+
+    def apply(self, names, params, grads, opt, ok, scale, lr_scale):
+        b1, b2 = self.b1, self.b2
+        sg = clipped(grads, ok, scale)
+        one = torch.ones((), device=ok.device)
+        # a skipped batch keeps the moments: β → 1 and the (zeroed)
+        # gradient's share 1 − β → 0
+        beta1 = torch.where(ok, b1 * one, one)
+        beta2 = torch.where(ok, b2 * one, one)
+        share1 = torch.where(ok, (1.0 - b1) * one, 0.0 * one)
+        share2 = torch.where(ok, (1.0 - b2) * one, 0.0 * one)
+        t = opt["t"].to(ok.device) + ok.to(torch.int32)
+        tc = t.clamp(min=1).float()
+        bc1 = 1.0 - b1 ** tc
+        bc2 = 1.0 - b2 ** tc
+        ms = [opt["m"][n] for n in names]
+        vs = [opt["v"][n] for n in names]
+        torch._foreach_mul_(ms, beta1)
+        torch._foreach_add_(ms, torch._foreach_mul(sg, share1))
+        torch._foreach_mul_(vs, beta2)
+        torch._foreach_add_(vs, torch._foreach_mul(
+            torch._foreach_mul(sg, sg), share2))
+        den = torch._foreach_div(vs, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, 1e-8)
+        upd = torch._foreach_div(ms, bc1)
+        torch._foreach_div_(upd, den)
+        mats = [i for i, p in enumerate(params) if p.dim() >= 2]
+        torch._foreach_add_([upd[i] for i in mats], torch._foreach_mul(
+            [params[i] for i in mats], self.weight_decay))
+        step_lr = torch.where(ok, f32_product(self.lr, lr_scale) * one,
+                              0.0 * one)
+        torch._foreach_sub_(params, torch._foreach_mul(upd, step_lr))
+
+    def finish(self, opt, ok):
+        opt["t"] = opt["t"] + ok.to(opt["t"].device, torch.int32)
+
+
 def make_train_step_rtdetr(lr: float = 1e-4, clip_norm: float = 0.1,
                            weight_decay: float = 1e-4, b1: float = 0.9,
-                           b2: float = 0.999):
+                           b2: float = 0.999) -> AdamWStep:
     """``make_train_step_rtdetr`` :242: ``step(model, opt, images,
     gt_boxes, gt_cls, gt_mask, lr_scale=1.0) → (loss, aux)``, the model
     and ``opt`` (:func:`init_opt_rtdetr`) updated in place."""
-
-    def step(model, opt, images, gt_boxes, gt_cls, gt_mask,
-             lr_scale: float = 1.0):
-        with timed("forward_loss"):
-            loss, aux = rtdetr_loss(model, images, gt_boxes, gt_cls,
-                                    gt_mask)
-        with timed("backward"):
-            names, params, grads, gnorm = grads_and_norm(model, loss)
-        with timed("optimizer"), torch.no_grad():
-            ok, sg = guarded(grads, loss, gnorm, clip_norm)
-            one = torch.ones((), device=gnorm.device)
-            # a skipped batch keeps the moments: β → 1 and the (zeroed)
-            # gradient's share 1 − β → 0
-            beta1 = torch.where(ok, b1 * one, one)
-            beta2 = torch.where(ok, b2 * one, one)
-            share1 = torch.where(ok, (1.0 - b1) * one, 0.0 * one)
-            share2 = torch.where(ok, (1.0 - b2) * one, 0.0 * one)
-            t = opt["t"] + ok.to(torch.int32)
-            tc = t.clamp(min=1).float()
-            bc1 = 1.0 - b1 ** tc
-            bc2 = 1.0 - b2 ** tc
-            ms = [opt["m"][n] for n in names]
-            vs = [opt["v"][n] for n in names]
-            torch._foreach_mul_(ms, beta1)
-            torch._foreach_add_(ms, torch._foreach_mul(sg, share1))
-            torch._foreach_mul_(vs, beta2)
-            torch._foreach_add_(vs, torch._foreach_mul(
-                torch._foreach_mul(sg, sg), share2))
-            den = torch._foreach_div(vs, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, 1e-8)
-            upd = torch._foreach_div(ms, bc1)
-            torch._foreach_div_(upd, den)
-            mats = [i for i, p in enumerate(params) if p.dim() >= 2]
-            torch._foreach_add_([upd[i] for i in mats], torch._foreach_mul(
-                [params[i] for i in mats], weight_decay))
-            step_lr = torch.where(ok, f32_product(lr, lr_scale) * one,
-                                  0.0 * one)
-            torch._foreach_sub_(params, torch._foreach_mul(upd, step_lr))
-            opt["t"] = t
-        return loss.detach(), detached(aux, grad_norm=gnorm, ok=ok)
-
-    return step
+    return AdamWStep(lr, clip_norm, weight_decay, b1, b2)
 
 
 __all__: List[str] = ["iou_xyxy", "giou_xyxy", "hungarian_match",
-                      "rtdetr_loss", "init_opt_rtdetr",
+                      "rtdetr_loss", "init_opt_rtdetr", "AdamWStep",
                       "make_train_step_rtdetr"]

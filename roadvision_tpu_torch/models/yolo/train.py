@@ -13,6 +13,11 @@ The objective is the JAX package's, term for term:
     ltrb bins (targets clipped to ``REG_MAX − 1 − 0.01``), weighted
     7.5 / 0.5 / 1.5.
 
+Each family's loss is an :class:`Objective`: its terms' numerators and
+the batch-global normalisers they are divided by (here the target score
+sum) come apart, so that a data-parallel step divides every replica's
+sums by the whole batch's counts, as XLA does under ``--dp``.
+
 :func:`make_train_step` is the JAX step's SGD with momentum 0.9, the
 global-norm clip ``min(1, clip / (‖g‖ + 1e-9))`` and the non-finite
 guard that skips a batch without touching the momentum (``torch.where``,
@@ -214,10 +219,11 @@ def decode_boxes(box_logits: torch.Tensor, pts: torch.Tensor,
     return torch.cat([x1y1, x2y2], dim=-1)
 
 
-def dfl_loss(box_logits: torch.Tensor, t_ltrb: torch.Tensor,
-             weight: torch.Tensor, score_sum: torch.Tensor) -> torch.Tensor:
+def dfl_sum(box_logits: torch.Tensor, t_ltrb: torch.Tensor,
+            weight: torch.Tensor) -> torch.Tensor:
     """Distribution-focal loss of (B, N, 4) target distances in grid units
-    (train.py:181-193)."""
+    (train.py:181-193), summed with the anchors' weights; the caller
+    divides by the batch's score sum."""
     bs = box_logits.shape[0]
     t_ltrb = t_ltrb.clamp(0, REG_MAX - 1 - 0.01)
     tl = torch.floor(t_ltrb).long()
@@ -228,77 +234,132 @@ def dfl_loss(box_logits: torch.Tensor, t_ltrb: torch.Tensor,
     ce_l = -torch.gather(logp, -1, tl[..., None])[..., 0]
     ce_r = -torch.gather(logp, -1, tr.clamp(0, REG_MAX - 1)[..., None])[..., 0]
     dfl = (ce_l * wl + ce_r * wr).mean(-1)
-    return (dfl * weight).sum() / score_sum
+    return (dfl * weight).sum()
 
 
 def detection_terms(outs, nc: int, gt_boxes, gt_cls, gt_mask):
     """The v8 / v11 detection terms on a head's outputs, shared by the
-    detect, segment and pose objectives. → (box, cls, dfl losses, and a
-    dict of what the task terms read: fg, target_gt, target_boxes,
-    weight, pts, strides)."""
+    detect, segment and pose objectives. → (sums: the box, cls and dfl
+    terms summed over this batch; counts: the target score sum they are
+    divided by; a dict of what the task terms read: fg, target_gt,
+    target_boxes, weight, pts, strides)."""
     box_logits, cls_logits, pts, strides, _ = head_logits(outs, nc)
     pred_boxes = decode_boxes(box_logits, pts, strides)
     scores = torch.sigmoid(cls_logits)
     fg, target_gt, target_scores, target_boxes = task_aligned_assign(
         scores.detach(), pred_boxes.detach(), pts * strides[:, None],
         gt_boxes, gt_cls, gt_mask)
-    score_sum = target_scores.sum().clamp(min=1.0)
 
-    loss_cls = sigmoid_bce(cls_logits, target_scores).sum() / score_sum
     weight = target_scores.sum(-1) * fg
-    loss_box = ((1.0 - ciou(pred_boxes, target_boxes)) * weight).sum() \
-        / score_sum
     t_ltrb = torch.cat([
         pts[None] - target_boxes[..., :2] / strides[None, :, None],
         target_boxes[..., 2:] / strides[None, :, None] - pts[None],
     ], dim=-1)
-    loss_dfl = dfl_loss(box_logits, t_ltrb, weight, score_sum)
-    return loss_box, loss_cls, loss_dfl, dict(
+    sums = {"box": ((1.0 - ciou(pred_boxes, target_boxes)) * weight).sum(),
+            "cls": sigmoid_bce(cls_logits, target_scores).sum(),
+            "dfl": dfl_sum(box_logits, t_ltrb, weight)}
+    return sums, {"score_sum": target_scores.sum()}, dict(
         fg=fg, target_gt=target_gt, target_boxes=target_boxes,
         weight=weight, pts=pts, strides=strides)
 
 
-def detection_loss(model: nn.Module, images: torch.Tensor,
-                   gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
-                   gt_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """``detection_loss`` :125 for a YOLOv8 or YOLO11 model. images
-    (B, H, W, 3) float [0, 1]; gt_boxes (B, M, 4) xyxy input px; gt_cls
-    (B, M); gt_mask (B, M) bool."""
-    _, outs = model.features_and_head(images)
-    loss_box, loss_cls, loss_dfl, t = detection_terms(
-        outs, model.nc, gt_boxes, gt_cls, gt_mask)
+def detection_total(sums: Dict, counts: Dict, nc: int):
+    """``detection_loss``'s combination :125: each term over the batch's
+    target score sum (at least 1), weighted 7.5 / 0.5 / 1.5."""
+    score_sum = counts["score_sum"].clamp(min=1.0)
+    loss_box = sums["box"] / score_sum
+    loss_cls = sums["cls"] / score_sum
+    loss_dfl = sums["dfl"] / score_sum
     total = 7.5 * loss_box + 0.5 * loss_cls + 1.5 * loss_dfl
-    return total, {"box": loss_box, "cls": loss_cls, "dfl": loss_dfl,
-                   "num_fg": t["fg"].sum()}
+    return total, {"box": loss_box, "cls": loss_cls, "dfl": loss_dfl}
+
+
+class Objective:
+    """A loss split where its batch-global normalisers enter, so that a
+    data-parallel step (``parallel/data.py``) can take them from every
+    replica before any backward. ``parts(model, *batch) → (sums, counts,
+    aux)``: the terms' numerators summed over this batch
+    (differentiable), the shares of the normalisers they are divided by
+    (detached counts) and aux (counts such as ``num_fg``); sums, counts
+    and aux add over replicas. ``total(sums, counts, nc) → (loss,
+    components)``. Calling it is the loss of one batch on one device:
+    ``objective(model, *batch) → (loss, aux)``."""
+
+    def __init__(self, parts: Callable, total: Callable):
+        self.parts, self.total = parts, total
+
+    def __call__(self, model: nn.Module, *batch) -> Tuple[torch.Tensor,
+                                                          Dict]:
+        sums, counts, aux = self.parts(model, *batch)
+        loss, components = self.total(sums, counts, model.nc)
+        return loss, dict(components, **aux)
+
+
+def detection_parts(model: nn.Module, images: torch.Tensor,
+                    gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
+                    gt_mask: torch.Tensor):
+    """The :class:`Objective` parts of ``detection_loss`` :125 for a
+    YOLOv8 or YOLO11 model. images (B, H, W, 3) float [0, 1]; gt_boxes
+    (B, M, 4) xyxy input px; gt_cls (B, M); gt_mask (B, M) bool."""
+    _, outs = model.features_and_head(images)
+    sums, counts, t = detection_terms(outs, model.nc, gt_boxes, gt_cls,
+                                      gt_mask)
+    return sums, counts, {"num_fg": t["fg"].sum()}
+
+
+detection_loss = Objective(detection_parts, detection_total)
 
 
 # ---------------------------------------------------------------------------
 # optimisers
 # ---------------------------------------------------------------------------
 
-def grads_and_norm(model: nn.Module, loss: torch.Tensor):
-    """(names, parameters, gradients, global norm): parameters the loss
-    does not reach get zero gradients, as under ``jax.grad``."""
+def by_device(tensors) -> Dict[torch.device, list]:
+    """Indices of ``tensors`` grouped by device, in first-seen order."""
+    out: Dict[torch.device, list] = {}
+    for i, t in enumerate(tensors):
+        out.setdefault(t.device, []).append(i)
+    return out
+
+
+def global_norm(grads, device: Optional[torch.device] = None
+                ) -> torch.Tensor:
+    """‖g‖ over every gradient, on ``device`` (the first gradient's by
+    default): the norm of each device's norm, so that gradients spread
+    over several cards need no copy of their own."""
+    norms = [torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        [grads[i] for i in idx]))) for idx in by_device(grads).values()]
+    device = grads[0].device if device is None else device
+    if len(norms) == 1:
+        return norms[0].to(device)
+    return torch.linalg.vector_norm(torch.stack([n.to(device)
+                                                 for n in norms]))
+
+
+def param_grads(model: nn.Module, loss: torch.Tensor):
+    """(names, parameters, gradients): parameters the loss does not reach
+    get zero gradients, as under ``jax.grad``."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    return [n for n, _ in named], params, grads, gnorm
+    return [n for n, _ in named], params, grads
 
 
-def guarded(grads, loss: torch.Tensor, gnorm: torch.Tensor,
-            clip_norm: float):
-    """(ok, the clipped gradients): ``ok`` when the loss and the gradient
-    norm are finite; each gradient times ``min(1, clip / (‖g‖ + 1e-9))``,
-    or 0 when not ok (``torch.where``: 0 · NaN is NaN)."""
-    ok = torch.isfinite(gnorm) & torch.isfinite(loss)
-    scale = torch.where(ok, torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0),
-                        torch.zeros_like(gnorm))
-    clipped = [torch.where(ok, g, 0.0) for g in grads]
-    torch._foreach_mul_(clipped, scale)
-    return ok, clipped
+def grads_and_norm(model: nn.Module, loss: torch.Tensor):
+    """(names, parameters, gradients, global norm)."""
+    names, params, grads = param_grads(model, loss)
+    return names, params, grads, global_norm(grads)
+
+
+def clipped(grads, ok: torch.Tensor, scale: torch.Tensor) -> list:
+    """Each gradient times ``scale``, or 0 when not ``ok``
+    (``torch.where``: 0 · NaN is NaN); ``ok``, ``scale`` and the
+    gradients on one device."""
+    out = [torch.where(ok, g, 0.0) for g in grads]
+    torch._foreach_mul_(out, scale)
+    return out
 
 
 def f32_product(lr: float, lr_scale: float) -> float:
@@ -321,28 +382,71 @@ def detached(aux: Dict, **more) -> Dict:
             for k, v in dict(aux, **more).items()}
 
 
+class TrainStep:
+    """A family's train step: ``step(model, state, *batch, lr_scale=1.0)
+    → (loss, aux)``, the model's parameters and ``state`` (from
+    :meth:`init`) updated in place; ``aux`` adds the gradient norm and
+    ``ok`` (False on a skipped batch). The data-parallel step
+    (``parallel/data.py``) runs the same ``loss_fn`` parts, :meth:`guard`,
+    :meth:`apply` and :meth:`finish` on the replicas' summed gradients."""
+
+    def __init__(self, loss_fn: LossFn, lr: float, clip_norm: float):
+        self.loss_fn, self.lr, self.clip_norm = loss_fn, lr, clip_norm
+
+    def init(self, model: nn.Module) -> Dict:
+        raise NotImplementedError
+
+    def guard(self, loss: torch.Tensor, gnorm: torch.Tensor):
+        """(ok, scale): ``ok`` when the loss and the gradient norm are
+        finite; the clip ``min(1, clip / (‖g‖ + 1e-9))``, 0 when not ok."""
+        ok = torch.isfinite(gnorm) & torch.isfinite(loss)
+        scale = torch.where(ok, torch.clamp(self.clip_norm / (gnorm + 1e-9),
+                                            max=1.0),
+                            torch.zeros_like(gnorm))
+        return ok, scale
+
+    def apply(self, names, params, grads, state: Dict, ok: torch.Tensor,
+              scale: torch.Tensor, lr_scale: float) -> None:
+        """The update of ``params`` (all on the device of ``ok`` and
+        ``scale``) and of their entries of ``state``."""
+        raise NotImplementedError
+
+    def finish(self, state: Dict, ok: torch.Tensor) -> None:
+        """What the update keeps once per step, whatever the devices."""
+
+    def __call__(self, model, state, *batch, lr_scale: float = 1.0):
+        with timed("forward_loss"):
+            loss, aux = self.loss_fn(model, *batch)
+        with timed("backward"):
+            names, params, grads, gnorm = grads_and_norm(model, loss)
+        with timed("optimizer"), torch.no_grad():
+            ok, scale = self.guard(loss, gnorm)
+            self.apply(names, params, grads, state, ok, scale, lr_scale)
+            self.finish(state, ok)
+        return loss.detach(), detached(aux, grad_norm=gnorm, ok=ok)
+
+
+class SGDStep(TrainStep):
+    """The JAX step's SGD with momentum 0.9."""
+
+    init = staticmethod(init_momentum)
+
+    def apply(self, names, params, grads, state, ok, scale, lr_scale):
+        step = clipped(grads, ok, scale)
+        moms = [state[n] for n in names]
+        torch._foreach_mul_(moms, 0.9)
+        torch._foreach_add_(moms, step)
+        torch._foreach_sub_(params, torch._foreach_mul(
+            moms, f32_product(self.lr, lr_scale)))
+
+
 def make_train_step(loss_fn: LossFn = detection_loss, lr: float = 1e-3,
-                    clip_norm: float = 10.0):
+                    clip_norm: float = 10.0) -> SGDStep:
     """``make_train_step`` :207: ``step(model, momentum, images, gt_boxes,
     gt_cls, gt_mask, *extra, lr_scale=1.0) → (loss, aux)``, the model's
     parameters and ``momentum`` updated in place; ``aux`` adds the
     gradient norm and ``ok`` (False on a skipped batch)."""
-
-    def step(model, momentum, *batch, lr_scale: float = 1.0):
-        with timed("forward_loss"):
-            loss, aux = loss_fn(model, *batch)
-        with timed("backward"):
-            names, params, grads, gnorm = grads_and_norm(model, loss)
-        with timed("optimizer"), torch.no_grad():
-            ok, clipped = guarded(grads, loss, gnorm, clip_norm)
-            moms = [momentum[n] for n in names]
-            torch._foreach_mul_(moms, 0.9)
-            torch._foreach_add_(moms, clipped)
-            torch._foreach_sub_(params, torch._foreach_mul(
-                moms, f32_product(lr, lr_scale)))
-        return loss.detach(), detached(aux, grad_norm=gnorm, ok=ok)
-
-    return step
+    return SGDStep(loss_fn, lr, clip_norm)
 
 
 def make_ema_update(decay: float = 0.9990, tau: float = 2000.0):

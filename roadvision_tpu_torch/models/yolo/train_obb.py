@@ -11,14 +11,14 @@ input pixels, θ in radians in [−π/4, 3π/4).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
 
 from ...ops.obb import probiou_pairs
-from .train import (class_scores_at_gt, dfl_loss, head_logits,
-                    make_train_step, select_aligned, sigmoid_bce, timed)
+from .train import (Objective, class_scores_at_gt, detection_total,
+                    dfl_sum, head_logits, make_train_step, select_aligned,
+                    sigmoid_bce, timed)
 from .train_seg import head_rows
 from .yolov8_obb import decode_rbox
 
@@ -54,9 +54,9 @@ def task_aligned_assign_rotated(scores, pred_rb, anchors, gt_rb, gt_cls,
                               scores.shape[-1], topk)
 
 
-def obb_loss(model: nn.Module, images, gt_rboxes, gt_cls, gt_mask
-             ) -> Tuple[torch.Tensor, Dict]:
-    """``obb_loss`` :115; gt_rboxes (B, M, 5)."""
+def obb_parts(model: nn.Module, images, gt_rboxes, gt_cls, gt_mask):
+    """The :class:`~.train.Objective` parts of ``obb_loss`` :115;
+    gt_rboxes (B, M, 5). Combined as the detection terms are."""
     feats, outs = model.features_and_head(images)
     angle = (torch.sigmoid(head_rows(model, feats)[..., 0]) - 0.25) * math.pi
     box_logits, cls_logits, pts, strides, hw = head_logits(outs, model.nc)
@@ -66,24 +66,22 @@ def obb_loss(model: nn.Module, images, gt_rboxes, gt_cls, gt_mask
     fg, _, target_scores, target_rb = task_aligned_assign_rotated(
         scores.detach(), pred_rb.detach(), pts * strides[:, None],
         gt_rboxes, gt_cls, gt_mask)
-    score_sum = target_scores.sum().clamp(min=1.0)
 
-    loss_cls = sigmoid_bce(cls_logits, target_scores).sum() / score_sum
     weight = target_scores.sum(-1) * fg
     iou = probiou_pairs(pred_rb, target_rb)
-    loss_box = ((1.0 - iou) * weight).sum() / score_sum
-
     # DFL on the unrotated extent of the target rbox
     cxy, wh2 = target_rb[..., :2], target_rb[..., 2:4] / 2.0
     t_ltrb = torch.cat([
         pts[None] - (cxy - wh2) / strides[None, :, None],
         (cxy + wh2) / strides[None, :, None] - pts[None],
     ], dim=-1)
-    loss_dfl = dfl_loss(box_logits, t_ltrb, weight, score_sum)
+    sums = {"box": ((1.0 - iou) * weight).sum(),
+            "cls": sigmoid_bce(cls_logits, target_scores).sum(),
+            "dfl": dfl_sum(box_logits, t_ltrb, weight)}
+    return sums, {"score_sum": target_scores.sum()}, {"num_fg": fg.sum()}
 
-    total = 7.5 * loss_box + 0.5 * loss_cls + 1.5 * loss_dfl
-    return total, {"box": loss_box, "cls": loss_cls, "dfl": loss_dfl,
-                   "num_fg": fg.sum()}
+
+obb_loss = Objective(obb_parts, detection_total)
 
 
 def make_train_step_obb(lr: float = 1e-3, clip_norm: float = 10.0):

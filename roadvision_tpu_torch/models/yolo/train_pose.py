@@ -10,14 +10,14 @@ pixels, v > 0 labelled.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from .train import (EPS, detection_terms, device_constant, make_train_step,
-                    sigmoid_bce)
+from .train import (EPS, Objective, detection_terms, detection_total,
+                    device_constant, make_train_step, sigmoid_bce)
 from .train_seg import gather_rows, head_rows, top_foreground
 from .yolov8_pose import KPT_SHAPE
 
@@ -27,13 +27,15 @@ OKS_SIGMAS = np.array([.26, .25, .25, .35, .35, .79, .79, .72, .72,
                       np.float32) / 10.0
 
 
-def pose_loss(model: nn.Module, images, gt_boxes, gt_cls, gt_mask, gt_kpts,
-              kpt_topk: int = 64) -> Tuple[torch.Tensor, Dict]:
-    """``pose_loss`` :49; gt_kpts (B, M, 17, 3)."""
+def pose_parts(model: nn.Module, images, gt_boxes, gt_cls, gt_mask,
+               gt_kpts, kpt_topk: int = 64):
+    """The :class:`~.train.Objective` parts of ``pose_loss`` :49; gt_kpts
+    (B, M, 17, 3). Adds the keypoint and visibility sums over the
+    selected foreground anchors and their count."""
     feats, outs = model.features_and_head(images)
     kraw = head_rows(model, feats)                           # (B, N, 51)
-    loss_box, loss_cls, loss_dfl, t = detection_terms(
-        outs, model.nc, gt_boxes, gt_cls, gt_mask)
+    sums, counts, t = detection_terms(outs, model.nc, gt_boxes, gt_cls,
+                                      gt_mask)
     bs = images.shape[0]
 
     sel_w, sel_idx = top_foreground(t["weight"], kpt_topk)
@@ -58,17 +60,25 @@ def pose_loss(model: nn.Module, images, gt_boxes, gt_cls, gt_mask, gt_kpts,
     e = d2 / (2.0 * sig) ** 2 / (area[..., None] + EPS) / 2.0
     factor = KPT_SHAPE[0] / (kpt_vis.sum(-1, keepdim=True) + EPS)
     per_anchor = (factor * (1.0 - torch.exp(-e)) * kpt_vis).mean(-1)
-    fg_n = sel_fg.sum().clamp(min=1.0)
-    loss_pose = (per_anchor * sel_fg).sum() / fg_n
-
     kobj = sigmoid_bce(kr[..., 2], kpt_vis).mean(-1)
-    loss_kobj = (kobj * sel_fg).sum() / fg_n
+    sums["pose"] = (per_anchor * sel_fg).sum()
+    sums["kobj"] = (kobj * sel_fg).sum()
+    counts["kpt_fg"] = sel_fg.sum()
+    return sums, counts, {"num_fg": t["fg"].sum()}
 
-    total = 7.5 * loss_box + 0.5 * loss_cls + 1.5 * loss_dfl \
-        + 12.0 * loss_pose + 1.0 * loss_kobj
-    return total, {"box": loss_box, "cls": loss_cls, "dfl": loss_dfl,
-                   "pose": loss_pose, "kobj": loss_kobj,
-                   "num_fg": t["fg"].sum()}
+
+def pose_total(sums: Dict, counts: Dict, nc: int):
+    """The detection terms plus 12 × the keypoint and 1 × the visibility
+    sum over the selected foreground anchors (at least 1)."""
+    total, parts = detection_total(sums, counts, nc)
+    fg_n = counts["kpt_fg"].clamp(min=1.0)
+    loss_pose = sums["pose"] / fg_n
+    loss_kobj = sums["kobj"] / fg_n
+    return total + 12.0 * loss_pose + 1.0 * loss_kobj, \
+        dict(parts, pose=loss_pose, kobj=loss_kobj)
+
+
+pose_loss = Objective(pose_parts, pose_total)
 
 
 def make_train_step_pose(lr: float = 1e-3, clip_norm: float = 10.0):

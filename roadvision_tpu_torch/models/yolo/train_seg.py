@@ -11,13 +11,14 @@ prototype resolution (B, M, H/4, W/4).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 import torch.nn as nn
 
 from ..rtdetr import topk_stable
-from .train import detection_terms, make_train_step, sigmoid_bce
+from .train import (Objective, detection_terms, detection_total,
+                    make_train_step, sigmoid_bce)
 from .yolov8 import run_branch
 
 
@@ -42,15 +43,16 @@ def head_rows(model: nn.Module, feats) -> torch.Tensor:
                       for lvl, f in enumerate(feats)], dim=2).transpose(1, 2)
 
 
-def segmentation_loss(model: nn.Module, images, gt_boxes, gt_cls, gt_mask,
-                      gt_masks, mask_topk: int = 64
-                      ) -> Tuple[torch.Tensor, Dict]:
-    """``segmentation_loss`` :39; gt_masks (B, M, H/4, W/4) float."""
+def seg_parts(model: nn.Module, images, gt_boxes, gt_cls, gt_mask,
+              gt_masks, mask_topk: int = 64):
+    """The :class:`~.train.Objective` parts of ``segmentation_loss`` :39;
+    gt_masks (B, M, H/4, W/4) float. Adds the mask term's sum over the
+    selected foreground anchors and their count."""
     feats, outs = model.features_and_head(images)
     coeffs = head_rows(model, feats)                         # (B, N, nm)
     protos = model.layers[model.head_key].proto(feats[0])    # (B, nm, h, w)
-    loss_box, loss_cls, loss_dfl, t = detection_terms(
-        outs, model.nc, gt_boxes, gt_cls, gt_mask)
+    sums, counts, t = detection_terms(outs, model.nc, gt_boxes, gt_cls,
+                                      gt_mask)
 
     sel_w, sel_idx = top_foreground(t["weight"], mask_topk)
     sel_fg = sel_w > 0
@@ -73,12 +75,20 @@ def segmentation_loss(model: nn.Module, images, gt_boxes, gt_cls, gt_mask,
     area = ((kboxes[..., 2] - kboxes[..., 0])
             * (kboxes[..., 3] - kboxes[..., 1])).clamp(min=1.0)
     per_anchor = (mbce * inside).sum((-2, -1)) / area
-    loss_mask = (per_anchor * sel_fg).sum() / sel_fg.sum().clamp(min=1.0)
+    sums["mask"] = (per_anchor * sel_fg).sum()
+    counts["mask_fg"] = sel_fg.sum()
+    return sums, counts, {"num_fg": t["fg"].sum()}
 
-    total = 7.5 * loss_box + 0.5 * loss_cls + 1.5 * loss_dfl \
-        + 7.5 * loss_mask
-    return total, {"box": loss_box, "cls": loss_cls, "dfl": loss_dfl,
-                   "mask": loss_mask, "num_fg": t["fg"].sum()}
+
+def seg_total(sums: Dict, counts: Dict, nc: int):
+    """The detection terms plus 7.5 × the mask sum over the selected
+    foreground anchors (at least 1)."""
+    total, parts = detection_total(sums, counts, nc)
+    loss_mask = sums["mask"] / counts["mask_fg"].clamp(min=1.0)
+    return total + 7.5 * loss_mask, dict(parts, mask=loss_mask)
+
+
+segmentation_loss = Objective(seg_parts, seg_total)
 
 
 def make_train_step_seg(lr: float = 1e-3, clip_norm: float = 10.0):

@@ -13,14 +13,14 @@ positives dropped (JAX's ``.at[…].max(mode="drop")``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .train import (ciou, device_constant, init_momentum, make_train_step,
-                    sigmoid_bce, timed)
+from .train import (Objective, ciou, device_constant, init_momentum,
+                    make_train_step, sigmoid_bce, timed)
 from .yolov5 import ANCHORS, NUM_ANCHORS, STRIDES
 
 ANCHOR_T = 4.0
@@ -70,17 +70,20 @@ def _level_targets(gt_boxes, gt_mask, anchors_grid, hw):
     return mask, cell_x, cell_y, txy, twh
 
 
-def detection_loss_v5(model: nn.Module, images: torch.Tensor,
-                      gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
-                      gt_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """``detection_loss_v5`` :92 for a YOLOv5 model (the v8 loss's
-    arguments)."""
+def v5_parts(model: nn.Module, images: torch.Tensor,
+             gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
+             gt_mask: torch.Tensor):
+    """The :class:`~.train.Objective` parts of ``detection_loss_v5`` :92
+    for a YOLOv5 model (the v8 loss's arguments): per level the box,
+    objectness and class sums, the positives and the objectness cells
+    they are divided by, and the batch size the sum is scaled by."""
     nc = model.nc
     _, raws = model.features_and_head(images)     # 3 × (B, A·(5+nc), h, w)
     bsz = gt_cls.shape[0]
     a = NUM_ANCHORS
     dev = images.device
-    loss_box = loss_obj = loss_cls = 0.0
+    sums: Dict[str, torch.Tensor] = {}
+    counts: Dict[str, object] = {"images": bsz}
     num_pos = torch.zeros((), dtype=torch.int64, device=dev)
 
     for lvl, raw in enumerate(raws):
@@ -115,10 +118,9 @@ def detection_loss_v5(model: nn.Module, images: torch.Tensor,
         tgt_box = torch.cat([tcen - twh_f / 2, tcen + twh_f / 2], -1)
 
         iou = ciou(pred_box, tgt_box)
-        n_pos = pmask.sum().clamp(min=1).float()
         zero = torch.zeros_like(iou)
-        loss_box = loss_box \
-            + torch.where(pmask, 1.0 - iou, zero).sum() / n_pos
+        sums[f"box{lvl}"] = torch.where(pmask, 1.0 - iou, zero).sum()
+        counts[f"pos{lvl}"] = pmask.sum()
 
         # objectness target: the detached clamped CIoU, scatter-max into
         # the grid; masked-out positives land in the extra slot, dropped
@@ -128,21 +130,37 @@ def detection_loss_v5(model: nn.Module, images: torch.Tensor,
         tobj = torch.zeros(n_slots + 1, dtype=torch.float32, device=dev) \
             .scatter_reduce(0, slot, iou_d, "amax")[:n_slots]
         obj_logits = raw[..., 4].reshape(-1)
-        loss_obj = loss_obj + BALANCE[lvl] * sigmoid_bce(obj_logits,
-                                                         tobj).mean()
+        sums[f"obj{lvl}"] = sigmoid_bce(obj_logits, tobj).sum()
+        counts[f"cells{lvl}"] = obj_logits.numel()
 
         if nc > 1:
             tcls = gt_cls.long()[:, :, None, None].expand(shape).reshape(-1)
             onehot = F.one_hot(tcls.clamp(0, nc - 1), nc).float()
             bce = sigmoid_bce(preds[:, 5:], onehot).sum(-1)
-            loss_cls = loss_cls + torch.where(pmask, bce, zero).sum() \
-                / (n_pos * nc)
+            sums[f"cls{lvl}"] = torch.where(pmask, bce, zero).sum()
         num_pos = num_pos + pmask.sum()
+    return sums, counts, {"num_fg": num_pos}
 
+
+def v5_total(sums: Dict, counts: Dict, nc: int):
+    """``detection_loss_v5``'s combination: per level the box and class
+    sums over its positives (at least 1; the class sum also over nc), the
+    objectness sum over its cells times the level's balance; gains 0.05 /
+    1.0 / 0.5 · nc / 80, the sum times the batch size."""
+    loss_box = loss_obj = loss_cls = 0.0
+    for lvl, balance in enumerate(BALANCE):
+        n_pos = counts[f"pos{lvl}"].clamp(min=1).float()
+        loss_box = loss_box + sums[f"box{lvl}"] / n_pos
+        loss_obj = loss_obj + balance * (sums[f"obj{lvl}"]
+                                         / counts[f"cells{lvl}"])
+        if nc > 1:
+            loss_cls = loss_cls + sums[f"cls{lvl}"] / (n_pos * nc)
     total = (0.05 * loss_box + 1.0 * loss_obj
-             + 0.5 * nc / 80.0 * loss_cls) * bsz
-    return total, {"box": loss_box, "obj": loss_obj, "cls": loss_cls,
-                   "num_fg": num_pos}
+             + 0.5 * nc / 80.0 * loss_cls) * counts["images"]
+    return total, {"box": loss_box, "obj": loss_obj, "cls": loss_cls}
+
+
+detection_loss_v5 = Objective(v5_parts, v5_total)
 
 
 def make_train_step_v5(lr: float = 1e-3, clip_norm: float = 10.0):

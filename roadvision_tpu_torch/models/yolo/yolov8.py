@@ -81,9 +81,12 @@ class Conv(nn.Module):
         self.pad = k // 2 if pad is None else pad
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad=None) -> torch.Tensor:
+        """``pad`` overrides the padding: (rows, columns) for a band whose
+        halo rows are already in ``x`` (parallel/spatial.py)."""
         x = x.to(self.weight.dtype)
-        y = F.conv2d(x, self.weight, None, self.stride, self.pad, 1,
+        y = F.conv2d(x, self.weight, None, self.stride,
+                     self.pad if pad is None else pad, 1,
                      x.shape[1] // self.weight.shape[1])
         y = y.float() + self.bias[:, None, None]
         if not self.act:

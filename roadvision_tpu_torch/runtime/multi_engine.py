@@ -32,7 +32,7 @@ import torch
 
 from ..detect.types import COCO_NAMES
 from ..io_video.capture import VideoSource
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, resolve_device, visible_devices
 from ..utils.logging import get_logger
 from .engine import FrameResult, PipelineEngine, unpack_detections
 
@@ -79,17 +79,7 @@ def devices_from_config(tpu_cfg: Dict[str, Any],
         raise ValueError(f"tpu.mesh.axis={axis!r} is not a mesh axis "
                          f"(available: ['data', 'model'])")
     n_dev = mesh_cfg.get("devices")
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        n = int(n_dev) if n_dev else 1
-        devices = [dev] * n
-    else:
-        visible = torch.cuda.device_count()
-        n = int(n_dev) if n_dev else visible
-        if not 1 <= n <= visible:
-            raise ValueError(f"tpu.mesh.devices={n_dev}: {visible} card(s) "
-                             f"visible")
-        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = visible_devices(int(n_dev) if n_dev else None, device)
     # the streams ride the named axis; a (data, model) mesh has one
     # device along "model"
     return devices if axis == "data" else devices[:1]

@@ -9,13 +9,19 @@ EMA weights, ``--eval-every`` mAP on held-out data, ``--save-every`` and
 divergence breaker and the final-save guard. The model trains in float32
 on ``--device`` (the card unless "cpu" is named). Training state and the
 ``.weights.npz`` / ``.raw.npz`` exports are written in the JAX package's
-layout, so either package resumes or serves them.
+layout, so either package resumes or serves them. ``--dp N`` trains N
+data-parallel replicas (``parallel/data.py``): N cards, or N replicas on
+the CPU with ``--device cpu``; ``--batch`` is the global batch, split
+evenly over them, and the losses, gradients and updates are the one-card
+step's on that batch. The state is saved from replica 0 and resumed onto
+every replica.
 
 Usage:
   python -m roadvision_tpu_torch.cli train --data synthetic --steps 50 \\
       --imgsz 320 --batch 8 --out runs/ft.npz
   python -m roadvision_tpu_torch.cli train --data yolo_dir|coco.json \\
       --weights yolov8n.pt --steps 500 --lr 5e-4 --device cpu
+  python -m roadvision_tpu_torch.cli train --dp 4 --batch 64 --imgsz 640
 """
 from __future__ import annotations
 
@@ -31,9 +37,9 @@ import torch
 from ..detect import dataset as ds
 from ..detect.yolo_torch import _TASK_SUFFIX
 from ..models.yolo import weights as yolo_weights
+from ..parallel import DataParallelStep, make_mesh
 from ..runtime.checkpoint import (load_train_state, opt_state_from_tree,
                                   save_train_state)
-from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 
 log = get_logger("roadvision.train")
@@ -96,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="training-state .npz to continue from (either "
                          "package's)")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel cards (not ported: ROADMAP A8b)")
+                    help="data-parallel replicas: cards, or CPU replicas "
+                         "with --device cpu (--batch is split over them)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
@@ -246,11 +253,11 @@ def _export(model: torch.nn.Module, path: Path) -> None:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError(
-            "--dp > 1 (data parallelism across cards) is not ported to "
-            "roadvision_tpu_torch yet (ROADMAP A8b)")
-    device = resolve_device(args.device)
+    if args.batch % args.dp:
+        raise ValueError(f"--batch {args.batch} does not split evenly over "
+                         f"--dp {args.dp}")
+    mesh = make_mesh(args.dp, device=args.device)
+    device = mesh.grid[0][0]
     fam = Family(args, device)
     model = fam.model
 
@@ -269,7 +276,12 @@ def main(argv=None) -> int:
         else:
             fam.opt = opt_state_from_tree(opt_tree, device)
         log.info("resumed from %s at step %d", args.resume, start_step)
-    opt = fam.opt
+    # replica 0 is ``model``: the EMA, the evaluation and the saves read it
+    step = DataParallelStep(fam.step, model, mesh, state=fam.opt)
+    opt = step.state
+    if args.dp > 1:
+        log.info("data parallel over %d replicas: %s", args.dp,
+                 [str(row[0]) for row in mesh.grid])
 
     next_batch, eval_set = _batches(args, fam, ap)
     warmup = args.warmup if args.warmup is not None \
@@ -298,9 +310,8 @@ def main(argv=None) -> int:
                                           p=args.fog, level=args.fog_level,
                                           device=device)
         x = torch.from_numpy(np.asarray(images)).to(device).float() / 255.0
-        loss, aux = fam.step(
-            model, opt, x,
-            *(torch.from_numpy(np.asarray(g)).to(device) for g in gts),
+        loss, aux = step(
+            x, *(torch.from_numpy(np.asarray(g)).to(device) for g in gts),
             lr_scale=lr_scale_at(start_step + it, args.steps, warmup,
                                  args.schedule, args.lrf))
         if ema is not None:

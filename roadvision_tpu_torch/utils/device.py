@@ -1,7 +1,7 @@
 """Device selection: the card by default, the CPU only when asked for."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -27,3 +27,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
     return dev
+
+
+def visible_devices(n_devices: Optional[int] = None,
+                    device: DeviceLike = None) -> List[torch.device]:
+    """``n_devices`` cards, every visible card when None; with
+    ``device="cpu"``, that many entries of the CPU (one when None). More
+    cards than are visible is a ``ValueError``: the list never shrinks
+    and never moves to the CPU on its own."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev] * (1 if n_devices is None else int(n_devices))
+    visible = torch.cuda.device_count()
+    n = visible if n_devices is None else int(n_devices)
+    if not 1 <= n <= visible:
+        raise ValueError(f"{n_devices} devices asked for: {visible} card(s) "
+                         f"visible")
+    return [torch.device("cuda", i) for i in range(n)]

@@ -573,8 +573,10 @@ def test_cli_names_the_tools():
     with pytest.raises(SystemExit) as ei:
         cli.train(["--help"])
     assert ei.value.code == 0
-    with pytest.raises(NotImplementedError, match="A8b"):
-        cli.train(["--dp", "2"])
+    # --dp reaches the data-parallel step (it raised NotImplementedError
+    # before multi-card training was ported): 8 images do not split 3 ways
+    with pytest.raises(ValueError, match="--dp 3"):
+        cli.train(["--dp", "3"])
     with pytest.raises(SystemExit) as ei:
         cli.analyze(["--help"])
     assert ei.value.code == 0

@@ -630,3 +630,111 @@ def test_kernels_bit_equal_at_fleet_shapes(dev, h, w):
                        C.apply_plain(plane, luts, th, tw, "cv2"))
     planes = _plane((3 * n, h, w), 6, dev)   # 3 colour planes a frame
     assert torch.equal(M.median_planes(planes, 3), M.median_plain(planes, 3))
+
+
+# --- multi-card parallelism (parallel/) ------------------------------------
+# Over one card repeated and, where two cards or more are visible, over
+# distinct cards, float32 with TF32 off: the dp x tp step against one
+# replica at the CPU tests' tolerances (loss rtol 1e-5, parameters and
+# momentum rtol 2e-4, atol 2e-6); pipelines and row bands against the
+# plain forward within 1e-2 px and 1e-4 (cuDNN may pick another
+# algorithm for a microbatch's or a band's shape), RT-DETR's normalised
+# boxes within 1e-4 and its scores within 1e-3 (chip_smoke.py's bounds).
+
+def _cards(dev, k, distinct):
+    if not distinct:
+        return [torch.device("cuda", torch.cuda.current_device())] * k
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more")
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(k)]
+
+
+def _close_outputs(got, want, box_atol=1e-2, score_atol=1e-4):
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=0, atol=box_atol)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=0, atol=score_atol)
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_dp_tp_step_on_the_card_equals_one_replica(dev, no_tf32, distinct):
+    from roadvision_tpu_torch.detect import dataset as ds
+    from roadvision_tpu_torch.models.yolo import train as T
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.parallel import (DataParallelStep, make_mesh,
+                                               merge_shards)
+    tree = W.import_npz("assets/yolov8n_synthetic_256.npz")
+    imgs, *gts = next(ds.synthetic_batches(4, imgsz=64, seed=3))
+    batch = (torch.from_numpy(imgs).to(dev).float() / 255.0,
+             *(torch.from_numpy(np.asarray(g)).to(dev) for g in gts))
+
+    def model():
+        return W.model_from_params(tree).set_compute_dtype(
+            torch.float32).to(dev)
+
+    step = T.make_train_step(lr=1e-3)
+    single = model()
+    mom = step.init(single)
+    loss, aux = step(single, mom, *batch)
+    mesh = make_mesh(model_parallel=2, devices=_cards(dev, 8, distinct))
+    dp = DataParallelStep(step, model(), mesh)
+    dloss, daux = dp(*batch)
+    np.testing.assert_allclose(float(dloss), float(loss), rtol=1e-5)
+    assert int(daux["num_fg"]) == int(aux["num_fg"]) > 0
+    for want, got in ((single.state_dict(), dp.model.state_dict()),
+                      (mom, dp.state)):
+        got = merge_shards(got)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k].numpy(), v.cpu().numpy(),
+                                       rtol=2e-4, atol=2e-6, err_msg=k)
+    for others in dp.params[1:]:
+        for a, b in zip(dp.params[0], others):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_pipelines_on_the_card_equal_the_plain_forward(dev, no_tf32,
+                                                       distinct):
+    from roadvision_tpu_torch.models import rtdetr
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.parallel import PipelinedRTDETR, PipelinedYOLO
+    from roadvision_tpu_torch.parallel.pipeline import v8_detect_model
+    rng = np.random.RandomState(0)
+    v8 = W.import_npz("assets/yolov8n_synthetic_256.npz")
+    x = torch.from_numpy(rng.rand(4, 128, 192, 3).astype(np.float32)).to(dev)
+    devs = _cards(dev, 4, distinct)
+    with torch.inference_mode():
+        want = v8_detect_model(v8, "n", 80, torch.float32).to(dev)(x)
+        for n in (2, 4):
+            got = PipelinedYOLO(v8, "n", 80, n, devs)(x)
+            assert got[0].device == devs[n - 1]
+            _close_outputs(got, want)
+    rt = W.import_npz("assets/rtdetr_l_synthetic_256.npz")
+    xr = torch.from_numpy(rng.rand(2, 160, 160, 3).astype(np.float32)) \
+        .to(dev)
+    with torch.inference_mode():
+        want = rtdetr.model_from_params(rt).to(dev).eval()(
+            xr, num_queries=rtdetr.NQ)
+        got = PipelinedRTDETR(rt, rtdetr.nc_of(rt), 2, devs)(xr)
+    _close_outputs(got, want, 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("h,w,k", [(256, 192, 8), (224, 160, 8),
+                                   (640, 384, 4)])
+def test_row_bands_on_the_card_equal_the_plain_forward(dev, no_tf32,
+                                                       distinct, h, w, k):
+    from roadvision_tpu_torch.models.yolo import weights as W
+    from roadvision_tpu_torch.parallel import (make_mesh,
+                                               make_spatial_forward,
+                                               spatial_sharding)
+    from roadvision_tpu_torch.parallel.pipeline import v8_detect_model
+    v8 = W.import_npz("assets/yolov8n_synthetic_256.npz")
+    x = torch.from_numpy(np.random.RandomState(1).rand(1, h, w, 3).astype(
+        np.float32)).to(dev)
+    mesh = make_mesh(devices=_cards(dev, k, distinct))
+    assert len(spatial_sharding(mesh, x).parts) == min(k, h // 32)
+    with torch.inference_mode():
+        _close_outputs(make_spatial_forward("n", 80, mesh)(v8, x),
+                       v8_detect_model(v8, "n", 80, torch.float32).to(dev)(x))

@@ -55,8 +55,12 @@ def test_cli_train_each_family(tmp_path, weights, leaf):
 
 
 def test_cli_train_needs_a_card_or_cpu_and_names_dp(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8b"):
-        cli.train(SMALL + ["--dp", "2", "--out", str(tmp_path / "a.npz")])
+    # --dp 2 trains two replicas on the CPU; a batch they cannot split
+    # evenly is refused (tests/test_torch_train_dp.py holds --dp 2 to 1)
+    assert cli.train(SMALL + ["--dp", "2", "--out",
+                              str(tmp_path / "a.npz")]) == 0
+    with pytest.raises(ValueError, match="--dp 3"):
+        cli.train(SMALL + ["--dp", "3", "--out", str(tmp_path / "c.npz")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.train(["--data", "synthetic", "--steps", "1",

@@ -155,7 +155,7 @@ def test_top_k_anchors_match_lax_top_k():
         2, imgsz=IMGSZ, seed=12)))
     with torch.no_grad():
         _, outs = model.features_and_head(imgs)
-        t = ttrain.detection_terms(outs, model.nc, gb, gc, gm)[3]
+        t = ttrain.detection_terms(outs, model.nc, gb, gc, gm)[-1]
     weight = t["weight"]
     assert 0 < int((weight > 0).sum()) < 64
     for k in (64, 10, weight.shape[1]):
