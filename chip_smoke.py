@@ -152,9 +152,30 @@ Phases, in order; any failure exits non-zero:
      launches summed over every path above), the card line, and last the
      ok line.
 
+  7e. the offline and auxiliary modules, each with its launch counts
+     (any other count fails): ``[native]`` (the C++ host ops and the
+     libjpeg helpers built from runtime/native/*.cpp with g++; the
+     overlay and both canvases equal to the numpy paths on a 1080p frame;
+     a 2 x 1080p canvas JPEG-encoded and decoded, against PIL; the host
+     tail's frames/s, native against numpy + PIL; where libjpeg is
+     missing, a ``jpeg: unavailable (<reason>)`` line and PIL named as the
+     encoder), ``[entry] preview --profile`` (a trace file holding the
+     card's kernels), ``[entry] warmup`` (the gate on: 4 launches),
+     ``[entry] calibrate`` and ``[entry] calibrate_gate`` (the card's
+     report equal to the CPU's), ``[eval] weather``, ``[eval] trackers``,
+     ``[eval] benchmark_trackers`` and ``[eval] dtype_ladder`` (the tools
+     at their defaults, 96 frames at 256 px, JSON to chiprun_out/; then
+     by stage against the CPU: fog within 2 levels in <= 0.1 %, float32
+     detections within BOX_TOL / CONF_TOL with ids equal, off-row scores
+     and false positives equal, the host scenarios' table equal, the
+     dtype rows within 1e-3), ``[profile] rtdetr / detect / preprocess``
+     (1080p x 8, RT-DETR at 720p; every preprocess candidate equal to its
+     plain version; chiprun_out/profile_*.json) and ``[autotune] --quick
+     --sweeps clahe_chunk`` (five bench processes; each trial's batches
+     launch each kernel once); results in chiprun_out/tools.json;
 Options: ``--kernels-only`` stops after phase 3; ``--train-only`` runs
 only phase 7c (training); ``--parallel-only`` only phase 7d;
-``--fleet-cards`` runs
+``--tools-only`` only phase 7e; ``--fleet-cards`` runs
 only the fleet on every visible card against the same fleet on one
 (``fleet_cards_phase``; needs 2 cards or more); ``--multi-cards`` runs
 ``multi_cards_phase`` on 2 and 4 distinct cards (needs 2 or more): the
@@ -3343,6 +3364,597 @@ def multi_cards_phase(card: str, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the offline and auxiliary modules: native host ops, profiler, warm-up,
+# calibration, quality tools, profilers, autotune
+# ---------------------------------------------------------------------------
+
+EVAL_FRAMES, EVAL_RES = 96, 256     # the eval tools' defaults
+EVAL_CHECK = 32                     # frames of the by-stage CPU checks
+FOG_LEVELS_MAX, FOG_SHARE_MAX = 2, 1e-3   # the fog bound (ROADMAP C)
+
+
+def exact_launches(what: str, want: dict) -> dict:
+    """The kernels' counts since the last reset must be ``want``
+    exactly (a kernel not named: 0)."""
+    from roadvision_tpu_torch import kernels
+    counts = dict(kernels.launch_counts)
+    full = {k: int(want.get(k, 0)) for k in counts}
+    if counts != full:
+        fail(f"{what}: launches {counts}, expected {full}")
+    return add_to_totals(counts)
+
+
+class numpy_pil_paths:
+    """Inside: the overlay and canvas through numpy, JPEG through PIL
+    (the callers' fallbacks), as where the native ops are unavailable."""
+
+    def __enter__(self):
+        from roadvision_tpu_torch.runtime import native
+        from roadvision_tpu_torch.vis import draw
+        self.saved = (draw._NATIVE, dict(native._libs))
+        draw._NATIVE = False
+        native._libs["jpegenc"] = False
+        native._libs["jpegdec"] = False
+        return self
+
+    def __exit__(self, *exc):
+        from roadvision_tpu_torch.runtime import native
+        from roadvision_tpu_torch.vis import draw
+        draw._NATIVE = self.saved[0]
+        native._libs.clear()
+        native._libs.update(self.saved[1])
+        return False
+
+
+def overlay_dets(n: int = 18, seed: int = 0):
+    """Deterministic boxes with ids, distances and speeds on a 1080p frame."""
+    from roadvision_tpu_torch.detect.types import Detection
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        x, y = rng.uniform(-40, WIDTH - 60), rng.uniform(-40, HEIGHT - 60)
+        w, h = rng.uniform(40, 400), rng.uniform(30, 260)
+        out.append(Detection(x, y, x + w, y + h, float(rng.uniform(.3, 1)),
+                             2, "car", track_id=i + 1,
+                             distance_m=float(rng.uniform(5, 90)),
+                             speed_kmh=float(rng.uniform(0, 120))))
+    return out
+
+
+def native_phase(frames: np.ndarray, card: str) -> dict:
+    """``[native]``: build the C++ host ops and the libjpeg helpers from
+    the sources, hold the overlay and the canvas to the numpy paths on a
+    1080p frame, encode and decode a compare canvas, and time the host
+    tail (overlay + canvas + JPEG) against numpy + PIL."""
+    import io
+
+    from PIL import Image
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.io_video.mjpeg_avi import decode_jpeg_bgr
+    from roadvision_tpu_torch.io_video.writer import encode_jpeg_bgr
+    from roadvision_tpu_torch.runtime import native
+    from roadvision_tpu_torch.vis import draw
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"[native] host_ops did not build: "
+             f"{native.build_errors.get('hostops')}")
+    jpeg = bool(native.get_jpeg_lib()) and bool(native.get_jdec_lib())
+    build_s = time.perf_counter() - t0
+    print(f"[native] built in {build_s:.2f} s under {native.build_dir()}: "
+          f"hostops {native.lib_path('hostops').name}", flush=True)
+    if not jpeg:
+        reason = "; ".join(f"{k}: {v}" for k, v in native.build_errors.items())
+        print(f"[native] jpeg: unavailable ({reason})", flush=True)
+    out = {"build_s": build_s, "jpeg": jpeg}
+
+    raw = np.ascontiguousarray(frames[0])
+    dets = overlay_dets()
+    got, want = raw.copy(), raw.copy()
+    draw.draw_detections(got, dets)
+    with numpy_pil_paths():
+        draw.draw_detections(want, dets)
+    if not np.array_equal(got, want):
+        fail("[native] the overlay differs from the numpy path")
+    for layout in ("h", "v"):
+        a = draw.make_canvas(raw, got, layout=layout, fps=30.0)
+        with numpy_pil_paths():
+            b = draw.make_canvas(raw, got, layout=layout, fps=30.0)
+        if not np.array_equal(a, b):
+            fail(f"[native] the {layout} canvas differs from the numpy path")
+    canvas = draw.make_canvas(raw, got, fps=30.0)
+    # the recorder's encode and the reader's decode: native libjpeg where
+    # it built, else PIL (named in the line)
+    enc = "native libjpeg" if jpeg else "PIL (jpeg unavailable)"
+    data = encode_jpeg_bgr(canvas, 85)
+    dec = decode_jpeg_bgr(data)
+    if dec.shape != canvas.shape:
+        fail(f"[native] the canvas decodes to {dec.shape}")
+    if Image.open(io.BytesIO(data)).size != (canvas.shape[1],
+                                             canvas.shape[0]):
+        fail("[native] PIL cannot read the JPEG")
+    mse = float(np.mean((dec.astype(np.float64) - canvas) ** 2))
+    psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+    if psnr < 25.0:
+        fail(f"[native] JPEG round trip at {psnr:.1f} dB")
+    out.update(jpeg_bytes=len(data), psnr_db=psnr, jpeg_codec=enc)
+    line = (f"[native] {canvas.shape[1]}x{canvas.shape[0]} canvas through "
+            f"{enc}: JPEG {len(data) >> 10} KiB, round trip {psnr:.2f} dB")
+    if jpeg:
+        with numpy_pil_paths():
+            data_pil = encode_jpeg_bgr(canvas, 85)
+            dec_pil = decode_jpeg_bgr(data)
+        dec_diff = int(np.abs(dec.astype(np.int16) - dec_pil).max())
+        out.update(bytes_equal_pil=data == data_pil,
+                   decode_max_diff_pil=dec_diff)
+        line += (f"; bytes {'equal to' if data == data_pil else 'differ from'}"
+                 f" PIL's; native decode against PIL's max diff {dec_diff}")
+    print(line, flush=True)
+
+    def tail(n: int) -> float:
+        t = time.perf_counter()
+        for i in range(n):
+            proc = raw.copy()
+            draw.draw_detections(proc, dets)
+            encode_jpeg_bgr(draw.make_canvas(raw, proc, fps=30.0), 85)
+        return n / (time.perf_counter() - t)
+
+    n = 16
+    fps_native, fps_pil = [], []
+    tail(2)                                            # warm-up
+    for _ in range(3):
+        fps_native.append(tail(n))
+        with numpy_pil_paths():
+            fps_pil.append(tail(n))
+    out.update(tail_fps_native=fps_native, tail_fps_numpy_pil=fps_pil,
+               launches=exact_launches("[native]", {}))
+    print(f"[native] host tail (overlay + 2x1080p canvas + JPEG q85), "
+          f"{n} frames a run: native overlay and canvas + {enc} JPEG "
+          f"{', '.join(f'{v:.1f}' for v in fps_native)} frames/s against "
+          f"numpy + PIL {', '.join(f'{v:.1f}' for v in fps_pil)} ({card})",
+          flush=True)
+    return out
+
+
+def entry_preview_profile(model: str, tmp: Path) -> dict:
+    """``[entry] preview --profile``: 16 frames through the preview with a
+    torch.profiler trace; the trace file must hold the card's kernels."""
+    import yaml
+    from roadvision_tpu_torch.tools import preview
+    cfg_path = tmp / "preview_profile.yaml"
+    cfg_path.write_text(yaml.safe_dump(serving_cfg(model)))
+    trace_dir = tmp / "trace"
+    n = 2 * BATCH
+    with PathLaunches("[entry] preview --profile") as pl:
+        rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
+                           "--no-show", "--profile", str(trace_dir)])
+        counts = pl.check(n // BATCH)
+    files = sorted(trace_dir.glob("*.json"))
+    if rc != 0 or len(files) != 1:
+        fail(f"[entry] preview --profile: rc {rc}, trace files {files}")
+    events = json.loads(files[0].read_text()).get("traceEvents", [])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    ours = sum(1 for e in kern if any(
+        k in e.get("name", "") for k in ("clahe_tile_luts_kernel",
+                                         "clahe_apply_kernel",
+                                         "median3_kernel")))
+    if not kern or ours < 3 * (n // BATCH):
+        fail(f"[entry] preview --profile: the trace holds {len(kern)} "
+             f"kernels, {ours} of them the port's")
+    print(f"[entry] preview --profile: {n} frames, trace "
+          f"{files[0].name} ({files[0].stat().st_size >> 10} KiB, "
+          f"{len(events)} events, {len(kern)} kernels, {ours} of them "
+          f"K1 / K2 / K3); launches {counts}", flush=True)
+    return {"launches": counts, "trace_events": len(events),
+            "trace_kernels": len(kern)}
+
+
+def entry_warmup(model: str, tmp: Path) -> dict:
+    """``[entry] warmup``: tools/warmup.py on the main config with the
+    temporal gate on, at 1080p: per want_proc a full batch and a coasted
+    one (the coast step runs the chain too), so 4 launches of each."""
+    import yaml
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.tools import warmup
+    cfg_path = tmp / "warmup.yaml"
+    cfg_path.write_text(yaml.safe_dump(merge(serving_cfg(model), {
+        "detect": {"temporal_gate": {"enable": True}}})))
+    with PathLaunches("[entry] warmup") as pl:
+        t0 = time.perf_counter()
+        rc = warmup.main(["--config", str(cfg_path), "--res", str(HEIGHT),
+                          "--batch", str(BATCH)])
+        elapsed = time.perf_counter() - t0
+        counts = pl.check(4)
+    if rc != 0:
+        fail(f"[entry] warmup: rc {rc}")
+    print(f"[entry] warmup: 1 shape ({BATCH}, {HEIGHT}, {WIDTH}), want_proc "
+          f"True and False, gate on, in {elapsed:.2f} s; launches {counts}",
+          flush=True)
+    return {"launches": counts, "seconds": elapsed}
+
+
+def run_main(fn, argv) -> tuple:
+    """(rc, stdout) of a tool's ``main(argv)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue()
+
+
+def entry_calibrate(tmp: Path) -> dict:
+    """``[entry] calibrate`` and ``[entry] calibrate_gate``: on the card
+    and on the CPU, the same report; no kernel."""
+    import yaml
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.geometry import find_homography_dlt
+    from roadvision_tpu_torch.tools import calibrate, calibrate_gate
+    img4 = np.array([[0, HEIGHT], [WIDTH, HEIGHT], [0, 0.4 * HEIGHT],
+                     [WIDTH, 0.4 * HEIGHT]], np.float64)
+    H = find_homography_dlt(img4, np.array([[0, 0], [20, 0], [0, 120],
+                                            [20, 120]], np.float64))
+    rng = np.random.RandomState(0)
+    pts = np.concatenate([img4, rng.uniform([0, 0.45 * HEIGHT],
+                                            [WIDTH, HEIGHT], (4, 2))])
+
+    def world(p):
+        m = np.hstack([p, np.ones((len(p), 1))]) @ H.T
+        return m[:, :2] / m[:, 2:]
+
+    main_pts, check_pts = pts[:6], pts[6:]
+    for name, p in (("points", main_pts), ("check", check_pts)):
+        (tmp / f"{name}.yaml").write_text(yaml.safe_dump(
+            {"image_points": p.tolist(), "world_points": world(p).tolist()}))
+    argv = ["--points", str(tmp / "points.yaml"), "--check",
+            str(tmp / "check.yaml"), "--max-error", "0.01"]
+    kernels.reset_launch_counts()
+    rc_g, out_g = run_main(calibrate.main, argv)
+    rc_c, out_c = run_main(calibrate.main, argv + ["--device", "cpu"])
+    if rc_g != 0 or rc_c != 0 or out_g != out_c:
+        fail(f"[entry] calibrate: rc {rc_g} / {rc_c}, reports "
+             f"{'equal' if out_g == out_c else 'differ'}:\n{out_g}")
+    counts = exact_launches("[entry] calibrate", {})
+    print(f"[entry] calibrate: 6 pairs + 2 held out, rc 0, card report "
+          f"equals the CPU's; "
+          + " ".join(line for line in out_g.splitlines()
+                     if "error:" in line) + f"; launches {counts}",
+          flush=True)
+    argv = ["--json", "--frames", str(EVAL_FRAMES)]
+    rc_g, out_g = run_main(calibrate_gate.main, argv)
+    rc_c, out_c = run_main(calibrate_gate.main, argv + ["--device", "cpu"])
+    if rc_g != 0 or rc_c != 0 or json.loads(out_g) != json.loads(out_c):
+        fail(f"[entry] calibrate_gate: rc {rc_g} / {rc_c}:\n{out_g}\n{out_c}")
+    counts_gate = exact_launches("[entry] calibrate_gate", {})
+    rec = json.loads(out_g)["recommended"]
+    print(f"[entry] calibrate_gate: {EVAL_FRAMES} clean frames, card JSON "
+          f"equals the CPU's: {json.dumps(rec)}; launches {counts_gate}",
+          flush=True)
+    return {"calibrate": {"launches": counts},
+            "calibrate_gate": {"launches": counts_gate, "recommended": rec}}
+
+
+def compare_det_lists(cpu, gpu, what: str) -> float:
+    """Per-frame Detection lists: counts, classes and ids equal, boxes
+    within BOX_TOL, confidences within CONF_TOL. Returns the worst box
+    error."""
+    worst = 0.0
+    if len(cpu) != len(gpu):
+        fail(f"{what}: {len(gpu)} frames against {len(cpu)}")
+    for fi, (a, b) in enumerate(zip(cpu, gpu)):
+        if len(a) != len(b):
+            fail(f"{what}: frame {fi}: {len(b)} detections against {len(a)}")
+        for da, db in zip(a, b):
+            box = max(abs(p - q) for p, q in zip(
+                (da.x1, da.y1, da.x2, da.y2), (db.x1, db.y1, db.x2, db.y2)))
+            worst = max(worst, box)
+            if da.cls_id != db.cls_id or da.track_id != db.track_id \
+                    or box > BOX_TOL or abs(da.conf - db.conf) > CONF_TOL:
+                fail(f"{what}: frame {fi}: {db} against {da}")
+    return worst
+
+
+def eval_f32(cfg) -> dict:
+    from roadvision_tpu_torch.config import merge
+    return merge(cfg, {"tpu": {"compute_dtype": "float32"}})
+
+
+def eval_weather_phase(out_dir: Path, card: str) -> dict:
+    """``[eval] weather``: tools/eval_weather.py at its defaults on the card
+    (JSON to chiprun_out/); then by stage against the CPU on the same
+    inputs: heavy fog within the fog bound, and the detector + SORT in
+    float32 within BOX_TOL / CONF_TOL with ids equal, chain off on the
+    clean scene and on on the fogged one; the off row's scores equal."""
+    from roadvision_tpu_torch.tools import eval_weather as ew
+    n_batches = EVAL_FRAMES // 8
+    levels, gated_modes = 6, 2          # the default levels; on + auto
+    with PathLaunches("[eval] weather"):
+        t0 = time.perf_counter()
+        rc, text = run_main(ew.main, ["--out",
+                                      str(out_dir / "eval_weather.json")])
+        elapsed = time.perf_counter() - t0
+        k = levels * gated_modes * n_batches
+        counts = exact_launches("[eval] weather", {
+            "clahe_tile_luts": k, "clahe_apply": k,
+            "median_k": k + levels * n_batches})   # auto: impulse stat
+    report = json.loads(text)
+    if rc != 0 or len(report["levels"]) != levels:
+        fail(f"[eval] weather: rc {rc}, levels {list(report['levels'])}")
+    for level, entry in report["levels"].items():
+        for mode, row in entry["modes"].items():
+            if not all(math.isfinite(v) for v in row.values()):
+                fail(f"[eval] weather: {level} / {mode}: {row}")
+    frames, gt = ew.build_scene(EVAL_FRAMES, EVAL_RES, 6, 0)
+    n_fog = 16
+    t1 = time.perf_counter()
+    fog_g = ew.fog_level(frames[:n_fog], "heavy", 0, "cuda")
+    fog_c = ew.fog_level(frames[:n_fog], "heavy", 0, "cpu")
+    diff = np.abs(fog_g.astype(np.int16) - fog_c)
+    share = float((diff > 0).mean())
+    if diff.max() > FOG_LEVELS_MAX or share > FOG_SHARE_MAX:
+        fail(f"[eval] weather: fog card vs CPU max {diff.max()} levels in "
+             f"{share:.2e} of the pixels")
+    frames, gt = frames[:EVAL_CHECK], gt[:EVAL_CHECK]
+    fog_check = ew.fog_level(frames, "heavy", 0, "cuda")
+    rows = {}
+    for mode, imgs in (("off", frames), ("on", fog_check)):
+        cfg = eval_f32(ew.make_cfg(ew.DEMO_WEIGHTS, EVAL_RES, mode, 0.25,
+                                   150.0, 8))
+        with PathLaunches(f"[eval] weather {mode} f32"):
+            d_g = ew.run_mode(cfg, imgs, "cuda")
+            c = exact_launches(f"[eval] weather {mode} f32", {} if mode ==
+                               "off" else {k: EVAL_CHECK // 8
+                                           for k in PATH_TOTALS})
+        d_c = ew.run_mode(cfg, imgs, "cpu")
+        worst = compare_det_lists(d_c, d_g, f"[eval] weather {mode}")
+        s_g, s_c = ew.score(d_g, gt), ew.score(d_c, gt)
+        if s_g["false_positives"] != s_c["false_positives"] or (
+                mode == "off" and s_g != s_c):
+            fail(f"[eval] weather {mode}: scores {s_g} against {s_c}")
+        rows[mode] = {"box_err": worst, "card": s_g, "cpu": s_c,
+                      "launches": c}
+    print(f"[eval] weather: {EVAL_FRAMES} frames at {EVAL_RES}, "
+          f"{levels} levels x off / on / auto in {elapsed:.1f} s on the card "
+          f"(chiprun_out/eval_weather.json); heavy fog card vs CPU max "
+          f"{diff.max()} levels in {share:.2e} of the pixels ({n_fog} "
+          f"frames); float32 off / on (heavy), {EVAL_CHECK} frames, within "
+          f"{rows['off']['box_err']:.1e} / {rows['on']['box_err']:.1e} px, "
+          f"ids equal, off-row scores equal: {json.dumps(rows['off']['card'])}; "
+          f"CPU checks {time.perf_counter() - t1:.1f} s; launches {counts} "
+          f"({card})", flush=True)
+    return {"launches": counts, "seconds": elapsed, "fog_max_levels":
+            int(diff.max()), "fog_share": share, "f32": rows,
+            "report": report}
+
+
+def eval_trackers_phase(out_dir: Path, card: str) -> dict:
+    """``[eval] trackers``: tools/eval_trackers.py at its defaults on the
+    card (six backends, clean and heavy fog); then sort on the clean
+    scene and ocsort on the fogged one in float32 against the CPU."""
+    from roadvision_tpu_torch.tools import eval_trackers as et
+    from roadvision_tpu_torch.tools import eval_weather as ew
+    n_batches = EVAL_FRAMES // 8
+    with PathLaunches("[eval] trackers"):
+        t0 = time.perf_counter()
+        rc, text = run_main(et.main, ["--out",
+                                      str(out_dir / "eval_trackers.json")])
+        elapsed = time.perf_counter() - t0
+        counts = exact_launches("[eval] trackers", {
+            k: 6 * n_batches for k in PATH_TOTALS})   # heavy_fog: chain on
+    report = json.loads(text)
+    if rc != 0 or any(len(r) != 6 for r in report["scenes"].values()):
+        fail(f"[eval] trackers: rc {rc}")
+    frames, gt = ew.build_scene(EVAL_CHECK, EVAL_RES, 6, 0)
+    fog = ew.fog_level(frames, "heavy", 0, "cuda")
+    checked = {}
+    for backend, imgs, pre in (("sort", frames, False),
+                               ("ocsort", fog, True)):
+        cfg = eval_f32(et.make_cfg(ew.DEMO_WEIGHTS, EVAL_RES, backend,
+                                   0.25, 8, pre))
+        with PathLaunches(f"[eval] trackers {backend}"):
+            d_g = ew.run_mode(cfg, imgs, "cuda")
+            exact_launches(f"[eval] trackers {backend}",
+                           {k: EVAL_CHECK // 8 for k in PATH_TOTALS} if pre
+                           else {})
+        d_c = ew.run_mode(cfg, imgs, "cpu")
+        worst = compare_det_lists(d_c, d_g, f"[eval] trackers {backend}")
+        s_g, s_c = ew.score(d_g, gt), ew.score(d_c, gt)
+        if s_g["false_positives"] != s_c["false_positives"] or (
+                not pre and s_g != s_c):
+            fail(f"[eval] trackers {backend}: {s_g} against {s_c}")
+        checked[backend] = {"box_err": worst, "card": s_g, "cpu": s_c}
+    summary = {s: {b: [r["mota"], r["idf1"], r["id_switches"]]
+                   for b, r in rows.items()}
+               for s, rows in report["scenes"].items()}
+    print(f"[eval] trackers: 6 backends x clean / heavy fog in "
+          f"{elapsed:.1f} s on the card (chiprun_out/eval_trackers.json; "
+          f"[MOTA, IDF1, IDsw]: {json.dumps(summary)}); float32 sort "
+          f"(clean) and ocsort (heavy fog), {EVAL_CHECK} frames, equal the "
+          f"CPU's ids within "
+          f"{checked['sort']['box_err']:.1e} / "
+          f"{checked['ocsort']['box_err']:.1e} px; launches {counts} "
+          f"({card})", flush=True)
+    return {"launches": counts, "seconds": elapsed, "f32": checked,
+            "report": report}
+
+
+def benchmark_trackers_phase(out_dir: Path, card: str) -> dict:
+    """``[eval] benchmark_trackers``: the host scenario suite through every
+    backend's step on the card and on the CPU: the same metrics."""
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.tools import benchmark_trackers as bt
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, table = run_main(bt.main, ["--out", str(out_dir /
+                                                "benchmark_trackers.json")])
+    elapsed = time.perf_counter() - t0
+    counts = exact_launches("[eval] benchmark_trackers", {})
+    cpu_out = out_dir / "benchmark_trackers_cpu.json"
+    rc_c, table_c = run_main(bt.main, ["--device", "cpu", "--out",
+                                       str(cpu_out)])
+    got = json.loads((out_dir / "benchmark_trackers.json").read_text())
+    want = json.loads(cpu_out.read_text())
+    cpu_out.unlink()
+    worst = 0.0
+    for b, scen in want.items():
+        for s, m in scen.items():
+            for key, v in m.items():
+                worst = max(worst, abs(float(got[b][s][key]) - float(v)))
+    if rc != 0 or rc_c != 0 or table != table_c or worst > 1e-6:
+        fail(f"[eval] benchmark_trackers: rc {rc} / {rc_c}, worst metric "
+             f"gap {worst}:\n{table}\n{table_c}")
+    print(f"[eval] benchmark_trackers: 6 backends x 6 scenarios on the card "
+          f"in {elapsed:.1f} s, the CPU's table exactly (worst metric gap "
+          f"{worst:.1e}):{table.rstrip()}\nlaunches {counts} ({card})",
+          flush=True)
+    return {"launches": counts, "seconds": elapsed, "results": got}
+
+
+def dtype_ladder_phase(out_dir: Path, card: str) -> dict:
+    """``[eval] dtype_ladder``: every dtype's accuracy on the card and its
+    device-resident frames/s (``--fps``); the float32 and int8 rows
+    against the CPU's (the pipeline's tolerances: mAP and recall 1e-3,
+    matched confidence CONF_TOL)."""
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.tools import dtype_ladder as dl
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text = run_main(dl.main, ["--fps", "--fps-iters", "16", "--out",
+                                  str(out_dir / "dtype_ladder.json")])
+    elapsed = time.perf_counter() - t0
+    counts = exact_launches("[eval] dtype_ladder", {})   # no chain
+    rc_c, text_c = run_main(dl.main, ["--device", "cpu", "--dtypes",
+                                      "float32,int8,int8-static"])
+    got, want = json.loads(text)["dtypes"], json.loads(text_c)["dtypes"]
+    if rc != 0 or rc_c != 0:
+        fail(f"[eval] dtype_ladder: rc {rc} / {rc_c}")
+    for dt, row in want.items():
+        g = got[dt]
+        if abs(g["map50"] - row["map50"]) > 1e-3 \
+                or abs(g["recall50"] - row["recall50"]) > 1e-3 \
+                or abs(g["conf_matched_mean"] - row["conf_matched_mean"]) \
+                > CONF_TOL:
+            fail(f"[eval] dtype_ladder {dt}: card {g} against CPU {row}")
+    print(f"[eval] dtype_ladder: {json.dumps(got)} in {elapsed:.1f} s "
+          f"(chiprun_out/dtype_ladder.json); float32 / int8 / int8-static "
+          f"rows equal the CPU's within the tolerances; launches {counts} "
+          f"({card})", flush=True)
+    return {"launches": counts, "seconds": elapsed, "dtypes": got}
+
+
+def profile_phases(out_dir: Path, card: str) -> dict:
+    """``[profile] rtdetr / detect / preprocess`` at 1080p x 8 (RT-DETR at
+    its 720p default): each tool's ``run`` on the card, results to
+    chiprun_out/; the preprocess tool's candidates equal to their plain
+    versions, and its kernel lines launch K1 / K2 / K3 exactly as often
+    as they were called."""
+    from argparse import Namespace
+
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.tools import (profile_detect, profile_preprocess,
+                                            profile_rtdetr)
+    out = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["rtdetr"] = profile_rtdetr.run(Namespace(
+        res=720, batch=BATCH, imgsz=640, dtype="bfloat16", inner=8, iters=2,
+        weights="rtdetr-l.pt", device="cuda"))
+    out["rtdetr"]["launches"] = exact_launches("[profile] rtdetr", {})
+    out["rtdetr"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["detect"] = {"stages": profile_detect.run(Namespace(
+        res=HEIGHT, batch=BATCH, iters=8, warmup=2, size="n",
+        dtype="bfloat16", only="", device="cuda"))}
+    out["detect"]["launches"] = exact_launches("[profile] detect", {})
+    out["detect"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = profile_preprocess.run(Namespace(
+        res=HEIGHT, batch=BATCH, iters=8, warmup=2, only="", device="cuda"))
+    calls = {n: r["calls"] for n, r in rows.items()}
+    want = {"clahe_tile_luts": calls["clahe: full (K1 + K2)"]
+            + calls["clahe: hist+lut (K1)"],
+            "clahe_apply": calls["clahe: full (K1 + K2)"]
+            + calls["apply: K2 clahe_apply"],
+            "median_k": calls["median3: K3 median_k"]}
+    out["preprocess"] = {"rows": rows, "launches": exact_launches(
+        "[profile] preprocess", want),
+        "seconds": time.perf_counter() - t0}
+    for name, res in out.items():
+        (out_dir / f"profile_{name}.json").write_text(
+            json.dumps(res, indent=1))
+    print(f"[profile] rtdetr {out['rtdetr']['seconds']:.1f} s, detect "
+          f"{out['detect']['seconds']:.1f} s, preprocess "
+          f"{out['preprocess']['seconds']:.1f} s; every preprocess candidate "
+          f"equals its plain version; launches rtdetr / detect / preprocess "
+          f"{out['rtdetr']['launches']} / {out['detect']['launches']} / "
+          f"{out['preprocess']['launches']} ({card})", flush=True)
+    return out
+
+
+def autotune_phase(out_dir: Path, card: str) -> dict:
+    """``[autotune] --quick --sweeps clahe_chunk``: five bench processes on
+    the card; each trial's preprocess batches launch K1 / K2 / K3 once,
+    and the trials' launches join the totals."""
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.tools import autotune
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text = run_main(autotune.main, [
+        "--quick", "--sweeps", "clahe_chunk", "--timeout", "300",
+        "--out", str(out_dir / "autotune_quick.json")])
+    elapsed = time.perf_counter() - t0
+    exact_launches("[autotune] in-process", {})
+    report = json.loads(text)
+    sweep = report["sweeps"]["clahe_chunk"]
+    trials = sweep["trials"]
+    total = {k: 0 for k in PATH_TOTALS}
+    for value, t in trials.items():
+        if t.get("fps") is None or any(
+                v != 1.0 for v in t["launches_per_batch"].values()):
+            fail(f"[autotune] clahe_chunk={value}: {t}")
+        for k, v in t["launches_per_batch"].items():
+            total[k] += int(round(v * t["batches"]))
+    if rc != 0 or sweep["winner"] is None:
+        fail(f"[autotune] rc {rc}, winner {sweep['winner']}")
+    add_to_totals(total)
+    print(f"[autotune] --quick --sweeps clahe_chunk in {elapsed:.1f} s: "
+          + ", ".join(f"{v}: {t['fps']:.1f}" for v, t in trials.items())
+          + f" frames/s (480p); winner {sweep['winner']} (pinned "
+          f"{sweep['pinned']}; quick winners do not transfer); launches in "
+          f"the trials {total} ({card})", flush=True)
+    return {"launches": total, "seconds": elapsed, "sweep": sweep}
+
+
+def tools_phases(model: str, frames: np.ndarray, card: str) -> dict:
+    """Every phase of the offline and auxiliary modules, in order; results
+    in chiprun_out/tools.json and the tools' own files beside it."""
+    import torch
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    # float32 comparisons against the CPU: TF32 off, as on the main path
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = {"native": native_phase(frames, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["preview --profile"] = entry_preview_profile(model, Path(tmp))
+        res["warmup"] = entry_warmup(model, Path(tmp))
+        res.update(entry_calibrate(Path(tmp)))
+    res["eval weather"] = eval_weather_phase(out_dir, card)
+    res["eval trackers"] = eval_trackers_phase(out_dir, card)
+    res["eval benchmark_trackers"] = benchmark_trackers_phase(out_dir, card)
+    res["eval dtype_ladder"] = dtype_ladder_phase(out_dir, card)
+    res["profile"] = profile_phases(out_dir, card)
+    res["autotune"] = autotune_phase(out_dir, card)
+    res["seconds"] = time.perf_counter() - t0
+    (out_dir / "tools.json").write_text(json.dumps(res, indent=1,
+                                                   default=str))
+    print(f"[tools] the offline and auxiliary phases ran "
+          f"{res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def profile_batch(engine, frames, ts) -> dict:
     """torch.profiler over one bf16 batch: device busy share, kernel
     launches, and the top kernels and host ops (full tables to
@@ -3427,6 +4039,16 @@ def main() -> int:
             json.dumps(parallel_phase(card), indent=1))
         print(f"[time] chip_smoke.py --parallel-only ran "
               f"{time.perf_counter() - T_START:.1f} s", flush=True)
+        return 0
+    if "--tools-only" in sys.argv[1:]:
+        model = str(Path(__file__).resolve().parent / "assets"
+                    / "yolov8n_synthetic_256.npz")
+        tools_phases(model, render_batches(1)[0][0], card)
+        print("[kernels] launches on the tool paths "
+              + json.dumps(PATH_TOTALS), flush=True)
+        print(f"[time] chip_smoke.py --tools-only ran "
+              f"{time.perf_counter() - T_START:.1f} s", flush=True)
+        print(card_line(), flush=True)
         return 0
     if "--train-only" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
@@ -3523,6 +4145,9 @@ def main() -> int:
     parallel = parallel_phase(card)
     (out_dir / "parallel.json").write_text(json.dumps(parallel, indent=1))
 
+    # the offline and auxiliary modules
+    tools = tools_phases(model, batches[0][0], card)
+
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
     engine = PipelineEngine(pipeline_cfg(model), device="cuda")
@@ -3588,7 +4213,9 @@ def main() -> int:
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
         "second_paths": paths, "entries": entries, "training": training,
-        "parallel": parallel}
+        "parallel": parallel, "tools": {
+            k: v.get("launches") if isinstance(v, dict) else v
+            for k, v in tools.items()}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
           f"(the kernels' build included)", flush=True)

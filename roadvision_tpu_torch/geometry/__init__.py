@@ -1,7 +1,7 @@
-from .projector import (HomographyProjector, build_projector,
+from .projector import (GroundProjector, HomographyProjector, build_projector,
                         distance_device, find_homography_dlt,
                         project_boxes_device, project_points_device)
 
-__all__ = ["HomographyProjector", "build_projector", "distance_device",
-           "find_homography_dlt", "project_boxes_device",
+__all__ = ["GroundProjector", "HomographyProjector", "build_projector",
+           "distance_device", "find_homography_dlt", "project_boxes_device",
            "project_points_device"]

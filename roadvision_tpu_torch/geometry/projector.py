@@ -5,8 +5,13 @@
 construction). The batched apply runs as elementwise float32 torch ops:
 bbox → bottom-centre point, |w| < 1e-6 or non-finite → invalid, distance
 = ‖ground − origin‖ clamped (not rejected) to ``max_distance``.
+``GroundProjector`` is the host base every projector shares, with the
+reference's scalar ``distance`` / ``distance_for_bbox``.
 """
 from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,19 +51,56 @@ def find_homography_dlt(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     return H / H[2, 2]
 
 
-class HomographyProjector:
-    """Image → ground plane from ≥ 4 image↔world correspondences."""
+Point2D = Tuple[float, float]
 
-    def __init__(self, cfg: dict, device: DeviceLike = None):
-        self.device = resolve_device(device)
-        origin = cfg.get("origin", (0.0, 0.0))
+
+class GroundProjector(ABC):
+    """Image → ground-plane mapping on the host (the JAX package's
+    ``GroundProjector``, ``projector.py:66-97``)."""
+
+    def __init__(self, origin: Optional[Sequence[float]] = None,
+                 max_distance: Optional[float] = None):
         if origin is None:
             origin = (0.0, 0.0)
         if len(origin) != 2:
             raise ValueError("origin must be a length-2 sequence")
         self.origin = np.asarray(origin, np.float32)
-        maxd = cfg.get("max_distance")
-        self.max_distance = float(maxd) if maxd is not None else None
+        self.max_distance = float(max_distance) \
+            if max_distance is not None else None
+
+    @abstractmethod
+    def project_point(self, x: float, y: float) -> Optional[Point2D]:
+        ...
+
+    def project_bbox(self, bbox: Sequence[float]) -> Optional[Point2D]:
+        """The box's bottom-centre point on the ground plane."""
+        x1, _, x2, y2 = bbox
+        return self.project_point(0.5 * (float(x1) + float(x2)), float(y2))
+
+    def distance(self, point: Optional[Sequence[float]]) -> Optional[float]:
+        """‖point − origin‖ in float32, clamped to ``max_distance``;
+        None for a None point or a non-finite distance."""
+        if point is None:
+            return None
+        dist = float(np.linalg.norm(np.asarray(point, np.float32)
+                                    - self.origin))
+        if not np.isfinite(dist):
+            return None
+        if self.max_distance is not None:
+            dist = min(dist, self.max_distance)
+        return dist
+
+    def distance_for_bbox(self, bbox: Sequence[float]) -> Optional[float]:
+        return self.distance(self.project_bbox(bbox))
+
+
+class HomographyProjector(GroundProjector):
+    """Image → ground plane from ≥ 4 image↔world correspondences."""
+
+    def __init__(self, cfg: dict, device: DeviceLike = None):
+        super().__init__(origin=cfg.get("origin", (0.0, 0.0)),
+                         max_distance=cfg.get("max_distance"))
+        self.device = resolve_device(device)
         img_pts = np.asarray(cfg.get("image_points", []), np.float32)
         world_pts = np.asarray(cfg.get("world_points", []), np.float32)
         if img_pts.ndim != 2 or img_pts.shape[0] < 4 \
@@ -89,11 +131,6 @@ class HomographyProjector:
         if not (np.isfinite(gx) and np.isfinite(gy)):
             return None
         return float(gx), float(gy)
-
-    def project_bbox(self, bbox):
-        """The box's bottom-centre point on the ground plane."""
-        x1, _, x2, y2 = bbox
-        return self.project_point(0.5 * (float(x1) + float(x2)), float(y2))
 
 
 def project_points_device(H: torch.Tensor, pts: torch.Tensor):

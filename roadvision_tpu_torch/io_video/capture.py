@@ -204,6 +204,7 @@ class ImageDirSource(_BaseSource):
         path = self.files[self.idx]
         self.idx += 1
         if path.suffix.lower() in (".jpg", ".jpeg"):
+            # native libjpeg decode straight to BGR (no flip copy)
             from .mjpeg_avi import decode_jpeg_bgr
             return True, decode_jpeg_bgr(path.read_bytes())
         from PIL import Image

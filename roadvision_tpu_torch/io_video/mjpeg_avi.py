@@ -1,13 +1,13 @@
 """MJPEG-AVI playback without codecs (the reader half of writer.py) — a
-copy of ``roadvision_tpu/io_video/mjpeg_avi.py`` with the PIL decode
-only (the JAX package asks its C++ libjpeg-turbo helper first).
+copy of ``roadvision_tpu/io_video/mjpeg_avi.py``.
 
 The reference plays video through ``cv2.VideoCapture``'s native codecs
 (src/io_video/capture.py:13). This build's recorder (io_video/writer.py)
 emits Motion-JPEG in a RIFF AVI container; this module closes the
 record→replay loop self-contained: a pure-Python RIFF demuxer walks the
-container and each frame is decoded by PIL, so recordings play back
-with zero cv2/ffmpeg dependency.
+container and each frame is decoded by the native libjpeg path
+(``runtime/native/jpeg_dec.cpp``, BGR rows directly) with a PIL
+fallback, so recordings play back with zero cv2/ffmpeg dependency.
 
 Container handling:
   * prefers the ``idx1`` index when present (both offset conventions —
@@ -30,7 +30,14 @@ import numpy as np
 
 
 def decode_jpeg_bgr(data: bytes) -> np.ndarray:
-    """JPEG bytes → (h, w, 3) uint8 BGR, decoded by PIL."""
+    """JPEG bytes → (h, w, 3) uint8 BGR. The native libjpeg path first,
+    PIL where it is unavailable (both JDCT_ISLOW: the same pixels)."""
+    from ..runtime import native
+
+    img = native.jpeg_decode_bgr(data)
+    if img is not None:
+        return img
+
     import io as _io
 
     from PIL import Image

@@ -1,6 +1,5 @@
 """Codec-free video recording — a copy of
-``roadvision_tpu/io_video/writer.py`` with the PIL JPEG encode only (the
-JAX package asks its C++ libjpeg-turbo helper first).
+``roadvision_tpu/io_video/writer.py``.
 
 The reference's recorder is dead code (record.enable is read but no
 cv2.VideoWriter is ever constructed — main_preview.py:81,130,137; SURVEY.md
@@ -39,7 +38,15 @@ except Exception:  # pragma: no cover
 
 def encode_jpeg_bgr(frame_bgr: np.ndarray, quality: int = 90) -> bytes:
     """JPEG-encode a (H, W, 3) uint8 BGR frame without a channel-flip
-    copy: PIL's raw "BGR" unpacker reads the rows as they are."""
+    copy. The native libjpeg tail (``runtime/native/jpeg_enc.cpp``) reads
+    the BGR rows directly (JCS_EXT_BGR, the accurate DCT, as PIL); where
+    it is unavailable, PIL's raw "BGR" unpacker reads them as they are."""
+    from ..runtime import native
+
+    data = native.jpeg_encode_bgr(frame_bgr, quality, fast_dct=False)
+    if data is not None:
+        return data
+
     from PIL import Image
 
     h, w = frame_bgr.shape[:2]

@@ -57,8 +57,10 @@ def _pad_to(t: torch.Tensor, dim: int, mult: int, least: int = 0):
 def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 × (N, K) int8 → (M, N) int32, exact."""
     m, n = a.shape[0], w.shape[0]
-    a = _pad_to(_pad_to(a, 1, 8), 0, 1, least=17)
-    w = _pad_to(_pad_to(w, 1, 8), 0, 8)
+    # row-major operands: cuBLASLt takes no other int8 layout (an im2col
+    # view of a one-image batch can arrive with other strides)
+    a = _pad_to(_pad_to(a, 1, 8), 0, 1, least=17).contiguous()
+    w = _pad_to(_pad_to(w, 1, 8), 0, 8).contiguous()
     return torch._int_mm(a, w.t())[:m, :n]
 
 

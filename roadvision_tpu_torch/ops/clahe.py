@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -148,8 +149,23 @@ def _tables_on(device: torch.device, h: int, w: int, th: int, tw: int,
     return got
 
 
+def _chunk_rows() -> int:
+    """K2's rows per block: ``RVT_CLAHE_CHUNK`` (the JAX package's name
+    for its CLAHE apply chunk, read once at import), default 24. Any
+    size gives the same bytes; it moves only the time."""
+    raw = os.environ.get("RVT_CLAHE_CHUNK", "24")
+    try:
+        rows = int(raw)
+    except ValueError:
+        rows = 0
+    if not 1 <= rows <= 1024:
+        raise ValueError(f"RVT_CLAHE_CHUNK={raw!r} must be an integer in "
+                         f"[1, 1024] (rows per block of the CLAHE apply)")
+    return rows
+
+
 # rows per block of K2; a chunk never crosses a change of tile rows
-APPLY_CHUNK_ROWS = 24
+APPLY_CHUNK_ROWS = _chunk_rows()
 # K2 reads its column tables in groups of adjacent columns
 _COL_PAD = 4
 

@@ -91,3 +91,13 @@ def paste_masks(masks: np.ndarray, valid: np.ndarray,
         full = _bilinear_resize(crop, oh, ow)
         out[i] = full > thresh if thresh is not None else full
     return out
+
+
+def mask_iou(a: np.ndarray, b: np.ndarray) -> float:
+    """IoU of two boolean masks (host, eval/test helper); 0 when both
+    are empty."""
+    a = a.astype(bool)
+    b = b.astype(bool)
+    inter = np.logical_and(a, b).sum()
+    union = np.logical_or(a, b).sum()
+    return float(inter) / float(union) if union else 0.0

@@ -1,4 +1,6 @@
+from .base import PreprocessOp
 from .pipeline import PreprocessPipeline
-from .registry import REGISTRY, get_op_class
+from .registry import REGISTRY, get_op_class, register
 
-__all__ = ["PreprocessPipeline", "REGISTRY", "get_op_class"]
+__all__ = ["PreprocessOp", "PreprocessPipeline", "REGISTRY", "get_op_class",
+           "register"]

@@ -17,6 +17,11 @@ REGISTRY: Dict[str, Type[PreprocessOp]] = {
 }
 
 
+def register(name: str, cls: Type[PreprocessOp]) -> None:
+    """Register a custom op class under ``name`` (the plugin point)."""
+    REGISTRY[name] = cls
+
+
 def get_op_class(name: str) -> Type[PreprocessOp]:
     if name not in REGISTRY:
         raise KeyError(

@@ -98,7 +98,12 @@ def _rtdetr_overrides(model: str) -> Dict[str, Any]:
 
 def bench_cfg(height: int, width: int, batch: int, model: str,
               dtype: str = "bfloat16") -> Dict[str, Any]:
-    """``bench.py::_cfg(height, width, batch)`` with ``model``."""
+    """``bench.py::_cfg(height, width, batch)`` with ``model``.
+    ``dtype`` "int8-static" is int8 with static activation scales from
+    the first 16 frames the detector sees (``detect.int8_calibration``,
+    the JAX bench's ``RVT_BENCH_DTYPE=int8-static``); ``RVT_BENCH_SAMPLED=1``
+    sets ``tpu.sampled_preprocess``, as the JAX bench reads it."""
+    static = dtype == "int8-static"
     return merge(DEFAULTS, {
         "preprocess": {"enabled": True, "chain": [
             {"name": "CLAHEDehaze",
@@ -108,6 +113,7 @@ def bench_cfg(height: int, width: int, batch: int, model: str,
         "detect": {"enabled": True, "model": model, "conf_thres": 0.25,
                    "iou_thres": 0.7, "max_det": 100,
                    "classes_keep": [0, 2, 3, 5, 7],
+                   "int8_calibration": 16 if static else 0,
                    **_rtdetr_overrides(model)},
         "tracking": {"enabled": True, "max_staleness": 1.2, "min_hits": 3,
                      "iou_threshold": 0.35, "speed_window": 0.8},
@@ -118,7 +124,10 @@ def bench_cfg(height: int, width: int, batch: int, model: str,
                              [width, int(0.4 * height)]],
             "world_points": [[0, 0], [20, 0], [0, 120], [20, 120]],
             "origin": [10.0, 0.0], "max_distance": 1000.0}},
-        "tpu": {"batch_size": batch, "compute_dtype": dtype},
+        "tpu": {"batch_size": batch,
+                "compute_dtype": "int8" if static else dtype,
+                "sampled_preprocess":
+                    os.environ.get("RVT_BENCH_SAMPLED", "0") == "1"},
     })
 
 
@@ -783,7 +792,7 @@ def main(argv: Optional[list] = None) -> int:
                     help="batches run before the first window of each "
                          "measurement")
     ap.add_argument("--dtype", default="bfloat16",
-                    choices=["bfloat16", "float32"])
+                    choices=["bfloat16", "float32", "int8", "int8-static"])
     ap.add_argument("--model", default=None,
                     help=f"detector weights (default: {DEMO_MODEL})")
     ap.add_argument("--seed", type=int, default=0)

@@ -203,6 +203,9 @@ def main(argv=None) -> int:
     ap.add_argument("--watch-config", action="store_true",
                     help="hot-reload vis/preview sections when the config "
                          "file changes (other sections need a restart)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace (host and card) "
+                         "of the stream into this directory")
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
@@ -263,6 +266,13 @@ def main(argv=None) -> int:
     ana_cfg = cfg.get("analytics", {}) or {}
     analytics = Analytics(ana_cfg) if ana_cfg.get("enabled") else None
 
+    profile_ctx = None
+    if args.profile:
+        from ..utils.profiler import trace
+        profile_ctx = trace(args.profile)
+        profile_ctx.__enter__()
+        log.info("profiling to %s", args.profile)
+
     n_frames = 0
     tail_s = 0.0
     t_first = None
@@ -321,6 +331,8 @@ def main(argv=None) -> int:
                     break
             n_frames += 1
     finally:
+        if profile_ctx is not None:
+            profile_ctx.__exit__(None, None, None)
         if args.state:
             engine.save_state(args.state)
             log.info("saved tracking state to %s", args.state)

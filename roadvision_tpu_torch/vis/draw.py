@@ -1,11 +1,12 @@
 """Detection/tracking overlay rendering — a copy of
-``roadvision_tpu/vis/draw.py`` with the numpy paths only (the JAX package
-asks its C++ host ops first; both give the same pixels).
+``roadvision_tpu/vis/draw.py``.
 
-Host-side numpy rasterizer — overlay on decoded frames is host work. No cv2
-dependency: rectangles are strided slice fills; text uses the 5×7 bitmap
-font scaled to approximate cv2's HERSHEY_SIMPLEX metrics at the configured
-``font_scale``.
+Overlay on decoded frames is host work. Rectangles, glyph blits and the
+compare canvas go through the C++ host ops (``runtime/native``) first,
+as in the JAX package, and through numpy where those are unavailable or
+the image is not C-contiguous uint8 BGR; both give the same pixels. No
+cv2 dependency: text uses the 5×7 bitmap font scaled to approximate
+cv2's HERSHEY_SIMPLEX metrics at the configured ``font_scale``.
 
 Behavior preserved:
   * per-class color from the same 10-entry table keyed cls_id % 10
@@ -38,6 +39,27 @@ SKELETON = ((15, 13), (13, 11), (16, 14), (14, 12), (11, 12), (5, 11),
             (0, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 6))
 
 
+_NATIVE = None
+
+
+def _native():
+    """Lazy handle to the C++ host ops (runtime/native); False where they
+    cannot be built (``RVT_NATIVE=0``, no toolchain)."""
+    global _NATIVE
+    if _NATIVE is None:
+        from ..runtime import native as native_mod
+        _NATIVE = native_mod if native_mod.available() else False
+    return _NATIVE
+
+
+def _native_for(img: np.ndarray):
+    """The host ops where ``img`` is what they take, else False."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3 \
+            or not img.flags["C_CONTIGUOUS"]:
+        return False
+    return _native()
+
+
 def _font_scale_to_zoom(font_scale: float) -> int:
     # HERSHEY_SIMPLEX cap height ≈ 22 px at scale 1.0; our glyph is 7 px
     return max(1, int(round(font_scale * 22 / GLYPH_H)))
@@ -46,6 +68,10 @@ def _font_scale_to_zoom(font_scale: float) -> int:
 def draw_rect(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
               color, thickness: int = 2) -> None:
     """Axis-aligned rectangle outline, clipped to the image."""
+    nat = _native_for(img)
+    if nat:
+        nat.draw_rect(img, x1, y1, x2, y2, color, thickness)
+        return
     h, w = img.shape[:2]
     t = max(1, int(thickness))
     color = np.asarray(color, img.dtype)
@@ -63,6 +89,10 @@ def draw_rect(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
 
 
 def fill_rect(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color):
+    nat = _native_for(img)
+    if nat:
+        nat.fill_rect(img, x1, y1, x2, y2, color)
+        return
     h, w = img.shape[:2]
     x1, x2 = max(0, x1), min(w, x2)
     y1, y2 = max(0, y1), min(h, y2)
@@ -89,6 +119,10 @@ def put_text(img: np.ndarray, text: str, org: Tuple[int, int],
 
 
 def _blit(img, mask, x, y, color):
+    nat = _native_for(img)
+    if nat:
+        nat.blit_mask(img, mask, x, y, color)
+        return
     h, w = img.shape[:2]
     th, tw = mask.shape
     ya, xa = max(0, y), max(0, x)
@@ -368,21 +402,32 @@ def make_canvas(raw_bgr: np.ndarray, proc_bgr: np.ndarray, layout: str = "h",
     def put_label(img, org, text, color=(50, 220, 50)):
         put_text(img, text, org, color, font_scale=0.8, outline=(0, 0, 0))
 
+    nat = raw_bgr.shape == proc_bgr.shape and _native_for(
+        np.ascontiguousarray(raw_bgr)) and _native_for(
+        np.ascontiguousarray(proc_bgr))
     if layout.lower() == "v":
-        parts = [raw_bgr]
-        if divider_px:
-            parts.append(np.full((divider_px, w, 3), (40, 40, 40), np.uint8))
-        parts.append(proc_bgr)
-        canvas = np.vstack(parts)
+        if nat:
+            canvas = nat.canvas(raw_bgr, proc_bgr, "v", divider_px)
+        else:
+            parts = [raw_bgr]
+            if divider_px:
+                parts.append(np.full((divider_px, w, 3), (40, 40, 40),
+                                     np.uint8))
+            parts.append(proc_bgr)
+            canvas = np.vstack(parts)
         put_label(canvas, (10, 30), label_raw)
         put_label(canvas, (10, h + divider_px + 30), label_proc,
                   color=(0, 200, 255))
     else:
-        parts = [raw_bgr]
-        if divider_px:
-            parts.append(np.full((h, divider_px, 3), (40, 40, 40), np.uint8))
-        parts.append(proc_bgr)
-        canvas = np.hstack(parts)
+        if nat:
+            canvas = nat.canvas(raw_bgr, proc_bgr, "h", divider_px)
+        else:
+            parts = [raw_bgr]
+            if divider_px:
+                parts.append(np.full((h, divider_px, 3), (40, 40, 40),
+                                     np.uint8))
+            parts.append(proc_bgr)
+            canvas = np.hstack(parts)
         put_label(canvas, (10, 30), label_raw)
         put_label(canvas, (w + divider_px + 10, 30), label_proc,
                   color=(0, 200, 255))

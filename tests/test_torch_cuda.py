@@ -305,7 +305,8 @@ def test_pinned_ring_is_not_overwritten_under_a_slow_consumer(dev):
     (32, 32, 3, 1, 32, None, (20, 24)),    # depthwise: int32 elementwise
     (3, 16, 6, 2, 1, 2, (64, 96)),         # the v5 6 × 6 stem
     (256, 64, 3, 1, 1, None, (4, 4)),      # K = 2304, M = 16 → 17 rows
-])
+    (80, 80, 1, 1, 1, None, (32, 32)),     # a 1 x 1 im2col view of one
+])                                         # image: made row-major
 def test_int8_conv_on_the_card_equals_the_cpu_path(dev, cin, cout, k, stride,
                                                     groups, pad, hw):
     """``torch._int_mm`` on the card (K and N padded to multiples of 8, M
