@@ -21,7 +21,16 @@ Phases, in order; any failure exits non-zero:
      before every call (the LUT kernel also on noise, one value and a
      camera-like plane, since its time depends on the data), and the
      bound (the larger of bytes read once and written once over
-     3.35 TB/s and scalar operations over 67 T/s);
+     3.35 TB/s and scalar operations over 67 T/s); then the tail's loops,
+     K4 ``assoc_greedy``, K5 ``assoc_auction`` and K6 ``nms_keep``,
+     bit-equal to their plain versions on road-scene IoU matrices (one
+     100 x 100 problem, the main path's; eight, a fleet's), ties, all
+     invalid, a 100-round chain, NaN scores, ragged sizes, max_det = 300
+     (K4's matrix then in global memory; random and a 300-round chain),
+     and for K6 the main path's 8 x 300 candidates, all overlapping,
+     none valid, a chain and 600 candidates; each problem alone equal to
+     the batch; timed like K1-K3, their bound's operations counted from
+     the rounds these inputs take;
   4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
      CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
      PipelineEngine.process_batch: one batch in float32 with TF32 off
@@ -35,9 +44,23 @@ Phases, in order; any failure exits non-zero:
      and read just after (each kernel once per batch), timed in
      frames/s, and sanity-checked: on the first batch it tracks as many
      distinct objects as the float32 run;
+  4b. ``[graph]``: the main path at 1080p x 8 bf16 replays one CUDA graph
+     a batch (``engine.step_mode == "graph"``): GRAPH_BATCHES replayed
+     batches against as many eager ``engine.step`` batches from the same
+     state (ids, classes, counts exact, boxes BOX_TOL, confidences
+     CONF_TOL), the same exact launch counts both ways (K1-K3 and K6 once
+     a batch, K4 once a frame), no host read in a replayed batch; stage
+     ms eager and graph (each stage captured alone), frames/s eager and
+     graph (device-resident, in turns), the device's idle share by
+     torch.profiler, the fleet at 1080p x 8 a stream for S = 1, 2, 4, 8
+     eager and graph, and multi_stream.yaml's fleet replayed with no host
+     read;
   5. drive the serving surface at 1080p x batch 8 with the default chain,
      each path with the launch counters set to 0 just before and read
-     just after (one launch of each kernel per batch on every path):
+     just after (on every path K1-K3 once a step, K6 once a step that
+     runs the YOLO detector, K4 / K5 as often as the tracker associates,
+     all exact; a step is a batch, or a warm-up call of a CUDA graph's
+     capture, which the window of an engine's first batch holds):
      ``[entry] api`` (``Pipeline`` over 16 frames against
      ``process_batch`` on the same frames and stamps: ids, classes,
      boxes, confidences, distance and speed equal bit for bit;
@@ -173,7 +196,13 @@ Phases, in order; any failure exits non-zero:
      plain version; chiprun_out/profile_*.json) and ``[autotune] --quick
      --sweeps clahe_chunk`` (five bench processes; each trial's batches
      launch each kernel once); results in chiprun_out/tools.json;
-Options: ``--kernels-only`` stops after phase 3; ``--train-only`` runs
+Every path's counts hold K1-K3 as before; K4-K6 are held exactly where a
+path names them (the main path, ``[graph]``, the second paths, the
+tracker backends, the fleet, the bench lines) and summed into the
+``kernels`` line everywhere.
+
+Options: ``--kernels-only`` stops after phase 3; ``--graph-only`` runs
+phase 3 and ``[graph]``; ``--train-only`` runs
 only phase 7c (training); ``--parallel-only`` only phase 7d;
 ``--tools-only`` only phase 7e; ``--fleet-cards`` runs
 only the fleet on every visible card against the same fleet on one
@@ -648,10 +677,11 @@ def second_paths(model: str, batches, card: str) -> dict:
         # per batch one launch of each kernel; the gate's impulse
         # statistic adds one of the median on the gray subsample
         want = {"clahe_tile_luts": 2, "clahe_apply": 2,
-                "median_k": 4 if name == "gated" else 2}
+                "median_k": 4 if name == "gated" else 2,
+                **tail_want(2, 2 * BATCH)}
         if counts != want:
-            fail(f"{name} path: launches {counts} in 2 batches, expected "
-                 f"{want}")
+            launch_mismatch(f"{name} path: launches {counts} in 2 batches, "
+                            f"expected {want}")
         print(f"[e2e] {name} path, float32: {n_dets} detections match the "
               f"CPU path (max box err {worst:.2e} px), frames bit-equal;"
               f"{note} 2 more batches at {fps:.1f} frames/s ({card}); "
@@ -663,7 +693,60 @@ def second_paths(model: str, batches, card: str) -> dict:
 
 # every path's launches, read just after the path (launches made only to
 # compare a kernel with its plain version are not counted)
-PATH_TOTALS = {"clahe_tile_luts": 0, "clahe_apply": 0, "median_k": 0}
+PATH_TOTALS = {"clahe_tile_luts": 0, "clahe_apply": 0, "median_k": 0,
+               "assoc_greedy": 0, "assoc_auction": 0, "nms_keep": 0}
+# the preprocess kernels (K1-K3), held to one launch a batch on every
+# path, and the tail's loops (K4-K6: NMS, then the association of every
+# tracked frame), held to what each path runs
+PRE_KERNELS = ("clahe_tile_luts", "clahe_apply", "median_k")
+TAIL_KERNELS = ("nms_keep", "assoc_greedy", "assoc_auction")
+
+
+def warm(captures: int) -> int:
+    """Steps run by the warm-ups of ``captures`` CUDA graph captures
+    (``runtime/graph.py``: each capture first runs its step
+    WARMUP_CALLS times on a side stream, and those launches count)."""
+    from roadvision_tpu_torch.runtime.graph import WARMUP_CALLS
+    return WARMUP_CALLS * captures
+
+
+def tail_want(batches: int, frames: int, per_frame: int = 1,
+              assoc: str = "assoc_greedy") -> dict:
+    """K4-K6 launches of ``batches`` detector batches whose tracker steps
+    ``frames`` frames (a fleet's stacked step: frames of one stream),
+    ``per_frame`` association launches a frame."""
+    return {"nms_keep": batches, "assoc_greedy": 0, "assoc_auction": 0,
+            assoc: frames * per_frame}
+
+
+def tracked(frames: int = BATCH, per_frame: int = 1,
+            assoc: str = "assoc_greedy", nms: bool = True):
+    """The tail of a path each of whose steps runs NMS (where ``nms``)
+    and then the tracker over ``frames`` frames: → K4-K6 of ``n``
+    steps."""
+    return lambda n: tail_want(n if nms else 0, n * frames, per_frame,
+                               assoc)
+
+
+NO_TAIL = {k: 0 for k in TAIL_KERNELS}
+
+
+def per_batch_ok(per_batch: dict) -> bool:
+    """A bench line's launches per (fleet) batch of BATCH frames: K1-K3
+    and K6 once, K4 once a frame (a fleet's stacked step: once a frame
+    for every stream), K5 never."""
+    return per_batch == {**{k: 1.0 for k in PRE_KERNELS},
+                         **tail_want(1, BATCH)}
+
+
+def launch_mismatch(msg: str) -> None:
+    """A path launched other kernels, or other counts, than it runs."""
+    fail(msg)
+
+
+def check_tail(what: str, counts: dict, want: dict) -> None:
+    if {k: counts[k] for k in TAIL_KERNELS} != want:
+        launch_mismatch(f"{what}: tail launches {counts}, expected {want}")
 
 
 def add_to_totals(counts: dict) -> dict:
@@ -674,7 +757,8 @@ def add_to_totals(counts: dict) -> dict:
 
 class PathLaunches:
     """The kernels' launch counts around one path: 0 just before, read
-    just after, and held to one launch of each kernel per batch."""
+    just after, and held to one launch of each preprocess kernel per
+    batch and to the path's tail."""
 
     def __init__(self, name: str):
         self.name = name
@@ -684,15 +768,22 @@ class PathLaunches:
         kernels.reset_launch_counts()
         return self
 
-    def check(self, batches: int, at_least: bool = False) -> dict:
+    def check(self, batches: int, tail, at_least: bool = False) -> dict:
+        """``batches`` steps (at least, with ``at_least``), warm-ups of
+        captures included; ``tail``: K4-K6 as a dict, or as a function of
+        the steps counted."""
         from roadvision_tpu_torch import kernels
         counts = dict(kernels.launch_counts)
-        ok = len(set(counts.values())) == 1 and (
+        pre = {counts[k] for k in PRE_KERNELS}
+        ok = len(pre) == 1 and (
             counts["median_k"] >= batches if at_least
             else counts["median_k"] == batches)
         if not ok or batches < 1:
-            fail(f"{self.name}: launches {counts} for "
-                 f"{'at least ' if at_least else ''}{batches} batches")
+            launch_mismatch(f"{self.name}: launches {counts} for "
+                            f"{'at least ' if at_least else ''}{batches} "
+                            f"batches")
+        check_tail(self.name, counts,
+                   tail(counts["median_k"]) if callable(tail) else tail)
         return add_to_totals(counts)
 
     def __exit__(self, *exc):
@@ -762,7 +853,8 @@ def entry_api(model: str, batches, out_dir: Path) -> dict:
     n = 2 * BATCH
     with PathLaunches("[entry] api") as pl:
         got = list(pipe(max_frames=n))
-        counts = pl.check(n // BATCH)
+        # the engine's first batch captures its graph
+        counts = pl.check(n // BATCH + warm(1), tracked())
     if len(got) != n:
         fail(f"[entry] api: {len(got)} results for {n} frames")
     # the same frames and stamps through process_batch of a fresh engine
@@ -810,7 +902,7 @@ def entry_api(model: str, batches, out_dir: Path) -> dict:
     avi = out_dir / "api.avi"
     with PathLaunches("[entry] api process_video") as pl:
         summary = pipe.process_video(None, str(avi), max_frames=n)
-        pl.check(n // BATCH)
+        pl.check(n // BATCH, tracked())
     if summary["frames"] != n or summary["unique_tracks"] < 1:
         fail(f"[entry] api: process_video summary {summary}")
     check_avi(avi, n, (WIDTH, HEIGHT))
@@ -834,7 +926,7 @@ def entry_preview(model: str, tmp: Path) -> dict:
         rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
                            "--no-show", "--record", str(avi)])
         elapsed = time.perf_counter() - t0
-        counts = pl.check(n // BATCH)
+        counts = pl.check(n // BATCH + warm(1), tracked())
     if rc != 0:
         fail(f"[entry] preview: main returned {rc}")
     check_avi(avi, n, (2 * WIDTH + 4, HEIGHT))
@@ -884,7 +976,8 @@ def entry_serve(model: str) -> dict:
         if hub.error is not None:
             fail(f"[entry] serve: the pipeline failed: {hub.error!r}")
         frames = hub.stats["frames"]
-        counts = pl.check(math.ceil(frames / BATCH), at_least=True)
+        counts = pl.check(math.ceil(frames / BATCH) + warm(1), tracked(),
+                          at_least=True)
     deadline = time.time() + 20.0
     while set(threading.enumerate()) - before and time.time() < deadline:
         time.sleep(0.05)
@@ -940,7 +1033,9 @@ def state_phase(model: str, batches, tmp: Path, tracking=None) -> dict:
         second.load_state(path)
         got = [second.process_batch(f, t, want_proc=False)
                for f, t in batches[3:6]]
-        counts = pl.check(9)
+        # two engines, each capturing its graph at its first batch
+        counts = pl.check(9 + warm(2 * (first.step_mode == "graph")),
+                          tracked(BATCH, 2 if tracking else 1))
     n = sum(same_detections(a, b, label) for a, b in zip(want, got))
     ids = {d.track_id for rs in got for r in rs for d in r.detections}
     speeds = sum(d.speed_kmh is not None
@@ -987,7 +1082,10 @@ def tracker_phase(model: str, batches) -> dict:
                         fail(f"[tracker]: SortTracker gives {d}, the engine "
                              f"{e}")
                     n += 1
-        counts = pl.check(2)
+        # the engine: 2 batches and its capture's warm-ups; the
+        # SortTracker on the card: one association a frame
+        runs = 2 + warm(1)
+        counts = pl.check(runs, tail_want(runs, runs * BATCH + 2 * BATCH))
     if n == 0:
         fail("[tracker]: no detections to compare")
     print(f"[tracker] SortTracker.update over the engine's detections of "
@@ -1020,7 +1118,7 @@ def bench_phase(model: str, card: str) -> dict:
             or line["device"]["platform"] != "gpu":
         fail(f"[bench]: line lacks {need - set(line)} or names another card "
              f"({line.get('card')!r})")
-    if set(line["launches_per_batch"].values()) != {1.0}:
+    if not per_batch_ok(line["launches_per_batch"]):
         fail(f"[bench]: launches per batch {line['launches_per_batch']}")
     for key in ("host_fed_process_batch_fps", "host_fed_stream_fps",
                 "device_resident_fps"):
@@ -1047,6 +1145,10 @@ TRACKER_PATHS = {
     "botsort": {"backend": "botsort", "gmc": True},
     "deepsort reid": {"backend": "deepsort", "reid_weights": REID_NPZ},
 }
+# name → (association launches a frame, which kernel)
+ASSOC_PER_FRAME = {"sort": (1,), "hungarian": (1, "assoc_auction"),
+                   "bytetrack": (2,), "ocsort": (2,), "deepsort": (1,),
+                   "strongsort": (1,), "botsort": (2,), "deepsort reid": (1,)}
 # the JAX SortState's fields, in its order (roadvision_tpu/track/
 # sort_tpu.py:79-111): a state file must carry each as sort_<name>
 JAX_SORT_FIELDS = (
@@ -1141,7 +1243,8 @@ def tracker_backends(model: str, batches, card: str, front) -> dict:
                 n += compare_tracks(cpu.process_batch(frames, ts), r_gpu,
                                     worst, f"[tracker] {name}")
                 ids |= {d.track_id for r in r_gpu for d in r.detections}
-            pl.check(3)
+            runs = 3 + warm(gpu.step_mode == "graph")
+            pl.check(runs, tracked(BATCH, *ASSOC_PER_FRAME[name]))
         if n == 0 or len(ids - {None}) < 3:
             fail(f"[tracker] {name}: {n} detections, ids {sorted(ids, key=str)}")
         eng = PipelineEngine(cfg, device="cuda")
@@ -1164,7 +1267,8 @@ def tracker_backends(model: str, batches, card: str, front) -> dict:
                               1000.0 + (k + np.arange(BATCH)) / 30.0,
                               want_proc=False)
             syncs = tsort.host_syncs
-            counts = pl.check(DET_ITERS * DET_WINDOWS + 1)
+            counts = pl.check(DET_ITERS * DET_WINDOWS + 1,
+                              tracked(BATCH, *ASSOC_PER_FRAME[name]))
         sort_ms = [stage_ms(eng, *batches[5])["sort_geometry"]
                    for _ in range(DET_WINDOWS)]
         row = {"fps": fps, "sort_geometry_ms": {
@@ -1246,7 +1350,7 @@ def gmc_phase(model: str, batches, card: str, front) -> dict:
                      f"{got[1].tolist()}, known {known.tolist()}")
             n += compare_tracks(cpu.process_batch(frames, ts),
                                 gpu.process_batch(frames, ts), worst, "[gmc]")
-        counts = pl.check(3)
+        counts = pl.check(3, tracked(BATCH, *ASSOC_PER_FRAME["strongsort"]))
     print(f"[gmc] a pan of 24 frames through strongsort: the card's shifts "
           f"equal the CPU's and the known ones (up to "
           f"{int(np.abs(known).max())} px a frame); {n} detections match "
@@ -1297,7 +1401,11 @@ def gate_phase(model: str, batches, card: str, front) -> dict:
         worst = {"box": 0.0, "distance_m": 0.0, "speed_kmh": 0.0}
         with PathLaunches(f"[gate] {scene}") as pl:
             r_gpu = list(gpu.stream(ListSource(clip), want_proc=False))
-            counts = pl.check(len(clip))
+            # a coasted batch runs no detector (no NMS) but tracks its
+            # frames on the reused detections
+            coast = gpu.gate_frames_coasted // BATCH
+            counts = pl.check(len(clip), tail_want(len(clip) - coast,
+                                                   len(clip) * BATCH))
         r_cpu = list(cpu.stream(ListSource(clip), want_proc=False))
         n = compare_tracks(r_cpu, r_gpu, worst, f"[gate] {scene}")
         coasted = (gpu.gate_frames_coasted, cpu.gate_frames_coasted)
@@ -1315,8 +1423,10 @@ def gate_phase(model: str, batches, card: str, front) -> dict:
     with PathLaunches("[gate] bench") as pl, contextlib.redirect_stdout(buf):
         rc = bench.main(["--mode", "gate", "--iters", "2", "--windows", "2",
                          "--warmup", "1", "--model", model])
-        counts = pl.check(1, at_least=True)
-    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        # every step tracks its frames; a coasted one runs no detector
+        counts = pl.check(1, lambda n: tail_want(
+            n - line["coasted_batches"], n * BATCH), at_least=True)
     if rc != 0 or line["card"] != card or not line["static"][
             "coasted_share"] > 0 or line["moving"]["coasted_share"] != 0:
         fail(f"[gate] bench: rc {rc}, line {line}")
@@ -1360,7 +1470,7 @@ def entry_track_gt(model: str, tmp: Path) -> dict:
                              "--width", str(WIDTH), "--height", str(HEIGHT),
                              "--gt", str(gt), "--device", dev])
             if dev == "cuda":
-                counts = pl.check(2)
+                counts = pl.check(2 + warm(1), tracked())
         lines[dev] = json.loads(buf.getvalue().strip().splitlines()[-1])
         scores[dev] = evaluate_all(track.read_mot(gt, n),
                                    track.read_mot(out, n))
@@ -1569,9 +1679,10 @@ def detector_phase(batches, card: str, tmp: Path) -> dict:
                                     else "float32"}})
         gpu = PipelineEngine(cfg32, device="cuda")
         cpu = PipelineEngine(cfg32, device="cpu")
+        nms = not getattr(gpu.detector, "nms_free", False)
         with PathLaunches(f"[detector] {name}") as pl:
             r_gpu = gpu.process_batch(frames, ts)
-            pl.check(1)
+            pl.check(1 + warm(gpu.step_mode == "graph"), tracked(nms=nms))
         r_cpu = cpu.process_batch(frames[:n_cpu], ts[:n_cpu])
         worst = compare_task_results(r_cpu, r_gpu[:n_cpu], name)
         n_dets = sum(len(r.detections) for r in r_cpu)
@@ -1595,7 +1706,7 @@ def detector_phase(batches, card: str, tmp: Path) -> dict:
 
         with PathLaunches(f"[detector] {name} timed") as pl:
             fps = windows_fps(window, DET_WINDOWS, torch.device("cuda"))
-            counts = pl.check(DET_ITERS * DET_WINDOWS)
+            counts = pl.check(DET_ITERS * DET_WINDOWS, tracked(nms=nms))
         runs = [stage_ms(timed_eng, *batches[1]) for _ in range(DET_WINDOWS)]
         stages = {k: {"median": float(np.median([r[k] for r in runs])),
                       "min": min(r[k] for r in runs),
@@ -1726,7 +1837,7 @@ def export_phase(batches, tmp: Path, card: str) -> dict:
         with PathLaunches(f"[detector] i {name}") as pl:
             runs[name] = [eng.process_batch(f, t, want_proc=False)
                           for f, t in batches[:2]]
-            pl.check(2)
+            pl.check(2 + warm(eng.step_mode == "graph"), tracked())
     n = 0
     for name in ("onnx", "pt"):
         for a, b in zip(runs["npz"], runs[name]):
@@ -1740,16 +1851,19 @@ def export_phase(batches, tmp: Path, card: str) -> dict:
     return {"detections_last_batch": n}
 
 
-def gated_counts(what: str, batches: int) -> dict:
+def gated_counts(what: str, batches: int, nms: bool = True) -> dict:
     """The kernels' launch counts after a gated path with the impulse
-    statistic: K1 and K2 once per batch, K3 twice (the statistic's
-    median on the gray subsample, then the chain)."""
+    statistic (eager): K1 and K2 once per batch, K3 twice (the
+    statistic's median on the gray subsample, then the chain); NMS once
+    a batch (``nms``: not for RT-DETR) and SORT's association once a
+    frame."""
     from roadvision_tpu_torch import kernels
     counts = dict(kernels.launch_counts)
     want = {"clahe_tile_luts": batches, "clahe_apply": batches,
-            "median_k": 2 * batches}
+            "median_k": 2 * batches,
+            **tail_want(batches * nms, batches * BATCH)}
     if counts != want or batches < 1:
-        fail(f"{what}: launches {counts}, expected {want}")
+        launch_mismatch(f"{what}: launches {counts}, expected {want}")
     return add_to_totals(counts)
 
 
@@ -1857,7 +1971,8 @@ def entry_demo(name: str, tmp: Path) -> dict:
     rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
                        "--no-show", "--record", str(avi)])
     elapsed = time.perf_counter() - t0
-    counts = gated_counts(f"[entry] {name}", n // BATCH)
+    nms = "rtdetr" not in Path(load_config(str(cfg_path))["detect"]["model"]).name
+    counts = gated_counts(f"[entry] {name}", n // BATCH, nms)
     if rc != 0:
         fail(f"[entry] {name}: main returned {rc}")
     check_avi(avi, n, (2 * cam["width"] + 4, cam["height"]))
@@ -1939,9 +2054,11 @@ def streams_phase(model: str, card: str) -> dict:
     if [d.type for d in gpu.devices] != ["cuda"] or gpu.padded_streams != s:
         fail(f"[streams]: devices {gpu.devices}, {gpu.padded_streams} "
              f"streams (one card, no padding expected)")
+    if gpu.step_mode != "graph":
+        fail(f"[streams]: step_mode {gpu.step_mode} ({gpu.engine.eager_reason})")
     with PathLaunches("[streams] float32") as pl:
         r_gpu = gpu.process_batch(*fb[0])
-        counts32 = pl.check(1)
+        counts32 = pl.check(1 + warm(1), tracked(b))
     cpu = MultiStreamEngine(cfg32, s, devices=["cpu"])
     t_cpu = time.perf_counter()
     r_cpu = cpu.process_batch(*fb[0])
@@ -1999,7 +2116,8 @@ def streams_phase(model: str, card: str) -> dict:
         tsort.reset_host_syncs()
         eng.process_batch(*shifted(next(fed)))
         syncs = tsort.host_syncs
-        counts = pl.check(FLEET_ITERS * FLEET_WINDOWS + 1)
+        n_fleet = FLEET_ITERS * FLEET_WINDOWS + 1
+        counts = pl.check(n_fleet, tracked(b))
     # the stages of the next fleet batch, on the fleet's running state
     frames, ts = shifted(next(fed))
     frames_d = torch.from_numpy(frames).cuda()
@@ -2023,7 +2141,7 @@ def streams_phase(model: str, card: str) -> dict:
 
     with PathLaunches("[streams] single stream") as pl:
         fps1 = windows_fps(single_window, FLEET_WINDOWS, torch.device("cuda"))
-        pl.check(FLEET_ITERS * FLEET_WINDOWS)
+        pl.check(FLEET_ITERS * FLEET_WINDOWS, tracked(b))
     per = {k: fps[k] / s for k in ("median", "min", "max")}
     print(f"[streams] bfloat16: {s} streams x {w}x{h} x batch {b} through "
           f"process_batch: {fps['median']:.1f} frames/s in all [min "
@@ -2069,7 +2187,9 @@ def streams_gate_phase(model: str, card: str) -> dict:
                 with PathLaunches(f"[streams] gate {scene}") as pl:
                     got = [eng.process_batch(f, t)
                            for f, t in zip(clip, stamps)]
-                    counts = pl.check(full)
+                    # a coasted fleet batch runs no detector but tracks
+                    # its frames on the reused detections
+                    counts = pl.check(full, tail_want(full, len(clip) * b))
             else:
                 got = [eng.process_batch(f, t) for f, t in zip(clip, stamps)]
             res[dev] = (got, eng.gate_frames_coasted)
@@ -2119,7 +2239,7 @@ def entry_multi_preview(model: str, tmp: Path) -> dict:
         rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
                            "--no-show", "--record", str(avi)])
         elapsed = time.perf_counter() - t0
-        counts = pl.check(n // b)
+        counts = pl.check(n // b + warm(1), tracked(b))
     if rc != 0:
         fail(f"[entry] multi_preview: main returned {rc}")
     size = grid_size(multi_cfg(model))
@@ -2190,7 +2310,8 @@ def entry_multi_serve(model: str) -> dict:
     n = 64
     with PathLaunches("[entry] multi_serve") as pl:
         parts, ans = serve_until_done(cfg, n, parts=3)
-        counts = pl.check(n // cfg["tpu"]["batch_size"])
+        b = cfg["tpu"]["batch_size"]
+        counts = pl.check(n // b + warm(1), tracked(b))
     size = grid_size(cfg)
     if len(parts) != 3 or any(Image.open(io.BytesIO(p)).size != size
                               for p in parts):
@@ -2216,7 +2337,10 @@ def entry_streams_api(model: str) -> dict:
     n_frames = 2 * b + b // 2
     with PathLaunches("[entry] streams_api") as pl:
         got = list(pipe.streams(max_frames=n_frames))
-        counts = pl.check(3)
+        # two shapes (b and b // 2 frames), two captures
+        runs = 3 + warm(2)
+        counts = pl.check(runs, tail_want(
+            runs, 2 * b + b // 2 + warm(1) * (b + b // 2)))
     if [len(batch[0]) for batch in got] != [b, b, b // 2]:
         fail(f"[entry] streams_api: batches of "
              f"{[len(batch[0]) for batch in got]} frames")
@@ -2274,9 +2398,10 @@ def entry_analytics_demo(tmp: Path) -> dict:
                            "--no-show", "--record", str(avi)])
     finally:
         preview.Analytics = real
-    if rc != 0 or len(made) != 1 or set(kernels.launch_counts.values()) != {0}:
-        fail(f"[entry] analytics_demo: rc {rc}, {len(made)} aggregates, "
-             f"launches {dict(kernels.launch_counts)}")
+    if rc != 0 or len(made) != 1:
+        fail(f"[entry] analytics_demo: rc {rc}, {len(made)} aggregates")
+    # no chain; deepsort (eager): NMS a batch, one association a frame
+    exact_launches("[entry] analytics_demo", tail_want(8, 60))
     check_avi(avi, 60, (2 * 256 + 4, 256))
     summary = made[0].summary()
     print(f"[entry] analytics_demo preview: 60 frames, {made[0].n_events} "
@@ -2360,11 +2485,11 @@ def bench_streams_phase(model: str, card: str) -> dict:
                 rc = bench.main(["--mode", "streams", "--iters", "2",
                                  "--windows", "3", "--warmup", "1",
                                  "--model", model])
-            pl.check(1, at_least=True)
+            pl.check(1, tracked(), at_least=True)
         line = json.loads(buf.getvalue().strip().splitlines()[-1])
         if rc != 0 or line["card"] != card \
                 or line["metric"] != f"streams{s}_{HEIGHT}p_fps" \
-                or set(line["launches_per_batch"].values()) != {1.0} \
+                or not per_batch_ok(line["launches_per_batch"]) \
                 or not line["streams_fps"]["median"] > 0:
             fail(f"[bench] streams {s}: rc {rc}, line {line}")
         out[s] = line
@@ -2411,14 +2536,24 @@ def fleet_cards_phase(model: str, card: str) -> dict:
         fail(f"--fleet-cards: devices {many.devices}")
     with PathLaunches("[fleet cards] float32") as pl:
         got = many.process_batch(*fb[0])
-        counts = pl.check(n)
+        # one step a card, each after its group's capture
+        counts = pl.check(n * (1 + warm(1)), tracked(b))
+    # each card's group replays its own graph, captured on its card
+    for grp in many.groups:
+        graphs = grp.engine._graphs
+        if grp.engine.step_mode != "graph" or len(graphs) != 1 or any(
+                g.device != grp.engine.device for g in graphs.values()):
+            fail(f"[fleet cards]: {grp.engine.device} runs "
+                 f"{grp.engine.step_mode} with graphs "
+                 f"{ {k: g.device for k, g in graphs.items()} }")
     want = one.process_batch(*fb[0])
     worst, n_dets = compare_fleet(want, got, "[fleet cards]")
     if n_dets == 0:
         fail("[fleet cards]: no detections")
-    print(f"[fleet cards] float32 fleet of {s} x 720p x {b} on {n} cards "
-          f"equals the one-card fleet ({n_dets} detections, max box err "
-          f"{worst:.2e} px, ids equal); launches {counts} (one per card)",
+    print(f"[fleet cards] float32 fleet of {s} x 720p x {b} on {n} cards, "
+          f"one CUDA graph a card, equals the one-card fleet ({n_dets} "
+          f"detections, max box err {worst:.2e} px, ids equal); launches "
+          f"{counts} (each card: its capture's warm-ups, one replay)",
           flush=True)
     out["float32"] = {"detections": n_dets, "max_box_err": worst,
                       "launches": counts}
@@ -2767,9 +2902,7 @@ def train_phase(card: str, tmp: Path) -> dict:
           f"{res['step_ms_max']:.2f}], {res['images_per_s']:.1f} crops/s, "
           f"host syncs a step {res['host_syncs_per_step']} ({card})",
           flush=True)
-    counts = add_to_totals(dict(kernels.launch_counts))
-    if any(counts.values()):
-        fail(f"[train] the preprocess kernels launched {counts}")
+    counts = exact_launches("[train]", {})
     print(f"[train] kernels launched across training: {counts}", flush=True)
     out["launches"] = counts
     return out
@@ -2795,7 +2928,8 @@ def entry_train(tmp: Path, card: str) -> dict:
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     if cli.train(common + ["--steps", "20", "--eval-every", "10",
-                           "--save-every", "10", "--out", str(out)]) != 0:
+                           "--eval-size", "16", "--save-every", "10",
+                           "--out", str(out)]) != 0:
         fail("[entry] train: the 20-step run returned non-zero")
     t_run = time.perf_counter() - t0
     if load_train_state(out)[2] != 20:
@@ -2815,16 +2949,16 @@ def entry_train(tmp: Path, card: str) -> dict:
     if train_reid.main(["--steps", "20", "--out",
                         str(tmp / "train" / "reid.npz")]) != 0:
         fail("[entry] train_reid returned non-zero")
-    counts = add_to_totals(dict(kernels.launch_counts))
-    if any(counts.values()):
-        fail(f"[entry] train: the preprocess kernels launched {counts}")
+    # the mAP eval at steps 10 and 20: one detector call (one NMS) an
+    # image of the 16 held out; no chain, no tracker
+    counts = exact_launches("[entry] train", {"nms_keep": 2 * 16})
     weights = str(resumed.with_suffix(".weights.npz"))
     with PathLaunches("[entry] train serve") as pl:
         engine = PipelineEngine(pipeline_cfg(weights), device="cuda")
         frames, ts = render_batches(1, seed=5)[0]
         res = engine.process_batch(frames, ts)
         torch.cuda.synchronize()
-        serve_counts = pl.check(1)
+        serve_counts = pl.check(1 + warm(1), tracked())
     dets = sum(len(r.detections) for r in res)
     for r in res:
         for d in r.detections:
@@ -3244,9 +3378,13 @@ def parallel_phase(card: str) -> dict:
     out.update(forward_paths(one * 4, "cuda:0 x 4"))
     dryrun_multicard(one * 8)
     torch.cuda.synchronize()
-    counts = add_to_totals(dict(kernels.launch_counts))
-    if any(counts.values()):
-        fail(f"[parallel] the preprocess kernels launched {counts}")
+    # the dry run's two fleets, 8 groups of one 2-frame stream each on
+    # cuda:0 (preprocess off): the plain one captures a graph a group
+    # and steps once, the gated one steps three batches, the second
+    # coasted (no NMS); training and the forwards run no NMS
+    groups, frames = 8, 2
+    counts = exact_launches("[parallel]", tail_want(
+        groups * (1 + warm(1) + 2), groups * frames * (1 + warm(1) + 3)))
     out["launches"] = counts
     print(f"[parallel] dryrun_multicard([cuda:0] x 8) passed; kernels "
           f"launched across the phase {counts}; phase "
@@ -3376,12 +3514,12 @@ FOG_LEVELS_MAX, FOG_SHARE_MAX = 2, 1e-3   # the fog bound (ROADMAP C)
 
 def exact_launches(what: str, want: dict) -> dict:
     """The kernels' counts since the last reset must be ``want``
-    exactly (a kernel not named: 0)."""
+    exactly, every kernel (K1-K6; not named: 0)."""
     from roadvision_tpu_torch import kernels
     counts = dict(kernels.launch_counts)
     full = {k: int(want.get(k, 0)) for k in counts}
     if counts != full:
-        fail(f"{what}: launches {counts}, expected {full}")
+        launch_mismatch(f"{what}: launches {counts}, expected {full}")
     return add_to_totals(counts)
 
 
@@ -3529,7 +3667,7 @@ def entry_preview_profile(model: str, tmp: Path) -> dict:
     with PathLaunches("[entry] preview --profile") as pl:
         rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
                            "--no-show", "--profile", str(trace_dir)])
-        counts = pl.check(n // BATCH)
+        counts = pl.check(n // BATCH + warm(1), tracked())
     files = sorted(trace_dir.glob("*.json"))
     if rc != 0 or len(files) != 1:
         fail(f"[entry] preview --profile: rc {rc}, trace files {files}")
@@ -3565,7 +3703,7 @@ def entry_warmup(model: str, tmp: Path) -> dict:
         rc = warmup.main(["--config", str(cfg_path), "--res", str(HEIGHT),
                           "--batch", str(BATCH)])
         elapsed = time.perf_counter() - t0
-        counts = pl.check(4)
+        counts = pl.check(4, tail_want(2, 4 * BATCH))
     if rc != 0:
         fail(f"[entry] warmup: rc {rc}")
     print(f"[entry] warmup: 1 shape ({BATCH}, {HEIGHT}, {WIDTH}), want_proc "
@@ -3674,10 +3812,14 @@ def eval_weather_phase(out_dir: Path, card: str) -> dict:
         rc, text = run_main(ew.main, ["--out",
                                       str(out_dir / "eval_weather.json")])
         elapsed = time.perf_counter() - t0
-        k = levels * gated_modes * n_batches
+        # a fresh engine a (level, mode): off and on capture their
+        # graphs, auto (the gate) runs eagerly
+        k = levels * (gated_modes * n_batches + warm(1))
+        steps = levels * (3 * n_batches + warm(2))
         counts = exact_launches("[eval] weather", {
             "clahe_tile_luts": k, "clahe_apply": k,
-            "median_k": k + levels * n_batches})   # auto: impulse stat
+            "median_k": k + levels * n_batches,    # auto: impulse stat
+            **tail_want(steps, steps * 8)})
     report = json.loads(text)
     if rc != 0 or len(report["levels"]) != levels:
         fail(f"[eval] weather: rc {rc}, levels {list(report['levels'])}")
@@ -3703,9 +3845,10 @@ def eval_weather_phase(out_dir: Path, card: str) -> dict:
                                    150.0, 8))
         with PathLaunches(f"[eval] weather {mode} f32"):
             d_g = ew.run_mode(cfg, imgs, "cuda")
-            c = exact_launches(f"[eval] weather {mode} f32", {} if mode ==
-                               "off" else {k: EVAL_CHECK // 8
-                                           for k in PATH_TOTALS})
+            runs = EVAL_CHECK // 8 + warm(1)
+            c = exact_launches(f"[eval] weather {mode} f32", {
+                **{k: runs * (mode == "on") for k in PRE_KERNELS},
+                **tail_want(runs, runs * 8)})
         d_c = ew.run_mode(cfg, imgs, "cpu")
         worst = compare_det_lists(d_c, d_g, f"[eval] weather {mode}")
         s_g, s_c = ew.score(d_g, gt), ew.score(d_c, gt)
@@ -3740,8 +3883,16 @@ def eval_trackers_phase(out_dir: Path, card: str) -> dict:
         rc, text = run_main(et.main, ["--out",
                                       str(out_dir / "eval_trackers.json")])
         elapsed = time.perf_counter() - t0
+        # six backends a scene, sort's graph captured in each; the chain
+        # runs on heavy_fog only
+        per_frame = sum(ASSOC_PER_FRAME[b][0] for b in (
+            "sort", "bytetrack", "ocsort", "deepsort", "botsort",
+            "strongsort"))
+        runs = 6 * n_batches + warm(1)
         counts = exact_launches("[eval] trackers", {
-            k: 6 * n_batches for k in PATH_TOTALS})   # heavy_fog: chain on
+            **{k: runs for k in PRE_KERNELS},
+            **tail_want(2 * runs, 2 * 8 * (per_frame * n_batches
+                                           + warm(1)))})
     report = json.loads(text)
     if rc != 0 or any(len(r) != 6 for r in report["scenes"].values()):
         fail(f"[eval] trackers: rc {rc}")
@@ -3754,9 +3905,10 @@ def eval_trackers_phase(out_dir: Path, card: str) -> dict:
                                    0.25, 8, pre))
         with PathLaunches(f"[eval] trackers {backend}"):
             d_g = ew.run_mode(cfg, imgs, "cuda")
-            exact_launches(f"[eval] trackers {backend}",
-                           {k: EVAL_CHECK // 8 for k in PATH_TOTALS} if pre
-                           else {})
+            runs = EVAL_CHECK // 8 + warm(backend == "sort")
+            exact_launches(f"[eval] trackers {backend}", {
+                **{k: runs * pre for k in PRE_KERNELS},
+                **tail_want(runs, runs * 8, *ASSOC_PER_FRAME[backend])})
         d_c = ew.run_mode(cfg, imgs, "cpu")
         worst = compare_det_lists(d_c, d_g, f"[eval] trackers {backend}")
         s_g, s_c = ew.score(d_g, gt), ew.score(d_c, gt)
@@ -3789,7 +3941,13 @@ def benchmark_trackers_phase(out_dir: Path, card: str) -> dict:
     rc, table = run_main(bt.main, ["--out", str(out_dir /
                                                 "benchmark_trackers.json")])
     elapsed = time.perf_counter() - t0
-    counts = exact_launches("[eval] benchmark_trackers", {})
+    # every scenario frame through every backend's step, each calling
+    # the association as often as it does a frame
+    frames = sum(len(fn(np.random.default_rng(0)))
+                 for fn in bt.SCENARIOS.values())
+    counts = exact_launches("[eval] benchmark_trackers", {
+        "assoc_greedy": frames * sum(ASSOC_PER_FRAME[b][0]
+                                     for b in bt.BACKENDS)})
     cpu_out = out_dir / "benchmark_trackers_cpu.json"
     rc_c, table_c = run_main(bt.main, ["--device", "cpu", "--out",
                                        str(cpu_out)])
@@ -3823,7 +3981,12 @@ def dtype_ladder_phase(out_dir: Path, card: str) -> dict:
     rc, text = run_main(dl.main, ["--fps", "--fps-iters", "16", "--out",
                                   str(out_dir / "dtype_ladder.json")])
     elapsed = time.perf_counter() - t0
-    counts = exact_launches("[eval] dtype_ladder", {})   # no chain
+    # no chain; per dtype 64 frames in batches of 8, then --fps: 2
+    # warm-up and 16 timed device-resident batches; float32 and
+    # bfloat16 capture their graphs, int8 and int8-static run eagerly
+    steps = 4 * (64 // 8 + 2 + 16) + warm(2)
+    counts = exact_launches("[eval] dtype_ladder", tail_want(steps,
+                                                             steps * 8))
     rc_c, text_c = run_main(dl.main, ["--device", "cpu", "--dtypes",
                                       "float32,int8,int8-static"])
     got, want = json.loads(text)["dtypes"], json.loads(text_c)["dtypes"]
@@ -3863,12 +4026,16 @@ def profile_phases(out_dir: Path, card: str) -> dict:
     out["rtdetr"]["launches"] = exact_launches("[profile] rtdetr", {})
     out["rtdetr"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    kernels.reset_launch_counts()
     out["detect"] = {"stages": profile_detect.run(Namespace(
         res=HEIGHT, batch=BATCH, iters=8, warmup=2, size="n",
         dtype="bfloat16", only="", device="cuda"))}
-    out["detect"]["launches"] = exact_launches("[profile] detect", {})
+    # the nms and full stages: 2 warm-up, 8 timed calls and a probe each
+    out["detect"]["launches"] = exact_launches("[profile] detect", {
+        "nms_keep": 2 * (2 + 8 + 1)})
     out["detect"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    kernels.reset_launch_counts()
     rows = profile_preprocess.run(Namespace(
         res=HEIGHT, batch=BATCH, iters=8, warmup=2, only="", device="cuda"))
     calls = {n: r["calls"] for n, r in rows.items()}
@@ -3910,8 +4077,10 @@ def autotune_phase(out_dir: Path, card: str) -> dict:
     trials = sweep["trials"]
     total = {k: 0 for k in PATH_TOTALS}
     for value, t in trials.items():
-        if t.get("fps") is None or any(
-                v != 1.0 for v in t["launches_per_batch"].values()):
+        # the preprocess mode: K1-K3 once a batch, no NMS, no tracker
+        if t.get("fps") is None or t["launches_per_batch"] != {
+                **{k: 1.0 for k in PRE_KERNELS},
+                **{k: 0.0 for k in TAIL_KERNELS}}:
             fail(f"[autotune] clahe_chunk={value}: {t}")
         for k, v in t["launches_per_batch"].items():
             total[k] += int(round(v * t["batches"]))
@@ -3953,6 +4122,489 @@ def tools_phases(model: str, frames: np.ndarray, card: str) -> dict:
     print(f"[tools] the offline and auxiliary phases ran "
           f"{res['seconds']:.1f} s", flush=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the host-free device step: the loops as kernels (K4-K6) and the step
+# replayed from a CUDA graph
+
+# scalar operations a round, per cell of the problem: K4 compares every
+# cell in its row scan, its column scan and its clearing sweep; K5 every
+# cell of the (D, T + D) values in a bidder's two scans and a column's
+# scan of the bids
+K4_OPS_PER_CELL = 3
+K5_OPS_PER_CELL = 3
+GRAPH_BATCHES = 32                 # replayed batches held to eager ones
+GRAPH_DEVICE = "cuda"
+GRAPH_FPS_BATCHES = 16             # batches a timed window
+FLEET_SIZES = (1, 2, 4, 8)
+
+
+def road_scores(rng, p: int, t: int = 100, d: int = 100,
+                tracks: int = 20, dets: int = 18):
+    """IoU matrices as the main path makes them: ``tracks`` live slots of
+    ``t`` predicted near ``dets`` valid detections of ``d`` (a road
+    scene's 13-20 boxes a frame), the rest empty. → (iou (p, t, d),
+    alive (p, t), dvalid (p, d)) on the CPU."""
+    import torch
+    from roadvision_tpu_torch.track.sort import iou_matrix
+    xy = rng.uniform(0, 1800, (p, max(tracks, dets), 2))
+    wh = rng.uniform(40, 200, (p, max(tracks, dets), 2))
+    tb = np.zeros((p, t, 4), np.float32)
+    db = np.zeros((p, d, 4), np.float32)
+    tb[:, :tracks] = np.concatenate([xy, xy + wh], -1)[:, :tracks]
+    dxy = xy[:, :dets] + rng.normal(0, 6, (p, dets, 2))
+    db[:, :dets] = np.concatenate([dxy, dxy + wh[:, :dets]], -1)
+    alive = np.zeros((p, t), bool)
+    alive[:, :tracks] = True
+    dvalid = np.zeros((p, d), bool)
+    dvalid[:, :dets] = True
+    iou = iou_matrix(torch.from_numpy(tb), torch.from_numpy(db)).numpy()
+    return iou, alive, dvalid
+
+
+def assoc_cases(rng):
+    """K4 / K5 cases: the main path's (1 x 100 x 100) and the fleet's
+    (8 x 100 x 100) road scores, then ties, every track and detection
+    invalid, a long chain (one pair a round, 100 rounds), NaN scores,
+    ragged sizes, and max_det = 300 (random, and a 300-round chain)."""
+    cases = {"main 1x100x100": road_scores(rng, 1),
+             "fleet 8x100x100": road_scores(rng, 8)}
+    q = (rng.randint(0, 4, (4, 100, 100)) / 4.0).astype(np.float32)
+    cases["ties 4x100x100"] = (q, rng.rand(4, 100) < 0.7,
+                               rng.rand(4, 100) < 0.7)
+    cases["invalid 2x100x100"] = (q[:2], np.zeros((2, 100), bool),
+                                  np.zeros((2, 100), bool))
+    i, j = np.indices((100, 100))
+    chain = np.where(np.abs(i - j) <= 1,
+                     0.99 - 0.009 * np.minimum(i, j) - 0.004 * (i != j),
+                     0.0).astype(np.float32)
+    cases["chain 1x100x100"] = (chain[None], np.ones((1, 100), bool),
+                                np.ones((1, 100), bool))
+    nan = road_scores(rng, 4)[0].copy()
+    nan[rng.rand(*nan.shape) < 0.02] = np.nan
+    cases["nan 4x100x100"] = (nan, np.ones((4, 100), bool),
+                              np.ones((4, 100), bool))
+    cases["ragged 3x7x130"] = (rng.rand(3, 7, 130).astype(np.float32),
+                               rng.rand(3, 7) < 0.9, rng.rand(3, 130) < 0.9)
+    # detect.max_det = 300 (T = D = 300): K4's matrix outgrows shared
+    # memory and lives in global memory
+    cases["max_det 2x300x300"] = (rng.rand(2, 300, 300).astype(np.float32),
+                                  rng.rand(2, 300) < 0.8,
+                                  rng.rand(2, 300) < 0.8)
+    i, j = np.indices((300, 300))
+    chain = np.where(np.abs(i - j) <= 1,
+                     0.99 - 0.002 * np.minimum(i, j) - 0.0005 * (i != j),
+                     0.0).astype(np.float32)
+    cases["chain 1x300x300"] = (chain[None], np.ones((1, 300), bool),
+                                np.ones((1, 300), bool))
+    return cases
+
+
+def nms_cases(rng):
+    """K6 cases: the main path's (8 x 300 x 300) overlaps of NMS's
+    candidates at IoU 0.7, every candidate overlapping every other, none
+    valid, a chain of neighbours, 600 candidates (TTA and tiling)."""
+    import torch
+    from roadvision_tpu_torch.ops.nms import iou_matrix_xyxy
+    xy = rng.uniform(0, 600, (8, 300, 2))
+    wh = rng.uniform(10, 80, (8, 300, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                             .astype(np.float32))
+    over = (iou_matrix_xyxy(boxes) > 0.7).numpy()
+    valid = rng.rand(8, 300) < 0.9
+    i, j = np.indices((300, 300))
+    return {"main 8x300x300": (over, valid),
+            "all overlap 2x300x300": (np.ones((2, 300, 300), bool),
+                                      np.ones((2, 300), bool)),
+            "none valid 2x300x300": (over[:2], np.zeros((2, 300), bool)),
+            "chain 2x300x300": (np.broadcast_to(np.abs(i - j) == 1,
+                                                (2, 300, 300)).copy(),
+                                np.ones((2, 300), bool)),
+            "tta 2x600x600": (rng.rand(2, 600, 600) < 0.01,
+                              rng.rand(2, 600) < 0.9)}
+
+
+def assoc_rounds(plain, host, block=None) -> int:
+    """Rounds the loop takes on each problem of ``host``, summed, from the
+    plain version's flag reads, one problem at a time: the greedy reads
+    once after each round's scans (the last finds no pair), the auction
+    (``block`` 1: a read before each round) once more than its rounds."""
+    import torch
+    from roadvision_tpu_torch.track import sort as tsort
+    saved = tsort.AUCTION_BLOCK
+    if block is not None:
+        tsort.AUCTION_BLOCK = block
+    total = 0
+    try:
+        for i in range(host[0].shape[0]):
+            tsort.reset_host_syncs()
+            plain(*(torch.from_numpy(a[i]) for a in host), 0.35)
+            total += tsort.host_syncs - (block is not None)
+    finally:
+        tsort.AUCTION_BLOCK = saved
+    return total
+
+
+def check_tail_kernels() -> dict:
+    """K4-K6 against their plain versions on the card: bit-equal on every
+    case of :func:`assoc_cases` and :func:`nms_cases`, and one problem at
+    a time equal to the batch; timed at the main path's shapes (K4 and K5
+    one 100 x 100 problem a frame, K6 8 x 300 candidates a batch) warm
+    and flushed, beside the plain version and the bound, whose operations
+    count the rounds these inputs take."""
+    import torch
+    from roadvision_tpu_torch.ops import nms as tnms
+    from roadvision_tpu_torch.track import sort as tsort
+    rng = np.random.RandomState(12)
+    dev = torch.device("cuda")
+    rows = {}
+    kinds = (("assoc_greedy", tsort.greedy_associate,
+              tsort.greedy_associate_plain, None, K4_OPS_PER_CELL),
+             ("assoc_auction", tsort.auction_associate,
+              tsort.auction_associate_plain, 1, K5_OPS_PER_CELL))
+    cases = assoc_cases(rng)
+    for name, wrapper, plain, block, per_cell in kinds:
+        for case, host in cases.items():
+            args = [torch.from_numpy(a).to(dev) for a in host]
+            got = wrapper(*args, 0.35)
+            torch.cuda.synchronize()
+            want = plain(*(torch.from_numpy(a) for a in host), 0.35)
+            if not torch.equal(got.cpu(), want):
+                bad = int((got.cpu() != want).sum())
+                fail(f"{name} on {case}: {bad} entries differ from plain")
+            for i in range(host[0].shape[0]):
+                if not torch.equal(wrapper(*(a[i] for a in args),
+                                           0.35).cpu(), want[i]):
+                    fail(f"{name} on {case}: problem {i} alone differs")
+        host = cases["main 1x100x100"]
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        p, t, d = host[0].shape
+        cols = t if name == "assoc_greedy" else t + d
+        rounds = assoc_rounds(plain, host, block)
+        row = dict(
+            ms=cuda_ms(lambda: wrapper(*args, 0.35), 50),
+            flushed_ms=cuda_ms_flushed(lambda: wrapper(*args, 0.35)),
+            plain_ms=cuda_ms(lambda: plain(*args, 0.35), 5, 1),
+            max_abs_err=0, library_ms=None, rounds=rounds,
+            **bound(p * t * d * 4 + p * (t + d) + p * d * 4,
+                    max(rounds, 1) * per_cell * d * cols))
+        fleet = cases["fleet 8x100x100"]
+        fargs = [torch.from_numpy(a).to(dev) for a in fleet]
+        row["fleet_8_ms"] = cuda_ms(lambda: wrapper(*fargs, 0.35), 50)
+        big = cases["max_det 2x300x300"]
+        bargs = [torch.from_numpy(a).to(dev) for a in big]
+        row["max_det_300_ms"] = cuda_ms(lambda: wrapper(*bargs, 0.35), 10)
+        row["max_det_300_rounds"] = assoc_rounds(plain, big, block)
+        rows[name] = row
+        print(f"[kernels] {name}: bit-equal to plain on "
+              f"{', '.join(cases)}; 1 x 100 x 100 (the main path's "
+              f"problem, {rounds} rounds): {row['ms']:.4f} ms warm, "
+              f"{row['flushed_ms']:.4f} ms flushed, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}); 8 problems in one launch "
+              f"{row['fleet_8_ms']:.4f} ms; max_det 300 (2 x 300 x 300, "
+              f"{row['max_det_300_rounds']} rounds"
+              + (", the matrix in global memory" if name == "assoc_greedy"
+                 else "") + f") {row['max_det_300_ms']:.4f} ms", flush=True)
+    ncases = nms_cases(rng)
+    for case, (over, valid) in ncases.items():
+        got = tnms.greedy_keep(torch.from_numpy(over).to(dev),
+                               torch.from_numpy(valid).to(dev))
+        torch.cuda.synchronize()
+        want = tnms.greedy_keep_plain(torch.from_numpy(over),
+                                      torch.from_numpy(valid))
+        if not torch.equal(got.cpu(), want):
+            fail(f"nms_keep on {case}: differs from plain")
+    over, valid = ncases["main 8x300x300"]
+    o, v = torch.from_numpy(over).to(dev), torch.from_numpy(valid).to(dev)
+    b, k = valid.shape
+    words = -(-k // 32)
+    rows["nms_keep"] = dict(
+        ms=cuda_ms(lambda: tnms.greedy_keep(o, v), 50),
+        flushed_ms=cuda_ms_flushed(lambda: tnms.greedy_keep(o, v)),
+        plain_ms=cuda_ms(lambda: tnms.greedy_keep_plain(o, v), 5, 1),
+        max_abs_err=0, library_ms=None,
+        **bound(b * k * k + 2 * b * k, b * (k * k + k * words)))
+    r = rows["nms_keep"]
+    print(f"[kernels] nms_keep: bit-equal to plain on {', '.join(ncases)}; "
+          f"8 x 300 (the main path's): {r['ms']:.4f} ms warm, "
+          f"{r['flushed_ms']:.4f} ms flushed, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+    for r in rows.values():
+        r["fleet"] = {}
+    return rows
+
+
+def resident_run(eng, step_fn, inputs, k0: int, n: int, keep: bool = False):
+    """``n`` batches ``inputs(k0..)`` through ``step_fn`` (the engine's
+    eager ``step`` or ``step_batch``), results copied back through the
+    engine's pinned buffers, two batches in flight, as the bench's
+    device-resident loop. Returns the host arrays when ``keep``."""
+    pending, kept = [], []
+
+    def finish(item):
+        bufs, key, done = item
+        done.synchronize()
+        if keep:
+            kept.append([t.numpy().copy() for t in bufs])
+        eng.recycle(key, bufs)
+
+    for k in range(k0, k0 + n):
+        _, arrays = step_fn(*inputs(k), want_proc=False)
+        pending.append(eng.download(list(arrays)))
+        if len(pending) >= 2:
+            finish(pending.pop(0))
+    while pending:
+        finish(pending.pop(0))
+    return kept
+
+
+def same_arrays(a, b, what: str) -> dict:
+    """One batch's 7 arrays, two runs: valid, classes and ids exact where
+    valid, boxes within BOX_TOL, confidences within CONF_TOL."""
+    boxes, conf, cls_id, valid, ids = a[:5]
+    if not np.array_equal(valid, b[3]):
+        fail(f"{what}: different detections kept")
+    if not (np.array_equal(cls_id[valid], b[2][valid])
+            and np.array_equal(ids[valid], b[4][valid])):
+        fail(f"{what}: classes or ids differ")
+    box = float(np.abs(boxes[valid] - b[0][valid]).max(initial=0.0))
+    cf = float(np.abs(conf[valid] - b[1][valid]).max(initial=0.0))
+    if box > BOX_TOL or cf > CONF_TOL:
+        fail(f"{what}: boxes {box:.3e} px, confidences {cf:.3e}")
+    return {"box": box, "conf": cf, "n": int(valid.sum())}
+
+
+def idle_share(eng, step_fn, inputs, k0: int, n: int = 4) -> dict:
+    """torch.profiler over ``n`` device-resident batches: the card's busy
+    time (its kernels' device time) against the wall time of the same
+    batches unprofiled and profiled."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    resident_run(eng, step_fn, inputs, k0, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resident_run(eng, step_fn, inputs, k0 + 2, n)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        resident_run(eng, step_fn, inputs, k0 + 2 + n, n)
+        torch.cuda.synchronize()
+    wall_prof = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    return {"batches": n, "wall_ms": wall, "profiled_wall_ms": wall_prof,
+            "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if busy else None,
+            "idle_share_profiled": 1.0 - busy / wall_prof if busy else None,
+            "kernel_launches": sum(e.count for e in kern)}
+
+
+def fleet_scaling(eng, card: str) -> dict:
+    """The fleet step at 1080p x 8 a stream for S = 1, 2, 4, 8 streams,
+    eager (the stacked step called) against its captured graph, frames
+    rendered on the card beforehand: frames/s in all, two windows each,
+    in turns (eager, graph, graph, eager)."""
+    import torch
+    from roadvision_tpu_torch.io_video import DeviceSyntheticSource
+    from roadvision_tpu_torch.parallel.inference import make_stream_step
+    from roadvision_tpu_torch.runtime.graph import CapturedStep
+    out = {}
+    for s in FLEET_SIZES:
+        step, init_states = make_stream_step(eng, (BATCH, HEIGHT, WIDTH))
+        render = DeviceSyntheticSource(WIDTH, HEIGHT, num_vehicles=6,
+                                       seed=s, device=eng.device) \
+            .make_render_fn(s * BATCH)
+        clip = [render(k * s * BATCH).reshape(s, BATCH, HEIGHT, WIDTH, 3)
+                for k in range(3)]
+        base = torch.arange(s * BATCH, dtype=torch.float32,
+                            device=eng.device).reshape(s, BATCH) / 30.0
+
+        def inp(k):
+            return clip[k % 3], base + k * s * BATCH / 30.0
+
+        states = {"eager": init_states(s), "graph": init_states(s)}
+        graph = CapturedStep(step, states["graph"], inp(0))
+        n_k = iter(range(1, 10 ** 9))
+
+        def window(mode, n=4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = []
+            for _ in range(n):
+                k = next(n_k)
+                if mode == "graph":
+                    outs = graph(*inp(k))
+                else:
+                    outs, states["eager"] = step(states["eager"], *inp(k))
+                pending.append(eng.download(list(outs)))
+                if len(pending) >= 2:
+                    bufs, key, done = pending.pop(0)
+                    done.synchronize()
+                    eng.recycle(key, bufs)
+            for bufs, key, done in pending:
+                done.synchronize()
+                eng.recycle(key, bufs)
+            return n * s * BATCH / (time.perf_counter() - t0)
+
+        window("eager", 1)
+        window("graph", 1)
+        fps = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            fps[mode].append(window(mode))
+        out[s] = {m: float(np.median(v)) for m, v in fps.items()}
+        del graph, clip
+    one = out[FLEET_SIZES[0]]
+    print("[graph] fleet at 1080p x 8 a stream, frames/s in all, eager / "
+          "graph (x one stream's): "
+          + "; ".join(f"S={s} {r['eager']:.1f} / {r['graph']:.1f} "
+                      f"({r['eager'] / one['eager']:.2f} x / "
+                      f"{r['graph'] / one['graph']:.2f} x)"
+                      for s, r in out.items()) + f" ({card})", flush=True)
+    return out
+
+
+def graph_phase(model: str, card: str) -> dict:
+    """``[graph]``: the main path (1080p x 8, bfloat16) replays one CUDA
+    graph a batch (``engine.step_mode == "graph"``). GRAPH_BATCHES
+    replayed batches against as many eager ``engine.step`` batches from
+    the same (reset) state under the smoke's limits, with the same launch
+    counts, exact, and no host read in the replayed ones; stage ms eager
+    (``tools/bench.py::stage_ms``) against each stage captured alone
+    (``graph_stage_ms``); frames/s eager against graph (device-resident,
+    in turns); the device's idle share by torch.profiler; then the fleet
+    at S = 1, 2, 4, 8 and multi_stream.yaml's fleet."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.io_video import DeviceSyntheticSource
+    from roadvision_tpu_torch.runtime import MultiStreamEngine, PipelineEngine
+    from roadvision_tpu_torch.tools.bench import graph_stage_ms, stage_ms
+    from roadvision_tpu_torch.track import sort as tsort
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    eng = PipelineEngine(pipeline_cfg(model), device=GRAPH_DEVICE)
+    if eng.step_mode != "graph":
+        fail(f"[graph]: the main path runs {eng.step_mode} "
+             f"({eng.eager_reason})")
+    render = DeviceSyntheticSource(WIDTH, HEIGHT, num_vehicles=6, seed=0,
+                                   device=eng.device).make_render_fn(BATCH)
+    steps = torch.arange(BATCH, device=eng.device,
+                         dtype=torch.float32) / 30.0
+    rendered = {}
+
+    def inputs(k):
+        if k not in rendered:
+            rendered[k] = render(k * BATCH)
+        return rendered[k], k * BATCH / 30.0 + steps
+
+    runs, counts = {}, {}
+    eng.step_batch(*inputs(0), want_proc=False)   # captures, outside counts
+    for mode, fn in (("graph", eng.step_batch), ("eager", eng.step)):
+        eng.reset()
+        kernels.reset_launch_counts()
+        tsort.reset_host_syncs()
+        runs[mode] = resident_run(eng, fn, inputs, 0, GRAPH_BATCHES,
+                                  keep=True)
+        counts[mode] = add_to_totals(dict(kernels.launch_counts))
+        want = dict({k: GRAPH_BATCHES for k in PRE_KERNELS},
+                    **tail_want(GRAPH_BATCHES, GRAPH_BATCHES * BATCH))
+        if counts[mode] != want:
+            launch_mismatch(f"[graph] {mode}: launches {counts[mode]}, "
+                            f"expected {want}")
+        if tsort.host_syncs:
+            fail(f"[graph] {mode}: {tsort.host_syncs} flag reads")
+    worst = {"box": 0.0, "conf": 0.0, "n": 0}
+    for i, (g, e) in enumerate(zip(runs["graph"], runs["eager"])):
+        r = same_arrays(g, e, f"[graph] batch {i} graph vs eager")
+        worst = {"box": max(worst["box"], r["box"]),
+                 "conf": max(worst["conf"], r["conf"]),
+                 "n": worst["n"] + r["n"]}
+    if worst["n"] < GRAPH_BATCHES * BATCH:
+        fail(f"[graph]: only {worst['n']} detections compared")
+    syncs = {m: count_syncs(lambda f=f: [f(*inputs(k), want_proc=False)
+                                         for k in range(4)]) / 4
+             for m, f in (("graph", eng.step_batch), ("eager", eng.step))}
+    if syncs["graph"]:
+        fail(f"[graph]: {syncs['graph']} host syncs a replayed batch")
+    print(f"[graph] main path step_mode graph: {GRAPH_BATCHES} replayed "
+          f"1080p x {BATCH} bf16 batches equal {GRAPH_BATCHES} eager "
+          f"engine.step batches from the same state ({worst['n']} "
+          f"detections; ids, classes, counts exact; boxes {worst['box']:.2e}"
+          f" px, conf {worst['conf']:.2e}); launches a batch "
+          + json.dumps({k: v / GRAPH_BATCHES for k, v in
+                        counts["graph"].items()})
+          + f" both ways; host syncs a batch graph {syncs['graph']:g}, "
+          f"eager {syncs['eager']:g}", flush=True)
+
+    # frames/s, device-resident, in turns
+    fps = {"eager": [], "graph": []}
+    k = GRAPH_BATCHES
+    for mode in ("eager", "graph", "graph", "eager"):
+        fn = eng.step if mode == "eager" else eng.step_batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident_run(eng, fn, inputs, k, GRAPH_FPS_BATCHES)
+        torch.cuda.synchronize()
+        fps[mode].append(GRAPH_FPS_BATCHES * BATCH
+                         / (time.perf_counter() - t0))
+        k += GRAPH_FPS_BATCHES
+    rendered.clear()
+    frames_np = render(k * BATCH).cpu().numpy()
+    ts_np = 2000.0 + np.arange(BATCH) / 30.0
+    stages = {"eager": stage_ms(eng, frames_np, ts_np),
+              "graph": graph_stage_ms(eng, frames_np, ts_np)}
+    idle = {m: idle_share(eng, f, inputs, k + 1 + i * 10)
+            for i, (m, f) in enumerate((("eager", eng.step),
+                                        ("graph", eng.step_batch)))}
+    rendered.clear()
+    med = {m: float(np.median(v)) for m, v in fps.items()}
+    print(f"[graph] frames/s device-resident, 1080p x {BATCH} bf16: eager "
+          f"{med['eager']:.1f} {[round(v, 1) for v in fps['eager']]}, graph "
+          f"{med['graph']:.1f} {[round(v, 1) for v in fps['graph']]} "
+          f"({med['graph'] / med['eager']:.2f} x) ({card})", flush=True)
+    for m in ("eager", "graph"):
+        print(f"[graph] stage ms {m}: "
+              + json.dumps({s: round(v, 3) for s, v in stages[m].items()})
+              + f"; profiler over {idle[m]['batches']} batches: device busy "
+              f"{idle[m]['device_busy_ms']:.2f} ms of {idle[m]['wall_ms']:.2f}"
+              f" ms wall, idle share "
+              + ("not measured" if idle[m]["idle_share"] is None else
+                 f"{idle[m]['idle_share']:.3f} (profiled "
+                 f"{idle[m]['idle_share_profiled']:.3f})")
+              + f", {idle[m]['kernel_launches']} kernel launches ({card})",
+              flush=True)
+    fleet = fleet_scaling(eng, card)
+    del eng
+    # multi_stream.yaml's fleet replays its graph too, with no host read
+    multi = MultiStreamEngine(multi_cfg(model), 4, devices=[GRAPH_DEVICE])
+    if multi.step_mode != "graph":
+        fail(f"[graph]: multi_stream.yaml runs {multi.step_mode}")
+    fb = fleet_batches(multi_cfg(model), 2)
+    multi.process_batch(*fb[0])
+    tsort.reset_host_syncs()
+    frames = torch.from_numpy(fb[1][0]).to(multi.engine.device)
+    ts = torch.from_numpy((fb[1][1] - multi._t0).astype(np.float32)) \
+        .to(multi.engine.device)
+    grp = multi.groups[0]
+    graph = grp.engine._graphs[("fleet", tuple(frames.shape))]
+    multi_syncs = count_syncs(lambda: graph(frames, ts))
+    if multi_syncs or tsort.host_syncs:
+        fail(f"[graph] multi_stream.yaml: {multi_syncs} host syncs a fleet "
+             f"batch")
+    print(f"[graph] multi_stream.yaml: step_mode graph, {multi_syncs} host "
+          f"syncs a replayed fleet batch; the phase ran "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches_per_batch": {k: v / GRAPH_BATCHES
+                                   for k, v in counts["graph"].items()},
+            "graph_vs_eager": worst, "host_syncs_per_batch": syncs,
+            "fps": fps, "fps_median": med, "stage_ms": stages,
+            "idle": idle, "fleet_fps": fleet,
+            "multi_stream_syncs": multi_syncs}
 
 
 def profile_batch(engine, frames, ts) -> dict:
@@ -4062,11 +4714,21 @@ def main() -> int:
         return 0
     batches = render_batches(6)
     rows = check_kernels(batches[0][0])
+    rows.update(check_tail_kernels())
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
     model = str(Path(__file__).resolve().parent / "assets"
                 / "yolov8n_synthetic_256.npz")
+    if "--graph-only" in sys.argv[1:]:
+        graph = graph_phase(model, card)
+        Path("chiprun_out").mkdir(exist_ok=True)
+        Path("chiprun_out/graph.json").write_text(json.dumps(
+            {"graph": graph, "kernels": rows}, indent=1, default=str))
+        print(f"[time] chip_smoke.py --graph-only ran "
+              f"{time.perf_counter() - T_START:.1f} s", flush=True)
+        print(card_line(), flush=True)
+        return 0
 
     # one batch in float32, TF32 off for cuDNN and matmul, vs the CPU path
     torch.backends.cudnn.allow_tf32 = False
@@ -4092,6 +4754,8 @@ def main() -> int:
                 fail("non-finite detection")
 
     paths = second_paths(model, batches, card)
+    # the host-free device step: the main path replayed from a CUDA graph
+    graph = graph_phase(model, card)
 
     # the serving surface, each path with its own launch counts
     out_dir = Path("chiprun_out")
@@ -4168,9 +4832,14 @@ def main() -> int:
     elapsed = time.perf_counter() - t0
     counts = add_to_totals(dict(kernels.launch_counts))
     fps = n_timed * BATCH / elapsed
+    for name in PRE_KERNELS:
+        if counts[name] != n_timed:    # one launch of each kernel per batch
+            launch_mismatch(f"kernel {name} launched {counts[name]} times "
+                            f"in {n_timed} batches")
+    # NMS once a batch, the association once a frame
+    check_tail("[e2e] bfloat16 main path", counts,
+               tail_want(n_timed, n_timed * BATCH))
     for name, c in counts.items():
-        if c != n_timed:       # one launch of each kernel per batch
-            fail(f"kernel {name} launched {c} times in {n_timed} batches")
         print(f"[kernels] {name}: {c / n_timed:g} launches per 1080p batch "
               f"on the main path", flush=True)
     n16 = [len(r.detections) for r in results[0]]
@@ -4201,6 +4870,12 @@ def main() -> int:
                         "roadvision_tpu/ops/pallas_clahe.py:64"),
         "median_k": ("roadvision_tpu_torch/csrc/median.cu",
                      "roadvision_tpu/ops/pallas_median.py:87"),
+        "assoc_greedy": ("roadvision_tpu_torch/csrc/assoc.cu",
+                         "roadvision_tpu/track/sort_tpu.py:227"),
+        "assoc_auction": ("roadvision_tpu_torch/csrc/assoc.cu",
+                          "roadvision_tpu/track/sort_tpu.py:300"),
+        "nms_keep": ("roadvision_tpu_torch/csrc/nms.cu",
+                     "roadvision_tpu/ops/nms.py:99"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -4212,7 +4887,8 @@ def main() -> int:
          "fleet": r["fleet"]}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
-        "second_paths": paths, "entries": entries, "training": training,
+        "second_paths": paths, "graph": graph, "entries": entries,
+        "training": training,
         "parallel": parallel, "tools": {
             k: v.get("launches") if isinstance(v, dict) else v
             for k, v in tools.items()}}

@@ -33,7 +33,7 @@ from ..models.yolo import weights as yolo_weights
 from ..ops.letterbox import (letterbox_meta, letterbox_rect_u8, letterbox_u8,
                              scale_boxes)
 from ..ops.nms import nms_batch
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, device_constant, resolve_device
 from .base import Detector
 from .types import BATCH_FIELD, COCO_NAMES, Detection, DetectionBatch
 
@@ -259,7 +259,7 @@ class YOLOTorch(Detector):
             # no second scale_boxes
             rb = scale_rboxes(rb, ratio, pad, hw)
             ab = rbox_to_aabb(rb)
-            lim = torch.tensor([w, h, w, h], dtype=ab.dtype, device=ab.device)
+            lim = device_constant([w, h, w, h], ab.dtype, ab.device)
             return torch.minimum(ab.clamp(min=0), lim), conf, cls_id, valid, rb
         if self.task not in ("segment", "pose"):
             b, c, k, v = nms_batch(*raw, pre_topk=600 if self.tta else 300,

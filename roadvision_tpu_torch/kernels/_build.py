@@ -31,14 +31,19 @@ BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # the "cv2" CLAHE blend needs every float multiply and add rounded on its
 # own; the source uses __fmul_rn/__fadd_rn, and --fmad=false keeps any
-# other expression from contracting as well
+# other expression from contracting as well; the auction's prices are
+# bit-equal to the plain version's only without contraction too
 EXTRA_FLAGS: Dict[str, List[str]] = {"clahe": ["--fmad=false"],
-                                     "median": []}
+                                     "median": [],
+                                     "assoc": ["--fmad=false"],
+                                     "nms": []}
 
 # kernel name -> launches since the last reset; each wrapper adds one
-# where it launches its kernel, and nowhere else
+# where it launches its kernel, and nowhere else (a replayed CUDA graph
+# adds the launches captured in it: runtime/graph.py)
 launch_counts: Dict[str, int] = {"clahe_tile_luts": 0, "clahe_apply": 0,
-                                 "median_k": 0}
+                                 "median_k": 0, "assoc_greedy": 0,
+                                 "assoc_auction": 0, "nms_keep": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +53,9 @@ SIGNATURES = {
     ("clahe", "rvt_clahe_tile_luts"): [_P, _P] + [_I] * 8 + [_F, _P],
     ("clahe", "rvt_clahe_apply"): [_P] * 10 + [_I] * 9 + [_P],
     ("median", "rvt_median_k"): [_P, _P, _I, _I, _I, _I, _P],
+    ("assoc", "rvt_assoc_greedy"): [_P] * 5 + [_I] * 3 + [_F, _P],
+    ("assoc", "rvt_assoc_auction"): [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
+    ("nms", "rvt_nms_keep"): [_P] * 3 + [_I] * 2 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,3 @@
+from . import yolo
+
+__all__ = ["yolo"]

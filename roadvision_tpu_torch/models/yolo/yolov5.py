@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ...utils.device import device_constant
 from .yolov8 import SPPF, STRIDES, Conv, YOLOBase, _make_divisible, _up2
 
 SIZE_CFG = {
@@ -88,7 +89,8 @@ def decode(level_maps, nc: int):
             torch.arange(w, dtype=torch.float32, device=raw.device),
             indexing="ij")
         grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]
-        anchors = torch.from_numpy(ANCHORS[lvl]).to(raw.device)
+        anchors = device_constant(ANCHORS[lvl].tolist(), torch.float32,
+                                  raw.device)
         xy = (sig[..., 0:2] * 2.0 - 0.5 + grid) * stride
         wh = (sig[..., 2:4] * 2.0) ** 2 * anchors
         cls = sig[..., 5:] * sig[..., 4:5]

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..kernels import _build
+from ..utils.device import device_constant
 
 BLENDS = ("cv2", "fixed")
 
@@ -226,10 +227,16 @@ def _reflect_pad_101(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     if pad_h == 0 and pad_w == 0:
         return x
     h, w = x.shape[-2], x.shape[-1]
-    iy = torch.from_numpy(np.pad(np.arange(h), (0, pad_h), mode="reflect"))
-    ix = torch.from_numpy(np.pad(np.arange(w), (0, pad_w), mode="reflect"))
-    return x.index_select(-2, iy.to(x.device)) \
-        .index_select(-1, ix.to(x.device)).contiguous()
+    return x.index_select(-2, _reflect_index(h, pad_h, x.device)) \
+        .index_select(-1, _reflect_index(w, pad_w, x.device)).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _reflect_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
+    """The source index of each of ``n + pad`` reflect-101 positions, on
+    ``device``, made once (a captured step cannot upload it)."""
+    return torch.from_numpy(np.pad(np.arange(n), (0, pad),
+                                   mode="reflect")).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +267,7 @@ def tile_luts_plain(xe: torch.Tensor, gy: int, gx: int, clip: int,
         hist = clipped + redist + bump.long()
     cdf = torch.cumsum(hist, dim=-1)
     lut = torch.round(cdf.to(torch.float32)
-                      * torch.tensor(scale, dtype=torch.float32, device=dev))
+                      * device_constant(float(scale), torch.float32, dev))
     return lut.clamp_(0, 255).to(torch.uint8)
 
 

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import device_constant
+
 
 _INV_255 = float(np.float32(1.0 / 255.0))
 
@@ -152,9 +154,10 @@ def _canvas(resized_bgr: torch.Tensor, r: float, th: int, tw: int):
     top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
     bottom, right = th - new_h - top, tw - new_w - left
     x = F.pad(x, (0, 0, left, right, top, bottom), value=114.0)
+    # constants made once (a captured step cannot upload them)
     dev = resized_bgr.device
-    ratio = torch.tensor(r, dtype=torch.float32, device=dev)
-    pad = torch.tensor([left, top], dtype=torch.float32, device=dev)
+    ratio = device_constant(r, torch.float32, dev)
+    pad = device_constant([left, top], torch.float32, dev)
     # x * float32(1/255): XLA rewrites the JAX package's ``x / 255.0``
     # into this multiply, so the canvas is bit-equal to the reference's
     return x * _INV_255, ratio, pad

@@ -9,11 +9,14 @@ IoU > iou_thres (strict); score-descending stable compaction; cap at
 ``max_det``; ``classes_keep`` applied AFTER max_det, as the reference's
 post-predict filter does.
 
-The greedy keep-mask is the JAX package's Jacobi fixpoint (``keep ←
-valid & ¬∃ j<i: keep_j ∧ iou(j,i) > t`` until unchanged), batched over
-frames. JAX runs it as a device ``while_loop``; here each round reads
-one flag back to the host (one sync per round, typically 2-4 rounds a
-batch) — the price of a data-dependent loop in eager PyTorch.
+The greedy keep-mask: JAX runs its Jacobi fixpoint (``keep ← valid &
+¬∃ j<i: keep_j ∧ iou(j,i) > t`` until unchanged) as a device
+``while_loop``. :func:`greedy_keep` launches K6 ``nms_keep``
+(``csrc/nms.cu``: the sequential greedy, which has the same fixpoint,
+one block a frame, no host read) for a tensor on the card, and runs the
+plain fixpoint :func:`greedy_keep_plain` for a tensor on the CPU, which
+reads one flag back to the host per round (typically 2-4 rounds a
+batch). The overlap test stays in torch, so both read the same booleans.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import _build
+from ..utils.device import device_constant
 
 MAX_WH = 7680.0
 
@@ -57,7 +63,8 @@ def select_candidates(scores: torch.Tensor, conf_thres: float,
     return sel_scores, sel_idx, torch.gather(cls, 1, sel_idx), sel_scores > 0.0
 
 
-def greedy_keep(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
+def greedy_keep_plain(over: torch.Tensor,
+                      sel_valid: torch.Tensor) -> torch.Tensor:
     """The exact greedy keep mask over score-sorted candidates: ``over``
     (B, k, k) says which pairs overlap past the threshold; a candidate is
     kept unless an earlier kept one overlaps it. The Jacobi fixpoint,
@@ -73,6 +80,57 @@ def greedy_keep(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
             break
         keep = new
     return keep
+
+
+# K6 handles up to 1024 candidates a frame (one warp holds the
+# suppressed set, a 32-bit word a lane)
+KEEP_MAX_K = 1024
+
+
+def _keep_cuda(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
+    bsz, k = sel_valid.shape
+    keep = torch.empty((bsz, k), dtype=torch.bool, device=over.device)
+    ov = over.contiguous().view(torch.uint8)
+    valid = sel_valid.contiguous().view(torch.uint8)
+    lib = _build.load("nms")
+    with torch.cuda.device(over.device):
+        code = lib.rvt_nms_keep(ov.data_ptr(), valid.data_ptr(),
+                                keep.data_ptr(), bsz, k,
+                                _build.stream_ptr(over))
+    _build.launch_counts["nms_keep"] += 1
+    _build.check(code, "nms_keep")
+    return keep
+
+
+def greedy_keep(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
+    """K6 wrapper: the greedy keep mask (B, k) bool of ``over`` (B, k, k)
+    bool and ``sel_valid`` (B, k) bool. A CPU tensor runs
+    :func:`greedy_keep_plain`; a CUDA tensor launches the kernel, one
+    block per frame, on the current stream."""
+    if over.dtype != torch.bool or sel_valid.dtype != torch.bool \
+            or over.dim() != 3 or sel_valid.dim() != 2 \
+            or over.shape != sel_valid.shape + sel_valid.shape[-1:]:
+        raise ValueError(f"expected over (B, k, k) and sel_valid (B, k) "
+                         f"bool, got {tuple(over.shape)} {over.dtype} and "
+                         f"{tuple(sel_valid.shape)} {sel_valid.dtype}")
+    if over.device.type == "cpu":
+        return greedy_keep_plain(over, sel_valid)
+    if over.device.type != "cuda" or sel_valid.device != over.device:
+        raise ValueError(f"unsupported devices {over.device}, "
+                         f"{sel_valid.device}")
+    bsz, k = sel_valid.shape
+    if bsz < 1 or k < 1 or k > KEEP_MAX_K or bsz > 2 ** 31 - 1:
+        raise ValueError(f"nms_keep takes 1..{KEEP_MAX_K} candidates and "
+                         f"at least one frame, got ({bsz}, {k})")
+    return _keep_cuda(over, sel_valid)
+
+
+def _allowed(nc: int, classes_keep: Sequence[int], device) -> torch.Tensor:
+    """(nc,) bool, True for the ``classes_keep`` ids inside the model's
+    classes: made once per (nc, ids, device), before any capture."""
+    ids = {int(c) for c in classes_keep}
+    return device_constant([c in ids for c in range(nc)], torch.bool,
+                           device)
 
 
 def compact(keep, sel_boxes, sel_scores, sel_cls, sel_idx, max_det: int,
@@ -91,9 +149,8 @@ def compact(keep, sel_boxes, sel_scores, sel_cls, sel_idx, max_det: int,
         # ids past the model's classes keep nothing (JAX drops the
         # out-of-range ``.at[].set``), e.g. [0, 2, 3, 5, 7] on a
         # one-class pose model
-        allowed = torch.zeros(nc, dtype=torch.bool, device=keep.device)
-        allowed[[int(c) for c in classes_keep if 0 <= int(c) < nc]] = True
-        kept_valid = kept_valid & allowed[kept_cls.long()]
+        kept_valid = kept_valid \
+            & _allowed(nc, classes_keep, keep.device)[kept_cls.long()]
     return (kept_boxes, torch.gather(sel_scores, 1, order), kept_cls,
             kept_valid, torch.gather(sel_idx, 1, order).to(torch.int32))
 

@@ -6,11 +6,15 @@ shards that axis over the mesh's "data" axis. On one card, stream
 sharding becomes stream batching: the S streams' frames are folded into
 one batch of S·B for the preprocess chain, the letterbox, the detector
 and NMS — so the CLAHE and median kernels launch once per fleet batch,
-not once per stream — and the tracker tail then runs per stream, on that
-stream's slice of the stacked track state (``track/multi.py``), with the
-stream's own re-id descriptors and GMC thumbnail. Within a stream the
-batch axis is time, as in JAX. Several cards each run such a step on a
-contiguous group of streams (``runtime/multi_engine.py``).
+not once per stream. The default tracker then scans the batch's frames
+once on the stacked track state, every stream in each step (one
+association launch a frame for all S); a backend with strategy hooks,
+or GMC, runs the tail per stream on that stream's slice
+(``track/multi.py``), with the stream's own re-id descriptors and GMC
+thumbnail. Within a stream the batch axis is time, as in JAX. Several
+cards each run such a step on a contiguous group of streams
+(``runtime/multi_engine.py``), which replays it from a CUDA graph where
+the engine's ``step_mode`` is ``"graph"``.
 """
 from __future__ import annotations
 
@@ -35,9 +39,15 @@ def _unfold(t: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def _stream_tails(engine, states, b: int, dets4, ts, frames, shifts=None):
-    """The tracker tail of every stream on its slice of the stacked state:
-    ``dets4`` (boxes, conf, cls, valid), each (S, B, ...) → ((S, B, D)
-    ids, dist, speed), states'."""
+    """The tracker tail of every stream: ``dets4`` (boxes, conf, cls,
+    valid), each (S, B, ...) → ((S, B, D) ids, dist, speed), states'. The
+    default tracker (and no tracker) runs one scan on the stacked state;
+    hooks or GMC shifts run per stream on the stream's slice."""
+    if shifts is None and (states is None or getattr(
+            engine._sort_step, "stackable", False)):
+        states, *tails = engine._tail(states, b, *dets4, ts, frames)
+        return tuple(tails), states
+
     def tail(st, *args):
         st, *out = engine._tail(st, b, *args)
         return st, out

@@ -5,7 +5,21 @@ One batch of BGR uint8 frames goes host → device once; on the device it
 runs preprocess chain → letterbox → YOLOv8 forward → DFL decode → NMS →
 box rescale → SORT over the batch's frames → geometry; the results come
 back in one transfer. The track state stays on the device across
-batches. :meth:`PipelineEngine.dispatch_batch` queues a batch without
+batches, in the same tensors: a step, :meth:`PipelineEngine.reset` and
+:meth:`PipelineEngine.load_state` copy into them.
+
+:meth:`PipelineEngine.build_raw_step` is that step as a pure function,
+as in JAX. On the card it reads nothing back to the host for the
+configurations :attr:`PipelineEngine.step_mode` names ``"graph"`` (the
+main path and the fleet's default, among others): the association and
+NMS loops are CUDA kernels (K4–K6), every constant is uploaded once.
+There :meth:`PipelineEngine.step_batch`, which ``dispatch_batch``,
+``process_batch``, ``stream`` and the bench's device-resident loop run,
+replays one CUDA graph per (shape, want_proc) (``runtime/graph.py``, the
+counterpart of the JAX engine's ``jax.jit``). ``step_mode`` is
+``"eager"`` on the CPU and wherever :attr:`PipelineEngine.eager_reason`
+names what the step still does on the host; :meth:`PipelineEngine.step`
+is always the eager step. :meth:`PipelineEngine.dispatch_batch` queues a batch without
 waiting for its results; :meth:`PipelineEngine.stream` keeps two batches
 in flight so the host's decode and unpack overlap the card's work.
 
@@ -87,10 +101,12 @@ from ..ops.letterbox import axis_plan, finish_letterbox, letterbox_meta
 from ..preprocess import PreprocessPipeline
 from ..track.gmc import GMC_SIZE, batch_shifts, gray_thumbnail
 from ..track.registry import build_device_step
-from ..track.sort import SortState, init_state, read_flag, state_from_jax
-from ..utils.device import DeviceLike, resolve_device
+from ..track.sort import (SortState, init_state, read_flag, scan_steps,
+                          state_from_jax)
+from ..utils.device import DeviceLike, device_constant, resolve_device
 from ..utils.logging import get_logger
 from ..utils.timing import StageTimer
+from .graph import CapturedStep
 
 log = get_logger("roadvision.engine")
 
@@ -121,7 +137,7 @@ def _motion_score(frames_u8: torch.Tensor, prev_thumb: torch.Tensor,
     b = d.shape[0]
     blocks = d.reshape(b, nb, GATE_BLOCK, nb, GATE_BLOCK).mean(dim=(2, 4))
     per_pair = blocks.amax(dim=(1, 2))                 # (B,)
-    inf = torch.tensor(float("inf"), device=g.device)
+    inf = device_constant(float("inf"), torch.float32, g.device)
     first = per_pair[0] if prev_valid > 0 else -inf
     rest = per_pair[1:].max() if b > 1 else -inf
     score = torch.maximum(first, rest)
@@ -306,33 +322,73 @@ class PipelineEngine:
             if self.device.type == "cuda" else None
         self._result_free: Dict[tuple, List[List[torch.Tensor]]] = {}
 
+        # the captured steps, one per (frame shape, want_proc)
+        self._graphs: Dict[tuple, CapturedStep] = {}
+        self.eager_reason = self._eager_reason()
+        self.step_mode = "graph" if self.eager_reason is None else "eager"
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why :meth:`step_batch` runs this configuration eagerly, from
+        the configuration alone (None: it replays a CUDA graph). What is
+        named either reads the host inside the step or has not been
+        captured yet (ROADMAP)."""
+        det = self.detector
+        if self.device.type != "cuda":
+            return "the CPU runs the plain path"
+        if self._gate_cfg is not None:
+            return ("detect.temporal_gate: the coast decision is read on "
+                    "the host")
+        if self.pipeline._gated:
+            return "preprocess.auto_gate: not captured"
+        if det is not None:
+            from ..detect.yolo_torch import YOLOTorch
+            if not isinstance(det, YOLOTorch):
+                return f"the {type(det).__name__} detector: not captured"
+            if det.task != "detect" or det.tta or det.tile_cfg or det.int8:
+                return ("task heads, TTA, tiling and int8 detectors: not "
+                        "captured")
+        if self.track_enabled and not getattr(self._sort_step, "stackable",
+                                              False):
+            return (f"tracking backend with strategy hooks: the step runs "
+                    f"per stream, not captured")
+        if self.gmc_enabled:
+            return "tracking.gmc: the first batch has no previous thumbnail"
+        return None
+
+    def _store_state(self, state: Optional[SortState]) -> None:
+        """The track state after a step, copied into the engine's own
+        tensors (a captured graph reads and writes those)."""
+        if self.sort_state is None or state is None:
+            self.sort_state = state
+            return
+        with torch.inference_mode():
+            for dst, src in zip(self.sort_state, state):
+                if src is not dst:
+                    dst.copy_(src)
+
     # ------------------------------------------------------------------
     def _tail(self, state: Optional[SortState], b: int, boxes, conf, cls_id,
               valid, ts, frames_u8: Optional[torch.Tensor] = None,
               shifts: Optional[torch.Tensor] = None):
         """Detections → (state', track ids, distance, speed), (B, max_det)
-        each, one tracker step per frame from ``state`` (None without a
-        tracker). ``frames_u8`` are the RAW frames the re-id backends'
-        descriptors are computed from; ``shifts`` (B, 2) the GMC camera
-        shifts in source px."""
+        each: the tracker step scanned over the batch's frames from
+        ``state`` (None without a tracker; ``track/sort.py::scan_steps``).
+        A stacked state (a fleet's S streams, default tracker) takes
+        (S, B, ...) detections and (S, B) stamps and gives (S, B,
+        max_det) arrays. ``frames_u8`` are the RAW frames the re-id
+        backends' descriptors are computed from; ``shifts`` (B, 2) the GMC
+        camera shifts in source px."""
         proj = self.projector.device_params() if self.projector else None
-        max_det = boxes.shape[1]
+        lead = boxes.shape[:-1]
         dev = boxes.device
         if self.track_enabled:
             emb = self._embed_fn(frames_u8, boxes, valid) \
                 if self._embed_fn is not None else None
-            outs = []
-            for i in range(b):
-                state, o = self._sort_step(
-                    state, boxes[i], cls_id[i], conf[i], valid[i],
-                    ts[i], proj, None if emb is None else emb[i],
-                    None if shifts is None else shifts[i])
-                outs.append(o)
-            return (state, torch.stack([o.track_id for o in outs]),
-                    torch.stack([o.distance_m for o in outs]),
-                    torch.stack([o.speed_kmh for o in outs]))
-        ids = torch.zeros((b, max_det), dtype=torch.int32, device=dev)
-        nan = torch.full((b, max_det), float("nan"), device=dev)
+            state, out = scan_steps(self._sort_step, state, boxes, cls_id,
+                                    conf, valid, ts, proj, emb, shifts)
+            return state, out.track_id, out.distance_m, out.speed_kmh
+        ids = torch.zeros(lead, dtype=torch.int32, device=dev)
+        nan = torch.full(lead, float("nan"), device=dev)
         if proj is not None:
             h_mat, origin, maxd = proj
             ground, gvalid = project_boxes_device(h_mat, boxes)
@@ -345,9 +401,10 @@ class PipelineEngine:
                    shifts: Optional[torch.Tensor] = None):
         """:meth:`_tail` on the engine's own track state: detections →
         (track ids, distance, speed)."""
-        self.sort_state, ids, dist, speed = self._tail(
+        state, ids, dist, speed = self._tail(
             self.sort_state, b, boxes, conf, cls_id, valid, ts, frames_u8,
             shifts)
+        self._store_state(state)
         return ids, dist, speed
 
     def _shifts(self, frames_u8: torch.Tensor,
@@ -421,22 +478,80 @@ class PipelineEngine:
         # with its side output (masks, keypoints or rboxes) as ``extra``
         return proc, det.run(frames_u8 if proc is None else proc, lb)
 
+    def build_raw_step(self, shape, want_proc: bool = True):
+        """The pure device step for (B, H, W) batches — the JAX engine's
+        ``build_raw_step`` (:374) without ``params`` (the port's detector
+        owns its weights): ``step(sort_state, frames_u8 (B, H, W, 3) u8,
+        ts (B,) f32, shifts=None) → (proc, outs, sort_state')``, with
+        outs the 7 arrays (8 with a task head) and ``proc`` None on the
+        sampled preprocess path. Preprocess, the detector's pass with its
+        NMS, then the tracker tail as one scan over the batch's frames
+        (``make_sort_scan``'s loop over the registry's step); ``shifts``
+        (B, 2) are the GMC camera shifts, which JAX computes inside its
+        step from a carried thumbnail. ``sort_state`` is not written."""
+        b = shape[0]
+
+        def step(sort_state, frames_u8, ts, shifts=None):
+            proc, dets = self.front(frames_u8, want_proc)
+            if dets is None:
+                return proc, self.empty_outs(b), sort_state
+            boxes, conf, cls_id, valid, extra = dets
+            sort_state, ids, dist, speed = self._tail(
+                sort_state, b, boxes, conf, cls_id, valid, ts, frames_u8,
+                shifts)
+            outs = (boxes, conf, cls_id, valid, ids, dist, speed)
+            return proc, outs if extra is None else outs + (extra,), \
+                sort_state
+
+        return step
+
     @torch.inference_mode()
     def step(self, frames_u8: torch.Tensor, ts: torch.Tensor,
              want_proc: bool = True):
-        """The device step: (B, H, W, 3) uint8 + (B,) float32 stamps →
-        (proc, (boxes, conf, cls, valid, ids, dist, speed)); ``proc`` is
-        None on the sampled preprocess path."""
-        b = frames_u8.shape[0]
-        proc, dets = self.front(frames_u8, want_proc)
-        if dets is None:
-            return proc, self.empty_outs(b)
-        boxes, conf, cls_id, valid, extra = dets
+        """The eager device step on the engine's track state: (B, H, W, 3)
+        uint8 + (B,) float32 stamps → (proc, (boxes, conf, cls, valid,
+        ids, dist, speed)); ``proc`` is None on the sampled preprocess
+        path."""
         shifts = self._gmc_shifts(frames_u8) if self.gmc_enabled else None
-        ids, dist, speed = self._dets_tail(b, boxes, conf, cls_id, valid, ts,
-                                           frames_u8, shifts)
-        outs = (boxes, conf, cls_id, valid, ids, dist, speed)
-        return proc, outs if extra is None else outs + (extra,)
+        proc, outs, state = self.build_raw_step(
+            tuple(frames_u8.shape[:3]), want_proc)(self.sort_state,
+                                                   frames_u8, ts, shifts)
+        self._store_state(state)
+        return proc, outs
+
+    def step_batch(self, frames_u8: torch.Tensor, ts: torch.Tensor,
+                   want_proc: bool = True):
+        """The step as the engine runs a batch: with ``step_mode ==
+        "graph"`` the replay of the shape's captured graph (captured at
+        the shape's first batch; the returned tensors are the graph's
+        and hold until its next replay), else :meth:`step`."""
+        if self.step_mode != "graph":
+            return self.step(frames_u8, ts, want_proc)
+        raw = self.build_raw_step(tuple(frames_u8.shape[:3]), want_proc)
+
+        def fn(state, frames, stamps):
+            proc, outs, state = raw(state, frames, stamps)
+            return (proc, outs), state
+
+        return self.run_step((tuple(frames_u8.shape), want_proc), fn,
+                             self.sort_state, (frames_u8, ts))[0]
+
+    def run_step(self, key, fn, state, args):
+        """``fn(state, *args) → (outputs, state')`` as this engine runs
+        its steps: called, or with ``step_mode == "graph"`` the replay of
+        the graph captured for ``key`` at its first call. A graph writes
+        ``state'`` into the tensors of the ``state`` it was captured on,
+        which come back as ``state'``; its outputs hold until its next
+        replay."""
+        if self.step_mode != "graph":
+            return fn(state, *args)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = CapturedStep(fn, state, args)
+        elif graph.state is not state:
+            raise ValueError(f"the graph of {key} was captured on another "
+                             f"state")
+        return graph(*args), state
 
     # ------------------------------------------------------------------
     # temporal gating (detect.temporal_gate)
@@ -649,7 +764,7 @@ class PipelineEngine:
                 # the device
                 self._gate_dets = tuple(a[b - 1] for a in arrays[:4])
         else:
-            proc, arrays = self.step(up.frames, ts, want_proc)
+            proc, arrays = self.step_batch(up.frames, ts, want_proc)
         # the gate's score rides the copy back, read at collect time
         out = [proc if want_proc else None, *arrays] \
             + ([] if score is None else [score])
@@ -795,7 +910,7 @@ class PipelineEngine:
 
     def reset(self) -> None:
         if self.track_enabled:
-            self.sort_state = init_state(self.track_slots, self.device)
+            self._store_state(init_state(self.track_slots, self.device))
         self._gmc_prev = None
         self._t0 = None
         # a new stream neither coasts on the last stream's detections or
@@ -842,9 +957,9 @@ class PipelineEngine:
                         f"state file {path}: {saved_slots} track slots, "
                         f"engine has {self.track_slots} "
                         f"(tpu.track_slots must match)")
-                self.sort_state = state_from_jax(
+                self._store_state(state_from_jax(
                     {k: z[f"sort_{k}"] for k in SortState._fields},
-                    device=self.device)
+                    device=self.device))
             t0 = float(z["t0"])
             self._t0 = None if np.isnan(t0) else t0
             self._gmc_prev = torch.from_numpy(z["gmc_prev"]).to(

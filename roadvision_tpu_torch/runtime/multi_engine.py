@@ -5,9 +5,13 @@ The reference runs one camera per process. JAX runs S streams as one
 step vmapped over a stream axis and sharded over a device mesh. Here
 the streams are cut into contiguous groups, one group per card; each
 group runs one fleet step (``parallel/inference.py``: the group's frames
-folded into one batch for preprocess and the detector, then the tracker
-tail per stream) on its own :class:`PipelineEngine`, which holds that
-card's copy of the weights. Reached from the config surface:
+folded into one batch for preprocess and the detector, then one tracker
+scan over the stacked state, or a tail per stream for a hooked backend)
+on its own :class:`PipelineEngine`, which holds that card's copy of the
+weights. Where that engine's ``step_mode`` is ``"graph"`` the fleet step
+is captured once per (group, shape) and replayed every fleet batch
+(``runtime/graph.py``); the groups' stacked states are then the graphs'
+state buffers, reset in place. Reached from the config surface:
 
     camera:
       sources: [synthetic:road, traffic.mp4, rtsp://...]   # one per stream
@@ -133,6 +137,9 @@ class MultiStreamEngine:
         # detect.temporal_gate: GLOBAL fleet gating — coast only when ALL
         # streams are static (parallel/inference.py:GatedStreamStep)
         self.fleet_gate = self.engine._gate_cfg is not None
+        # the engine's choice, for the fleet step: the gate and GMC make
+        # the engine eager already
+        self.step_mode = self.engine.step_mode
         self.gate_frames_coasted = 0
         self.num_streams = num_streams
         self.batch_size = self.engine.batch_size
@@ -233,7 +240,9 @@ class MultiStreamEngine:
                     outs, grp.states, grp.gmc_prev = step(
                         grp.states, up.frames, t, grp.gmc_prev)
                 else:
-                    outs, grp.states = step(grp.states, up.frames, t)
+                    outs, grp.states = grp.engine.run_step(
+                        ("fleet", tuple(up.frames.shape)), step, grp.states,
+                        (up.frames, t))
                 fleet.append(outs)
         handles = []
         for grp, up, outs in zip(self.groups, ups, fleet):
@@ -366,7 +375,15 @@ class MultiStreamEngine:
         """A new set of streams: fresh track states, GMC thumbnails, gate
         carry and time origin; the coasted count back to 0."""
         for grp in self.groups:
-            grp.states = None
+            if grp.engine.step_mode == "graph" and grp.states is not None:
+                # the captured graph's state: fresh values, same tensors
+                from ..parallel.inference import _init_states
+                fresh = _init_states(grp.engine, grp.hi - grp.lo)
+                with torch.inference_mode():
+                    for dst, src in zip(grp.states, fresh):
+                        dst.copy_(src)
+            else:
+                grp.states = None
             grp.gmc_prev = None
             grp.gate_carry = None
         self._t0 = None

@@ -24,9 +24,11 @@ the JAX bench reads them).
 and ``stage_ms`` (one batch, each stage synchronised), ``timer_ms`` (the
 engine's ``StageTimer`` means over the stream windows: decode, upload,
 device_step, host_unpack), ``launches_per_batch`` of the hand-written
-kernels, batch, iterations, dtype, and the card's name and power limit
-as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-prints them.
+kernels, batch, iterations, dtype, ``step_mode`` (``"graph"``: every
+measurement above replays the engine's captured step; then
+``graph_stage_ms`` too, each stage captured alone and timed by CUDA
+events), and the card's name and power limit as ``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader`` prints them.
 
 Other modes: ``preprocess`` (the chain alone), ``detect`` (no chain, no
 tracker), ``nopre`` (the pipeline without the chain), and ``seg``,
@@ -220,9 +222,11 @@ def host_fed_stream(engine, source: ReplaySource, iters: int) -> int:
 
 
 def device_resident(engine, render, k0: int, iters: int) -> Tuple[int, int]:
-    """``iters`` batches rendered on the device through ``engine.step``,
-    results copied back through pinned buffers, two batches in flight.
-    Returns (frames, tracked detections)."""
+    """``iters`` batches rendered on the device through
+    ``engine.step_batch`` (the captured graph's replay where
+    ``engine.step_mode`` is "graph"), results copied back through pinned
+    buffers, two batches in flight. Returns (frames, tracked
+    detections)."""
     b = engine.batch_size
     dev = engine.device
     steps = torch.arange(b, device=dev, dtype=torch.float32) / FPS
@@ -241,7 +245,8 @@ def device_resident(engine, render, k0: int, iters: int) -> Tuple[int, int]:
 
     for k in range(k0, k0 + iters):
         frames = render(k * b)
-        _, arrays = engine.step(frames, k * b / FPS + steps, want_proc=False)
+        _, arrays = engine.step_batch(frames, k * b / FPS + steps,
+                                      want_proc=False)
         pending.append(engine.download(list(arrays)) if dev.type == "cuda"
                        else (list(arrays), None, None))
         if len(pending) >= 2:
@@ -278,13 +283,65 @@ def stage_ms(engine, frames: np.ndarray, ts: np.ndarray) -> Dict[str, float]:
         raw, ratio, pad = timed("forward", lambda: det.candidates(proc, lb))
         b, c, k, v, _ = timed("nms", lambda: det.postprocess(
             raw, ratio, pad, (h, w)))
-        state, gmc_prev = engine.sort_state, engine._gmc_prev
         # the tracker tail with what it computes beside the steps: the
-        # re-id descriptors and the GMC shifts, as the engine runs it
-        timed("sort_geometry", lambda: engine._dets_tail(
-            frames.shape[0], b, c, k, v, tsd, x,
-            engine._gmc_shifts(x) if engine.gmc_enabled else None))
-        engine.sort_state, engine._gmc_prev = state, gmc_prev   # no trace
+        # re-id descriptors and the GMC shifts, as the engine runs it, on
+        # the engine's state without writing it (no trace)
+        timed("sort_geometry", lambda: engine._tail(
+            engine.sort_state, frames.shape[0], b, c, k, v, tsd, x,
+            engine._shifts(x, engine._gmc_prev)[0] if engine.gmc_enabled
+            else None))
+    return out
+
+
+def graph_stage_ms(engine, frames: np.ndarray, ts: np.ndarray,
+                   reps: int = 10) -> Dict[str, float]:
+    """Device ms of each stage of :func:`stage_ms` on the card, each stage
+    captured alone in a CUDA graph (``runtime/graph.py``) and replayed
+    ``reps`` times between two CUDA events; the tracker tail advances a
+    copy of the engine's state. What the stages cost once the host's
+    launches are out of the way."""
+    from ..runtime.graph import CapturedStep
+    from ..track.sort import SortState
+    dev = engine.device
+    out: Dict[str, float] = {}
+    h, w = frames.shape[1:3]
+    x = torch.from_numpy(frames).to(dev)
+    tsd = torch.from_numpy((ts - ts[0]).astype(np.float32)).to(dev)
+
+    def timed(name, fn, state, *args):
+        graph = CapturedStep(fn, state, args)
+        graph(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph(*args)
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / reps
+        return graph.outputs
+
+    def stateless(fn):
+        return lambda _, *a: (fn(*a), None)
+
+    det = engine.detector
+    proc = timed("preprocess", stateless(engine.pipeline.apply_batch), None,
+                 x)
+    if det is None:
+        return out
+    imgs, ratio, pad = timed("letterbox", stateless(det.letterbox), None,
+                             proc)
+    raw = timed("forward", stateless(det.forward), None, imgs)
+    b, c, k, v, _ = timed("nms", stateless(
+        lambda *r: det.postprocess(r, ratio, pad, (h, w))), None, *raw)
+    state = None if engine.sort_state is None else \
+        SortState(*[t.clone() for t in engine.sort_state])
+
+    def tail(st, *a):
+        st, *res = engine._tail(st, frames.shape[0], *a)
+        return tuple(res), st
+
+    timed("sort_geometry", tail, state, b, c, k, v, tsd, x)
     return out
 
 
@@ -306,6 +363,7 @@ def bench_pipeline(args, device: torch.device) -> Dict[str, Any]:
     src = ReplaySource(batches)
     host_fed_process_batch(engine, src, args.warmup)
     kernels.reset_launch_counts()
+    out["step_mode"] = engine.step_mode
     out["host_fed_process_batch_fps"] = windows_fps(
         lambda: host_fed_process_batch(engine, src, iters), wins, device)
     out["launches_per_batch"] = {
@@ -348,6 +406,9 @@ def bench_pipeline(args, device: torch.device) -> Dict[str, Any]:
     ts = 1000.0 + np.arange(batch) / FPS
     engine.process_batch(batches[0], ts, want_proc=False)
     out["stage_ms"] = stage_ms(engine, batches[1], ts + batch / FPS)
+    if engine.step_mode == "graph":
+        out["graph_stage_ms"] = graph_stage_ms(engine, batches[1],
+                                               ts + batch / FPS)
     out["metric"] = f"{'pipeline' if args.mode == 'full' else args.mode}" \
                     f"_{height}p_fps"
     out["value"] = out["device_resident_fps"]["median"]
@@ -510,7 +571,8 @@ def _best_ious(got: np.ndarray, want: np.ndarray) -> List[float]:
 def bench_gate(args, device: torch.device) -> Dict[str, Any]:
     """The temporal-gate A/B of ``bench.py::gate_fps``: gated against
     ungated on a static and on a moving scene, and the staleness of the
-    coasted boxes on a slow one."""
+    coasted boxes on a slow one; ``coasted_batches`` counts every gated
+    batch that coasted, warm-up included."""
     from ..config import load_config
     height, width, batch = args.res, res_width(args.res), args.batch
     base = bench_cfg(height, width, batch, args.model, args.dtype)
@@ -528,6 +590,7 @@ def bench_gate(args, device: torch.device) -> Dict[str, Any]:
                                       device=device).make_render_at_fn()
     steps = torch.arange(batch, device=device)
     out: Dict[str, Any] = {}
+    coasted_batches = 0         # every gated batch that coasted
 
     for scene in ("static", "moving"):
         still = render_at(torch.zeros((batch,), dtype=torch.long,
@@ -545,11 +608,13 @@ def bench_gate(args, device: torch.device) -> Dict[str, Any]:
             return f
 
         def gated() -> int:
+            nonlocal coasted_batches
             for _ in range(args.iters):
                 k = box["k"]
                 ts = (k * batch + steps).to(torch.float32) / FPS
                 outs, coast, box["carry"] = step(box["carry"], frames_at(k),
                                                  ts)
+                coasted_batches += bool(coast)
                 box["coasted"] += batch if coast else 0
                 box["frames"] += batch
                 box["k"] += 1
@@ -610,6 +675,7 @@ def bench_gate(args, device: torch.device) -> Dict[str, Any]:
         ts = idx.to(torch.float32) / FPS
         outs_g, coast, carry = s_step(carry, frames, ts)
         _, outs_p = s_off.step(frames, ts, want_proc=False)
+        coasted_batches += bool(coast)
         if not coast:
             continue
         gb, gv, pb, pv = (t.cpu().numpy() for t in
@@ -627,7 +693,8 @@ def bench_gate(args, device: torch.device) -> Dict[str, Any]:
           f"matched IoU vs fresh mean={out['staleness']['iou_mean']:.3f} "
           f"min={out['staleness']['iou_min']:.3f} over "
           f"{out['staleness']['n_dets']} coasted dets", file=sys.stderr)
-    out.update({"metric": f"gate_static_{height}p_fps",
+    out.update({"coasted_batches": coasted_batches,
+                "metric": f"gate_static_{height}p_fps",
                 "value": out["static"]["gated_fps"]["median"],
                 "unit": "frames/sec"})
     return out
@@ -675,11 +742,12 @@ def bench_streams(args, device: torch.device) -> Dict[str, Any]:
     streams (default 4) of ``RVT_BENCH_RES``-line frames (default 480)
     rendered on the device, through the fleet step
     (``parallel/inference.py::make_stream_step``: one folded batch for
-    preprocess and the detector, the tracker tail per stream), results
-    copied back through pinned buffers, two batches in flight. Reports
-    the aggregate frames/s of all streams, frames/s per stream, the
-    kernels' launches and the association's host syncs per fleet batch,
-    and the fleet step's stage ms."""
+    preprocess and the detector, one tracker scan on the stacked state;
+    replayed from a CUDA graph where the engine's ``step_mode`` is
+    "graph"), results copied back through pinned buffers, two batches in
+    flight. Reports the aggregate frames/s of all streams, frames/s per
+    stream, the kernels' launches and the association's host syncs per
+    fleet batch, the step mode, and the fleet step's stage ms."""
     from ..parallel.inference import make_stream_step
     from ..track import sort as tsort
     n_streams = int(os.environ.get("RVT_BENCH_STREAMS", "4"))
@@ -713,7 +781,10 @@ def bench_streams(args, device: torch.device) -> Dict[str, Any]:
     def run_batches(iters: int) -> int:
         pending: list = []
         for _ in range(iters):
-            outs, state["states"] = step(state["states"], *inputs(state["k"]))
+            frames, ts = inputs(state["k"])
+            outs, state["states"] = engine.run_step(
+                ("fleet", tuple(frames.shape)), step, state["states"],
+                (frames, ts))
             state["k"] += 1
             if device.type == "cuda":
                 pending.append(engine.download(list(outs)))
@@ -727,7 +798,8 @@ def bench_streams(args, device: torch.device) -> Dict[str, Any]:
     kernels.reset_launch_counts()
     fps = windows_fps(lambda: run_batches(args.iters), args.windows, device)
     out: Dict[str, Any] = {"streams": n_streams, "res": height,
-                           "streams_fps": fps}
+                           "streams_fps": fps,
+                           "step_mode": engine.step_mode}
     out["launches_per_batch"] = {
         k: v / (args.iters * args.windows)
         for k, v in kernels.launch_counts.items()}

@@ -3,11 +3,13 @@ counterpart of ``roadvision_tpu/track/multi.py``.
 
 A fleet of S camera streams keeps one :class:`SortState` whose fields
 carry a leading stream axis. JAX lifts the single-stream step over that
-axis with ``jax.vmap``; here :func:`over_streams` runs the step once
-per stream on that stream's slice (:func:`stream_states`) and stacks the
-results back (:func:`stack_states`) — for every backend built on
-``make_sort_step``'s hooks, as the vmap does, and for the fleet step's
-tracker tail (``parallel/inference.py``).
+axis with ``jax.vmap``. Here the default step (SORT without hooks,
+greedy or ε-auction) takes the stacked state itself: the stream axis is
+a batch dimension and one association launch serves all S streams
+(``make_sort_step``). A step with strategy hooks (the other backends)
+is lifted by :func:`over_streams`, which runs it once per stream on that
+stream's slice (:func:`stream_states`) and stacks the results back
+(:func:`stack_states`).
 
 IDs are per stream (each stream carries its own ``next_id``), matching S
 independent trackers exactly.
@@ -68,12 +70,17 @@ def make_multi_step(step: Callable, with_projector: bool = False):
     (S,D,4), cls (S,D), conf (S,D), valid (S,D), ts (S,), proj=None,
     emb=None (S,D,E), shift=None (S,2)) → (states', SortOutput stacked
     over S)``. The projector ``proj`` is shared by every stream, and is
-    given exactly when ``with_projector``."""
+    given exactly when ``with_projector``. A step that takes the stacked
+    state (``stackable``) runs once for all streams; any other once per
+    stream."""
     def multi(states, boxes, cls_id, conf, valid, ts, proj=None, emb=None,
               shift=None):
         if (proj is not None) != with_projector:
             raise ValueError(f"the step was built with with_projector="
                              f"{with_projector}")
+        if getattr(step, "stackable", False):
+            return step(states, boxes, cls_id, conf, valid, ts, proj, emb,
+                        shift)
 
         def one(st, bx, c, cf, v, t, e, sh):
             return step(st, bx, c, cf, v, t, proj, e, sh)
@@ -91,7 +98,8 @@ def make_multi_sort_step(iou_threshold: float, max_staleness: float,
                          association: str = "greedy"):
     """step(states, boxes (S,D,4), cls (S,D), conf (S,D), valid (S,D),
     ts (S,), proj?) → (states, SortOutput stacked over S), as the JAX
-    function; :func:`make_multi_step` lifts any other backend's step."""
+    function: the stacked step, one association launch for all S
+    streams; :func:`make_multi_step` lifts any other backend's step."""
     return make_multi_step(
         make_sort_step(iou_threshold, max_staleness, speed_window, min_hits,
                        association=association), with_projector)

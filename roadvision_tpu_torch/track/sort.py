@@ -26,10 +26,20 @@ kept:
     first→last displacement / elapsed (≥ 1e-3 s) × 3.6 km/h;
   * overflow beyond the slot count keeps id assignment but drops tracks.
 
-The association rounds read one flag back to the host per round (JAX
-runs them as a device ``while_loop``); the ε-auction reads one flag per
-block of :data:`AUCTION_BLOCK` rounds. Every such read adds one to
-:data:`host_syncs` so a caller can count them per batch.
+JAX runs the association rounds as a device ``while_loop``. Here
+:func:`greedy_associate` and :func:`auction_associate` launch a CUDA
+kernel for a tensor on the card (K4 ``assoc_greedy``, K5
+``assoc_auction``, ``csrc/assoc.cu``: the whole loop in one thread block
+a problem, no host read) and run their plain versions for a tensor on
+the CPU: those read one flag back to the host per greedy round, and one
+per block of :data:`AUCTION_BLOCK` ε-auction rounds. Every such read adds
+one to :data:`host_syncs` so a caller can count them per batch.
+
+The default step (no hooks) also takes a stacked state, every field with
+a leading stream axis S, and detections (S, D, ...): JAX's ``vmap`` over
+streams written out as a batch dimension, one association launch for
+all S streams. :func:`make_sort_scan` runs a step over a sequence of
+frames (JAX's ``lax.scan``), :func:`scan_steps` any backend's.
 ``nsa=True`` is the NSA Kalman of StrongSORT: measurement noise scaled
 per track by ``1 − conf`` (:func:`nsa_r_scale`).
 
@@ -44,12 +54,14 @@ JAX step's (sort_tpu.py:396-650).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..kernels import _build
+from ..utils.device import device_constant, resolve_device
 
 HISTORY = 32
 STATE_DIM = 7
@@ -123,8 +135,7 @@ class SortOutput(NamedTuple):
 
 
 def _p0(device) -> torch.Tensor:
-    return torch.diag(torch.tensor(_P0_DIAG, dtype=torch.float32,
-                                   device=device))
+    return torch.diag(device_constant(_P0_DIAG, torch.float32, device))
 
 
 def init_state(num_slots: int, device=None) -> SortState:
@@ -170,9 +181,10 @@ def x_to_bbox(mean: torch.Tensor) -> torch.Tensor:
 
 
 def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU (Ta, 4) × (Db, 4) → (Ta, Db); degenerate → 0."""
-    ax1, ay1, ax2, ay2 = (a[:, None, i] for i in range(4))
-    bx1, by1, bx2, by2 = (b[None, :, i] for i in range(4))
+    """Pairwise IoU (..., Ta, 4) × (..., Db, 4) → (..., Ta, Db);
+    degenerate → 0."""
+    ax1, ay1, ax2, ay2 = (a[..., :, None, i] for i in range(4))
+    bx1, by1, bx2, by2 = (b[..., None, :, i] for i in range(4))
     iw = (torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1)).clamp(min=0.0)
     ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1)).clamp(min=0.0)
     inter = iw * ih
@@ -185,47 +197,56 @@ def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(denom))
 
 
-def greedy_associate(iou: torch.Tensor, alive: torch.Tensor,
-                     dvalid: torch.Tensor, thresh: float) -> torch.Tensor:
-    """Greedy global-argmax matching → det→track (D,) int32, -1 unmatched,
-    by mutual-maximum rounds (sort_tpu.py:186-230)."""
-    num_t, num_d = iou.shape
+def greedy_associate_plain(iou: torch.Tensor, alive: torch.Tensor,
+                           dvalid: torch.Tensor, thresh: float
+                           ) -> torch.Tensor:
+    """Greedy global-argmax matching → det→track (..., D) int32, -1
+    unmatched, by mutual-maximum rounds (sort_tpu.py:186-230), over any
+    leading problem axes of ``iou`` (..., T, D), ``alive`` (..., T) and
+    ``dvalid`` (..., D). One host read per round; a round in which one
+    problem has no mutual pair changes nothing in it, so the problems
+    come out as one at a time."""
+    num_t, num_d = iou.shape[-2:]
     dev = iou.device
-    mat = torch.where(alive[:, None] & dvalid[None, :], iou,
+    lead = iou.shape[:-2]
+    mat = torch.where(alive[..., :, None] & dvalid[..., None, :], iou,
                       torch.full_like(iou, -1.0))
     t_ids = torch.arange(num_t, dtype=torch.int32, device=dev)
-    det2trk = torch.full((num_d,), -1, dtype=torch.int32, device=dev)
+    det2trk = torch.full(lead + (num_d,), -1, dtype=torch.int32, device=dev)
     for _ in range(min(num_t, num_d) + 1):
-        rbest = mat.argmax(dim=1)
-        cbest = mat.argmax(dim=0)
-        rval = mat.max(dim=1).values
-        mutual = (cbest[rbest].to(torch.int32) == t_ids) \
+        rbest = mat.argmax(dim=-1)
+        cbest = mat.argmax(dim=-2)
+        rval = mat.max(dim=-1).values
+        mutual = (torch.gather(cbest, -1, rbest).to(torch.int32) == t_ids) \
             & (rval >= thresh) & (rval > -0.5)
         if not read_flag(mutual.any()):
             break
-        t_for_d = torch.full((num_d,), -1, dtype=torch.int32, device=dev) \
-            .scatter_reduce(0, rbest, torch.where(mutual, t_ids, -1),
+        t_for_d = torch.full(lead + (num_d,), -1, dtype=torch.int32,
+                             device=dev) \
+            .scatter_reduce(-1, rbest, torch.where(mutual, t_ids, -1),
                             reduce="amax")
-        taken_d = torch.zeros((num_d,), dtype=torch.int32, device=dev) \
-            .scatter_reduce(0, rbest, mutual.to(torch.int32),
+        taken_d = torch.zeros(lead + (num_d,), dtype=torch.int32,
+                              device=dev) \
+            .scatter_reduce(-1, rbest, mutual.to(torch.int32),
                             reduce="amax") > 0
         det2trk = torch.where(taken_d & (det2trk < 0), t_for_d, det2trk)
-        mat = torch.where(mutual[:, None] | taken_d[None, :],
+        mat = torch.where(mutual[..., :, None] | taken_d[..., None, :],
                           torch.full_like(mat, -1.0), mat)
     return det2trk
 
 
-def auction_associate(iou: torch.Tensor, alive: torch.Tensor,
-                      dvalid: torch.Tensor, thresh: float,
-                      eps: float = 0.01, max_iters: int = 512
-                      ) -> torch.Tensor:
+def auction_associate_plain(iou: torch.Tensor, alive: torch.Tensor,
+                            dvalid: torch.Tensor, thresh: float,
+                            eps: float = 0.01, max_iters: int = 512
+                            ) -> torch.Tensor:
     """Optimal-assignment association (``association: hungarian``) by
     the parallel ε-auction of sort_tpu.py:233-311: every unassigned
     valid detection bids ``best − second best + ε`` for its best-value
     column, each column goes to its highest bidder (first index on
     ties); D dummy columns at −1 let every detection end assigned; pairs
     on a dummy column or below ``thresh`` are unmatched afterwards.
-    Returns det→track (D,) int32, -1 unmatched.
+    Returns det→track (..., D) int32, -1 unmatched, over any leading
+    problem axes, as :func:`greedy_associate_plain`.
 
     JAX runs the rounds as a device ``while_loop`` that stops when no
     valid detection is unassigned or after ``max_iters`` rounds. Here
@@ -235,42 +256,42 @@ def auction_associate(iou: torch.Tensor, alive: torch.Tensor,
     assignments (``has_bid`` is false everywhere, hence no eviction and
     no win); and ``max_iters`` is cut at the same round count, the last
     block shortened if needed."""
-    num_t, num_d = iou.shape
+    num_t, num_d = iou.shape[-2:]
     dev = iou.device
+    lead = iou.shape[:-2]
     neg = -1e9
     cols = num_t + num_d
     col_ids = torch.arange(cols, device=dev)
     det_ids = torch.arange(num_d, device=dev)
-    w_real = torch.where(alive[:, None] & dvalid[None, :], iou,
-                         torch.full_like(iou, neg)).T
-    w = torch.cat([w_real, torch.full((num_d, num_d), -1.0,
+    w_real = torch.where(alive[..., :, None] & dvalid[..., None, :], iou,
+                         torch.full_like(iou, neg)).transpose(-1, -2)
+    w = torch.cat([w_real, torch.full(lead + (num_d, num_d), -1.0,
                                       dtype=torch.float32, device=dev)],
-                  dim=1)
-    prices = torch.zeros((cols,), dtype=torch.float32, device=dev)
-    assigned = torch.full((num_d,), -1, dtype=torch.int64, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+                  dim=-1)
+    prices = torch.zeros(lead + (cols,), dtype=torch.float32, device=dev)
+    assigned = torch.full(lead + (num_d,), -1, dtype=torch.int64, device=dev)
 
     def round_(prices, assigned):
-        values = w - prices[None, :]
-        best_c = values.argmax(dim=1)
-        v1 = values.max(dim=1).values
-        rest = values.clone()
-        rest[det_ids, best_c] = neg
-        v2 = rest.max(dim=1).values
+        values = w - prices[..., None, :]
+        best_c = values.argmax(dim=-1)
+        v1 = values.max(dim=-1).values
+        rest = values.scatter(-1, best_c[..., None], neg)
+        v2 = rest.max(dim=-1).values
         bidding = (assigned < 0) & dvalid
         incr = v1 - v2 + eps
         bid_mat = torch.where(
-            bidding[:, None] & (best_c[:, None] == col_ids[None, :]),
-            incr[:, None], neg_inf)
-        top_bid = bid_mat.max(dim=0).values
-        winner = bid_mat.argmax(dim=0)
+            bidding[..., :, None] & (best_c[..., :, None] == col_ids),
+            incr[..., :, None], float("-inf"))
+        top_bid = bid_mat.max(dim=-2).values
+        winner = bid_mat.argmax(dim=-2)
         has_bid = top_bid > float("-inf")
         prices = torch.where(has_bid, prices + top_bid, prices)
         own_c = assigned.clamp(0, cols - 1)
-        evicted = (assigned >= 0) & has_bid[own_c] \
-            & (winner[own_c] != det_ids)
+        evicted = (assigned >= 0) & torch.gather(has_bid, -1, own_c) \
+            & (torch.gather(winner, -1, own_c) != det_ids)
         assigned = torch.where(evicted, -1, assigned)
-        won = bidding & has_bid[best_c] & (winner[best_c] == det_ids)
+        won = bidding & torch.gather(has_bid, -1, best_c) \
+            & (torch.gather(winner, -1, best_c) == det_ids)
         assigned = torch.where(won, best_c, assigned)
         return prices, assigned
 
@@ -282,11 +303,135 @@ def auction_associate(iou: torch.Tensor, alive: torch.Tensor,
 
     real = (assigned >= 0) & (assigned < num_t)
     trk = assigned.clamp(0, num_t - 1)
-    good = real & (iou.T[det_ids, trk] >= thresh) & alive[trk] & dvalid
+    good = real & (torch.gather(iou.transpose(-1, -2), -1,
+                                trk[..., None])[..., 0] >= thresh) \
+        & torch.gather(alive, -1, trk) & dvalid
     return torch.where(good, trk, -1).to(torch.int32)
 
 
+# the kernels' shared memory a block may use on the card (227 KB)
+SMEM_LIMIT = 232448
+
+
+def _assoc_operands(iou, alive, dvalid, what: str):
+    """Shape and device checks of K4 / K5 → (scores (P, T, D) f32, alive
+    (P, T) u8, dvalid (P, D) u8, leading shape) on one card."""
+    if iou.dim() < 2 or iou.dtype != torch.float32:
+        raise ValueError(f"{what}: expected (..., T, D) float32 scores, "
+                         f"got {tuple(iou.shape)} {iou.dtype}")
+    num_t, num_d = iou.shape[-2:]
+    lead = iou.shape[:-2]
+    if num_t < 1 or num_d < 1:
+        raise ValueError(f"{what}: empty problem {tuple(iou.shape)}")
+    if alive.device != iou.device or dvalid.device != iou.device:
+        raise ValueError(f"{what}: scores and masks must be on one device")
+    p = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    if p < 1 or p > 2 ** 31 - 1:
+        raise ValueError(f"{what}: {p} problems in one launch")
+    flat = iou.reshape(p, num_t, num_d).contiguous()
+    al = alive.to(torch.bool).expand(lead + (num_t,)).reshape(p, num_t) \
+        .contiguous().view(torch.uint8)
+    dv = dvalid.to(torch.bool).expand(lead + (num_d,)).reshape(p, num_d) \
+        .contiguous().view(torch.uint8)
+    return flat, al, dv, lead
+
+
+def greedy_smem_bytes(num_t: int, num_d: int, matrix: bool = True) -> int:
+    """K4's shared memory for one (T, D) problem (csrc/assoc.cu), with
+    the score matrix in it or (``matrix=False``) in global memory."""
+    return 4 * num_t * (num_d + 1) * matrix + 8 * num_t + 8 * num_d \
+        + num_t + num_d
+
+
+def auction_smem_bytes(num_t: int, num_d: int) -> int:
+    """K5's shared memory for one (T, D) problem (csrc/assoc.cu)."""
+    cols = num_t + num_d
+    return 4 * (cols + num_d) + 4 * (cols + 2 * num_d) + cols + 2 * num_d \
+        + num_t
+
+
+def _greedy_cuda(iou, alive, dvalid, thresh: float) -> torch.Tensor:
+    flat, al, dv, lead = _assoc_operands(iou, alive, dvalid,
+                                         "greedy_associate")
+    p, num_t, num_d = flat.shape
+    # a score matrix that one block's shared memory cannot hold goes to a
+    # work buffer in global memory (the same kernel, another address)
+    work = None
+    if greedy_smem_bytes(num_t, num_d) > SMEM_LIMIT:
+        if greedy_smem_bytes(num_t, num_d, matrix=False) > SMEM_LIMIT:
+            raise ValueError(f"greedy_associate: a {num_t} x {num_d} "
+                             f"problem needs more than one block's "
+                             f"{SMEM_LIMIT} bytes of shared memory")
+        work = torch.empty((p, num_t, num_d + 1), dtype=torch.float32,
+                           device=iou.device)
+    out = torch.empty((p, num_d), dtype=torch.int32, device=iou.device)
+    lib = _build.load("assoc")
+    with torch.cuda.device(iou.device):
+        code = lib.rvt_assoc_greedy(
+            flat.data_ptr(), al.data_ptr(), dv.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), p, num_t, num_d,
+            ctypes.c_float(float(thresh)), _build.stream_ptr(iou))
+    _build.launch_counts["assoc_greedy"] += 1
+    _build.check(code, "assoc_greedy")
+    return out.reshape(lead + (num_d,))
+
+
+def _auction_cuda(iou, alive, dvalid, thresh: float, eps: float,
+                  max_iters: int) -> torch.Tensor:
+    flat, al, dv, lead = _assoc_operands(iou, alive, dvalid,
+                                         "auction_associate")
+    p, num_t, num_d = flat.shape
+    if auction_smem_bytes(num_t, num_d) > SMEM_LIMIT:
+        raise ValueError(f"auction_associate: a {num_t} x {num_d} problem "
+                         f"needs {auction_smem_bytes(num_t, num_d)} bytes "
+                         f"of shared memory, over one block's {SMEM_LIMIT}")
+    out = torch.empty((p, num_d), dtype=torch.int32, device=iou.device)
+    lib = _build.load("assoc")
+    with torch.cuda.device(iou.device):
+        code = lib.rvt_assoc_auction(
+            flat.data_ptr(), al.data_ptr(), dv.data_ptr(), out.data_ptr(),
+            p, num_t, num_d, ctypes.c_float(float(thresh)),
+            ctypes.c_float(float(eps)), int(max_iters),
+            _build.stream_ptr(iou))
+    _build.launch_counts["assoc_auction"] += 1
+    _build.check(code, "assoc_auction")
+    return out.reshape(lead + (num_d,))
+
+
+def greedy_associate(iou: torch.Tensor, alive: torch.Tensor,
+                     dvalid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """K4 wrapper: det→track (..., D) int32, -1 unmatched, for scores
+    (..., T, D), ``alive`` (..., T), ``dvalid`` (..., D). A CPU tensor
+    runs :func:`greedy_associate_plain`; a CUDA tensor launches the
+    kernel, one block per problem, on the current stream."""
+    if iou.device.type == "cpu":
+        return greedy_associate_plain(iou, alive, dvalid, thresh)
+    if iou.device.type != "cuda":
+        raise ValueError(f"unsupported device {iou.device}")
+    return _greedy_cuda(iou, alive, dvalid, thresh)
+
+
+def auction_associate(iou: torch.Tensor, alive: torch.Tensor,
+                      dvalid: torch.Tensor, thresh: float,
+                      eps: float = 0.01, max_iters: int = 512
+                      ) -> torch.Tensor:
+    """K5 wrapper, as :func:`greedy_associate`, for
+    :func:`auction_associate_plain`."""
+    if iou.device.type == "cpu":
+        return auction_associate_plain(iou, alive, dvalid, thresh, eps,
+                                       max_iters)
+    if iou.device.type != "cuda":
+        raise ValueError(f"unsupported device {iou.device}")
+    return _auction_cuda(iou, alive, dvalid, thresh, eps, max_iters)
+
+
 def _kf_predict(mean, cov, dt):
+    """Kalman predict of every row of ``mean`` (..., 7) and ``cov``
+    (..., 7, 7) over ``dt`` (...)."""
+    lead = mean.shape[:-1]
+    mean = mean.reshape(-1, STATE_DIM)
+    cov = cov.reshape(-1, STATE_DIM, STATE_DIM)
+    dt = dt.reshape(-1)
     t = mean.shape[0]
     dev = mean.device
     f = torch.eye(STATE_DIM, device=dev).repeat(t, 1, 1)
@@ -298,7 +443,8 @@ def _kf_predict(mean, cov, dt):
     new_mean = torch.einsum("tij,tj->ti", f, mean)
     new_cov = torch.einsum("tij,tjk,tlk->til", f, cov, f) \
         + torch.diag_embed(q_diag)
-    return new_mean, new_cov
+    return new_mean.reshape(lead + (STATE_DIM,)), \
+        new_cov.reshape(lead + (STATE_DIM, STATE_DIM))
 
 
 def nsa_r_scale(conf: torch.Tensor) -> torch.Tensor:
@@ -308,18 +454,25 @@ def nsa_r_scale(conf: torch.Tensor) -> torch.Tensor:
 
 
 def _kf_update(mean, cov, z, r_scale=None):
-    """Batched KF update, H = [I4 0], Joseph-form covariance (filterpy).
-    ``r_scale`` (T,) scales the measurement noise per track (NSA)."""
+    """Batched KF update of every row of ``mean`` (..., 7), H = [I4 0],
+    Joseph-form covariance (filterpy). ``r_scale`` (...) scales the
+    measurement noise per track (NSA). ``solve_ex`` reads no error flag
+    back to the host (``solve`` would), so the update runs inside a
+    captured CUDA graph; the two give the same values."""
+    lead = mean.shape[:-1]
+    mean = mean.reshape(-1, STATE_DIM)
+    cov = cov.reshape(-1, STATE_DIM, STATE_DIM)
+    z = z.reshape(-1, MEAS_DIM)
     t = mean.shape[0]
     dev = mean.device
-    r = torch.diag(torch.tensor(_R_DIAG, dtype=torch.float32, device=dev))
+    r = torch.diag(device_constant(_R_DIAG, torch.float32, dev))
     if r_scale is None:
         r = r.expand(t, MEAS_DIM, MEAS_DIM)
     else:
-        r = r_scale[:, None, None] * r[None]
+        r = r_scale.reshape(-1)[:, None, None] * r[None]
     ph = cov[:, :, :MEAS_DIM]
     s = cov[:, :MEAS_DIM, :MEAS_DIM] + r
-    k = torch.linalg.solve(s, ph.transpose(1, 2)).transpose(1, 2)
+    k = torch.linalg.solve_ex(s, ph.transpose(1, 2)).result.transpose(1, 2)
     innov = z - mean[:, :MEAS_DIM]
     new_mean = mean + torch.einsum("tij,tj->ti", k, innov)
     kh = torch.zeros_like(cov)
@@ -327,43 +480,48 @@ def _kf_update(mean, cov, z, r_scale=None):
     i_kh = torch.eye(STATE_DIM, device=dev)[None] - kh
     new_cov = torch.einsum("tij,tjk,tlk->til", i_kh, cov, i_kh) \
         + torch.einsum("tij,tjk,tlk->til", k, r, k)
-    return new_mean, new_cov
+    return new_mean.reshape(lead + (STATE_DIM,)), \
+        new_cov.reshape(lead + (STATE_DIM, STATE_DIM))
+
+
+def _at(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``buf[..., idx]`` element by element: (..., N) at (...) → (...)."""
+    return torch.gather(buf, -1, idx[..., None])[..., 0]
 
 
 def _history_append_and_window(state: SortState, sel, ts, gx, gy, window):
-    t_slots = state.hist_ts.shape[0]
+    """Append the ground points of the ``sel`` tracks (..., T) at ``ts``
+    (...) to their history rings, drop entries older than ``window``
+    seconds and give the windowed speed (..., T)."""
     dev = sel.device
     head, length = state.hist_head, state.hist_len
     full = length >= HISTORY
-    write_pos = ((head + length) % HISTORY).long()
+    write_pos = ((head + length) % HISTORY).long()[..., None]
     head_after = torch.where(sel & full, (head + 1) % HISTORY, head)
     len_after = torch.where(sel & ~full, length + 1, length)
 
-    rows = torch.arange(t_slots, device=dev)
-
     def put(buf, val):
-        buf = buf.clone()
-        buf[rows, write_pos] = torch.where(sel, val, buf[rows, write_pos])
-        return buf
+        cur = torch.gather(buf, -1, write_pos)[..., 0]
+        return buf.scatter(-1, write_pos, torch.where(sel, val, cur)[..., None])
 
-    hist_ts = put(state.hist_ts, ts.expand(t_slots))
+    hist_ts = put(state.hist_ts, ts[..., None].expand(sel.shape))
     hist_x = put(state.hist_x, gx)
     hist_y = put(state.hist_y, gy)
 
-    slot = torch.arange(HISTORY, device=dev)[None, :]
-    order = (slot - head_after[:, None]) % HISTORY
-    in_buf = order < len_after[:, None]
-    expired = in_buf & ((ts - hist_ts) > window)
+    slot = torch.arange(HISTORY, device=dev)
+    order = (slot - head_after[..., None]) % HISTORY
+    in_buf = order < len_after[..., None]
+    expired = in_buf & ((ts[..., None, None] - hist_ts) > window)
     n_exp = expired.sum(dim=-1).to(torch.int32)
     head_new = torch.where(sel, (head_after + n_exp) % HISTORY, head_after)
     len_new = torch.where(sel, len_after - n_exp, len_after)
 
     first = head_new.long()
     last = ((head_new + torch.clamp(len_new - 1, min=0)) % HISTORY).long()
-    t0 = hist_ts[rows, first]
-    t1 = hist_ts[rows, last]
-    dx = hist_x[rows, last] - hist_x[rows, first]
-    dy = hist_y[rows, last] - hist_y[rows, first]
+    t0 = _at(hist_ts, first)
+    t1 = _at(hist_ts, last)
+    dx = _at(hist_x, last) - _at(hist_x, first)
+    dy = _at(hist_y, last) - _at(hist_y, first)
     spd = torch.hypot(dx, dy) / torch.clamp(t1 - t0, min=1e-3)
     speed = torch.where(len_new >= 2, spd, torch.full_like(spd, float("nan")))
     return state._replace(hist_ts=hist_ts, hist_x=hist_x, hist_y=hist_y,
@@ -372,12 +530,29 @@ def _history_append_and_window(state: SortState, sel, ts, gx, gy, window):
 
 
 def _put_rows(buf: torch.Tensor, index: torch.Tensor, values) -> torch.Tensor:
-    """``buf.at[index].set(values, mode="drop")`` for index in [0, T]: row
-    T is a scratch row that takes the dropped writes, then goes away."""
-    ext = torch.cat([buf, buf[:1]], dim=0)
-    ext[index] = values if torch.is_tensor(values) else \
-        torch.as_tensor(values, dtype=buf.dtype, device=buf.device)
-    return ext[:-1]
+    """``buf.at[s, index].set(values, mode="drop")`` for every stream s
+    of ``buf`` (S, T, ...), ``index`` (S, N) in [0, T]: row T of each
+    stream is a scratch row that takes the dropped writes, then goes
+    away. A number is written as a fill on the device (a capture cannot
+    copy it from the host)."""
+    ext = torch.cat([buf, buf[:, :1]], dim=1)
+    streams = torch.arange(buf.shape[0], device=buf.device)[:, None] \
+        .expand_as(index)
+    ext[streams, index] = values if torch.is_tensor(values) \
+        else buf.new_full((), values)
+    return ext[:, :-1]
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (S, M) of every stream of ``x`` (S, N, ...) →
+    (S, M, ...)."""
+    shape = idx.shape + (1,) * (x.dim() - 2)
+    return torch.gather(x, 1, idx.reshape(shape).expand(idx.shape
+                                                        + x.shape[2:]))
+
+
+def _squeeze_state(state: SortState) -> SortState:
+    return SortState(*[t[0] for t in state])
 
 
 def make_sort_step(iou_threshold: float, max_staleness: float,
@@ -392,6 +567,12 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
     (2,) the camera's translation in source px since the previous frame
     (track/gmc.py), applied to the position memory before the predict.
 
+    Without hooks the step also takes a stacked state (every field with
+    a leading stream axis S, ``init_multi_state``) with detections
+    (S, D, ...), ``ts`` (S,), ``emb`` (S, D, E) and ``shift`` (S, 2):
+    each stream as its own step would run it, one association launch
+    for all S. Such a step carries ``stackable = True``.
+
     ``association``: "greedy" (the reference) or "hungarian" (the
     ε-auction, :func:`auction_associate`). The hooks, as in JAX:
     ``associate_fn(iou (T,D), alive, dvalid, conf, ctx) → det→track``
@@ -405,6 +586,9 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
     staleness = float(max_staleness)
     window = max(0.05, float(speed_window))
     del min_hits   # tracked by the reference but never gates output
+    hooked = associate_fn is not None or new_track_fn is not None \
+        or update_fn is not None
+    use_nsa = bool(nsa)
     if associate_fn is None:
         if association not in ("greedy", "hungarian"):
             raise ValueError(f"unknown association: {association!r} "
@@ -412,84 +596,106 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
         base_assoc = greedy_associate if association == "greedy" \
             else auction_associate
 
-        def associate_fn(iou, alive, dvalid, conf, ctx):
+        def assoc(iou, alive, dvalid, conf, ctx):
             return base_assoc(iou, alive, dvalid, thresh)
+    else:
+        def assoc(iou, alive, dvalid, conf, ctx):
+            state, boxes, ts, emb = ctx
+            return associate_fn(
+                iou[0], alive[0], dvalid[0], conf[0],
+                (_squeeze_state(state), boxes[0], ts[0],
+                 None if emb is None else emb[0]))[None]
     if new_track_fn is None:
-        def new_track_fn(dvalid, matched_d, conf):
+        def new_tracks(dvalid, matched_d, conf):
             return dvalid & ~matched_d
-    use_nsa = bool(nsa)
+    else:
+        def new_tracks(dvalid, matched_d, conf):
+            return new_track_fn(dvalid[0], matched_d[0], conf[0])[None]
     if update_fn is None:
-        def update_fn(state, boxes, det_idx, matched_t, ts, conf):
-            return _kf_update(state.mean, state.cov, bbox_to_z(boxes)[det_idx],
-                              nsa_r_scale(conf[det_idx]) if use_nsa else None)
+        def update(state, boxes, det_idx, matched_t, ts, conf):
+            return _kf_update(state.mean, state.cov,
+                              _take(bbox_to_z(boxes), det_idx),
+                              nsa_r_scale(torch.gather(conf, 1, det_idx))
+                              if use_nsa else None)
+    else:
+        def update(state, boxes, det_idx, matched_t, ts, conf):
+            mean, cov = update_fn(_squeeze_state(state), boxes[0],
+                                  det_idx[0], matched_t[0], ts[0], conf[0])
+            return mean[None], cov[None]
 
     from ..geometry.projector import project_boxes_device
 
-    def step(state: SortState, boxes, cls_id, conf, dvalid, ts, proj=None,
-             emb=None, shift=None):
-        num_t = state.mean.shape[0]
-        num_d = boxes.shape[0]
+    def stacked(state: SortState, boxes, cls_id, conf, dvalid, ts, proj,
+                emb, shift):
+        num_s, num_t = state.mean.shape[:2]
+        num_d = boxes.shape[1]
         dev = boxes.device
-        nan_t = torch.full((num_t,), float("nan"), device=dev)
+        nan_t = torch.full((num_s, num_t), float("nan"), device=dev)
+        ts_t = ts[:, None]
 
         # 0. camera-motion compensation: move the position memory
         if shift is not None:
-            d4 = torch.cat([shift, shift])
-            d7 = torch.cat([shift, shift.new_zeros(STATE_DIM - 2)])
+            d4 = torch.cat([shift, shift], dim=-1)[:, None]
+            d7 = torch.cat([shift, shift.new_zeros((num_s,
+                                                    STATE_DIM - 2))],
+                           dim=-1)[:, None]
             state = state._replace(
-                mean=state.mean + d7[None], obs_mean=state.obs_mean + d7[None],
-                last_obs=state.last_obs + d4[None],
-                prev_obs=state.prev_obs + d4[None])
+                mean=state.mean + d7, obs_mean=state.obs_mean + d7,
+                last_obs=state.last_obs + d4, prev_obs=state.prev_obs + d4)
 
         # 1. predict all alive tracks at ts
-        dt = torch.clamp(ts - state.last_predict_ts, min=1e-3)
+        dt = torch.clamp(ts_t - state.last_predict_ts, min=1e-3)
         pmean, pcov = _kf_predict(state.mean, state.cov, dt)
         alive = state.alive
         state = state._replace(
-            mean=torch.where(alive[:, None], pmean, state.mean),
-            cov=torch.where(alive[:, None, None], pcov, state.cov),
-            last_predict_ts=torch.where(alive, ts, state.last_predict_ts))
+            mean=torch.where(alive[..., None], pmean, state.mean),
+            cov=torch.where(alive[..., None, None], pcov, state.cov),
+            last_predict_ts=torch.where(alive, ts_t, state.last_predict_ts))
 
         # 2. association on IoU of predicted vs detected boxes
-        det2trk = associate_fn(iou_matrix(x_to_bbox(state.mean), boxes),
-                               state.alive, dvalid, conf,
-                               (state, boxes, ts, emb))
+        det2trk = assoc(iou_matrix(x_to_bbox(state.mean), boxes),
+                        state.alive, dvalid, conf, (state, boxes, ts, emb))
         matched_d = det2trk >= 0
+        d_ids = torch.arange(num_d, dtype=torch.int32, device=dev) \
+            .expand(num_s, num_d)
         trk2det = _put_rows(
-            torch.full((num_t,), -1, dtype=torch.int32, device=dev),
-            torch.where(matched_d, det2trk, num_t).long(),
-            torch.arange(num_d, dtype=torch.int32, device=dev))
+            torch.full((num_s, num_t), -1, dtype=torch.int32, device=dev),
+            torch.where(matched_d, det2trk, num_t).long(), d_ids)
         matched_t = trk2det >= 0
 
         # 3. measurement update for matched tracks, observation memory
         det_idx = trk2det.clamp(0, num_d - 1).long()
-        umean, ucov = update_fn(state, boxes, det_idx, matched_t, ts, conf)
-        sel_t = matched_t[:, None]
-        sel_c = matched_t[:, None, None]
+        umean, ucov = update(state, boxes, det_idx, matched_t, ts, conf)
+        sel_t = matched_t[..., None]
+        sel_c = matched_t[..., None, None]
+        boxes_t = _take(boxes, det_idx)
         state = state._replace(
             mean=torch.where(sel_t, umean, state.mean),
             cov=torch.where(sel_c, ucov, state.cov),
-            last_update_ts=torch.where(matched_t, ts, state.last_update_ts),
+            last_update_ts=torch.where(matched_t, ts_t, state.last_update_ts),
             hits=state.hits + matched_t.to(torch.int32),
             hit_streak=torch.where(
                 matched_t, state.hit_streak + 1,
                 torch.where(state.alive, torch.zeros_like(state.hit_streak),
                             state.hit_streak)),
-            cls_id=torch.where(matched_t, cls_id[det_idx], state.cls_id),
-            conf=torch.where(matched_t, conf[det_idx], state.conf),
+            cls_id=torch.where(matched_t, torch.gather(cls_id, 1, det_idx),
+                               state.cls_id),
+            conf=torch.where(matched_t, torch.gather(conf, 1, det_idx),
+                             state.conf),
             prev_obs=torch.where(sel_t, state.last_obs, state.prev_obs),
             prev_obs_ts=torch.where(matched_t, state.last_obs_ts,
                                     state.prev_obs_ts),
-            last_obs=torch.where(sel_t, boxes[det_idx], state.last_obs),
-            last_obs_ts=torch.where(matched_t, ts, state.last_obs_ts),
+            last_obs=torch.where(sel_t, boxes_t, state.last_obs),
+            last_obs_ts=torch.where(matched_t, ts_t, state.last_obs_ts),
             obs_mean=torch.where(sel_t, umean, state.obs_mean),
             obs_cov=torch.where(sel_c, ucov, state.obs_cov))
         if emb is not None:
             # appearance EMA on matched tracks, renormalised; an empty
             # memory adopts the detection's descriptor
-            mixed = APP_EMA * state.app + (1.0 - APP_EMA) * emb[det_idx]
+            emb_t = _take(emb, det_idx)
+            mixed = APP_EMA * state.app + (1.0 - APP_EMA) * emb_t
             empty = (state.app * state.app).sum(dim=-1) < 1e-9
-            mixed = torch.where(empty[:, None], emb[det_idx], mixed)
+            mixed = torch.where(empty[..., None], emb_t, mixed)
             nrm = torch.sqrt((mixed * mixed).sum(dim=-1, keepdim=True))
             mixed = mixed / torch.clamp(nrm, min=1e-6)
             state = state._replace(app=torch.where(sel_t, mixed, state.app))
@@ -497,14 +703,15 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
         # 4. metrics for matched tracks from the DET box
         if proj is not None:
             h_mat, origin, maxd = proj
-            ground, gvalid = project_boxes_device(h_mat, boxes[det_idx])
+            ground, gvalid = project_boxes_device(h_mat, boxes_t)
             ok = matched_t & gvalid
-            gdist = torch.minimum(torch.hypot(ground[:, 0] - origin[0],
-                                              ground[:, 1] - origin[1]), maxd)
+            gdist = torch.minimum(torch.hypot(ground[..., 0] - origin[0],
+                                              ground[..., 1] - origin[1]),
+                                  maxd)
             new_dist = torch.where(ok, gdist,
                                    torch.where(matched_t, nan_t, state.dist))
             state, w_speed = _history_append_and_window(
-                state, ok, ts, ground[:, 0], ground[:, 1], window)
+                state, ok, ts, ground[..., 0], ground[..., 1], window)
             new_speed = torch.where(ok, w_speed,
                                     torch.where(matched_t, nan_t,
                                                 state.speed))
@@ -512,23 +719,25 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
 
         # 5. prune stale tracks (before creation: freed slots are reusable)
         state = state._replace(
-            alive=state.alive & ((ts - state.last_update_ts) <= staleness))
+            alive=state.alive & ((ts_t - state.last_update_ts) <= staleness))
 
-        # 6. new tracks for the detections new_track_fn picks, ids in
+        # 6. new tracks for the detections new_tracks picks, ids in
         # det order
-        is_new = new_track_fn(dvalid, matched_d, conf)
-        rank = torch.cumsum(is_new.to(torch.int32), dim=0) - 1
-        new_ids = state.next_id + rank
-        free_order = torch.argsort(state.alive.to(torch.int32), stable=True)
-        n_free = (~state.alive).sum()
-        fits = is_new & (rank < n_free)
-        slot = torch.where(fits, free_order[rank.clamp(0, num_t - 1)],
-                           num_t).long()
+        is_new = new_tracks(dvalid, matched_d, conf)
+        rank = torch.cumsum(is_new.to(torch.int32), dim=-1) - 1
+        new_ids = state.next_id[:, None] + rank
+        free_order = torch.argsort(state.alive.to(torch.int32), dim=-1,
+                                   stable=True)
+        n_free = (~state.alive).sum(dim=-1)
+        fits = is_new & (rank < n_free[:, None])
+        slot = torch.where(
+            fits, torch.gather(free_order, 1, rank.clamp(0, num_t - 1)),
+            num_t).long()
         znew = bbox_to_z(boxes)
-        init_mean = torch.cat([znew, torch.zeros((num_d, 3), device=dev)],
-                              dim=-1)
-        p0 = _p0(dev).expand(num_d, STATE_DIM, STATE_DIM)
-        ts_d = ts.expand(num_d)
+        init_mean = torch.cat(
+            [znew, torch.zeros((num_s, num_d, 3), device=dev)], dim=-1)
+        p0 = _p0(dev).expand(num_s, num_d, STATE_DIM, STATE_DIM)
+        ts_d = ts_t.expand(num_s, num_d)
         state = state._replace(
             mean=_put_rows(state.mean, slot, init_mean),
             cov=_put_rows(state.cov, slot, p0),
@@ -544,7 +753,7 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             speed=_put_rows(state.speed, slot, float("nan")),
             hist_head=_put_rows(state.hist_head, slot, 0),
             hist_len=_put_rows(state.hist_len, slot, 0),
-            next_id=state.next_id + is_new.sum().to(torch.int32),
+            next_id=state.next_id + is_new.sum(dim=-1).to(torch.int32),
             # first observation: prev == last (no velocity yet)
             last_obs=_put_rows(state.last_obs, slot, boxes),
             last_obs_ts=_put_rows(state.last_obs_ts, slot, ts_d),
@@ -560,36 +769,38 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             h_mat, origin, maxd = proj
             ground_d, gvalid_d = project_boxes_device(h_mat, boxes)
             created_t = _put_rows(
-                torch.zeros((num_t,), dtype=torch.bool, device=dev),
+                torch.zeros((num_s, num_t), dtype=torch.bool, device=dev),
                 slot, fits)
             src_det = _put_rows(
-                torch.zeros((num_t,), dtype=torch.long, device=dev), slot,
-                torch.arange(num_d, device=dev))
-            okc = created_t & gvalid_d[src_det]
+                torch.zeros((num_s, num_t), dtype=torch.long, device=dev),
+                slot, d_ids.long())
+            okc = created_t & torch.gather(gvalid_d, 1, src_det)
+            ground_t = _take(ground_d, src_det)
             gdist_t = torch.minimum(
-                torch.hypot(ground_d[src_det, 0] - origin[0],
-                            ground_d[src_det, 1] - origin[1]), maxd)
+                torch.hypot(ground_t[..., 0] - origin[0],
+                            ground_t[..., 1] - origin[1]), maxd)
             state = state._replace(dist=torch.where(
                 okc, gdist_t, torch.where(created_t, nan_t, state.dist)))
             state, _ = _history_append_and_window(
-                state, okc, ts, ground_d[src_det, 0], ground_d[src_det, 1],
-                window)
+                state, okc, ts, ground_t[..., 0], ground_t[..., 1], window)
 
         # 7. per-detection outputs
         trk_of_d = det2trk.clamp(0, num_t - 1).long()
-        out_id = torch.where(matched_d, state.ids[trk_of_d],
+        out_id = torch.where(matched_d, torch.gather(state.ids, 1, trk_of_d),
                              torch.where(is_new, new_ids.to(torch.int32),
                                          torch.zeros_like(new_ids,
                                                           dtype=torch.int32)))
-        nan_d = torch.full((num_d,), float("nan"), device=dev)
+        nan_d = torch.full((num_s, num_d), float("nan"), device=dev)
         if proj is not None:
             slot_of_new = slot.clamp(0, num_t - 1)
             out_dist = torch.where(
-                matched_d, state.dist[trk_of_d],
-                torch.where(fits, state.dist[slot_of_new], nan_d))
+                matched_d, torch.gather(state.dist, 1, trk_of_d),
+                torch.where(fits, torch.gather(state.dist, 1, slot_of_new),
+                            nan_d))
             out_spd = torch.where(
-                matched_d, state.speed[trk_of_d],
-                torch.where(fits, state.speed[slot_of_new], nan_d))
+                matched_d, torch.gather(state.speed, 1, trk_of_d),
+                torch.where(fits, torch.gather(state.speed, 1, slot_of_new),
+                            nan_d))
         else:
             out_dist = out_spd = nan_d
         out = SortOutput(
@@ -599,7 +810,60 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             speed_kmh=torch.where(dvalid, out_spd * 3.6, nan_d))
         return state, out
 
+    def step(state: SortState, boxes, cls_id, conf, dvalid, ts, proj=None,
+             emb=None, shift=None):
+        if state.mean.dim() == 3:
+            if hooked:
+                raise ValueError("a stacked state runs the default "
+                                 "strategies only: this step has hooks "
+                                 "(lift it with track/multi.py::"
+                                 "over_streams)")
+            return stacked(state, boxes, cls_id, conf, dvalid, ts, proj,
+                           emb, shift)
+        one = stacked(SortState(*[t[None] for t in state]), boxes[None],
+                      cls_id[None], conf[None], dvalid[None], ts.reshape(1),
+                      proj, None if emb is None else emb[None],
+                      None if shift is None else shift[None])
+        return _squeeze_state(one[0]), SortOutput(*[t[0] for t in one[1]])
+
+    step.stackable = not hooked
     return step
+
+
+def scan_steps(step, state: SortState, boxes, cls_id, conf, dvalid, ts,
+               proj=None, emb=None, shift=None):
+    """Run a tracker step over a sequence of frames (JAX's ``lax.scan``
+    over the batch's time axis): every per-frame argument has its frames
+    on axis 0 for one stream's state, on axis 1 (after the stream axis)
+    for a stacked state → (state', SortOutput stacked on that axis)."""
+    axis = 1 if state.mean.dim() == 3 else 0
+    outs = []
+    for i in range(boxes.shape[axis]):
+        def frame(a):
+            return None if a is None else a.select(axis, i)
+        state, out = step(state, frame(boxes), frame(cls_id), frame(conf),
+                          frame(dvalid), frame(ts), proj, frame(emb),
+                          frame(shift))
+        outs.append(out)
+    return state, SortOutput(*[torch.stack(f, dim=axis) for f in zip(*outs)])
+
+
+def make_sort_scan(iou_threshold: float, max_staleness: float,
+                   speed_window: float, min_hits: int = 3,
+                   with_projector: bool = False):
+    """``scan(state, boxes (F,D,4), cls (F,D), conf (F,D), valid (F,D),
+    ts (F,), proj=None) → (state', SortOutput stacked over F)``, as
+    ``sort_tpu.py::make_sort_scan`` (:653); ``proj`` is read only when
+    ``with_projector``. A stacked state (S streams) takes (S, F, ...)
+    detections and (S, F) stamps and gives (S, F, ...) outputs."""
+    step = make_sort_step(iou_threshold, max_staleness, speed_window,
+                          min_hits)
+
+    def scan(state: SortState, boxes, cls_id, conf, dvalid, ts, proj=None):
+        return scan_steps(step, state, boxes, cls_id, conf, dvalid, ts,
+                          proj if with_projector else None)
+
+    return scan
 
 
 def state_from_jax(arrays: Mapping[str, np.ndarray],

@@ -1,7 +1,7 @@
 """Device selection: the card by default, the CPU only when asked for."""
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -44,3 +44,21 @@ def visible_devices(n_devices: Optional[int] = None,
         raise ValueError(f"{n_devices} devices asked for: {visible} card(s) "
                          f"visible")
     return [torch.device("cuda", i) for i in range(n)]
+
+
+_constants: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(values, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and shared: a CUDA graph cannot be captured
+    around a copy from host memory, so what a captured step reads as a
+    constant is uploaded before the capture. Callers never write it."""
+    device = torch.device(device)
+    key = (repr(values), dtype, str(device))
+    got = _constants.get(key)
+    if got is None:
+        got = torch.tensor(values, dtype=dtype, device=device)
+        _constants[key] = got
+    return got

@@ -558,6 +558,7 @@ def test_gate_on_the_card_equals_the_cpu_path(dev, no_tf32):
 def test_fleet_step_on_the_card_equals_the_cpu_path(dev, no_tf32):
     from roadvision_tpu_torch.config import merge
     from roadvision_tpu_torch.runtime import MultiStreamEngine
+    from roadvision_tpu_torch.runtime.graph import WARMUP_CALLS
     cfg = merge(_engine_cfg(batch=2), {"tpu": {"mesh": {"enable": True}}})
     s = 3
     clip = _batches(2 * s, batch=2)
@@ -567,8 +568,13 @@ def test_fleet_step_on_the_card_equals_the_cpu_path(dev, no_tf32):
     eng = {d: MultiStreamEngine(cfg, s, devices=[d]) for d in ("cpu", dev)}
     launch_counts.update({k: 0 for k in launch_counts})
     got = [eng[dev].process_batch(f, t) for f, t in fleet]
-    # one launch of each kernel per fleet batch, not per stream
-    assert set(launch_counts.values()) == {2}
+    # one launch of each kernel per fleet step, not per stream; the
+    # stacked tracker's association once a frame for all streams; two
+    # fleet batches and the warm-up steps of the graph's capture
+    steps = 2 + WARMUP_CALLS
+    assert launch_counts == {"clahe_tile_luts": steps, "clahe_apply": steps,
+                             "median_k": steps, "nms_keep": steps,
+                             "assoc_greedy": 2 * steps, "assoc_auction": 0}
     want = [eng["cpu"].process_batch(f, t) for f, t in fleet]
     n = 0
     for g, w in zip(got, want):
@@ -739,3 +745,195 @@ def test_row_bands_on_the_card_equal_the_plain_forward(dev, no_tf32,
     with torch.inference_mode():
         _close_outputs(make_spatial_forward("n", 80, mesh)(v8, x),
                        v8_detect_model(v8, "n", 80, torch.float32).to(dev)(x))
+
+
+# the host-free device step: the association and NMS loops as kernels
+# (K4-K6), bit-equal to their plain versions, and the step replayed from a
+# CUDA graph against the eager step
+
+def _assoc_case(name, p, t, d, seed):
+    rng = np.random.RandomState(seed)
+    iou = rng.uniform(0, 1, (p, t, d)).astype(np.float32)
+    alive = rng.rand(p, t) < 0.7
+    dvalid = rng.rand(p, d) < 0.8
+    if name == "ties":
+        iou = (rng.randint(0, 4, (p, t, d)) / 4.0).astype(np.float32)
+    elif name == "chain":
+        # a strictly descending staircase: one pair a round
+        i, j = np.indices((t, d))
+        iou = np.where(np.abs(i - j) <= 1, 0.99 - 0.009 * np.minimum(i, j)
+                       - 0.004 * (i != j), 0.0).astype(np.float32)
+        iou = np.broadcast_to(iou, (p, t, d)).copy()
+        alive[:], dvalid[:] = True, True
+    elif name == "invalid":
+        alive[:] = False
+        dvalid[1::2] = False
+    elif name == "nan":
+        iou[rng.rand(p, t, d) < 0.02] = np.nan
+    return iou, alive, dvalid
+
+
+@pytest.mark.parametrize("name,p,t,d", [
+    ("random", 8, 100, 100), ("ties", 4, 100, 100), ("chain", 2, 100, 100),
+    ("invalid", 3, 100, 100), ("nan", 4, 100, 100), ("random", 5, 7, 130),
+    ("ties", 1, 160, 40), ("random", 2, 300, 300), ("ties", 2, 300, 300),
+    ("chain", 1, 300, 300)])
+def test_association_kernels_bit_equal(dev, name, p, t, d):
+    from roadvision_tpu_torch.track import sort as tsort
+    host = _assoc_case(name, p, t, d, p * t + d)
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    for wrapper, plain, key in (
+            (tsort.greedy_associate, tsort.greedy_associate_plain,
+             "assoc_greedy"),
+            (tsort.auction_associate, tsort.auction_associate_plain,
+             "assoc_auction")):
+        before = launch_counts[key]
+        got = wrapper(*args, 0.3)
+        assert launch_counts[key] == before + 1
+        want = plain(*[torch.from_numpy(a) for a in host], 0.3)
+        assert torch.equal(got.cpu(), want), (name, key)
+        for i in range(p):          # one problem alone: the same rows
+            assert torch.equal(wrapper(*(a[i] for a in args), 0.3).cpu(),
+                               want[i])
+
+
+@pytest.mark.parametrize("name,b,k", [("random", 8, 300), ("all", 2, 300),
+                                      ("none", 2, 300), ("chain", 3, 300),
+                                      ("random", 2, 600), ("random", 1, 33)])
+def test_nms_keep_kernel_bit_equal(dev, name, b, k):
+    from roadvision_tpu_torch.ops import nms as tnms
+    rng = np.random.RandomState(b * k)
+    over = rng.rand(b, k, k) < 0.05
+    over = over | over.transpose(0, 2, 1)
+    valid = rng.rand(b, k) < 0.9
+    if name == "all":
+        over[:] = True
+    elif name == "none":
+        valid[:] = False
+    elif name == "chain":
+        i, j = np.indices((k, k))
+        over[:] = np.abs(i - j) == 1
+        valid[:] = True
+    before = launch_counts["nms_keep"]
+    got = tnms.greedy_keep(torch.from_numpy(over).to(dev),
+                           torch.from_numpy(valid).to(dev))
+    assert launch_counts["nms_keep"] == before + 1
+    want = tnms.greedy_keep_plain(torch.from_numpy(over),
+                                  torch.from_numpy(valid))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_graph_replay_equals_the_eager_step(dev, no_tf32):
+    """The main path's configuration (float32) replays a captured graph:
+    its batches equal the eager step's from the same state, bit for bit,
+    with the eager path's launch counts and no host read. The capture's
+    warm-up runs the step WARMUP_CALLS times, and those launches count."""
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.runtime.graph import WARMUP_CALLS
+    from roadvision_tpu_torch.track import sort as tsort
+    cfg = _engine_cfg(batch=4)
+    graph, eager = (PipelineEngine(cfg, device=dev) for _ in range(2))
+    assert graph.step_mode == "graph" and graph.eager_reason is None
+    frames, ts = _batches(1)[0]
+    x = torch.from_numpy(frames).to(dev)
+    t = torch.from_numpy((ts - 1000.0).astype(np.float32)).to(dev)
+    launch_counts.update({k: 0 for k in launch_counts})
+    graph.step_batch(x, t, want_proc=False)          # the capture
+    assert launch_counts["median_k"] == 1 + WARMUP_CALLS
+    assert launch_counts["assoc_greedy"] == 4 * (1 + WARMUP_CALLS)
+    counts = []
+    for eng, run in ((graph, graph.step_batch), (eager, eager.step)):
+        eng.reset()
+        launch_counts.update({k: 0 for k in launch_counts})
+        tsort.reset_host_syncs()
+        outs = []
+        for frames, ts in _batches(3):
+            x = torch.from_numpy(frames).to(dev)
+            t = torch.from_numpy((ts - 1000.0).astype(np.float32)).to(dev)
+            _, arrays = run(x, t, want_proc=False)
+            outs.append([a.cpu().clone() for a in arrays])
+        counts.append((dict(launch_counts), tsort.host_syncs))
+        eng.outs = outs
+    assert counts[0] == counts[1] and counts[0][1] == 0
+    assert counts[0][0]["assoc_greedy"] == 12 and counts[0][0]["nms_keep"] == 3
+    for g, e in zip(graph.outs, eager.outs):
+        for a, b in zip(g, e):
+            assert torch.equal(a, b) or torch.allclose(
+                a, b, rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(graph.sort_state, eager.sort_state):
+        assert torch.equal(a, b) or torch.allclose(a, b, rtol=0, atol=0,
+                                                   equal_nan=True)
+
+
+def test_reset_and_load_state_reach_the_captured_state(dev, tmp_path):
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    cfg = _engine_cfg(batch=4)
+    eng = PipelineEngine(cfg, device=dev)
+    batches = _batches(4)
+    first = [_ids(eng.process_batch(f, t, want_proc=False))
+             for f, t in batches[:2]]
+    eng.save_state(tmp_path / "s.npz")
+    rest = [_ids(eng.process_batch(f, t, want_proc=False))
+            for f, t in batches[2:]]
+    eng.reset()            # the same ids again from a fresh state
+    assert [_ids(eng.process_batch(f, t, want_proc=False))
+            for f, t in batches[:2]] == first
+    eng.load_state(tmp_path / "s.npz")
+    assert [_ids(eng.process_batch(f, t, want_proc=False))
+            for f, t in batches[2:]] == rest
+    assert len(eng._graphs) == 1 and any(any(r) for r in rest)
+
+
+def test_max_det_300_tracks_on_the_card_as_on_the_cpu(dev, no_tf32):
+    """detect.max_det = 300 (T = D = 300 slots and detections: the
+    association's score matrix outgrows a block's shared memory and K4
+    keeps it in global memory) runs its graph on the card with the CPU
+    path's ids."""
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    cfg = merge(_engine_cfg(batch=4), {"detect": {"max_det": 300}})
+    gpu = PipelineEngine(cfg, device=dev)
+    cpu = PipelineEngine(cfg, device="cpu")
+    assert gpu.track_slots == 300 and gpu.step_mode == "graph"
+    before = launch_counts["assoc_greedy"]
+    got, want = [], []
+    for frames, ts in _batches(3):
+        got.append(_ids(gpu.process_batch(frames, ts, want_proc=False)))
+        want.append(_ids(cpu.process_batch(frames, ts, want_proc=False)))
+    assert launch_counts["assoc_greedy"] > before
+    assert got == want and any(any(r) for r in got)
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_fleet_graphs_on_distinct_cards_equal_one_card(dev, no_tf32,
+                                                       distinct):
+    """The fleet over two groups (two cards, or one card twice): each
+    group's engine captures and replays its own graph on its own card,
+    and the ids equal the fleet on one card; the launches are each
+    group's two fleet batches and its capture's warm-ups."""
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    from roadvision_tpu_torch.runtime.graph import WARMUP_CALLS
+    cfg = merge(_engine_cfg(batch=2), {"tpu": {"mesh": {"enable": True}}})
+    s = 4
+    clip = _batches(2 * s, batch=2)
+    fleet = [(np.stack([clip[k * s + i][0] for i in range(s)]),
+              np.stack([clip[k * s + i][1] for i in range(s)]))
+             for k in range(2)]
+    many = MultiStreamEngine(cfg, s, devices=_cards(dev, 2, distinct))
+    one = MultiStreamEngine(cfg, s, devices=[dev])
+    launch_counts.update({k: 0 for k in launch_counts})
+    got = [many.process_batch(f, t) for f, t in fleet]
+    steps = 2 * (2 + WARMUP_CALLS)
+    assert launch_counts == {"clahe_tile_luts": steps, "clahe_apply": steps,
+                             "median_k": steps, "nms_keep": steps,
+                             "assoc_greedy": 2 * steps, "assoc_auction": 0}
+    for grp in many.groups:
+        graphs = grp.engine._graphs
+        assert grp.engine.step_mode == "graph" and len(graphs) == 1
+        assert all(g.device == grp.engine.device for g in graphs.values())
+    want = [one.process_batch(f, t) for f, t in fleet]
+    for g, w in zip(got, want):
+        for gs, ws in zip(g, w):
+            assert _ids(gs) == _ids(ws)
+    assert any(any(_ids(gs)) for g in got for gs in g)

@@ -251,6 +251,8 @@ def test_bench_gate_mode_rehearsal(capsys):
     assert line["metric"] == "gate_static_144p_fps"
     assert line["static"]["coasted_share"] > 0
     assert line["moving"]["coasted_share"] == 0
+    # every coasted batch, warm-up and staleness probe included
+    assert line["coasted_batches"] >= line["static"]["frames_coasted"] // 2
     for scene in ("static", "moving"):
         for key in ("gated_fps", "ungated_fps"):
             assert line[scene][key]["median"] > 0

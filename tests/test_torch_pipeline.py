@@ -30,8 +30,10 @@ from roadvision_tpu_torch.io_video.capture import FoggedSyntheticRoadSource
 from roadvision_tpu_torch.kernels import _build
 from roadvision_tpu_torch.ops import clahe as tclahe
 from roadvision_tpu_torch.ops import median as tmedian
+from roadvision_tpu_torch.ops import nms as tnms
 from roadvision_tpu_torch.preprocess import PreprocessPipeline, get_op_class
 from roadvision_tpu_torch.runtime import PipelineEngine
+from roadvision_tpu_torch.track import sort as tsort
 from roadvision_tpu_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -411,9 +413,15 @@ def test_kernel_wrappers_never_fall_back(monkeypatch, tmp_path):
     the kernels do not build: the card path raises instead of computing."""
     meta = torch.empty((2, 16, 16), dtype=torch.uint8, device="meta")
     luts = torch.empty((2, 2, 2, 256), dtype=torch.uint8, device="meta")
+    scores = torch.empty((2, 16, 16), device="meta")
+    alive = torch.empty((2, 16), dtype=torch.bool, device="meta")
+    over = torch.empty((2, 16, 16), dtype=torch.bool, device="meta")
     for call in (lambda: tclahe.clahe_tile_luts(meta, 2, 2, 1, np.float32(1)),
                  lambda: tclahe.clahe_apply(meta, luts, 8, 8),
-                 lambda: tmedian.median_planes(meta, 3)):
+                 lambda: tmedian.median_planes(meta, 3),
+                 lambda: tsort.greedy_associate(scores, alive, alive, 0.3),
+                 lambda: tsort.auction_associate(scores, alive, alive, 0.3),
+                 lambda: tnms.greedy_keep(over, alive)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     monkeypatch.setattr(shutil, "which", lambda name: None)
@@ -423,4 +431,5 @@ def test_kernel_wrappers_never_fall_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("median")
     assert set(_build.launch_counts) == {"clahe_tile_luts", "clahe_apply",
-                                         "median_k"}
+                                         "median_k", "assoc_greedy",
+                                         "assoc_auction", "nms_keep"}
