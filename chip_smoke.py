@@ -23,14 +23,24 @@ Phases, in order; any failure exits non-zero:
      bound (the larger of bytes read once and written once over
      3.35 TB/s and scalar operations over 67 T/s); then the tail's loops,
      K4 ``assoc_greedy``, K5 ``assoc_auction`` and K6 ``nms_keep``,
-     bit-equal to their plain versions on road-scene IoU matrices (one
-     100 x 100 problem, the main path's; eight, a fleet's), ties, all
-     invalid, a 100-round chain, NaN scores, ragged sizes, max_det = 300
-     (K4's matrix then in global memory; random and a 300-round chain),
-     and for K6 the main path's 8 x 300 candidates, all overlapping,
-     none valid, a chain and 600 candidates; each problem alone equal to
-     the batch; timed like K1-K3, their bound's operations counted from
-     the rounds these inputs take;
+     bit-equal to their plain versions: K4's matrix mode and K5 on
+     road-scene IoU matrices (one 100 x 100 problem; eight, a fleet's),
+     ties, all invalid, a 100-round chain, NaN scores, ragged sizes,
+     max_det = 300 (random and a 300-round chain); K4's boxes mode (its
+     own IoU from Kalman means and detections, both maps) on road scenes,
+     IoU exactly at the threshold, twins, NaN / infinite / zero-area
+     boxes, nothing valid, max_det = 300 and 1024 x 1024; K6's boxes mode
+     (its own class-offset IoU) on the main path's 8 x 300 road
+     candidates, IoU at the threshold, one box for all, other classes
+     overlapping, coordinates near the class offsets, NaN / zero-area
+     boxes, none valid, a scattered valid mask, 600 and 1024 candidates;
+     K6's matrix mode on 8 x 300 overlaps, all overlapping, none valid, a
+     chain, 600, 1024, 33 and obb's ProbIoU overlaps; each K4 problem
+     alone equal to the batch; K4 and K6 timed in both modes as 50 queued
+     eager calls and as 50 launches in one CUDA graph, warm and with L2
+     flushed, beside an empty kernel's launch in a graph (the card's
+     launch floor); their bound's operations counted from the rounds and
+     live cells these inputs take;
   4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
      CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
      PipelineEngine.process_batch: one batch in float32 with TF32 off
@@ -49,7 +59,10 @@ Phases, in order; any failure exits non-zero:
      batches against as many eager ``engine.step`` batches from the same
      state (ids, classes, counts exact, boxes BOX_TOL, confidences
      CONF_TOL), the same exact launch counts both ways (K1-K3 and K6 once
-     a batch, K4 once a frame), no host read in a replayed batch; stage
+     a batch, K4 once a frame), no host read in a replayed batch, no call
+     of the torch IoU helpers that K4's and K6's boxes modes replace
+     (``x_to_bbox``, ``iou_matrix``, ``trk2det_map``,
+     ``iou_matrix_xyxy``) in an eager batch; stage
      ms eager and graph (each stage captured alone), frames/s eager and
      graph (device-resident, in turns), the device's idle share by
      torch.profiler, the fleet at 1080p x 8 a stream for S = 1, 2, 4, 8
@@ -4134,6 +4147,14 @@ def tools_phases(model: str, frames: np.ndarray, card: str) -> dict:
 # scan of the bids
 K4_OPS_PER_CELL = 3
 K5_OPS_PER_CELL = 3
+# the boxes modes (csrc/box_iou.cuh): an IoU is 4 min / max, 2 subtracts,
+# 2 clamps, a multiply, an add, a subtract, a compare and a divide, and
+# the threshold's compare; a box's area 5, x_to_bbox 11 more (K4), the
+# class offset 5 more (K6); K6's walk 2 a kept candidate and word
+IOU_OPS_PER_PAIR = 14
+K4_OPS_PER_BOX = 16
+K6_OPS_PER_BOX = 10
+GRAPH_LAUNCHES = 50                # launches captured in one timing graph
 GRAPH_BATCHES = 32                 # replayed batches held to eager ones
 GRAPH_DEVICE = "cuda"
 GRAPH_FPS_BATCHES = 16             # batches a timed window
@@ -4164,7 +4185,7 @@ def road_scores(rng, p: int, t: int = 100, d: int = 100,
 
 
 def assoc_cases(rng):
-    """K4 / K5 cases: the main path's (1 x 100 x 100) and the fleet's
+    """K4 (matrix mode) / K5 cases: the (1 x 100 x 100) and the fleet's
     (8 x 100 x 100) road scores, then ties, every track and detection
     invalid, a long chain (one pair a round, 100 rounds), NaN scores,
     ragged sizes, and max_det = 300 (random, and a 300-round chain)."""
@@ -4187,8 +4208,8 @@ def assoc_cases(rng):
                               np.ones((4, 100), bool))
     cases["ragged 3x7x130"] = (rng.rand(3, 7, 130).astype(np.float32),
                                rng.rand(3, 7) < 0.9, rng.rand(3, 130) < 0.9)
-    # detect.max_det = 300 (T = D = 300): K4's matrix outgrows shared
-    # memory and lives in global memory
+    # detect.max_det = 300 (T = D = 300): the scores outgrow shared
+    # memory and K4's matrix mode reads them in place
     cases["max_det 2x300x300"] = (rng.rand(2, 300, 300).astype(np.float32),
                                   rng.rand(2, 300) < 0.8,
                                   rng.rand(2, 300) < 0.8)
@@ -4202,11 +4223,14 @@ def assoc_cases(rng):
 
 
 def nms_cases(rng):
-    """K6 cases: the main path's (8 x 300 x 300) overlaps of NMS's
+    """K6 matrix-mode cases: the (8 x 300 x 300) overlaps of NMS's
     candidates at IoU 0.7, every candidate overlapping every other, none
-    valid, a chain of neighbours, 600 candidates (TTA and tiling)."""
+    valid, a chain of neighbours, 600 candidates (TTA and tiling), 1024,
+    33 (a ragged word), and the rotated NMS of obb (ProbIoU > 0.7 of
+    class-offset rboxes, its only caller)."""
     import torch
     from roadvision_tpu_torch.ops.nms import iou_matrix_xyxy
+    from roadvision_tpu_torch.ops.obb import probiou_matrix
     xy = rng.uniform(0, 600, (8, 300, 2))
     wh = rng.uniform(10, 80, (8, 300, 2))
     boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
@@ -4214,6 +4238,14 @@ def nms_cases(rng):
     over = (iou_matrix_xyxy(boxes) > 0.7).numpy()
     valid = rng.rand(8, 300) < 0.9
     i, j = np.indices((300, 300))
+    rb = np.concatenate([rng.uniform(0, 400, (8, 300, 2)),
+                         rng.uniform(8, 60, (8, 300, 2)),
+                         rng.uniform(-1.5, 1.5, (8, 300, 1))], -1)
+    rb[:, 150:] = rb[:, :150] + rng.normal(0, 1.5, (8, 150, 5)) \
+        * [1, 1, 1, 1, 0.02]
+    rb[..., :2] += rng.randint(0, 3, (8, 300, 1)) * 7680.0
+    obb = (probiou_matrix(torch.from_numpy(rb.astype(np.float32))) > 0.7) \
+        .numpy()
     return {"main 8x300x300": (over, valid),
             "all overlap 2x300x300": (np.ones((2, 300, 300), bool),
                                       np.ones((2, 300), bool)),
@@ -4222,7 +4254,168 @@ def nms_cases(rng):
                                                 (2, 300, 300)).copy(),
                                 np.ones((2, 300), bool)),
             "tta 2x600x600": (rng.rand(2, 600, 600) < 0.01,
-                              rng.rand(2, 600) < 0.9)}
+                              rng.rand(2, 600) < 0.9),
+            "1024 1x1024x1024": (rng.rand(1, 1024, 1024) < 0.003,
+                                 rng.rand(1, 1024) < 0.9),
+            "ragged 3x33x33": (rng.rand(3, 33, 33) < 0.1,
+                               rng.rand(3, 33) < 0.9),
+            "obb 8x300x300": (obb, valid)}
+
+
+def road_tracks(rng, p: int, t: int = 100, d: int = 100, tracks: int = 20,
+                dets: int = 18):
+    """K4 boxes-mode inputs as the main path makes them: ``tracks`` live
+    slots, spread over ``t``, whose Kalman means predict boxes near the
+    ``dets`` valid detections of ``d`` (a compacted prefix, as NMS gives
+    them) → (mean (p, t, 7), boxes (p, d, 4), alive (p, t), dvalid (p, d))
+    float32 / bool on the CPU."""
+    n = max(tracks, dets)
+    xy = rng.uniform(0, 1800, (p, n, 2))
+    wh = rng.uniform(40, 200, (p, n, 2))
+    mean = np.zeros((p, t, 7), np.float32)
+    alive = np.zeros((p, t), bool)
+    for i in range(p):
+        slots = rng.choice(t, tracks, replace=False)
+        c = xy[i, :tracks] + wh[i, :tracks] / 2 + rng.normal(0, 4,
+                                                              (tracks, 2))
+        w, h = wh[i, :tracks, 0], wh[i, :tracks, 1]
+        mean[i, slots, :2] = c
+        mean[i, slots, 2] = w * h
+        mean[i, slots, 3] = w / h
+        mean[i, slots, 4:] = rng.normal(0, 2, (tracks, 3))
+        alive[i, slots] = True
+    mean[~alive] = rng.normal(0, 50, (int((~alive).sum()), 7))
+    boxes = np.zeros((p, d, 4), np.float32)
+    dxy = xy[:, :dets] + rng.normal(0, 6, (p, dets, 2))
+    boxes[:, :dets] = np.concatenate([dxy, dxy + wh[:, :dets]], -1)
+    dvalid = np.zeros((p, d), bool)
+    dvalid[:, :dets] = True
+    return mean, boxes, alive, dvalid
+
+
+def assoc_box_cases(rng):
+    """K4 boxes-mode cases → name → (mean, boxes, alive, dvalid, thresh):
+    the main path's road scene (1 x 100 x 100, IoU 0.35) and a fleet's
+    (8 problems); IoU exactly at the threshold (both sides, exact in
+    float32); equal scores (twin tracks and twin detections); NaN,
+    infinite and zero-area boxes and means; every track or detection
+    invalid; detect.max_det = 300 (a road scene, and 300 x 300 dense
+    overlapping boxes: the cells no longer fit in shared memory and are
+    recomputed from the boxes); 1024 x 1024; ragged sizes."""
+    cases = {"main 1x100x100": road_tracks(rng, 1) + (0.35,),
+             "fleet 8x100x100": road_tracks(rng, 8) + (0.35,)}
+    # x_to_bbox((5, 5, 100, 1)) = (0, 0, 10, 10) exactly; a detection of
+    # (0, 0, 10, 5) has IoU 0.5, of (0, 0, 10, 2.5) 0.25, of (0, 0, 5, 5)
+    # 0.25: at 0.5 the first matches (>=), at 0.25 all three can
+    mean = np.zeros((2, 100, 7), np.float32)
+    mean[:, :, :4] = (5, 5, 100, 1)
+    mean[:, :, 0] += np.arange(100) * 100.0
+    boxes = np.zeros((2, 100, 4), np.float32)
+    pick = rng.randint(0, 3, (2, 100))
+    boxes[:] = np.array([[0, 0, 10, 5], [0, 0, 10, 2.5], [0, 0, 5, 5]],
+                        np.float32)[pick]
+    boxes[..., ::2] += np.arange(100)[:, None] * 100.0
+    every = (np.ones((2, 100), bool), np.ones((2, 100), bool))
+    cases["at threshold 0.5 2x100x100"] = (mean, boxes) + every + (0.5,)
+    cases["at threshold 0.25 2x100x100"] = (mean, boxes) + every + (0.25,)
+    m, b, a, v = road_tracks(rng, 4, tracks=30, dets=30)
+    m[:, 1::2] = m[:, 0::2]                 # twin slots
+    b[:, 1::2] = b[:, 0::2]                 # twin detections
+    cases["ties 4x100x100"] = (m, b, a | np.roll(a, 1, 1), v, 0.35)
+    m, b, a, v = road_tracks(rng, 4, tracks=40, dets=40)
+    m[:, 3::7, 2] = 0.0                     # zero-area predictions
+    m[:, 5::11, 0] = np.nan
+    m[:, 6::13, 3] = np.inf
+    b[:, 2::5, 2] = b[:, 2::5, 0]           # zero-width detections
+    b[:, 4::9, 1] = np.nan
+    b[:, 8::9, 3] = np.inf
+    cases["nan zero-area 4x100x100"] = (m, b, a, v, 0.35)
+    m, b, a, v = road_tracks(rng, 2)
+    cases["invalid tracks 2x100x100"] = (m, b, np.zeros_like(a), v, 0.35)
+    cases["invalid dets 2x100x100"] = (m, b, a, np.zeros_like(v), 0.35)
+    cases["max_det road 2x300x300"] = road_tracks(
+        rng, 2, 300, 300, tracks=60, dets=40) + (0.35,)
+    m, b, a, v = road_tracks(rng, 2, 300, 300, tracks=240, dets=240)
+    cases["max_det dense 2x300x300"] = (m, b, a | (rng.rand(2, 300) < 0.5),
+                                        v | (rng.rand(2, 300) < 0.5), 0.1)
+    cases["1024 1x1024x1024"] = road_tracks(
+        rng, 1, 1024, 1024, tracks=500, dets=400) + (0.35,)
+    cases["ragged 3x7x130"] = road_tracks(rng, 3, 7, 130, tracks=5,
+                                          dets=60) + (0.35,)
+    return cases
+
+
+def road_candidates(rng, b: int, k: int, objects: int = 18,
+                    valid_share: float = 0.4):
+    """K6 boxes-mode inputs as NMS's candidates on a road scene: ``k``
+    score-sorted candidates a frame, the first ``valid_share`` valid (a
+    prefix), jittered around ``objects`` vehicles of classes 2, 5, 7 (a
+    tenth of them under another class) → (boxes (b, k, 4) f32, cls (b, k)
+    i32, valid (b, k) bool)."""
+    xy = rng.uniform(0, 1800, (b, objects, 2))
+    wh = rng.uniform(40, 200, (b, objects, 2))
+    ocls = rng.choice([2, 5, 7], (b, objects))
+    who = rng.randint(0, objects, (b, k))
+    take = lambda a: np.take_along_axis(a, who[..., None], 1)  # noqa: E731
+    c = take(xy) + take(wh) / 2 + rng.normal(0, 5, (b, k, 2))
+    size = take(wh) * rng.uniform(0.85, 1.15, (b, k, 2))
+    boxes = np.concatenate([c - size / 2, c + size / 2], -1) \
+        .astype(np.float32)
+    cls = np.take_along_axis(ocls, who, 1).astype(np.int32)
+    flip = rng.rand(b, k) < 0.1
+    cls[flip] = rng.choice([2, 5, 7], int(flip.sum()))
+    valid = np.zeros((b, k), bool)
+    valid[:, :int(k * valid_share)] = True
+    return boxes, cls, valid
+
+
+def nms_box_cases(rng):
+    """K6 boxes-mode cases → name → (boxes, cls, valid, iou_thres): the
+    main path's 8 frames x 300 candidates of a road scene at 0.7; IoU
+    exactly at the threshold (0.5 and 0.25, strict >); every candidate the
+    same box, in one class and in several; overlapping boxes of different
+    classes; coordinates near the class offsets (a class-0 box at 7680
+    meets a class-1 box at 0); NaN, infinite and zero-area boxes; none
+    valid; a scattered valid mask; 600 (TTA, tiling) and 1024 candidates;
+    a ragged 33."""
+    cases = {"main 8x300": road_candidates(rng, 8, 300) + (0.7,)}
+    base = np.array([[0, 0, 10, 10], [0, 0, 10, 5], [0, 0, 5, 5],
+                     [0, 0, 10, 2.5]], np.float32)
+    boxes = np.tile(base, (2, 75, 1)).reshape(2, 300, 4)
+    boxes += (np.arange(300) // 4 * 20.0)[None, :, None]
+    cls = np.zeros((2, 300), np.int32)
+    every = np.ones((2, 300), bool)
+    cases["at threshold 0.5 2x300"] = (boxes, cls, every, 0.5)
+    cases["at threshold 0.25 2x300"] = (boxes, cls, every, 0.25)
+    same = np.broadcast_to(np.float32([100, 100, 180, 160]),
+                           (2, 300, 4)).copy()
+    cases["all the same box 2x300"] = (same, cls, every, 0.7)
+    cases["same box, classes 2x300"] = (same, rng.randint(0, 3, (2, 300))
+                                        .astype(np.int32), every, 0.7)
+    b, c, v = road_candidates(rng, 2, 300, valid_share=1.0)
+    cases["classes overlapping 2x300"] = (b, rng.randint(0, 80, (2, 300))
+                                          .astype(np.int32), v, 0.5)
+    near = np.zeros((2, 300, 4), np.float32)
+    near[:, 0::2] = [7670, 7675, 7690, 7700]       # class 0, near 7680
+    near[:, 1::2] = [-10, -5, 10, 20]              # class 1 → 7670 ..
+    ncls = np.tile([0, 1], (2, 150)).astype(np.int32)
+    near += rng.normal(0, 2, near.shape).astype(np.float32)
+    cases["near the class offsets 2x300"] = (near, ncls, every, 0.3)
+    b, c, v = road_candidates(rng, 4, 300, valid_share=0.8)
+    b[:, 3::7, 0] = np.nan
+    b[:, 5::11, 3] = np.inf
+    b[:, 2::5, 2] = b[:, 2::5, 0]                  # zero width
+    b[:, 6::9] = b[:, 6::9, :1].repeat(4, -1)      # a point
+    cases["nan zero-area 4x300"] = (b, c, v, 0.7)
+    b, c, v = road_candidates(rng, 2, 300)
+    cases["none valid 2x300"] = (b, c, np.zeros_like(v), 0.7)
+    cases["scattered valid 2x300"] = (b, c, rng.rand(2, 300) < 0.5, 0.45)
+    cases["tta 2x600"] = road_candidates(rng, 2, 600) + (0.7,)
+    cases["1024 1x1024"] = road_candidates(rng, 1, 1024,
+                                           valid_share=0.9) + (0.7,)
+    cases["ragged 3x33"] = road_candidates(rng, 3, 33, objects=4,
+                                           valid_share=0.8) + (0.6,)
+    return cases
 
 
 def assoc_rounds(plain, host, block=None) -> int:
@@ -4246,30 +4439,131 @@ def assoc_rounds(plain, host, block=None) -> int:
     return total
 
 
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void rvt_empty_kernel() {}
+extern "C" int rvt_empty(void* stream) {
+  rvt_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_kernel():
+    """A launcher of an empty kernel (built here with nvcc, beside the
+    port's libraries): the card's launch floor."""
+    import ctypes
+    import torch
+    from roadvision_tpu_torch.kernels import _build
+    out = _build.BUILD_DIR / "libempty_kernel.so"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = out.with_suffix(".cu")
+        src.write_text(EMPTY_KERNEL_CU)
+        subprocess.run([_build._nvcc(), *_build.BASE_FLAGS, "-o", str(out),
+                        str(src)], check=True, capture_output=True,
+                       timeout=300)
+    lib = ctypes.CDLL(str(out))
+    lib.rvt_empty.argtypes = [ctypes.c_void_p]
+    lib.rvt_empty.restype = ctypes.c_int
+
+    def launch():
+        code = lib.rvt_empty(torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"empty kernel: CUDA error {code}")
+    return launch
+
+
+def graph_ms(fn, n: int = GRAPH_LAUNCHES) -> dict:
+    """``fn`` (one kernel launch and its wrapper) captured ``n`` times into
+    one CUDA graph: the ms a launch when the graph replays back to back
+    (warm L2; no host time between launches), and the ms of a graph of
+    one launch replayed after L2_FLUSH_BYTES went through L2."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    many, one = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(many):
+        for _ in range(n):
+            fn()
+    with torch.cuda.graph(one):
+        fn()
+    return {"graph_ms": cuda_ms(many.replay, 20) / n,
+            "graph_flushed_ms": cuda_ms_flushed(one.replay)}
+
+
+def kernel_times(fn, plain) -> dict:
+    """A kernel's wrapper ``fn`` timed four ways (50 queued eager calls,
+    one eager call after an L2 flush, 50 launches in one graph, one
+    graph launch after a flush) beside its plain version."""
+    out = {"ms": cuda_ms(fn, 50), "flushed_ms": cuda_ms_flushed(fn)}
+    out.update(graph_ms(fn))
+    out["plain_ms"] = cuda_ms(plain, 5, 1)
+    return out
+
+
+def fmt_times(r: dict) -> str:
+    return (f"{r['ms']:.4f} ms warm, {r['flushed_ms']:.4f} ms flushed, "
+            f"in a graph {r['graph_ms']:.4f} ms warm, "
+            f"{r['graph_flushed_ms']:.4f} ms flushed; plain "
+            f"{r['plain_ms']:.4f} ms")
+
+
+def box_scores(case):
+    """The (iou, alive, dvalid) that a K4 boxes case's plain version
+    associates, as numpy."""
+    import torch
+    from roadvision_tpu_torch.track import sort as tsort
+    mean, boxes, alive, dvalid = case[:4]
+    iou = tsort.iou_matrix(tsort.x_to_bbox(torch.from_numpy(mean)),
+                           torch.from_numpy(boxes)).numpy()
+    return iou, alive, dvalid
+
+
 def check_tail_kernels() -> dict:
-    """K4-K6 against their plain versions on the card: bit-equal on every
-    case of :func:`assoc_cases` and :func:`nms_cases`, and one problem at
-    a time equal to the batch; timed at the main path's shapes (K4 and K5
-    one 100 x 100 problem a frame, K6 8 x 300 candidates a batch) warm
-    and flushed, beside the plain version and the bound, whose operations
-    count the rounds these inputs take."""
+    """K4-K6 against their plain versions on the card, bit for bit: K4's
+    matrix mode and K5 on every case of :func:`assoc_cases`, K4's boxes
+    mode (both maps) on :func:`assoc_box_cases`, K6's matrix mode on
+    :func:`nms_cases`, its boxes mode on :func:`nms_box_cases`; each K4
+    problem alone equal to the batch. Timed at the main path's shapes
+    (K4 one 100 x 100 problem a frame, K6 8 x 300 candidates a batch,
+    both in boxes mode; the matrix modes beside them) four ways
+    (:func:`kernel_times`), beside an empty kernel's launch in a graph
+    (the card's floor), the plain version and the bound, whose operations
+    count the rounds and the live cells these inputs take."""
     import torch
     from roadvision_tpu_torch.ops import nms as tnms
     from roadvision_tpu_torch.track import sort as tsort
     rng = np.random.RandomState(12)
     dev = torch.device("cuda")
+    def cpu(host):
+        return [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
+
+    def on(host):
+        return [a.to(dev) for a in cpu(host)]
+
     rows = {}
-    kinds = (("assoc_greedy", tsort.greedy_associate,
-              tsort.greedy_associate_plain, None, K4_OPS_PER_CELL),
-             ("assoc_auction", tsort.auction_associate,
-              tsort.auction_associate_plain, 1, K5_OPS_PER_CELL))
+    floor = graph_ms(empty_kernel())["graph_ms"]
+    print(f"[kernels] launch floor: an empty kernel {floor:.4f} ms a launch "
+          f"({GRAPH_LAUNCHES} in one graph)", flush=True)
+
+    # K4 matrix mode and K5
     cases = assoc_cases(rng)
-    for name, wrapper, plain, block, per_cell in kinds:
+    for name, wrapper, plain in (
+            ("assoc_greedy", tsort.greedy_associate,
+             tsort.greedy_associate_plain),
+            ("assoc_auction", tsort.auction_associate,
+             tsort.auction_associate_plain)):
         for case, host in cases.items():
-            args = [torch.from_numpy(a).to(dev) for a in host]
+            args = on(host)
             got = wrapper(*args, 0.35)
             torch.cuda.synchronize()
-            want = plain(*(torch.from_numpy(a) for a in host), 0.35)
+            want = plain(*cpu(host), 0.35)
             if not torch.equal(got.cpu(), want):
                 bad = int((got.cpu() != want).sum())
                 fail(f"{name} on {case}: {bad} entries differ from plain")
@@ -4277,60 +4571,158 @@ def check_tail_kernels() -> dict:
                 if not torch.equal(wrapper(*(a[i] for a in args),
                                            0.35).cpu(), want[i]):
                     fail(f"{name} on {case}: problem {i} alone differs")
-        host = cases["main 1x100x100"]
-        args = [torch.from_numpy(a).to(dev) for a in host]
-        p, t, d = host[0].shape
-        cols = t if name == "assoc_greedy" else t + d
-        rounds = assoc_rounds(plain, host, block)
-        row = dict(
-            ms=cuda_ms(lambda: wrapper(*args, 0.35), 50),
-            flushed_ms=cuda_ms_flushed(lambda: wrapper(*args, 0.35)),
-            plain_ms=cuda_ms(lambda: plain(*args, 0.35), 5, 1),
-            max_abs_err=0, library_ms=None, rounds=rounds,
-            **bound(p * t * d * 4 + p * (t + d) + p * d * 4,
-                    max(rounds, 1) * per_cell * d * cols))
-        fleet = cases["fleet 8x100x100"]
-        fargs = [torch.from_numpy(a).to(dev) for a in fleet]
-        row["fleet_8_ms"] = cuda_ms(lambda: wrapper(*fargs, 0.35), 50)
-        big = cases["max_det 2x300x300"]
-        bargs = [torch.from_numpy(a).to(dev) for a in big]
-        row["max_det_300_ms"] = cuda_ms(lambda: wrapper(*bargs, 0.35), 10)
-        row["max_det_300_rounds"] = assoc_rounds(plain, big, block)
-        rows[name] = row
-        print(f"[kernels] {name}: bit-equal to plain on "
-              f"{', '.join(cases)}; 1 x 100 x 100 (the main path's "
-              f"problem, {rounds} rounds): {row['ms']:.4f} ms warm, "
-              f"{row['flushed_ms']:.4f} ms flushed, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']}); 8 problems in one launch "
-              f"{row['fleet_8_ms']:.4f} ms; max_det 300 (2 x 300 x 300, "
-              f"{row['max_det_300_rounds']} rounds"
-              + (", the matrix in global memory" if name == "assoc_greedy"
-                 else "") + f") {row['max_det_300_ms']:.4f} ms", flush=True)
-    ncases = nms_cases(rng)
-    for case, (over, valid) in ncases.items():
-        got = tnms.greedy_keep(torch.from_numpy(over).to(dev),
-                               torch.from_numpy(valid).to(dev))
+    # K4 boxes mode
+    bcases = assoc_box_cases(rng)
+    for case, host in bcases.items():
+        args, thresh = on(host[:4]), host[4]
+        got = tsort.greedy_associate_boxes(*args, thresh)
         torch.cuda.synchronize()
-        want = tnms.greedy_keep_plain(torch.from_numpy(over),
-                                      torch.from_numpy(valid))
-        if not torch.equal(got.cpu(), want):
+        want = tsort.greedy_associate_boxes_plain(*cpu(host[:4]), thresh)
+        for g, w, what in zip(got, want, ("det2trk", "trk2det")):
+            if not torch.equal(g.cpu(), w):
+                fail(f"assoc_greedy boxes mode on {case}: "
+                     f"{int((g.cpu() != w).sum())} {what} entries differ "
+                     f"from plain")
+        for i in range(host[0].shape[0]):
+            one = tsort.greedy_associate_boxes(
+                *(a[i:i + 1] for a in args), thresh)
+            if not all(torch.equal(g.cpu()[0], w[i])
+                       for g, w in zip(one, want)):
+                fail(f"assoc_greedy boxes mode on {case}: problem {i} "
+                     f"alone differs")
+    # K6 matrix mode and boxes mode
+    ncases = nms_cases(rng)
+    for case, host in ncases.items():
+        got = tnms.greedy_keep(*on(host))
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), tnms.greedy_keep_plain(*cpu(host))):
             fail(f"nms_keep on {case}: differs from plain")
-    over, valid = ncases["main 8x300x300"]
-    o, v = torch.from_numpy(over).to(dev), torch.from_numpy(valid).to(dev)
+    nbcases = nms_box_cases(rng)
+    for case, host in nbcases.items():
+        got = tnms.greedy_keep_boxes(*on(host[:3]), host[3])
+        torch.cuda.synchronize()
+        want = tnms.greedy_keep_boxes_plain(*cpu(host[:3]), host[3])
+        if not torch.equal(got.cpu(), want):
+            fail(f"nms_keep boxes mode on {case}: "
+                 f"{int((got.cpu() != want).sum())} entries differ from "
+                 f"plain")
+
+    # times: K4 (boxes mode on the main path, matrix mode beside it), K5
+    main = bcases["main 1x100x100"]
+    margs = on(main[:4])
+    scores = box_scores(main)
+    sargs = on(scores)
+    p, t, d = scores[0].shape
+    rounds = assoc_rounds(tsort.greedy_associate_plain, scores)
+    live = int(sum(a.sum() * v.sum() for a, v in zip(main[2], main[3])))
+    row = kernel_times(
+        lambda: tsort.greedy_associate_boxes(*margs, 0.35),
+        lambda: tsort.greedy_associate_boxes_plain(*margs, 0.35))
+    row.update(max_abs_err=0, library_ms=None, rounds=rounds,
+               launch_floor_ms=floor,
+               **bound(p * (t * 7 * 4 + d * 16 + (t + d) + (t + d) * 4),
+                       live * (IOU_OPS_PER_PAIR
+                               + max(rounds, 1) * K4_OPS_PER_CELL)
+                       + p * (t + d) * K4_OPS_PER_BOX))
+    fleet = on(bcases["fleet 8x100x100"][:4])
+    row["fleet_8_ms"] = cuda_ms(
+        lambda: tsort.greedy_associate_boxes(*fleet, 0.35), 50)
+    big = {k: on(bcases[k][:4]) for k in ("max_det road 2x300x300",
+                                           "max_det dense 2x300x300")}
+    row["max_det_300_ms"] = {
+        k: cuda_ms(lambda a=a: tsort.greedy_associate_boxes(*a, 0.35), 10)
+        for k, a in big.items()}
+    mrow = kernel_times(lambda: tsort.greedy_associate(*sargs, 0.35),
+                        lambda: tsort.greedy_associate_plain(*sargs, 0.35))
+    rand300 = on(cases["max_det 2x300x300"])
+    mrow["max_det_300_ms"] = cuda_ms(
+        lambda: tsort.greedy_associate(*rand300, 0.35), 10)
+    mrow["max_det_300_rounds"] = assoc_rounds(tsort.greedy_associate_plain,
+                                              cases["max_det 2x300x300"])
+    row["matrix_mode"] = mrow
+    rows["assoc_greedy"] = row
+    print(f"[kernels] assoc_greedy: bit-equal to plain, matrix mode on "
+          f"{', '.join(cases)}; boxes mode (both maps) on "
+          f"{', '.join(bcases)}; each problem alone equal to the batch",
+          flush=True)
+    print(f"[kernels] assoc_greedy boxes mode, 1 x 100 x 100 (the main "
+          f"path's problem, {rounds} rounds, {live} live cells): "
+          f"{fmt_times(row)}; bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}); launch floor {floor:.4f} ms; 8 problems in "
+          f"one launch {row['fleet_8_ms']:.4f} ms; max_det 300 "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                      row["max_det_300_ms"].items()), flush=True)
+    print(f"[kernels] assoc_greedy matrix mode, the same problem's IoU: "
+          f"{fmt_times(mrow)}; max_det 300 (2 x 300 x 300 random, "
+          f"{mrow['max_det_300_rounds']} rounds, the scores read in place) "
+          f"{mrow['max_det_300_ms']:.4f} ms", flush=True)
+    host = cases["main 1x100x100"]
+    args = on(host)
+    p, t, d = host[0].shape
+    rounds = assoc_rounds(tsort.auction_associate_plain, host, 1)
+    row = dict(
+        ms=cuda_ms(lambda: tsort.auction_associate(*args, 0.35), 50),
+        flushed_ms=cuda_ms_flushed(
+            lambda: tsort.auction_associate(*args, 0.35)),
+        plain_ms=cuda_ms(lambda: tsort.auction_associate_plain(*args, 0.35),
+                         5, 1),
+        max_abs_err=0, library_ms=None, rounds=rounds,
+        **bound(p * t * d * 4 + p * (t + d) + p * d * 4,
+                max(rounds, 1) * K5_OPS_PER_CELL * d * (t + d)))
+    fargs = on(cases["fleet 8x100x100"])
+    row["fleet_8_ms"] = cuda_ms(
+        lambda: tsort.auction_associate(*fargs, 0.35), 50)
+    big = on(cases["max_det 2x300x300"])
+    row["max_det_300_ms"] = cuda_ms(
+        lambda: tsort.auction_associate(*big, 0.35), 10)
+    row["max_det_300_rounds"] = assoc_rounds(tsort.auction_associate_plain,
+                                             cases["max_det 2x300x300"], 1)
+    rows["assoc_auction"] = row
+    print(f"[kernels] assoc_auction: bit-equal to plain on "
+          f"{', '.join(cases)}; 1 x 100 x 100 ({rounds} rounds): "
+          f"{row['ms']:.4f} ms warm, {row['flushed_ms']:.4f} ms flushed, "
+          f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}); 8 problems in one launch "
+          f"{row['fleet_8_ms']:.4f} ms; max_det 300 (2 x 300 x 300, "
+          f"{row['max_det_300_rounds']} rounds) {row['max_det_300_ms']:.4f}"
+          f" ms", flush=True)
+
+    # K6: boxes mode on the main path, matrix mode beside it
+    boxes, cls, valid, thr = nbcases["main 8x300"]
+    bargs = on((boxes, cls, valid))
     b, k = valid.shape
+    pairs = int(sum(v * (v - 1) // 2 for v in valid.sum(1)))
+    row = kernel_times(lambda: tnms.greedy_keep_boxes(*bargs, thr),
+                       lambda: tnms.greedy_keep_boxes_plain(*bargs, thr))
+    row.update(max_abs_err=0, library_ms=None, launch_floor_ms=floor,
+               valid_per_frame=float(valid.sum(1).mean()),
+               **bound(b * k * (16 + 4 + 1) + b * k,
+                       pairs * IOU_OPS_PER_PAIR + b * k * K6_OPS_PER_BOX))
+    row["k_ms"] = {c: cuda_ms(lambda a=on(nbcases[c][:3]), th=nbcases[c][3]:
+                              tnms.greedy_keep_boxes(*a, th), 20)
+                   for c in ("tta 2x600", "1024 1x1024")}
     words = -(-k // 32)
-    rows["nms_keep"] = dict(
-        ms=cuda_ms(lambda: tnms.greedy_keep(o, v), 50),
-        flushed_ms=cuda_ms_flushed(lambda: tnms.greedy_keep(o, v)),
-        plain_ms=cuda_ms(lambda: tnms.greedy_keep_plain(o, v), 5, 1),
-        max_abs_err=0, library_ms=None,
-        **bound(b * k * k + 2 * b * k, b * (k * k + k * words)))
-    r = rows["nms_keep"]
-    print(f"[kernels] nms_keep: bit-equal to plain on {', '.join(ncases)}; "
-          f"8 x 300 (the main path's): {r['ms']:.4f} ms warm, "
-          f"{r['flushed_ms']:.4f} ms flushed, plain {r['plain_ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+    matrix = {}
+    for c in ("main 8x300x300", "obb 8x300x300"):
+        o, v = on(ncases[c])
+        matrix[c] = kernel_times(lambda o=o, v=v: tnms.greedy_keep(o, v),
+                                 lambda o=o, v=v: tnms.greedy_keep_plain(o, v))
+        matrix[c].update(**bound(b * k * k + 2 * b * k,
+                                 b * (k * k + k * words)))
+    row["matrix_mode"] = matrix
+    rows["nms_keep"] = row
+    print(f"[kernels] nms_keep: bit-equal to plain, boxes mode on "
+          f"{', '.join(nbcases)}; matrix mode on {', '.join(ncases)}",
+          flush=True)
+    print(f"[kernels] nms_keep boxes mode, 8 x 300 (the main path's, "
+          f"{row['valid_per_frame']:g} valid a frame): {fmt_times(row)}; "
+          f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}); launch "
+          f"floor {floor:.4f} ms; "
+          + ", ".join(f"{c} {v:.4f} ms" for c, v in row["k_ms"].items()),
+          flush=True)
+    for c, r in matrix.items():
+        print(f"[kernels] nms_keep matrix mode, {c}: {fmt_times(r)}; bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
     for r in rows.values():
         r["fleet"] = {}
     return rows
@@ -4469,6 +4861,34 @@ def fleet_scaling(eng, card: str) -> dict:
     return out
 
 
+# the torch functions whose work K4's and K6's boxes modes took over: the
+# main path must call none of them on the card
+TORCH_IOU = (("track.sort", "x_to_bbox"), ("track.sort", "iou_matrix"),
+             ("track.sort", "trk2det_map"), ("ops.nms", "iou_matrix_xyxy"))
+
+
+def torch_iou_calls(fn) -> dict:
+    """How often each of TORCH_IOU is called while ``fn`` runs."""
+    import importlib
+    counts, saved = {}, []
+    for mod_name, attr in TORCH_IOU:
+        mod = importlib.import_module(f"roadvision_tpu_torch.{mod_name}")
+        orig = getattr(mod, attr)
+        counts[attr] = 0
+
+        def counted(*a, _orig=orig, _attr=attr, **kw):
+            counts[_attr] += 1
+            return _orig(*a, **kw)
+        saved.append((mod, attr, orig))
+        setattr(mod, attr, counted)
+    try:
+        fn()
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    return counts
+
+
 def graph_phase(model: str, card: str) -> dict:
     """``[graph]``: the main path (1080p x 8, bfloat16) replays one CUDA
     graph a batch (``engine.step_mode == "graph"``). GRAPH_BATCHES
@@ -4531,6 +4951,14 @@ def graph_phase(model: str, card: str) -> dict:
              for m, f in (("graph", eng.step_batch), ("eager", eng.step))}
     if syncs["graph"]:
         fail(f"[graph]: {syncs['graph']} host syncs a replayed batch")
+    iou_calls = torch_iou_calls(
+        lambda: eng.step(*inputs(0), want_proc=False))
+    if any(iou_calls.values()):
+        fail(f"[graph]: the eager main path still calls the torch IoU: "
+             f"{iou_calls}")
+    print(f"[graph] an eager main-path batch calls the torch IoU helpers "
+          f"{json.dumps(iou_calls)} times: K4 and K6 compute it (boxes "
+          f"modes)", flush=True)
     print(f"[graph] main path step_mode graph: {GRAPH_BATCHES} replayed "
           f"1080p x {BATCH} bf16 batches equal {GRAPH_BATCHES} eager "
           f"engine.step batches from the same state ({worst['n']} "
@@ -4604,7 +5032,7 @@ def graph_phase(model: str, card: str) -> dict:
             "graph_vs_eager": worst, "host_syncs_per_batch": syncs,
             "fps": fps, "fps_median": med, "stage_ms": stages,
             "idle": idle, "fleet_fps": fleet,
-            "multi_stream_syncs": multi_syncs}
+            "multi_stream_syncs": multi_syncs, "torch_iou_calls": iou_calls}
 
 
 def profile_batch(engine, frames, ts) -> dict:
@@ -4884,7 +5312,9 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": None, "flushed_ms": r["flushed_ms"],
-         "fleet": r["fleet"]}
+         "fleet": r["fleet"],
+         **{k: r[k] for k in ("graph_ms", "graph_flushed_ms",
+                              "launch_floor_ms", "matrix_mode") if k in r}}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
         "second_paths": paths, "graph": graph, "entries": entries,

@@ -31,12 +31,14 @@ BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # the "cv2" CLAHE blend needs every float multiply and add rounded on its
 # own; the source uses __fmul_rn/__fadd_rn, and --fmad=false keeps any
-# other expression from contracting as well; the auction's prices are
-# bit-equal to the plain version's only without contraction too
+# other expression from contracting as well; the auction's prices, and the
+# boxes modes' x_to_bbox and IoU (csrc/box_iou.cuh: cx - 0.5 * w,
+# cls * 7680 + x, area + area - inter), are bit-equal to the plain
+# versions only without contraction too
 EXTRA_FLAGS: Dict[str, List[str]] = {"clahe": ["--fmad=false"],
                                      "median": [],
                                      "assoc": ["--fmad=false"],
-                                     "nms": []}
+                                     "nms": ["--fmad=false"]}
 
 # kernel name -> launches since the last reset; each wrapper adds one
 # where it launches its kernel, and nowhere else (a replayed CUDA graph
@@ -53,9 +55,11 @@ SIGNATURES = {
     ("clahe", "rvt_clahe_tile_luts"): [_P, _P] + [_I] * 8 + [_F, _P],
     ("clahe", "rvt_clahe_apply"): [_P] * 10 + [_I] * 9 + [_P],
     ("median", "rvt_median_k"): [_P, _P, _I, _I, _I, _I, _P],
-    ("assoc", "rvt_assoc_greedy"): [_P] * 5 + [_I] * 3 + [_F, _P],
+    ("assoc", "rvt_assoc_greedy"): [_P] * 4 + [_I] * 3 + [_F, _P],
+    ("assoc", "rvt_assoc_greedy_boxes"): [_P] * 6 + [_I] * 3 + [_F, _P],
     ("assoc", "rvt_assoc_auction"): [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
-    ("nms", "rvt_nms_keep"): [_P] * 3 + [_I] * 2 + [_P],
+    ("nms", "rvt_nms_keep"): [_P] * 4 + [_I] * 2 + [_P],
+    ("nms", "rvt_nms_keep_boxes"): [_P] * 4 + [_I] * 2 + [_F, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

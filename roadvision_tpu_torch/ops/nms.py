@@ -11,15 +11,21 @@ post-predict filter does.
 
 The greedy keep-mask: JAX runs its Jacobi fixpoint (``keep ← valid &
 ¬∃ j<i: keep_j ∧ iou(j,i) > t`` until unchanged) as a device
-``while_loop``. :func:`greedy_keep` launches K6 ``nms_keep``
-(``csrc/nms.cu``: the sequential greedy, which has the same fixpoint,
-one block a frame, no host read) for a tensor on the card, and runs the
-plain fixpoint :func:`greedy_keep_plain` for a tensor on the CPU, which
-reads one flag back to the host per round (typically 2-4 rounds a
-batch). The overlap test stays in torch, so both read the same booleans.
+``while_loop``. On the card K6 ``nms_keep`` (``csrc/nms.cu``: the
+sequential greedy, which has the same fixpoint, one block a frame, no
+host read) computes it; on the CPU the plain fixpoint
+:func:`greedy_keep_plain` does, reading one flag back to the host per
+round (typically 2-4 rounds a batch). :func:`nms_batch` calls
+:func:`greedy_keep_boxes`, K6's boxes mode: one launch computes what
+nms.py:80-99 computes (the class offset, :func:`iou_matrix_xyxy`,
+``> iou_thres``, the keep) in this module's arithmetic, so no (k, k)
+matrix is made on the card. :func:`greedy_keep` (matrix mode) takes the
+overlap booleans of a caller that tests overlap its own way: the rotated
+NMS of ``ops/obb.py``, whose probabilistic IoU stays in torch.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -90,16 +96,25 @@ KEEP_MAX_K = 1024
 def _keep_cuda(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
     bsz, k = sel_valid.shape
     keep = torch.empty((bsz, k), dtype=torch.bool, device=over.device)
+    # the overlap rows packed to bits, one 32-bit word a 32 columns
+    packed = torch.empty((bsz, k, -(-k // 32)), dtype=torch.int32,
+                         device=over.device)
     ov = over.contiguous().view(torch.uint8)
     valid = sel_valid.contiguous().view(torch.uint8)
     lib = _build.load("nms")
     with torch.cuda.device(over.device):
         code = lib.rvt_nms_keep(ov.data_ptr(), valid.data_ptr(),
-                                keep.data_ptr(), bsz, k,
+                                keep.data_ptr(), packed.data_ptr(), bsz, k,
                                 _build.stream_ptr(over))
     _build.launch_counts["nms_keep"] += 1
     _build.check(code, "nms_keep")
     return keep
+
+
+def _check_frames(bsz: int, k: int) -> None:
+    if bsz < 1 or k < 1 or k > KEEP_MAX_K or bsz > 2 ** 31 - 1:
+        raise ValueError(f"nms_keep takes 1..{KEEP_MAX_K} candidates and "
+                         f"at least one frame, got ({bsz}, {k})")
 
 
 def greedy_keep(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
@@ -118,11 +133,68 @@ def greedy_keep(over: torch.Tensor, sel_valid: torch.Tensor) -> torch.Tensor:
     if over.device.type != "cuda" or sel_valid.device != over.device:
         raise ValueError(f"unsupported devices {over.device}, "
                          f"{sel_valid.device}")
-    bsz, k = sel_valid.shape
-    if bsz < 1 or k < 1 or k > KEEP_MAX_K or bsz > 2 ** 31 - 1:
-        raise ValueError(f"nms_keep takes 1..{KEEP_MAX_K} candidates and "
-                         f"at least one frame, got ({bsz}, {k})")
+    _check_frames(*sel_valid.shape)
     return _keep_cuda(over, sel_valid)
+
+
+def greedy_keep_boxes_plain(sel_boxes: torch.Tensor, sel_cls: torch.Tensor,
+                            sel_valid: torch.Tensor,
+                            iou_thres: float) -> torch.Tensor:
+    """What nms.py:80-99 computes for score-sorted candidates: boxes
+    (B, k, 4) offset by class (``cls · MAX_WH``), their pairwise IoU,
+    ``> iou_thres``, the greedy keep mask (B, k) bool."""
+    offset = sel_cls.to(torch.float32)[..., None] * MAX_WH
+    return greedy_keep_plain(iou_matrix_xyxy(sel_boxes + offset) > iou_thres,
+                             sel_valid)
+
+
+def _keep_boxes_cuda(sel_boxes, sel_cls, sel_valid, iou_thres: float):
+    bsz, k = sel_valid.shape
+    dev = sel_boxes.device
+    keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+    boxes = sel_boxes.contiguous()
+    cls = sel_cls.to(torch.int32).contiguous()
+    valid = sel_valid.contiguous().view(torch.uint8)
+    lib = _build.load("nms")
+    with torch.cuda.device(dev):
+        code = lib.rvt_nms_keep_boxes(
+            boxes.data_ptr(), cls.data_ptr(), valid.data_ptr(),
+            keep.data_ptr(), bsz, k, ctypes.c_float(float(iou_thres)),
+            _build.stream_ptr(sel_boxes))
+    _build.launch_counts["nms_keep"] += 1
+    _build.check(code, "nms_keep")
+    return keep
+
+
+def greedy_keep_boxes(sel_boxes: torch.Tensor, sel_cls: torch.Tensor,
+                      sel_valid: torch.Tensor,
+                      iou_thres: float) -> torch.Tensor:
+    """K6 in boxes mode: the greedy keep mask (B, k) bool of score-sorted
+    candidates ``sel_boxes`` (B, k, 4) xyxy of classes ``sel_cls`` (B, k)
+    and ``sel_valid`` (B, k) bool, suppressing where the class-offset IoU
+    is > ``iou_thres``. A CPU tensor runs :func:`greedy_keep_boxes_plain`;
+    a CUDA tensor launches the kernel, IoU included, one block per frame,
+    on the current stream."""
+    if sel_boxes.dim() != 3 or sel_boxes.shape[-1] != 4 \
+            or sel_valid.dtype != torch.bool \
+            or sel_valid.shape != sel_boxes.shape[:2] \
+            or sel_cls.shape != sel_valid.shape:
+        raise ValueError(f"expected sel_boxes (B, k, 4), sel_cls (B, k) and "
+                         f"sel_valid (B, k) bool, got "
+                         f"{tuple(sel_boxes.shape)}, {tuple(sel_cls.shape)} "
+                         f"and {tuple(sel_valid.shape)} {sel_valid.dtype}")
+    if sel_boxes.device.type == "cpu":
+        return greedy_keep_boxes_plain(sel_boxes, sel_cls, sel_valid,
+                                       iou_thres)
+    if sel_boxes.device.type != "cuda" or sel_cls.device != sel_boxes.device \
+            or sel_valid.device != sel_boxes.device:
+        raise ValueError(f"unsupported devices {sel_boxes.device}, "
+                         f"{sel_cls.device}, {sel_valid.device}")
+    if sel_boxes.dtype != torch.float32 or sel_cls.is_floating_point():
+        raise ValueError(f"nms_keep takes float32 boxes and integer "
+                         f"classes, got {sel_boxes.dtype}, {sel_cls.dtype}")
+    _check_frames(*sel_valid.shape)
+    return _keep_boxes_cuda(sel_boxes, sel_cls, sel_valid, iou_thres)
 
 
 def _allowed(nc: int, classes_keep: Sequence[int], device) -> torch.Tensor:
@@ -170,9 +242,7 @@ def nms_batch(boxes: torch.Tensor, scores: torch.Tensor,
         scores, conf_thres, pre_topk)
     k = sel_idx.shape[1]
     sel_boxes = torch.gather(boxes, 1, sel_idx[..., None].expand(-1, k, 4))
-    offset = sel_cls.to(torch.float32)[..., None] * MAX_WH
-    keep = greedy_keep(iou_matrix_xyxy(sel_boxes + offset) > iou_thres,
-                       sel_valid)
+    keep = greedy_keep_boxes(sel_boxes, sel_cls, sel_valid, iou_thres)
     out = compact(keep, sel_boxes, sel_scores, sel_cls, sel_idx, max_det,
                   scores.shape[-1], classes_keep)
     return out if return_idx else out[:4]

@@ -33,7 +33,14 @@ kernel for a tensor on the card (K4 ``assoc_greedy``, K5
 a problem, no host read) and run their plain versions for a tensor on
 the CPU: those read one flag back to the host per greedy round, and one
 per block of :data:`AUCTION_BLOCK` ε-auction rounds. Every such read adds
-one to :data:`host_syncs` so a caller can count them per batch.
+one to :data:`host_syncs` so a caller can count them per batch. The
+default greedy step calls K4 in its boxes mode,
+:func:`greedy_associate_boxes`: one launch computes what sort_tpu.py:498-508
+computes (``x_to_bbox`` of the predicted means, ``iou_matrix`` against
+the detections, the rounds, the inverse map track → det) in the
+arithmetic of :func:`x_to_bbox` and :func:`iou_matrix`; its plain version
+is exactly that composition. The hooked backends and ``association:
+hungarian`` hand K4 (matrix mode) or K5 a score matrix of their own.
 
 The default step (no hooks) also takes a stacked state, every field with
 a leading stream axis S, and detections (S, D, ...): JAX's ``vmap`` over
@@ -336,11 +343,12 @@ def _assoc_operands(iou, alive, dvalid, what: str):
     return flat, al, dv, lead
 
 
-def greedy_smem_bytes(num_t: int, num_d: int, matrix: bool = True) -> int:
-    """K4's shared memory for one (T, D) problem (csrc/assoc.cu), with
-    the score matrix in it or (``matrix=False``) in global memory."""
-    return 4 * num_t * (num_d + 1) * matrix + 8 * num_t + 8 * num_d \
-        + num_t + num_d
+def greedy_smem_bytes(num_t: int, num_d: int, boxes: bool = False) -> int:
+    """The shared memory K4 needs for one (T, D) problem (csrc/assoc.cu):
+    the boxes (boxes mode), the maxima, maps and bitsets. The kernel adds
+    a cache of the (T, D | 1) cells where it fits in the rest."""
+    return 4 * (5 * (num_t + num_d) * boxes + 3 * num_t + 2 * num_d
+                + -(-num_t // 32) + -(-num_d // 32))
 
 
 def auction_smem_bytes(num_t: int, num_d: int) -> int:
@@ -350,27 +358,26 @@ def auction_smem_bytes(num_t: int, num_d: int) -> int:
         + num_t
 
 
+def _check_smem(num_t: int, num_d: int, boxes: bool, what: str) -> None:
+    need = greedy_smem_bytes(num_t, num_d, boxes)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{what}: a {num_t} x {num_d} problem needs {need} "
+                         f"bytes of shared memory, over one block's "
+                         f"{SMEM_LIMIT}")
+
+
 def _greedy_cuda(iou, alive, dvalid, thresh: float) -> torch.Tensor:
     flat, al, dv, lead = _assoc_operands(iou, alive, dvalid,
                                          "greedy_associate")
     p, num_t, num_d = flat.shape
-    # a score matrix that one block's shared memory cannot hold goes to a
-    # work buffer in global memory (the same kernel, another address)
-    work = None
-    if greedy_smem_bytes(num_t, num_d) > SMEM_LIMIT:
-        if greedy_smem_bytes(num_t, num_d, matrix=False) > SMEM_LIMIT:
-            raise ValueError(f"greedy_associate: a {num_t} x {num_d} "
-                             f"problem needs more than one block's "
-                             f"{SMEM_LIMIT} bytes of shared memory")
-        work = torch.empty((p, num_t, num_d + 1), dtype=torch.float32,
-                           device=iou.device)
+    _check_smem(num_t, num_d, False, "greedy_associate")
     out = torch.empty((p, num_d), dtype=torch.int32, device=iou.device)
     lib = _build.load("assoc")
     with torch.cuda.device(iou.device):
         code = lib.rvt_assoc_greedy(
             flat.data_ptr(), al.data_ptr(), dv.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), p, num_t, num_d,
-            ctypes.c_float(float(thresh)), _build.stream_ptr(iou))
+            p, num_t, num_d, ctypes.c_float(float(thresh)),
+            _build.stream_ptr(iou))
     _build.launch_counts["assoc_greedy"] += 1
     _build.check(code, "assoc_greedy")
     return out.reshape(lead + (num_d,))
@@ -409,6 +416,86 @@ def greedy_associate(iou: torch.Tensor, alive: torch.Tensor,
     if iou.device.type != "cuda":
         raise ValueError(f"unsupported device {iou.device}")
     return _greedy_cuda(iou, alive, dvalid, thresh)
+
+
+def trk2det_map(det2trk: torch.Tensor, num_t: int) -> torch.Tensor:
+    """The inverse of a one-to-one det→track map (P, D) → track→det (P, T)
+    int32, -1 unmatched: sort_tpu.py:503-506's scatter with the unmatched
+    detections dropped."""
+    num_p, num_d = det2trk.shape
+    d_ids = torch.arange(num_d, dtype=torch.int32, device=det2trk.device) \
+        .expand(num_p, num_d)
+    return _put_rows(
+        torch.full((num_p, num_t), -1, dtype=torch.int32,
+                   device=det2trk.device),
+        torch.where(det2trk >= 0, det2trk, num_t).long(), d_ids)
+
+
+def greedy_associate_boxes_plain(mean: torch.Tensor, boxes: torch.Tensor,
+                                 alive: torch.Tensor, dvalid: torch.Tensor,
+                                 thresh: float):
+    """What sort_tpu.py:498-508 computes: the IoU of the predicted boxes
+    ``x_to_bbox(mean)`` (P, T, 7) against ``boxes`` (P, D, 4), greedy
+    association, and the inverse map → (det→track (P, D), track→det
+    (P, T)) int32, -1 unmatched."""
+    det2trk = greedy_associate_plain(iou_matrix(x_to_bbox(mean), boxes),
+                                     alive, dvalid, thresh)
+    return det2trk, trk2det_map(det2trk, mean.shape[1])
+
+
+def _greedy_boxes_cuda(mean, boxes, alive, dvalid, thresh: float):
+    num_p, num_t, num_d = mean.shape[0], mean.shape[1], boxes.shape[1]
+    _check_smem(num_t, num_d, True, "greedy_associate_boxes")
+    dev = mean.device
+    det2trk = torch.empty((num_p, num_d), dtype=torch.int32, device=dev)
+    trk2det = torch.empty((num_p, num_t), dtype=torch.int32, device=dev)
+    m = mean.contiguous()
+    b = boxes.contiguous()
+    al = alive.to(torch.bool).contiguous().view(torch.uint8)
+    dv = dvalid.to(torch.bool).contiguous().view(torch.uint8)
+    lib = _build.load("assoc")
+    with torch.cuda.device(dev):
+        code = lib.rvt_assoc_greedy_boxes(
+            m.data_ptr(), b.data_ptr(), al.data_ptr(), dv.data_ptr(),
+            det2trk.data_ptr(), trk2det.data_ptr(), num_p, num_t, num_d,
+            ctypes.c_float(float(thresh)), _build.stream_ptr(mean))
+    _build.launch_counts["assoc_greedy"] += 1
+    _build.check(code, "assoc_greedy")
+    return det2trk, trk2det
+
+
+def greedy_associate_boxes(mean: torch.Tensor, boxes: torch.Tensor,
+                           alive: torch.Tensor, dvalid: torch.Tensor,
+                           thresh: float):
+    """K4 in boxes mode: (det→track (P, D), track→det (P, T)) int32 for
+    predicted means ``mean`` (P, T, 7) f32, detections ``boxes`` (P, D, 4)
+    f32, ``alive`` (P, T) and ``dvalid`` (P, D). A CPU tensor runs
+    :func:`greedy_associate_boxes_plain`; a CUDA tensor launches the
+    kernel, IoU included, one block per problem, on the current stream."""
+    if mean.dim() != 3 or mean.shape[-1] != STATE_DIM or boxes.dim() != 3 \
+            or boxes.shape[-1] != MEAS_DIM or boxes.shape[0] != mean.shape[0] \
+            or alive.shape != mean.shape[:2] \
+            or dvalid.shape != boxes.shape[:2]:
+        raise ValueError(f"greedy_associate_boxes: expected mean (P, T, 7), "
+                         f"boxes (P, D, 4), alive (P, T), dvalid (P, D), got "
+                         f"{tuple(mean.shape)}, {tuple(boxes.shape)}, "
+                         f"{tuple(alive.shape)}, {tuple(dvalid.shape)}")
+    if mean.device.type == "cpu":
+        return greedy_associate_boxes_plain(mean, boxes, alive, dvalid,
+                                            thresh)
+    if mean.device.type != "cuda" or any(
+            t.device != mean.device for t in (boxes, alive, dvalid)):
+        raise ValueError(f"greedy_associate_boxes: unsupported devices "
+                         f"{mean.device}, {boxes.device}, {alive.device}, "
+                         f"{dvalid.device}")
+    if mean.dtype != torch.float32 or boxes.dtype != torch.float32:
+        raise ValueError(f"greedy_associate_boxes: expected float32 means "
+                         f"and boxes, got {mean.dtype}, {boxes.dtype}")
+    num_p, num_t, num_d = mean.shape[0], mean.shape[1], boxes.shape[1]
+    if num_p < 1 or num_t < 1 or num_d < 1 or num_p > 2 ** 31 - 1:
+        raise ValueError(f"greedy_associate_boxes: empty or too many "
+                         f"problems ({num_p}, {num_t}, {num_d})")
+    return _greedy_boxes_cuda(mean, boxes, alive, dvalid, thresh)
 
 
 def auction_associate(iou: torch.Tensor, alive: torch.Tensor,
@@ -593,12 +680,15 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
         if association not in ("greedy", "hungarian"):
             raise ValueError(f"unknown association: {association!r} "
                              f"(expected 'greedy' or 'hungarian')")
-        base_assoc = greedy_associate if association == "greedy" \
-            else auction_associate
+        # the default greedy step: K4 computes the IoU and the inverse
+        # map too (boxes mode)
+        boxes_mode = association == "greedy"
 
         def assoc(iou, alive, dvalid, conf, ctx):
-            return base_assoc(iou, alive, dvalid, thresh)
+            return auction_associate(iou, alive, dvalid, thresh)
     else:
+        boxes_mode = False
+
         def assoc(iou, alive, dvalid, conf, ctx):
             state, boxes, ts, emb = ctx
             return associate_fn(
@@ -653,15 +743,18 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             last_predict_ts=torch.where(alive, ts_t, state.last_predict_ts))
 
         # 2. association on IoU of predicted vs detected boxes
-        det2trk = assoc(iou_matrix(x_to_bbox(state.mean), boxes),
-                        state.alive, dvalid, conf, (state, boxes, ts, emb))
+        if boxes_mode:
+            det2trk, trk2det = greedy_associate_boxes(
+                state.mean, boxes, state.alive, dvalid, thresh)
+        else:
+            det2trk = assoc(iou_matrix(x_to_bbox(state.mean), boxes),
+                            state.alive, dvalid, conf,
+                            (state, boxes, ts, emb))
+            trk2det = trk2det_map(det2trk, num_t)
         matched_d = det2trk >= 0
+        matched_t = trk2det >= 0
         d_ids = torch.arange(num_d, dtype=torch.int32, device=dev) \
             .expand(num_s, num_d)
-        trk2det = _put_rows(
-            torch.full((num_s, num_t), -1, dtype=torch.int32, device=dev),
-            torch.where(matched_d, det2trk, num_t).long(), d_ids)
-        matched_t = trk2det >= 0
 
         # 3. measurement update for matched tracks, observation memory
         det_idx = trk2det.clamp(0, num_d - 1).long()

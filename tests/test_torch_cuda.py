@@ -799,7 +799,8 @@ def test_association_kernels_bit_equal(dev, name, p, t, d):
 
 @pytest.mark.parametrize("name,b,k", [("random", 8, 300), ("all", 2, 300),
                                       ("none", 2, 300), ("chain", 3, 300),
-                                      ("random", 2, 600), ("random", 1, 33)])
+                                      ("random", 2, 600), ("random", 1, 33),
+                                      ("random", 1, 1024)])
 def test_nms_keep_kernel_bit_equal(dev, name, b, k):
     from roadvision_tpu_torch.ops import nms as tnms
     rng = np.random.RandomState(b * k)
@@ -821,6 +822,191 @@ def test_nms_keep_kernel_bit_equal(dev, name, b, k):
     want = tnms.greedy_keep_plain(torch.from_numpy(over),
                                   torch.from_numpy(valid))
     assert torch.equal(got.cpu(), want)
+
+
+def _box_assoc_case(name, p, t, d):
+    """K4 boxes-mode inputs: ``name`` road (live slots spread over t,
+    predicting boxes near a valid prefix of detections), dense (most of
+    the slots and detections live, overlapping), at threshold (IoU
+    exactly 0.5 or 0.25 in float32), ties (twin tracks and detections),
+    nan (NaN, infinite and zero-area boxes), invalid → (mean, boxes,
+    alive, dvalid, thresh)."""
+    rng = np.random.RandomState(p * t + d + len(name))
+    live_t, live_d = (max(1, t * 4 // 5), max(1, d * 4 // 5)) \
+        if name == "dense" else (max(1, t // 5), max(1, d // 6))
+    n = max(live_t, live_d)
+    xy = rng.uniform(0, 1800, (p, n, 2))
+    wh = rng.uniform(40, 200, (p, n, 2))
+    mean = rng.normal(0, 50, (p, t, 7)).astype(np.float32)
+    alive = np.zeros((p, t), bool)
+    for i in range(p):
+        slots = rng.choice(t, live_t, replace=False)
+        mean[i, slots, :2] = xy[i, :live_t] + wh[i, :live_t] / 2
+        mean[i, slots, 2] = wh[i, :live_t, 0] * wh[i, :live_t, 1]
+        mean[i, slots, 3] = wh[i, :live_t, 0] / wh[i, :live_t, 1]
+        alive[i, slots] = True
+    boxes = np.zeros((p, d, 4), np.float32)
+    dxy = xy[:, :live_d] + rng.normal(0, 6, (p, live_d, 2))
+    boxes[:, :live_d] = np.concatenate([dxy, dxy + wh[:, :live_d]], -1)
+    dvalid = np.zeros((p, d), bool)
+    dvalid[:, :live_d] = True
+    thresh = 0.1 if name == "dense" else 0.35
+    if name.startswith("at threshold"):
+        mean[:, :, :4] = (5, 5, 100, 1)
+        mean[:, :, 0] += np.arange(t) * 100.0
+        shapes = np.array([[0, 0, 10, 5], [0, 0, 10, 2.5], [0, 0, 5, 5]],
+                          np.float32)
+        boxes = shapes[rng.randint(0, 3, (p, d))]
+        boxes[..., ::2] += np.arange(d)[:, None] * 100.0
+        alive[:], dvalid[:] = True, True
+        thresh = float(name.split()[-1])
+    elif name == "ties":
+        mean[:, 1::2] = mean[:, 0::2]
+        boxes[:, 1::2] = boxes[:, 0::2]
+        alive |= np.roll(alive, 1, 1)
+    elif name == "nan":
+        mean[:, 3::7, 2] = 0.0
+        mean[:, 5::11, 0] = np.nan
+        mean[:, 6::13, 3] = np.inf
+        boxes[:, 2::5, 2] = boxes[:, 2::5, 0]
+        boxes[:, 4::9, 1] = np.nan
+        boxes[:, 8::9, 3] = np.inf
+    elif name == "invalid":
+        alive[0::2] = False
+        dvalid[1::2] = False
+    return mean, boxes, alive, dvalid, thresh
+
+
+@pytest.mark.parametrize("name,p,t,d", [
+    ("road", 1, 100, 100), ("road", 8, 100, 100),
+    ("at threshold 0.5", 2, 100, 100), ("at threshold 0.25", 2, 100, 100),
+    ("ties", 4, 100, 100), ("nan", 4, 100, 100), ("invalid", 3, 100, 100),
+    ("road", 3, 7, 130), ("road", 2, 300, 300), ("dense", 2, 300, 300),
+    ("road", 1, 1024, 1024)])
+def test_association_boxes_mode_bit_equal(dev, name, p, t, d):
+    """K4's boxes mode (x_to_bbox, IoU, rounds, inverse map in one launch)
+    against greedy_associate_boxes_plain: both maps bit-equal; at 300 and
+    1024 the cells are recomputed from the boxes."""
+    from roadvision_tpu_torch.track import sort as tsort
+    *host, thresh = _box_assoc_case(name, p, t, d)
+    before = launch_counts["assoc_greedy"]
+    got = tsort.greedy_associate_boxes(
+        *[torch.from_numpy(a).to(dev) for a in host], thresh)
+    assert launch_counts["assoc_greedy"] == before + 1
+    want = tsort.greedy_associate_boxes_plain(
+        *[torch.from_numpy(a) for a in host], thresh)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), name
+    if name not in ("invalid",):
+        assert bool((want[0] >= 0).any())
+
+
+def _box_nms_case(name, b, k):
+    """K6 boxes-mode inputs: score-sorted candidates of a road scene (a
+    valid prefix, jittered around 18 vehicles), or at threshold (IoU
+    exactly 0.5), same (one box), classes (overlapping, other classes),
+    offsets (near 7680), nan (NaN, infinite, zero-area), none, scattered
+    (a random valid mask) → (boxes, cls, valid, iou_thres)."""
+    rng = np.random.RandomState(b * k + len(name))
+    objects = 18
+    xy = rng.uniform(0, 1800, (b, objects, 2))
+    wh = rng.uniform(40, 200, (b, objects, 2))
+    who = rng.randint(0, objects, (b, k))
+    c = np.take_along_axis(xy + wh / 2, who[..., None], 1) \
+        + rng.normal(0, 5, (b, k, 2))
+    half = np.take_along_axis(wh, who[..., None], 1) / 2 \
+        * rng.uniform(0.85, 1.15, (b, k, 2))
+    boxes = np.concatenate([c - half, c + half], -1).astype(np.float32)
+    cls = np.take_along_axis(rng.choice([2, 5, 7], (b, objects)), who, 1) \
+        .astype(np.int32)
+    valid = np.zeros((b, k), bool)
+    valid[:, :k * 2 // 5] = True
+    thresh = 0.7
+    if name == "at threshold":
+        shapes = np.array([[0, 0, 10, 10], [0, 0, 10, 5], [0, 0, 5, 5]],
+                          np.float32)
+        boxes = shapes[np.arange(k) % 3][None].repeat(b, 0)
+        boxes[..., ::2] += (np.arange(k) // 3 * 20.0)[:, None]
+        cls[:], valid[:], thresh = 0, True, 0.5
+    elif name in ("same", "classes"):
+        boxes[:] = boxes[:, :1]
+        cls = rng.randint(0, 3 if name == "same" else 80, (b, k)) \
+            .astype(np.int32)
+        valid[:] = True
+    elif name == "offsets":
+        boxes[:, 0::2] = [7670, 7675, 7690, 7700]
+        boxes[:, 1::2] = [-10, -5, 10, 20]
+        boxes += rng.normal(0, 2, boxes.shape).astype(np.float32)
+        cls = np.tile([0, 1], (b, k // 2)).astype(np.int32)
+        valid[:], thresh = True, 0.3
+    elif name == "nan":
+        boxes[:, 3::7, 0] = np.nan
+        boxes[:, 5::11, 3] = np.inf
+        boxes[:, 2::5, 2] = boxes[:, 2::5, 0]
+        boxes[:, 6::9] = boxes[:, 6::9, :1]
+    elif name == "none":
+        valid[:] = False
+    elif name == "scattered":
+        valid = rng.rand(b, k) < 0.5
+        thresh = 0.45
+    return boxes, cls, valid, thresh
+
+
+@pytest.mark.parametrize("name,b,k", [
+    ("road", 8, 300), ("at threshold", 2, 300), ("same", 2, 300),
+    ("classes", 2, 300), ("offsets", 2, 300), ("nan", 4, 300),
+    ("none", 2, 300), ("scattered", 2, 300), ("road", 2, 600),
+    ("road", 1, 1024), ("road", 3, 33)])
+def test_nms_keep_boxes_mode_bit_equal(dev, name, b, k):
+    """K6's boxes mode (class offset, IoU, > iou_thres, keep in one
+    launch) against greedy_keep_boxes_plain, bit for bit."""
+    from roadvision_tpu_torch.ops import nms as tnms
+    *host, thresh = _box_nms_case(name, b, k)
+    before = launch_counts["nms_keep"]
+    got = tnms.greedy_keep_boxes(
+        *[torch.from_numpy(a).to(dev) for a in host], thresh)
+    assert launch_counts["nms_keep"] == before + 1
+    want = tnms.greedy_keep_boxes_plain(
+        *[torch.from_numpy(a) for a in host], thresh)
+    assert torch.equal(got.cpu(), want), name
+
+
+def test_nms_batch_on_the_card_equals_the_cpu(dev):
+    """nms_batch on the card (K6 in boxes mode, one launch) against the
+    CPU path: every output bit-equal."""
+    from roadvision_tpu_torch.ops import nms as tnms
+    rng = np.random.RandomState(13)
+    boxes, _, _, _ = _box_nms_case("road", 4, 400)
+    scores = rng.uniform(0, 1, (4, 400, 8)).astype(np.float32) ** 3
+    before = launch_counts["nms_keep"]
+    got = tnms.nms_batch(torch.from_numpy(boxes).to(dev),
+                         torch.from_numpy(scores).to(dev), max_det=300,
+                         return_idx=True)
+    assert launch_counts["nms_keep"] == before + 1
+    want = tnms.nms_batch(torch.from_numpy(boxes), torch.from_numpy(scores),
+                          max_det=300, return_idx=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[3].sum()) > 0
+
+
+def test_rotated_nms_overlaps_through_the_matrix_mode(dev):
+    """obb's rotated NMS hands K6 its ProbIoU overlaps (matrix mode): the
+    same booleans give the plain keep mask, bit for bit."""
+    from roadvision_tpu_torch.ops import nms as tnms
+    from roadvision_tpu_torch.ops.obb import probiou_matrix
+    rng = np.random.RandomState(14)
+    rb = np.concatenate([rng.uniform(0, 400, (8, 300, 2)),
+                         rng.uniform(8, 60, (8, 300, 2)),
+                         rng.uniform(-1.5, 1.5, (8, 300, 1))], -1)
+    rb[:, 150:] = rb[:, :150] + rng.normal(0, 1.5, (8, 150, 5)) \
+        * [1, 1, 1, 1, 0.02]
+    rb[..., :2] += rng.randint(0, 3, (8, 300, 1)) * 7680.0
+    over = probiou_matrix(torch.from_numpy(rb.astype(np.float32))) > 0.7
+    valid = torch.from_numpy(rng.rand(8, 300) < 0.9)
+    got = tnms.greedy_keep(over.to(dev), valid.to(dev))
+    want = tnms.greedy_keep_plain(over, valid)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) < 8 * 300
 
 
 def test_graph_replay_equals_the_eager_step(dev, no_tf32):
@@ -886,9 +1072,9 @@ def test_reset_and_load_state_reach_the_captured_state(dev, tmp_path):
 
 def test_max_det_300_tracks_on_the_card_as_on_the_cpu(dev, no_tf32):
     """detect.max_det = 300 (T = D = 300 slots and detections: the
-    association's score matrix outgrows a block's shared memory and K4
-    keeps it in global memory) runs its graph on the card with the CPU
-    path's ids."""
+    association's cells outgrow a block's shared memory and K4's boxes
+    mode computes each again from the boxes) runs its graph on the card
+    with the CPU path's ids."""
     from roadvision_tpu_torch.config import merge
     from roadvision_tpu_torch.runtime import PipelineEngine
     cfg = merge(_engine_cfg(batch=4), {"detect": {"max_det": 300}})
