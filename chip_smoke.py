@@ -23,20 +23,24 @@ Phases, in order; any failure exits non-zero:
      bound (the larger of bytes read once and written once over
      3.35 TB/s and scalar operations over 67 T/s); then the tail's loops,
      K4 ``assoc_greedy``, K5 ``assoc_auction`` and K6 ``nms_keep``,
-     bit-equal to their plain versions: K4's matrix mode and K5 on
+     bit-equal to their plain versions: K4's matrix mode and K5's on
      road-scene IoU matrices (one 100 x 100 problem; eight, a fleet's),
      ties, all invalid, a 100-round chain, NaN scores, ragged sizes,
-     max_det = 300 (random and a 300-round chain); K4's boxes mode (its
-     own IoU from Kalman means and detections, both maps) on road scenes,
-     IoU exactly at the threshold, twins, NaN / infinite / zero-area
-     boxes, nothing valid, max_det = 300 and 1024 x 1024; K6's boxes mode
+     max_det = 300 (random and a 300-round chain), K5's also under a
+     max_iters cap; K4's and K5's boxes modes (their own IoU from Kalman
+     means and detections, both maps) on road scenes, IoU exactly at the
+     threshold, twins, NaN / infinite / zero-area boxes, nothing valid,
+     max_det = 300 and 1024 x 1024; K5's matcher mode on RT-DETR
+     training's cost (28 x 50 x 300), M close to NQ, M = NQ, one gt, the
+     second best's -1e9 floor, all gts masked, a max_iters cap, NaN and
+     infinite costs; K6's boxes mode
      (its own class-offset IoU) on the main path's 8 x 300 road
      candidates, IoU at the threshold, one box for all, other classes
      overlapping, coordinates near the class offsets, NaN / zero-area
      boxes, none valid, a scattered valid mask, 600 and 1024 candidates;
      K6's matrix mode on 8 x 300 overlaps, all overlapping, none valid, a
-     chain, 600, 1024, 33 and obb's ProbIoU overlaps; each K4 problem
-     alone equal to the batch; K4 and K6 timed in both modes as 50 queued
+     chain, 600, 1024, 33 and obb's ProbIoU overlaps; each K4 and K5
+     problem alone equal to the batch; K4-K6 timed in every mode as 50 queued
      eager calls and as 50 launches in one CUDA graph, warm and with L2
      flushed, beside an empty kernel's launch in a graph (the card's
      launch floor); their bound's operations counted from the rounds and
@@ -154,8 +158,9 @@ Phases, in order; any failure exits non-zero:
      kernel phase also holds K1, K2 and K3 bit-equal at the fleet's
      folded shapes (32 luma planes and 96 colour planes, 720p and 1080p)
      and times them there;
-  7c. training, with the kernels' counts 0 across it (no hand-written
-     kernel lies on this path): ``[train] <family>`` for v8n, yolo11n and
+  7c. training, with the kernels' counts 0 across it but K5's, once an
+     RT-DETR-L step on the card (its matcher, with no host read):
+     ``[train] <family>`` for v8n, yolo11n and
      v5n at 640 x 16, v8n-seg / -pose / -obb at 640 x 8, RT-DETR-L at
      640 x 4 and the re-id embedder — one float32 step (TF32 off) from the
      same tree and batch on the card and on the CPU (2 images; RT-DETR 1):
@@ -172,7 +177,8 @@ Phases, in order; any failure exits non-zero:
      also in chiprun_out/training.json;
   7d. ``[parallel]``, multi-card parallelism over lists that repeat
      cuda:0, float32 with TF32 off unless timed, the kernels' counts 0
-     throughout: the dp x tp train step ({data: 4, model: 2}) of v8n and
+     throughout but the dry run's fleet's and K5's (once an RT-DETR-L
+     objective): the dp x tp train step ({data: 4, model: 2}) of v8n and
      RT-DETR-L at the JAX dry run's 64² x 8 against one replica (loss
      PAR_LOSS_RTOL, parameters and optimiser state PAR_RTOL / PAR_ATOL,
      replicas identical); v8n, YOLO11n and v5n at 640² x 16 a replica,
@@ -1158,6 +1164,9 @@ TRACKER_PATHS = {
     "botsort": {"backend": "botsort", "gmc": True},
     "deepsort reid": {"backend": "deepsort", "reid_weights": REID_NPZ},
 }
+# the default steps, whose association (K4 / K5 in boxes mode) computes
+# the IoU and the inverse map itself: no torch IoU helper runs on the card
+BOXES_MODE_PATHS = ("sort", "hungarian")
 # name → (association launches a frame, which kernel)
 ASSOC_PER_FRAME = {"sort": (1,), "hungarian": (1, "assoc_auction"),
                    "bytetrack": (2,), "ocsort": (2,), "deepsort": (1,),
@@ -1230,7 +1239,9 @@ def tracker_backends(model: str, batches, card: str, front) -> dict:
     state carried across), then bfloat16 timed as ``tools/bench.py``
     times a path (frames/s of DET_WINDOWS windows of DET_ITERS batches,
     SORT + geometry stage ms of DET_WINDOWS batches), the association's
-    host reads in one batch, launches 1 / 1 / 1 per batch."""
+    host reads in one batch, launches 1 / 1 / 1 per batch; the default
+    steps (BOXES_MODE_PATHS) call none of the torch IoU helpers on the
+    card."""
     import torch
     from roadvision_tpu_torch.config import merge
     from roadvision_tpu_torch.runtime import PipelineEngine
@@ -1252,7 +1263,13 @@ def tracker_backends(model: str, batches, card: str, front) -> dict:
         n, ids = 0, set()
         with PathLaunches(f"[tracker] {name}") as pl:
             for frames, ts in batches[:3]:
-                r_gpu = gpu.process_batch(frames, ts)
+                got = []
+                calls = torch_iou_calls(
+                    lambda: got.append(gpu.process_batch(frames, ts)))
+                if name in BOXES_MODE_PATHS and any(calls.values()):
+                    fail(f"[tracker] {name}: the card's step called the "
+                         f"torch IoU helpers {calls}")
+                r_gpu = got[0]
                 n += compare_tracks(cpu.process_batch(frames, ts), r_gpu,
                                     worst, f"[tracker] {name}")
                 ids |= {d.track_id for r in r_gpu for d in r.detections}
@@ -2623,7 +2640,7 @@ def fleet_cards_phase(model: str, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# training (no hand-written kernel on this path: K1 / K2 / K3 launch 0)
+# training (K1-K4 and K6 launch 0; K5 matches RT-DETR's sets)
 
 TRAIN_LOSS_RTOL = 1e-3     # loss, its components, the gradient norm
 TRAIN_PARAM_ATOL = 1e-5    # parameters after one step, card against CPU
@@ -2632,6 +2649,10 @@ TRAIN_PARAM_ATOL = 1e-5    # parameters after one step, card against CPU
 # weights summed in another order (3 % between JAX and the port at 64²)
 TRAIN_MOMENT_RTOL_RTDETR = 5e-2
 TRAIN_STEPS, TRAIN_TIMED, TRAIN_PARTS = 10, 8, 3
+# RT-DETR steps on the card in [train]: the parity step, the fixed-batch
+# steps, the step whose syncs are counted, the timed ones, the parts'; each
+# matches in one launch of K5 (matcher mode)
+RTDETR_CARD_STEPS = 1 + TRAIN_STEPS + 1 + TRAIN_TIMED + TRAIN_PARTS
 TRAIN_DEVICE = "cuda"
 TRAIN_ENTRY = ("640", "16")    # [entry] train: imgsz, batch
 
@@ -2880,7 +2901,9 @@ def train_reid_phase() -> dict:
 
 def train_phase(card: str, tmp: Path) -> dict:
     """``[train] <family>``: parity, a falling loss and timings for every
-    family the trainer serves; the kernels' counts stay 0 throughout."""
+    family the trainer serves; the kernels' counts stay 0 throughout but
+    K5's, which RT-DETR-L's matcher launches once a step (and reads
+    nothing back to the host)."""
     import torch
     from roadvision_tpu_torch import kernels
     torch.backends.cudnn.allow_tf32 = False
@@ -2894,6 +2917,9 @@ def train_phase(card: str, tmp: Path) -> dict:
         res = train_timed(name, *fam[:2], fam[2], fam[3], *fam[5:])
         res["parity"] = par
         out[name] = res
+        if res["auction_reads_per_step"] != 0:
+            fail(f"[train] {name}: {res['auction_reads_per_step']} auction "
+                 f"reads in a step on the card")
         torch.cuda.empty_cache()
         parts = {k: round(v, 2) for k, v in res["parts_ms"].items()}
         print(f"[train] {name}: card = CPU within rel {TRAIN_LOSS_RTOL} / "
@@ -2915,7 +2941,7 @@ def train_phase(card: str, tmp: Path) -> dict:
           f"{res['step_ms_max']:.2f}], {res['images_per_s']:.1f} crops/s, "
           f"host syncs a step {res['host_syncs_per_step']} ({card})",
           flush=True)
-    counts = exact_launches("[train]", {})
+    counts = exact_launches("[train]", {"assoc_auction": RTDETR_CARD_STEPS})
     print(f"[train] kernels launched across training: {counts}", flush=True)
     out["launches"] = counts
     return out
@@ -3324,8 +3350,10 @@ def parallel_phase(card: str) -> dict:
     shapes (64² × 8) against one replica; v8n, YOLO11n and v5n at 640² ×
     16 a replica, dp 2 against dp 1 (v8n's timed); the pipelines, the row bands and their edge
     cases (``forward_paths``); then ``dryrun_multicard([cuda:0] * 8)``.
-    The kernels' counts stay 0 throughout: the dry run's fleet runs the
-    config defaults, whose preprocess is off, as the JAX dry run's."""
+    The kernels' counts are the dry run's fleet's (the config defaults,
+    whose preprocess is off, as the JAX dry run's) and K5's, once for
+    each RT-DETR objective: the single step, then a data replica each of
+    the dp × tp step and of the dry run's."""
     import torch
     from roadvision_tpu_torch import kernels
     from roadvision_tpu_torch.detect import dataset as ds
@@ -3396,8 +3424,10 @@ def parallel_phase(card: str) -> dict:
     # and steps once, the gated one steps three batches, the second
     # coasted (no NMS); training and the forwards run no NMS
     groups, frames = 8, 2
-    counts = exact_launches("[parallel]", tail_want(
-        groups * (1 + warm(1) + 2), groups * frames * (1 + warm(1) + 3)))
+    want = tail_want(groups * (1 + warm(1) + 2),
+                     groups * frames * (1 + warm(1) + 3))
+    want["assoc_auction"] = 1 + 2 * mesh.shape["data"]
+    counts = exact_launches("[parallel]", want)
     out["launches"] = counts
     print(f"[parallel] dryrun_multicard([cuda:0] x 8) passed; kernels "
           f"launched across the phase {counts}; phase "
@@ -4143,8 +4173,11 @@ def tools_phases(model: str, frames: np.ndarray, card: str) -> dict:
 
 # scalar operations a round, per cell of the problem: K4 compares every
 # cell in its row scan, its column scan and its clearing sweep; K5 every
-# cell of the (D, T + D) values in a bidder's two scans and a column's
-# scan of the bids
+# cell of the (D, T + D) values (the matcher's (M, NQ)) in the plain
+# round: the price's subtraction, the best and the second best. The
+# redesign skips most of that work (only bidders scan, only the live
+# columns per bidder); the count stays the plain round's, so that × bound
+# compares before and after
 K4_OPS_PER_CELL = 3
 K5_OPS_PER_CELL = 3
 # the boxes modes (csrc/box_iou.cuh): an IoU is 4 min / max, 2 subtracts,
@@ -4345,6 +4378,81 @@ def assoc_box_cases(rng):
     return cases
 
 
+def train_costs(rng, images: int = 4, sets: int = 7, m: int = 50,
+                nq: int = 300, nc: int = 80):
+    """K5 matcher-mode inputs as RT-DETR training makes them
+    (``models/rtdetr_train.py::match_cost`` of random normalised boxes and
+    logits against random gts): ``images`` x ``sets`` problems (the
+    smoke's 640 x 4 step: 4 images, the encoder's and six decoder
+    layers' sets) of ``m`` gt slots, 5-30 of them valid an image (a
+    prefix), against ``nq`` queries → (cost (p, m, nq) f32, gt_mask (p, m)
+    bool) on the CPU, the problems in the step's order."""
+    import torch
+    from roadvision_tpu_torch.models import rtdetr_train as RT
+    p = images * sets
+
+    def xyxy(n):
+        c = rng.uniform(0.05, 0.95, (p, n, 2))
+        wh = rng.uniform(0.02, 0.3, (p, n, 2))
+        return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    logits = rng.normal(-4, 1.5, (p, nq, nc)).astype(np.float32)
+    cls = rng.randint(0, nc, (p, m)).astype(np.int32)
+    cost = RT.match_cost(*(torch.from_numpy(a) for a in (
+        xyxy(nq), logits, xyxy(m), cls))).numpy()
+    mask = np.arange(m) < rng.randint(5, 31, (images, 1))
+    return cost, np.tile(mask, (sets, 1))
+
+
+def match_cases(rng):
+    """K5 matcher-mode cases → name → (cost, gt_mask, eps, max_iters): the
+    smoke's RT-DETR step (28 x 50 x 300), M close to NQ, M = NQ, one gt
+    and one query, the floor (gt 0's runner-up -1.5e9, gt 1's -3e9: with
+    the second best floored at -1e9 both bid 1e9 + eps and gt 0 wins),
+    every gt masked, the max_iters cap, NaN and infinite costs."""
+    eps, iters = 1e-3, 1024
+    cost, mask = train_costs(rng)
+    cases = {"train 28x50x300": (cost, mask, eps, iters)}
+    near = rng.uniform(0, 20, (4, 290, 300)).astype(np.float32)
+    cases["M near NQ 4x290x300"] = (near, rng.rand(4, 290) < 0.95, eps,
+                                    iters)
+    sq = rng.uniform(0, 20, (2, 64, 64)).astype(np.float32)
+    cases["square 2x64x64"] = (sq, np.ones((2, 64), bool), eps, iters)
+    cases["one 3x1x1"] = (rng.uniform(0, 5, (3, 1, 1)).astype(np.float32),
+                          np.ones((3, 1), bool), eps, iters)
+    floor = np.float32([[[0, 1.5e9], [0, 3e9]]]).repeat(2, 0)
+    cases["floor 2x2x2"] = (floor, np.ones((2, 2), bool), eps, iters)
+    cases["masked 2x50x300"] = (cost[:2], np.zeros((2, 50), bool), eps,
+                                iters)
+    cases["cap 2x290x300"] = (near[:2], cases["M near NQ 4x290x300"][1][:2],
+                              eps, 5)
+    nan = cost[4:8].copy()
+    nan[rng.rand(*nan.shape) < 0.02] = np.nan
+    nan[rng.rand(*nan.shape) < 0.01] = np.inf
+    cases["nan 4x50x300"] = (nan, mask[4:8], eps, iters)
+    return cases
+
+
+def match_rounds(cost, mask, eps, iters) -> int:
+    """Rounds the matcher takes on each problem, summed, from the plain
+    version's flag reads (``AUCTION_BLOCK`` 1: a read before each round,
+    one more than the rounds)."""
+    import torch
+    from roadvision_tpu_torch.models import rtdetr_train as RT
+    saved = RT.AUCTION_BLOCK
+    RT.AUCTION_BLOCK = 1
+    total = 0
+    try:
+        for i in range(cost.shape[0]):
+            RT.reset_host_syncs()
+            RT.hungarian_match_plain(torch.from_numpy(cost[i:i + 1]),
+                                     torch.from_numpy(mask[i:i + 1]), eps,
+                                     iters)
+            total += RT.host_syncs - 1
+    finally:
+        RT.AUCTION_BLOCK = saved
+    return total
+
+
 def road_candidates(rng, b: int, k: int, objects: int = 18,
                     valid_share: float = 0.4):
     """K6 boxes-mode inputs as NMS's candidates on a road scene: ``k``
@@ -4527,16 +4635,20 @@ def box_scores(case):
 
 def check_tail_kernels() -> dict:
     """K4-K6 against their plain versions on the card, bit for bit: K4's
-    matrix mode and K5 on every case of :func:`assoc_cases`, K4's boxes
-    mode (both maps) on :func:`assoc_box_cases`, K6's matrix mode on
-    :func:`nms_cases`, its boxes mode on :func:`nms_box_cases`; each K4
-    problem alone equal to the batch. Timed at the main path's shapes
-    (K4 one 100 x 100 problem a frame, K6 8 x 300 candidates a batch,
-    both in boxes mode; the matrix modes beside them) four ways
+    matrix mode and K5's on every case of :func:`assoc_cases` (K5 also
+    under a max_iters cap of 3), the boxes modes of K4 and K5 (both maps)
+    on :func:`assoc_box_cases`, K5's matcher mode on :func:`match_cases`,
+    K6's matrix mode on :func:`nms_cases`, its boxes mode on
+    :func:`nms_box_cases`; each K4 and K5 problem alone equal to the
+    batch. Timed at the main path's shapes (K4 one 100 x 100 problem a
+    frame, K6 8 x 300 candidates a batch, both in boxes mode; the matrix
+    modes beside them; K5 in the three modes: the hungarian tracker's
+    problem, the RT-DETR step's 28 x 50 x 300) four ways
     (:func:`kernel_times`), beside an empty kernel's launch in a graph
     (the card's floor), the plain version and the bound, whose operations
     count the rounds and the live cells these inputs take."""
     import torch
+    from roadvision_tpu_torch.models import rtdetr_train as RT
     from roadvision_tpu_torch.ops import nms as tnms
     from roadvision_tpu_torch.track import sort as tsort
     rng = np.random.RandomState(12)
@@ -4571,24 +4683,51 @@ def check_tail_kernels() -> dict:
                 if not torch.equal(wrapper(*(a[i] for a in args),
                                            0.35).cpu(), want[i]):
                     fail(f"{name} on {case}: problem {i} alone differs")
-    # K4 boxes mode
+    for case in ("ties 4x100x100", "max_det 2x300x300", "chain 1x300x300"):
+        got = tsort.auction_associate(*on(cases[case]), 0.35, max_iters=3)
+        want = tsort.auction_associate_plain(*cpu(cases[case]), 0.35,
+                                             max_iters=3)
+        if not torch.equal(got.cpu(), want):
+            fail(f"assoc_auction on {case}, max_iters 3: differs from "
+                 f"plain")
+    # K4 and K5 boxes modes
     bcases = assoc_box_cases(rng)
-    for case, host in bcases.items():
-        args, thresh = on(host[:4]), host[4]
-        got = tsort.greedy_associate_boxes(*args, thresh)
+    for name, wrapper, plain in (
+            ("assoc_greedy", tsort.greedy_associate_boxes,
+             tsort.greedy_associate_boxes_plain),
+            ("assoc_auction", tsort.auction_associate_boxes,
+             tsort.auction_associate_boxes_plain)):
+        for case, host in bcases.items():
+            args, thresh = on(host[:4]), host[4]
+            got = wrapper(*args, thresh)
+            torch.cuda.synchronize()
+            want = plain(*cpu(host[:4]), thresh)
+            for g, w, what in zip(got, want, ("det2trk", "trk2det")):
+                if not torch.equal(g.cpu(), w):
+                    fail(f"{name} boxes mode on {case}: "
+                         f"{int((g.cpu() != w).sum())} {what} entries "
+                         f"differ from plain")
+            for i in range(host[0].shape[0]):
+                one = wrapper(*(a[i:i + 1] for a in args), thresh)
+                if not all(torch.equal(g.cpu()[0], w[i])
+                           for g, w in zip(one, want)):
+                    fail(f"{name} boxes mode on {case}: problem {i} "
+                         f"alone differs")
+    # K5 matcher mode
+    mcases = match_cases(rng)
+    for case, (cost, mask, eps, iters) in mcases.items():
+        args = on((cost, mask))
+        got = RT.hungarian_match(*args, eps, iters)
         torch.cuda.synchronize()
-        want = tsort.greedy_associate_boxes_plain(*cpu(host[:4]), thresh)
-        for g, w, what in zip(got, want, ("det2trk", "trk2det")):
-            if not torch.equal(g.cpu(), w):
-                fail(f"assoc_greedy boxes mode on {case}: "
-                     f"{int((g.cpu() != w).sum())} {what} entries differ "
-                     f"from plain")
-        for i in range(host[0].shape[0]):
-            one = tsort.greedy_associate_boxes(
-                *(a[i:i + 1] for a in args), thresh)
-            if not all(torch.equal(g.cpu()[0], w[i])
-                       for g, w in zip(one, want)):
-                fail(f"assoc_greedy boxes mode on {case}: problem {i} "
+        want = RT.hungarian_match_plain(*cpu((cost, mask)), eps, iters)
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+            fail(f"assoc_auction matcher mode on {case}: differs from "
+                 f"plain")
+        for i in range(min(cost.shape[0], 4)):
+            if not torch.equal(RT.hungarian_match(
+                    *(a[i:i + 1] for a in args), eps, iters).cpu()[0],
+                    want[i]):
+                fail(f"assoc_auction matcher mode on {case}: problem {i} "
                      f"alone differs")
     # K6 matrix mode and boxes mode
     ncases = nms_cases(rng)
@@ -4656,36 +4795,73 @@ def check_tail_kernels() -> dict:
           f"{fmt_times(mrow)}; max_det 300 (2 x 300 x 300 random, "
           f"{mrow['max_det_300_rounds']} rounds, the scores read in place) "
           f"{mrow['max_det_300_ms']:.4f} ms", flush=True)
+    # K5: matrix mode (scores handed over), boxes mode ([tracker]
+    # hungarian's problem), matcher mode (the RT-DETR step's)
     host = cases["main 1x100x100"]
     args = on(host)
     p, t, d = host[0].shape
     rounds = assoc_rounds(tsort.auction_associate_plain, host, 1)
-    row = dict(
-        ms=cuda_ms(lambda: tsort.auction_associate(*args, 0.35), 50),
-        flushed_ms=cuda_ms_flushed(
-            lambda: tsort.auction_associate(*args, 0.35)),
-        plain_ms=cuda_ms(lambda: tsort.auction_associate_plain(*args, 0.35),
-                         5, 1),
-        max_abs_err=0, library_ms=None, rounds=rounds,
-        **bound(p * t * d * 4 + p * (t + d) + p * d * 4,
-                max(rounds, 1) * K5_OPS_PER_CELL * d * (t + d)))
+    row = kernel_times(lambda: tsort.auction_associate(*args, 0.35),
+                       lambda: tsort.auction_associate_plain(*args, 0.35))
+    row.update(max_abs_err=0, library_ms=None, rounds=rounds,
+               launch_floor_ms=floor,
+               **bound(p * t * d * 4 + p * (t + d) + p * d * 4,
+                       max(rounds, 1) * K5_OPS_PER_CELL * d * (t + d)))
     fargs = on(cases["fleet 8x100x100"])
     row["fleet_8_ms"] = cuda_ms(
         lambda: tsort.auction_associate(*fargs, 0.35), 50)
+    row["fleet_8_graph_ms"] = graph_ms(
+        lambda: tsort.auction_associate(*fargs, 0.35))["graph_ms"]
     big = on(cases["max_det 2x300x300"])
     row["max_det_300_ms"] = cuda_ms(
         lambda: tsort.auction_associate(*big, 0.35), 10)
     row["max_det_300_rounds"] = assoc_rounds(tsort.auction_associate_plain,
                                              cases["max_det 2x300x300"], 1)
+    main = bcases["main 1x100x100"]
+    margs = on(main[:4])
+    brounds = assoc_rounds(tsort.auction_associate_plain, box_scores(main),
+                           1)
+    live = int(sum(a.sum() * v.sum() for a, v in zip(main[2], main[3])))
+    brow = kernel_times(
+        lambda: tsort.auction_associate_boxes(*margs, 0.35),
+        lambda: tsort.auction_associate_boxes_plain(*margs, 0.35))
+    brow.update(max_abs_err=0, library_ms=None, rounds=brounds,
+                **bound(p * (t * 7 * 4 + d * 16 + (t + d) + (t + d) * 4),
+                        live * IOU_OPS_PER_PAIR
+                        + max(brounds, 1) * K5_OPS_PER_CELL * d * (t + d)
+                        + p * (t + d) * K4_OPS_PER_BOX))
+    row["boxes_mode"] = brow
+    cost, mask, eps, iters = mcases["train 28x50x300"]
+    cargs = on((cost, mask))
+    mp, m, nq = cost.shape
+    mrounds = match_rounds(cost, mask, eps, iters)
+    mrow = kernel_times(lambda: RT.hungarian_match(*cargs, eps, iters),
+                        lambda: RT.hungarian_match_plain(*cargs, eps, iters))
+    mrow.update(max_abs_err=0, library_ms=None, rounds=mrounds,
+                problems=mp, **bound(mp * m * nq * 4 + mp * m + mp * m * 8,
+                                     max(mrounds, 1) * K5_OPS_PER_CELL * m
+                                     * nq))
+    row["matcher_mode"] = mrow
     rows["assoc_auction"] = row
-    print(f"[kernels] assoc_auction: bit-equal to plain on "
-          f"{', '.join(cases)}; 1 x 100 x 100 ({rounds} rounds): "
-          f"{row['ms']:.4f} ms warm, {row['flushed_ms']:.4f} ms flushed, "
-          f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
-          f"({row['bound_by']}); 8 problems in one launch "
-          f"{row['fleet_8_ms']:.4f} ms; max_det 300 (2 x 300 x 300, "
-          f"{row['max_det_300_rounds']} rounds) {row['max_det_300_ms']:.4f}"
-          f" ms", flush=True)
+    print(f"[kernels] assoc_auction: bit-equal to plain, matrix mode on "
+          f"{', '.join(cases)} (and max_iters 3); boxes mode (both maps) "
+          f"on {', '.join(bcases)}; matcher mode on {', '.join(mcases)}; "
+          f"each problem alone equal to the batch", flush=True)
+    print(f"[kernels] assoc_auction matrix mode, 1 x 100 x 100 ({rounds} "
+          f"rounds): {fmt_times(row)}; bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}); launch floor {floor:.4f} ms; 8 problems in "
+          f"one launch {row['fleet_8_ms']:.4f} ms, in a graph "
+          f"{row['fleet_8_graph_ms']:.4f} ms; max_det 300 (2 x 300 x "
+          f"300 random, {row['max_det_300_rounds']} rounds) "
+          f"{row['max_det_300_ms']:.4f} ms", flush=True)
+    print(f"[kernels] assoc_auction boxes mode, 1 x 100 x 100 ([tracker] "
+          f"hungarian's problem, {brounds} rounds, {live} live cells): "
+          f"{fmt_times(brow)}; bound {brow['bound_ms']:.6f} ms "
+          f"({brow['bound_by']})", flush=True)
+    print(f"[kernels] assoc_auction matcher mode, {mp} x {m} x {nq} (the "
+          f"RT-DETR step's, {mrounds} rounds summed over its problems): "
+          f"{fmt_times(mrow)}; bound {mrow['bound_ms']:.6f} ms "
+          f"({mrow['bound_by']})", flush=True)
 
     # K6: boxes mode on the main path, matrix mode beside it
     boxes, cls, valid, thr = nbcases["main 8x300"]
@@ -5314,7 +5490,8 @@ def main() -> int:
          "library_ms": None, "flushed_ms": r["flushed_ms"],
          "fleet": r["fleet"],
          **{k: r[k] for k in ("graph_ms", "graph_flushed_ms",
-                              "launch_floor_ms", "matrix_mode") if k in r}}
+                              "launch_floor_ms", "matrix_mode", "boxes_mode",
+                              "matcher_mode") if k in r}}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
         "second_paths": paths, "graph": graph, "entries": entries,

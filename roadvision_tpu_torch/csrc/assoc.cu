@@ -44,17 +44,60 @@
 //   L1 / L2 and boxes mode computes each cell again from the boxes, which
 //   sit in shared memory, so no (T, D) matrix is ever written.
 //
-// K5 assoc_auction_kernel (rvt_assoc_auction)
-//   Computes track/sort.py::auction_associate_plain: the parallel
-//   epsilon-auction over D bidders and T + D columns (T tracks, D dummy
-//   columns at -1) until no valid detection is unassigned or max_iters
-//   rounds. Bound: latency, like K4. Design: one thread per bidder scans
-//   its values (read from the IoU matrix, whose columns are the bidders:
-//   neighbouring threads read neighbouring words) for the best and the
-//   second best; one thread per column picks the highest bid (first index
-//   on ties); prices and assignments stay in shared memory. Built with
-//   --fmad=false; the arithmetic is the plain version's, in its order
-//   ((v1 - v2) + eps, prices + bid), so the prices are bit-equal.
+// K5 assoc_auction_kernel (rvt_assoc_auction, rvt_assoc_auction_boxes,
+//   rvt_auction_match)
+//   The parallel epsilon-auction (Bertsekas): every unassigned valid
+//   bidder bids (best - second best) + eps for its best column, each
+//   column goes to its highest bid (the first bidder on ties), until no
+//   valid bidder is unassigned or max_iters rounds. Three modes under one
+//   name:
+//   * matrix mode (rvt_assoc_auction) computes track/sort.py::
+//     auction_associate_plain (sort_tpu.py:233-311): D detections bid
+//     over T track columns (scores (T, D)) and D dummy columns at -1;
+//     det -> track, -1 on a dummy, a dead track or below the threshold;
+//   * boxes mode (rvt_assoc_auction_boxes) computes before it, in the
+//     same launch, x_to_bbox and the IoU as K4's boxes mode does, and
+//     after it the inverse map track -> det
+//     (auction_associate_boxes_plain, the composition of sort_tpu.py:
+//     498-508);
+//   * matcher mode (rvt_auction_match) computes models/rtdetr_train.py::
+//     hungarian_match_plain (the JAX matcher, rtdetr_train.py:82): M gts
+//     bid over NQ queries at values -cost, no dummy columns; gt -> query
+//     (int64), -1 for a masked gt.
+//   Bound: latency, as K4. A 100 x 100 problem is 40 KB of scores and a
+//   few compares a cell a round; what costs is the chain of rounds.
+//   Design: a round is three phases and three barriers (two in the
+//   matcher mode, which has no phase A):
+//   * A: the columns whose value does not depend on the bidder (the D
+//     dummies at -1 - price, dead tracks at -1e9 - price) are reduced
+//     once for the whole block to their top two (value, index);
+//   * B: a warp per bidder that bids (unassigned and valid, from a list
+//     kept in shared memory: nobody else scans) scans the columns whose
+//     value depends on it (the live tracks, through a compacted list;
+//     every query) 32 at a time, keeps a top two in registers, reduces
+//     it across the warp with shuffles and merges the shared top two into
+//     it, in the order of `beats` with the real indices, so that ties
+//     across the two sets break as in the plain version. The plain
+//     version's second best is the maximum after the best cell is *set
+//     to* -1e9, so v2 = max(-1e9, runner-up). The bid goes to its column
+//     as one 64-bit atomicMax in shared memory: the order-preserving bits
+//     of the bid above (+-0 one key, every NaN the top key), ~bidder below
+//     (so the first bidder wins a tie); a column whose top key is NaN or
+//     -inf has no bid, as the plain version's `top > -inf` says;
+//   * C: each bidder reads its column's key; the winner takes the column,
+//     puts the owner it evicts on the next round's list and adds the bid
+//     to the price; a loser goes on that list itself.
+//   Prices, keys (two buffers: one is cleared while the other is read),
+//   owners and lists stay in shared memory. The cells are cached there
+//   where they fit beside them, a bidder's row contiguous (the tracker
+//   modes transpose the live tracks' columns into (D, live) with an odd
+//   row stride); otherwise they are read in place through L1 / L2
+//   (matrix, matcher) or computed again from the boxes held in shared
+//   memory (boxes). Where not even the state fits (some 2,000 tracks and
+//   detections), it lives in a workspace in device memory that the
+//   wrapper allocates. Built with --fmad=false; the arithmetic is the
+//   plain version's, in its order (w - price, (v1 - v2) + eps, price +
+//   bid), so the prices are bit-equal round by round.
 
 
 #include <cuda_runtime.h>
@@ -66,18 +109,11 @@
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int GREEDY_THREADS = 1024;
+constexpr int AUCTION_THREADS = 1024;
 constexpr int MAX_DEVICES = 64;
 constexpr size_t SMEM_MAX = 232448;    // 227 KB a block
 constexpr float NEG = -1e9f;           // an ineligible auction edge
-
-// v at index i replaces the running maximum (bv at bi), scanning indices
-// in increasing order: strictly greater wins, so the first index of the
-// maximum stays; the first NaN wins and stays (NaN is the maximum).
-__device__ __forceinline__ bool takes_over(float v, float bv) {
-  return !isnan(bv) && (isnan(v) || v > bv);
-}
 
 // (v, i) ranks above (bv, bi) in any order of indices: NaN above every
 // number, then the larger value, then the lower index
@@ -101,6 +137,44 @@ __device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
 
 __device__ __forceinline__ bool bit(const uint32_t* words, int i) {
   return (words[i >> 5] >> (i & 31)) & 1u;
+}
+
+// x_to_bbox of the means (T, 7) and the detections (D, 4) of one
+// problem, each box as x1, y1, x2, y2, area in structure-of-arrays form
+// (tb: 5 T, db: 5 D); x_to_bbox: w = sqrt(clamp(s * r, 1e-6)),
+// h = s / clamp(w, 1e-6)
+__device__ void load_boxes(const float* __restrict__ mean,
+                           const float* __restrict__ boxes, int T, int D,
+                           float* tb, float* db) {
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    const float* m = mean + (size_t)t * 7;
+    const float cx = m[0], cy = m[1], s = m[2], r = m[3];
+    const float w = sqrtf(rvt::clamp_min(s * r, 1e-6f));
+    const float h = s / rvt::clamp_min(w, 1e-6f);
+    const float x1 = cx - 0.5f * w, y1 = cy - 0.5f * h;
+    const float x2 = cx + 0.5f * w, y2 = cy + 0.5f * h;
+    tb[t] = x1;
+    tb[T + t] = y1;
+    tb[2 * T + t] = x2;
+    tb[3 * T + t] = y2;
+    tb[4 * T + t] = rvt::box_area(x1, y1, x2, y2);
+  }
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    const float* b = boxes + (size_t)d * 4;
+    db[d] = b[0];
+    db[D + d] = b[1];
+    db[2 * D + d] = b[2];
+    db[3 * D + d] = b[3];
+    db[4 * D + d] = rvt::box_area(b[0], b[1], b[2], b[3]);
+  }
+}
+
+// the IoU of track t against detection d from load_boxes' arrays
+__device__ __forceinline__ float cell_iou(const float* tb, const float* db,
+                                          int T, int D, int t, int d) {
+  return rvt::box_iou(tb[t], tb[T + t], tb[2 * T + t], tb[3 * T + t],
+                      tb[4 * T + t], db[d], db[D + d], db[2 * D + d],
+                      db[3 * D + d], db[4 * D + d]);
 }
 
 // K4. kBoxes: cells are IoUs of x_to_bbox(mean) against ``boxes``, else
@@ -151,38 +225,15 @@ assoc_greedy_kernel(const float* __restrict__ scores,
     cbest[d] = -1;
     d2t[d] = -1;
   }
-  if constexpr (kBoxes) {
-    // x_to_bbox: w = sqrt(clamp(s * r, 1e-6)), h = s / clamp(w, 1e-6)
-    for (int t = tid; t < T; t += blockDim.x) {
-      const float* m = mean + ((size_t)p * T + t) * 7;
-      const float cx = m[0], cy = m[1], s = m[2], r = m[3];
-      const float w = sqrtf(rvt::clamp_min(s * r, 1e-6f));
-      const float h = s / rvt::clamp_min(w, 1e-6f);
-      const float x1 = cx - 0.5f * w, y1 = cy - 0.5f * h;
-      const float x2 = cx + 0.5f * w, y2 = cy + 0.5f * h;
-      tb[t] = x1;
-      tb[T + t] = y1;
-      tb[2 * T + t] = x2;
-      tb[3 * T + t] = y2;
-      tb[4 * T + t] = rvt::box_area(x1, y1, x2, y2);
-    }
-    for (int d = tid; d < D; d += blockDim.x) {
-      const float* b = boxes + ((size_t)p * D + d) * 4;
-      db[d] = b[0];
-      db[D + d] = b[1];
-      db[2 * D + d] = b[2];
-      db[3 * D + d] = b[3];
-      db[4 * D + d] = rvt::box_area(b[0], b[1], b[2], b[3]);
-    }
-  }
+  if constexpr (kBoxes)
+    load_boxes(mean + (size_t)p * T * 7, boxes + (size_t)p * D * 4, T, D,
+               tb, db);
   __syncthreads();
 
   const float* s = kBoxes ? nullptr : scores + (size_t)p * T * D;
   auto compute = [&](int t, int d) -> float {
     if constexpr (kBoxes)
-      return rvt::box_iou(tb[t], tb[T + t], tb[2 * T + t], tb[3 * T + t],
-                          tb[4 * T + t], db[d], db[D + d], db[2 * D + d],
-                          db[3 * D + d], db[4 * D + d]);
+      return cell_iou(tb, db, T, D, t, d);
     else
       return __ldg(s + (size_t)t * D + d);
   };
@@ -282,97 +333,303 @@ assoc_greedy_kernel(const float* __restrict__ scores,
       trk2det[(size_t)p * T + t] = t2d[t];
 }
 
-__global__ void assoc_auction_kernel(const float* __restrict__ iou,
-                                     const uint8_t* __restrict__ alive,
-                                     const uint8_t* __restrict__ dvalid,
-                                     int32_t* __restrict__ out, int T, int D,
-                                     float thresh, float eps, int max_iters) {
-  extern __shared__ float smem[];
-  const int C = T + D;
-  float* prices = smem;                                // C
-  float* incr = prices + C;                            // D
-  int* winner = (int*)(incr + D);                      // C
-  int* best = winner + C;                              // D
-  int* assigned = best + D;                            // D
-  uint8_t* has_bid = (uint8_t*)(assigned + D);         // C
-  uint8_t* bidding = has_bid + C;                      // D
-  uint8_t* al = bidding + D;                           // T
-  uint8_t* dv = al + T;                                // D
+// ---------------------------------------------------------------------
+// K5
 
+enum AuctionMode { kMatrix = 0, kBoxesMode = 1, kMatcher = 2 };
+
+// the top two of a set of columns: the first in the order of `beats`
+// (v1 at i1) and the NaN-propagating maximum of the others' values (v2,
+// -inf for none); (-inf, INT_MAX, -inf) is the empty set
+struct Top2 {
+  float v1;
+  int i1;
+  float v2;
+};
+
+__device__ __forceinline__ Top2 top2_none() {
+  return {-INFINITY, INT_MAX, -INFINITY};
+}
+
+// the top two of the union of two disjoint sets
+__device__ __forceinline__ Top2 top2_merge(const Top2& a, const Top2& b) {
+  if (beats(b.v1, b.i1, a.v1, a.i1))
+    return {b.v1, b.i1, rvt::nan_max(a.v1, b.v2)};
+  return {a.v1, a.i1, rvt::nan_max(a.v2, b.v1)};
+}
+
+// add column i of value v to the set
+__device__ __forceinline__ void top2_add(Top2& t, float v, int i) {
+  if (beats(v, i, t.v1, t.i1)) {
+    t.v2 = t.v1;
+    t.v1 = v;
+    t.i1 = i;
+  } else {
+    t.v2 = rvt::nan_max(t.v2, v);
+  }
+}
+
+// the warp's union, in every lane
+__device__ __forceinline__ Top2 warp_top2(Top2 t) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    Top2 u;
+    u.v1 = __shfl_xor_sync(0xffffffffu, t.v1, o);
+    u.i1 = __shfl_xor_sync(0xffffffffu, t.i1, o);
+    u.v2 = __shfl_xor_sync(0xffffffffu, t.v2, o);
+    t = top2_merge(t, u);
+  }
+  return t;
+}
+
+// a bid's 32 order-preserving bits: -0 as +0, every NaN above +inf
+__device__ __forceinline__ uint32_t bid_bits(float f) {
+  if (isnan(f)) return 0xffffffffu;
+  uint32_t u = __float_as_uint(f);
+  if ((u << 1) == 0) u = 0;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float bid_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+constexpr uint32_t NEG_INF_BITS = 0x007fffffu;      // bid_bits(-inf)
+
+// a column's top key (0: nobody bid) is a bid: above -inf and not NaN
+__device__ __forceinline__ bool key_has_bid(unsigned long long key) {
+  const uint32_t hi = (uint32_t)(key >> 32);
+  return hi > NEG_INF_BITS && hi != 0xffffffffu;
+}
+
+// K5's state, per problem, in shared memory or in the workspace. R
+// bidders (detections, gts); T bidder-dependent columns (tracks,
+// queries); C columns in all (T + R dummies in the tracker modes)
+struct AuctionState {
+  unsigned long long* keys;    // 2 x C, the top bid of each column
+  float* prices;               // C
+  int* owner;                  // C, -1: free
+  int* best;                   // R, the column a bidder bid for
+  int* list;                   // 2 x R, the bidders of a round, the next
+  int* cnt;                    // the two lists' sizes, live, dead tracks
+  Top2* part;                  // 32, phase A's warps
+  int* cols;                   // T: live tracks first, dead from the end
+  uint8_t* al;                 // T, alive
+  float* tb;                   // 5 T, the predicted boxes (boxes mode)
+  float* db;                   // 5 R, the detections (boxes mode)
+  float* cache;                // R x ld cells, where cached
+};
+
+// lay the state out from ``base`` (nullptr: only the size); the bytes
+__host__ __device__ inline size_t auction_layout(int mode, int T, int R,
+                                                 char* base,
+                                                 AuctionState* s) {
+  const bool tracker = mode != kMatcher;
+  const size_t C = tracker ? (size_t)T + R : (size_t)T;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* at = base + off;
+    off += (bytes + 15) & ~(size_t)15;
+    return at;
+  };
+  s->keys = (unsigned long long*)take(2 * sizeof(unsigned long long) * C);
+  s->prices = (float*)take(sizeof(float) * C);
+  s->owner = (int*)take(sizeof(int) * C);
+  s->best = (int*)take(sizeof(int) * (size_t)R);
+  s->list = (int*)take(2 * sizeof(int) * (size_t)R);
+  s->cnt = (int*)take(4 * sizeof(int));
+  s->part = (Top2*)take(32 * sizeof(Top2));
+  s->cols = (int*)take(tracker ? sizeof(int) * (size_t)T : 0);
+  s->al = (uint8_t*)take(tracker ? (size_t)T : 0);
+  s->tb = (float*)take(mode == kBoxesMode ? 5 * sizeof(float) * T : 0);
+  s->db = (float*)take(mode == kBoxesMode ? 5 * sizeof(float) * R : 0);
+  s->cache = (float*)(base + off);
+  return off;
+}
+
+// the cache's row stride: a bidder's cells are a row; odd in the tracker
+// modes, whose fill writes a column
+__host__ __device__ inline int auction_ld(int mode, int T) {
+  return mode == kMatcher ? T : (T | 1);
+}
+
+// K5. kMode: matrix (cells = scores (T, R)), boxes (mean (T, 7), boxes
+// (R, 4)) or matcher (cells = cost (R, T)); kCache: the cells in shared
+// memory; kGlobal: the state in ``workspace`` (ws_stride bytes a problem)
+template <int kMode, bool kCache, bool kGlobal>
+__global__ void __launch_bounds__(AUCTION_THREADS)
+assoc_auction_kernel(const float* __restrict__ cells,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ boxes,
+                     const uint8_t* __restrict__ alive,
+                     const uint8_t* __restrict__ valid,
+                     void* __restrict__ out, int32_t* __restrict__ trk2det,
+                     char* __restrict__ workspace, size_t ws_stride, int T,
+                     int R, float thresh, float eps, int max_iters) {
+  extern __shared__ __align__(16) char auction_smem[];
+  constexpr bool kTracker = kMode != kMatcher;
   const int p = blockIdx.x;
-  const float* s = iou + (size_t)p * T * D;            // (T, D): s[c*D + d]
-  const int tid = threadIdx.x;
-  for (int c = tid; c < C; c += blockDim.x) prices[c] = 0.0f;
-  for (int t = tid; t < T; t += blockDim.x) al[t] = alive[(size_t)p * T + t];
-  for (int d = tid; d < D; d += blockDim.x) {
-    dv[d] = dvalid[(size_t)p * D + d];
-    assigned[d] = -1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int C = kTracker ? T + R : T;
+  const int ld = auction_ld(kMode, T);
+  AuctionState st;
+  auction_layout(kMode, T, R,
+                 kGlobal ? workspace + (size_t)p * ws_stride : auction_smem,
+                 &st);
+  valid += (size_t)p * R;
+  const float* s = kMode == kBoxesMode ? nullptr : cells + (size_t)p * T * R;
+
+  for (int c = tid; c < C; c += nthreads) {
+    st.prices[c] = 0.0f;
+    st.owner[c] = -1;
+    st.keys[c] = 0;
+    st.keys[C + c] = 0;
+  }
+  if (tid < 4) st.cnt[tid] = 0;
+  if constexpr (kTracker)
+    for (int t = tid; t < T; t += nthreads) st.al[t] = alive[(size_t)p * T + t];
+  if constexpr (kMode == kBoxesMode)
+    load_boxes(mean + (size_t)p * T * 7, boxes + (size_t)p * R * 4, T, R,
+               st.tb, st.db);
+  __syncthreads();
+  // the first round's bidders: every valid one; the live tracks and the
+  // dead (any order: ties break by index, never by position)
+  for (int d = tid; d < R; d += nthreads)
+    if (valid[d]) st.list[atomicAdd(&st.cnt[0], 1)] = d;
+  if constexpr (kTracker)
+    for (int t = tid; t < T; t += nthreads) {
+      if (st.al[t])
+        st.cols[atomicAdd(&st.cnt[2], 1)] = t;
+      else
+        st.cols[T - 1 - atomicAdd(&st.cnt[3], 1)] = t;
+    }
+  __syncthreads();
+  const int nlive = kTracker ? st.cnt[2] : T;
+  const int ndead = kTracker ? T - nlive : 0;
+
+  // the cell of the k-th bidder-dependent column (column c) for bidder d
+  auto cell = [&](int k, int c, int d) -> float {
+    if constexpr (kCache)
+      return st.cache[(size_t)d * ld + k];
+    else if constexpr (kMode == kBoxesMode)
+      return cell_iou(st.tb, st.db, T, R, c, d);
+    else if constexpr (kMode == kMatrix)
+      return __ldg(s + (size_t)c * R + d);
+    else
+      return __ldg(s + (size_t)d * T + k);
+  };
+  if constexpr (kCache) {
+    if constexpr (kTracker) {
+      // the live columns, transposed: threads on neighbouring detections
+      // read neighbouring scores and write an odd stride apart
+      const int n = nlive * R;
+      for (int i = tid; i < n; i += nthreads) {
+        const int k = i / R, d = i - k * R;
+        const int c = st.cols[k];
+        st.cache[(size_t)d * ld + k] =
+            kMode == kBoxesMode ? cell_iou(st.tb, st.db, T, R, c, d)
+                                : __ldg(s + (size_t)c * R + d);
+      }
+    } else {
+      for (int i = tid; i < R * T; i += nthreads) st.cache[i] = __ldg(s + i);
+    }
+    __syncthreads();
+  }
+
+  int cur = 0;
+  int n = st.cnt[0];
+  for (int r = 0; r < max_iters && n > 0; ++r) {
+    const int nxt = cur ^ 1;
+    unsigned long long* keys = st.keys + (size_t)cur * C;
+    const int* list = st.list + (size_t)cur * R;
+    Top2 shared = top2_none();
+    if constexpr (kTracker) {
+      // A: the dead tracks' and the dummies' values, once for the block
+      Top2 t = top2_none();
+      for (int j = tid; j < ndead + R; j += nthreads) {
+        const int c = j < ndead ? st.cols[T - 1 - j] : T + (j - ndead);
+        top2_add(t, (j < ndead ? NEG : -1.0f) - st.prices[c], c);
+      }
+      t = warp_top2(t);
+      if (lane == 0) st.part[warp] = t;
+      __syncthreads();
+      shared = warp_top2(lane < nwarps ? st.part[lane] : top2_none());
+    }
+    // B: a warp per bidder, then its bid as one atomic
+    if (tid == 0) st.cnt[nxt] = 0;
+    for (int j = warp; j < n; j += nwarps) {
+      const int d = list[j];
+      Top2 t = top2_none();
+#pragma unroll 4
+      for (int k = lane; k < nlive; k += 32) {
+        const int c = kTracker ? st.cols[k] : k;
+        const float w = kMode == kMatcher ? -cell(k, c, d) : cell(k, c, d);
+        top2_add(t, w - st.prices[c], c);
+      }
+      t = warp_top2(t);
+      if constexpr (kTracker) t = top2_merge(t, shared);
+      if (lane == 0) {
+        // the runner-up beside the best cell set to -1e9
+        const float v2 = isnan(t.v2) ? t.v2 : fmaxf(NEG, t.v2);
+        const float incr = (t.v1 - v2) + eps;
+        st.best[d] = t.i1;
+        atomicMax(keys + t.i1, ((unsigned long long)bid_bits(incr) << 32) |
+                                   (uint32_t)~(uint32_t)d);
+      }
+    }
+    __syncthreads();
+    // C: each bidder against its column's top key; the other key buffer
+    // is cleared for the next round
+    unsigned long long* other = st.keys + (size_t)nxt * C;
+    for (int c = tid; c < C; c += nthreads) other[c] = 0;
+    int* next = st.list + (size_t)nxt * R;
+    for (int j = tid; j < n; j += nthreads) {
+      const int d = list[j];
+      const int c = st.best[d];
+      const unsigned long long key = keys[c];
+      if (key_has_bid(key) && ~(uint32_t)key == (uint32_t)d) {
+        const int evicted = st.owner[c];
+        if (evicted >= 0) next[atomicAdd(&st.cnt[nxt], 1)] = evicted;
+        st.owner[c] = d;
+        st.prices[c] = st.prices[c] + bid_value((uint32_t)(key >> 32));
+      } else {
+        next[atomicAdd(&st.cnt[nxt], 1)] = d;
+      }
+    }
+    __syncthreads();
+    n = st.cnt[nxt];
+    cur = nxt;
+  }
+
+  // the owners to the outputs (best[] holds bidder -> column): the
+  // tracker modes keep an alive track at or above the threshold
+  for (int d = tid; d < R; d += nthreads) st.best[d] = -1;
+  __syncthreads();
+  for (int c = tid; c < T; c += nthreads) {
+    const int d = st.owner[c];
+    if constexpr (kTracker) {
+      int t2d = -1;
+      if (d >= 0 && st.al[c]) {
+        const float w = kMode == kBoxesMode
+                            ? cell_iou(st.tb, st.db, T, R, c, d)
+                            : __ldg(s + (size_t)c * R + d);
+        if (w >= thresh) {
+          st.best[d] = c;
+          t2d = d;
+        }
+      }
+      if (kMode == kBoxesMode) trk2det[(size_t)p * T + c] = t2d;
+    } else if (d >= 0) {
+      st.best[d] = c;
+    }
   }
   __syncthreads();
-
-  int open = 0;
-  for (int d = tid; d < D; d += blockDim.x) open |= dv[d] && assigned[d] < 0;
-  open = __syncthreads_or(open);
-  for (int it = 0; it < max_iters && open; ++it) {
-    // each bidder: best column, its value, the best of the rest
-    for (int d = tid; d < D; d += blockDim.x) {
-      float v1 = 0.0f;
-      int bc = 0;
-      for (int c = 0; c < C; ++c) {
-        const float w = c < T ? ((al[c] && dv[d]) ? s[(size_t)c * D + d] : NEG)
-                              : -1.0f;
-        const float v = w - prices[c];
-        if (c == 0 || takes_over(v, v1)) { v1 = v; bc = c; }
-      }
-      float v2 = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        float v;
-        if (c == bc) {
-          v = NEG;
-        } else {
-          const float w = c < T
-              ? ((al[c] && dv[d]) ? s[(size_t)c * D + d] : NEG) : -1.0f;
-          v = w - prices[c];
-        }
-        if (c == 0 || takes_over(v, v2)) v2 = v;
-      }
-      best[d] = bc;
-      bidding[d] = assigned[d] < 0 && dv[d];
-      incr[d] = (v1 - v2) + eps;
-    }
-    __syncthreads();
-    // each column: the highest bid, first bidder on ties
-    for (int c = tid; c < C; c += blockDim.x) {
-      float tb = 0.0f;
-      int wi = 0;
-      for (int d = 0; d < D; ++d) {
-        const float b = (bidding[d] && best[d] == c) ? incr[d] : -INFINITY;
-        if (d == 0 || takes_over(b, tb)) { tb = b; wi = d; }
-      }
-      const bool hb = tb > -INFINITY;
-      winner[c] = wi;
-      has_bid[c] = hb;
-      if (hb) prices[c] = prices[c] + tb;
-    }
-    __syncthreads();
-    int still = 0;
-    for (int d = tid; d < D; d += blockDim.x) {
-      int a = assigned[d];
-      const int own = a < 0 ? 0 : (a > C - 1 ? C - 1 : a);
-      if (a >= 0 && has_bid[own] && winner[own] != d) a = -1;
-      const int bc = best[d];
-      if (bidding[d] && has_bid[bc] && winner[bc] == d) a = bc;
-      assigned[d] = a;
-      still |= dv[d] && a < 0;
-    }
-    open = __syncthreads_or(still);
-  }
-  for (int d = tid; d < D; d += blockDim.x) {
-    const int a = assigned[d];
-    const int trk = a < 0 ? 0 : (a > T - 1 ? T - 1 : a);
-    const bool good = a >= 0 && a < T && s[(size_t)trk * D + d] >= thresh &&
-                      al[trk] && dv[d];
-    out[(size_t)p * D + d] = good ? trk : -1;
+  for (int d = tid; d < R; d += nthreads) {
+    if constexpr (kMode == kMatcher)
+      ((int64_t*)out)[(size_t)p * R + d] = st.best[d];
+    else
+      ((int32_t*)out)[(size_t)p * R + d] = st.best[d];
   }
 }
 
@@ -384,15 +641,9 @@ size_t greedy_fixed(int T, int D, bool boxes) {
 
 size_t greedy_cache(int T, int D) { return 4 * (size_t)T * (D | 1); }
 
-size_t auction_smem(int T, int D) {
-  const size_t C = (size_t)T + D;
-  return sizeof(float) * (C + D) + sizeof(int) * (C + 2 * (size_t)D) +
-         C + 2 * (size_t)D + T;
-}
-
 // the largest dynamic shared memory already allowed on each device, per
-// kernel: K4's four instances, then K5
-size_t allowed[5][MAX_DEVICES];
+// kernel: K4's four instances, then K5's three a mode
+size_t allowed[13][MAX_DEVICES];
 
 int allow_smem(const void* fn, size_t* done, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -440,6 +691,61 @@ int greedy(const void* scores, const void* mean, const void* boxes,
                                       fixed, (cudaStream_t)stream);
 }
 
+template <int kMode, bool kCache, bool kGlobal>
+int launch_auction(const void* cells, const void* mean, const void* boxes,
+                   const void* alive, const void* valid, void* out,
+                   void* trk2det, void* workspace, size_t ws_stride, int p,
+                   int t, int r, float thresh, float eps, int max_iters,
+                   size_t smem, cudaStream_t stream) {
+  const void* fn = (const void*)assoc_auction_kernel<kMode, kCache, kGlobal>;
+  const int err = allow_smem(fn, allowed[4 + 3 * kMode + (kGlobal ? 2 : kCache)],
+                             smem);
+  if (err) return err;
+  // a warp per bidder, at least four warps for phase A and the fills
+  const int warps = r < 4 ? 4 : (r > 32 ? 32 : r);
+  assoc_auction_kernel<kMode, kCache, kGlobal>
+      <<<p, 32 * warps, smem, stream>>>(
+          (const float*)cells, (const float*)mean, (const float*)boxes,
+          (const uint8_t*)alive, (const uint8_t*)valid, out,
+          (int32_t*)trk2det, (char*)workspace, ws_stride, t, r, thresh, eps,
+          max_iters);
+  return (int)cudaGetLastError();
+}
+
+// the bytes of device memory a problem's state needs outside shared
+// memory: 0 where it fits in a block's
+size_t auction_workspace(int mode, int t, int r) {
+  AuctionState st;
+  const size_t state = auction_layout(mode, t, r, nullptr, &st);
+  return state > SMEM_MAX ? state : 0;
+}
+
+template <int kMode>
+int auction(const void* cells, const void* mean, const void* boxes,
+            const void* alive, const void* valid, void* out, void* trk2det,
+            void* workspace, int p, int t, int r, float thresh, float eps,
+            int max_iters, void* stream) {
+  if (p < 1 || t < 1 || r < 1) return (int)cudaErrorInvalidValue;
+  AuctionState st;
+  const size_t state = auction_layout(kMode, t, r, nullptr, &st);
+  const cudaStream_t cs = (cudaStream_t)stream;
+  if (state > SMEM_MAX) {
+    if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_auction<kMode, false, true>(
+        cells, mean, boxes, alive, valid, out, trk2det, workspace, state, p,
+        t, r, thresh, eps, max_iters, 0, cs);
+  }
+  const size_t cached =
+      state + sizeof(float) * (size_t)r * auction_ld(kMode, t);
+  if (cached <= SMEM_MAX)
+    return launch_auction<kMode, true, false>(
+        cells, mean, boxes, alive, valid, out, trk2det, nullptr, 0, p, t, r,
+        thresh, eps, max_iters, cached, cs);
+  return launch_auction<kMode, false, false>(
+      cells, mean, boxes, alive, valid, out, trk2det, nullptr, 0, p, t, r,
+      thresh, eps, max_iters, state, cs);
+}
+
 }  // namespace
 
 // matrix mode: scores (p, t, d) f32 -> det2trk (p, d) i32
@@ -461,16 +767,44 @@ extern "C" int rvt_assoc_greedy_boxes(const void* mean, const void* boxes,
                       p, t, d, thresh, stream);
 }
 
+// K5's device-memory workspace a problem needs (bytes; 0: none): mode 0
+// matrix, 1 boxes (t tracks, r detections), 2 matcher (t queries, r gts)
+extern "C" long long rvt_auction_workspace(int mode, int t, int r) {
+  return (long long)auction_workspace(mode, t, r);
+}
+
+// matrix mode: scores (p, t, d) f32 -> det2trk (p, d) i32; ``workspace``
+// holds rvt_auction_workspace(0, t, d) bytes a problem, or is null where
+// that is 0
 extern "C" int rvt_assoc_auction(const void* iou, const void* alive,
-                                 const void* dvalid, void* out, int p, int t,
-                                 int d, float thresh, float eps,
-                                 int max_iters, void* stream) {
-  if (p < 1 || t < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = auction_smem(t, d);
-  int err = allow_smem((const void*)assoc_auction_kernel, allowed[4], smem);
-  if (err) return err;
-  assoc_auction_kernel<<<p, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)iou, (const uint8_t*)alive, (const uint8_t*)dvalid,
-      (int32_t*)out, t, d, thresh, eps, max_iters);
-  return (int)cudaGetLastError();
+                                 const void* dvalid, void* out,
+                                 void* workspace, int p, int t, int d,
+                                 float thresh, float eps, int max_iters,
+                                 void* stream) {
+  return auction<kMatrix>(iou, nullptr, nullptr, alive, dvalid, out, nullptr,
+                          workspace, p, t, d, thresh, eps, max_iters, stream);
+}
+
+// boxes mode: mean (p, t, 7) and boxes (p, d, 4) f32 -> det2trk (p, d) and
+// trk2det (p, t) i32
+extern "C" int rvt_assoc_auction_boxes(const void* mean, const void* boxes,
+                                       const void* alive, const void* dvalid,
+                                       void* det2trk, void* trk2det,
+                                       void* workspace, int p, int t, int d,
+                                       float thresh, float eps,
+                                       int max_iters, void* stream) {
+  return auction<kBoxesMode>(nullptr, mean, boxes, alive, dvalid, det2trk,
+                             trk2det, workspace, p, t, d, thresh, eps,
+                             max_iters, stream);
+}
+
+// matcher mode: cost (p, m, nq) f32, gt_mask (p, m) u8 -> query per gt
+// (p, m) i64, -1 for a masked gt
+extern "C" int rvt_auction_match(const void* cost, const void* gt_mask,
+                                 void* out, void* workspace, int p, int m,
+                                 int nq, float eps, int max_iters,
+                                 void* stream) {
+  return auction<kMatcher>(cost, nullptr, nullptr, nullptr, gt_mask, out,
+                           nullptr, workspace, p, nq, m, 0.0f, eps,
+                           max_iters, stream);
 }

@@ -57,10 +57,17 @@ SIGNATURES = {
     ("median", "rvt_median_k"): [_P, _P, _I, _I, _I, _I, _P],
     ("assoc", "rvt_assoc_greedy"): [_P] * 4 + [_I] * 3 + [_F, _P],
     ("assoc", "rvt_assoc_greedy_boxes"): [_P] * 6 + [_I] * 3 + [_F, _P],
-    ("assoc", "rvt_assoc_auction"): [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
+    ("assoc", "rvt_assoc_auction"): [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P],
+    ("assoc", "rvt_assoc_auction_boxes"): [_P] * 7 + [_I] * 3
+    + [_F, _F, _I, _P],
+    ("assoc", "rvt_auction_match"): [_P] * 4 + [_I] * 3 + [_F, _I, _P],
+    ("assoc", "rvt_auction_workspace"): [_I] * 3,
     ("nms", "rvt_nms_keep"): [_P] * 4 + [_I] * 2 + [_P],
     ("nms", "rvt_nms_keep_boxes"): [_P] * 4 + [_I] * 2 + [_F, _P],
 }
+
+# entry points that return something else than a CUDA error code
+RESTYPES = {("assoc", "rvt_auction_workspace"): ctypes.c_longlong}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -139,7 +146,7 @@ def load(name: str) -> ctypes.CDLL:
                 if lname == name:
                     fn = getattr(lib, sym)
                     fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                    fn.restype = RESTYPES.get((lname, sym), ctypes.c_int)
             _libs[name] = lib
         return lib
 

@@ -11,11 +11,15 @@ count. No denoising query groups, as in JAX.
 The matching is the parallel ε-auction of :func:`hungarian_match`
 (ε = 1e-3, at most 1024 rounds), within M·ε of the optimum. JAX runs one
 device ``while_loop`` per (set, image). Here every problem of a step —
-B images × (1 + decoder layers) sets — runs in one batched auction under
-``no_grad``, with one host read of "any gt still unassigned" per
-:data:`AUCTION_BLOCK` rounds (:data:`host_syncs` counts them). That is
-exact: a finished problem has no bidder, so further rounds change neither
-its prices nor its assignment, and the round cap is the same for all.
+B images × (1 + decoder layers) sets — goes to one batched auction under
+``no_grad``. On the card that is one launch of K5 ``assoc_auction`` in
+its matcher mode (``csrc/assoc.cu``: a thread block a problem, every
+round on the device, no host read). On the CPU it is the plain version,
+:func:`hungarian_match_plain`, with one host read of "any gt still
+unassigned" per :data:`AUCTION_BLOCK` rounds (:data:`host_syncs` counts
+them). That is exact: a finished problem has no bidder, so further
+rounds change neither its prices nor its assignment, and the round cap
+is the same for all.
 
 :func:`make_train_step_rtdetr` is the JAX step's AdamW (β 0.9 / 0.999,
 ε 1e-8, decoupled weight decay on parameters with ndim ≥ 2 only) with the
@@ -25,12 +29,14 @@ and the step count untouched on a skipped batch; multi-tensor
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import _build
 from .yolo.train import (Objective, TrainStep, clipped, f32_product,
                          sigmoid_bce, timed)
 
@@ -92,9 +98,9 @@ def giou_xyxy(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
     return iou - (carea - union) / carea
 
 
-def hungarian_match(cost: torch.Tensor, gt_mask: torch.Tensor,
-                    eps: float = AUCTION_EPS,
-                    max_iters: int = AUCTION_MAX_ITERS) -> torch.Tensor:
+def hungarian_match_plain(cost: torch.Tensor, gt_mask: torch.Tensor,
+                          eps: float = AUCTION_EPS,
+                          max_iters: int = AUCTION_MAX_ITERS) -> torch.Tensor:
     """``hungarian_match`` :82 over a batch of problems: cost (P, M, NQ),
     gt_mask (P, M) bool → (P, M) int64 query per gt, −1 for masked rows
     (and rows left unassigned after ``max_iters`` rounds). Each valid gt
@@ -139,6 +145,52 @@ def hungarian_match(cost: torch.Tensor, gt_mask: torch.Tensor,
             prices, assigned = round_(prices, assigned)
         it += AUCTION_BLOCK
     return torch.where(gt_mask, assigned, torch.full_like(assigned, -1))
+
+
+def _match_cuda(cost, gt_mask, eps: float, max_iters: int) -> torch.Tensor:
+    from ..track.sort import AUCTION_MATCHER, auction_workspace
+    if cost.dim() != 3 or cost.dtype != torch.float32 \
+            or gt_mask.shape != cost.shape[:2] \
+            or gt_mask.device != cost.device:
+        raise ValueError(f"hungarian_match: expected cost (P, M, NQ) float32 "
+                         f"and gt_mask (P, M) on its device, got "
+                         f"{tuple(cost.shape)} {cost.dtype}, "
+                         f"{tuple(gt_mask.shape)} on {gt_mask.device}")
+    p, m, nq = cost.shape
+    out = torch.empty((p, m), dtype=torch.int64, device=cost.device)
+    if out.numel() == 0:
+        return out
+    if nq == 0 or p > 2 ** 31 - 1:
+        raise ValueError(f"hungarian_match: {p} problems of {m} x {nq}")
+    c = cost.contiguous()
+    mask = gt_mask.to(torch.bool).contiguous().view(torch.uint8)
+    lib = _build.load("assoc")
+    ws = auction_workspace(lib, AUCTION_MATCHER, nq, m, p, cost.device)
+    with torch.cuda.device(cost.device):
+        code = lib.rvt_auction_match(
+            c.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            0 if ws is None else ws.data_ptr(), p, m, nq,
+            ctypes.c_float(float(eps)), int(max_iters),
+            _build.stream_ptr(cost))
+    _build.launch_counts["assoc_auction"] += 1
+    _build.check(code, "assoc_auction")
+    return out
+
+
+def hungarian_match(cost: torch.Tensor, gt_mask: torch.Tensor,
+                    eps: float = AUCTION_EPS,
+                    max_iters: int = AUCTION_MAX_ITERS) -> torch.Tensor:
+    """K5 in its matcher mode: :func:`hungarian_match_plain`'s result,
+    (P, M) int64 query per gt, −1 for masked rows, for cost (P, M, NQ)
+    and gt_mask (P, M). A CPU tensor runs the plain version; a CUDA
+    tensor (float32) launches the kernel, every problem in one launch, on
+    the current stream, with no host read."""
+    if cost.device.type == "cpu":
+        return hungarian_match_plain(cost, gt_mask, eps, max_iters)
+    if cost.device.type != "cuda":
+        raise ValueError(f"hungarian_match: unsupported device "
+                         f"{cost.device}")
+    return _match_cuda(cost, gt_mask, eps, max_iters)
 
 
 def _cxcywh(xyxy: torch.Tensor) -> torch.Tensor:
@@ -312,5 +364,5 @@ def make_train_step_rtdetr(lr: float = 1e-4, clip_norm: float = 0.1,
 
 
 __all__: List[str] = ["iou_xyxy", "giou_xyxy", "hungarian_match",
-                      "rtdetr_loss", "init_opt_rtdetr", "AdamWStep",
+                      "hungarian_match_plain", "rtdetr_loss", "init_opt_rtdetr", "AdamWStep",
                       "make_train_step_rtdetr"]

@@ -34,13 +34,13 @@ a problem, no host read) and run their plain versions for a tensor on
 the CPU: those read one flag back to the host per greedy round, and one
 per block of :data:`AUCTION_BLOCK` ε-auction rounds. Every such read adds
 one to :data:`host_syncs` so a caller can count them per batch. The
-default greedy step calls K4 in its boxes mode,
-:func:`greedy_associate_boxes`: one launch computes what sort_tpu.py:498-508
-computes (``x_to_bbox`` of the predicted means, ``iou_matrix`` against
-the detections, the rounds, the inverse map track → det) in the
-arithmetic of :func:`x_to_bbox` and :func:`iou_matrix`; its plain version
-is exactly that composition. The hooked backends and ``association:
-hungarian`` hand K4 (matrix mode) or K5 a score matrix of their own.
+default step calls K4 or K5 in its boxes mode
+(:func:`greedy_associate_boxes`, :func:`auction_associate_boxes`): one
+launch computes what sort_tpu.py:498-508 computes (``x_to_bbox`` of the
+predicted means, ``iou_matrix`` against the detections, the rounds, the
+inverse map track → det) in the arithmetic of :func:`x_to_bbox` and
+:func:`iou_matrix`; its plain version is exactly that composition. The
+hooked backends hand K4 (matrix mode) a score matrix of their own.
 
 The default step (no hooks) also takes a stacked state, every field with
 a leading stream axis S, and detections (S, D, ...): JAX's ``vmap`` over
@@ -242,18 +242,68 @@ def greedy_associate_plain(iou: torch.Tensor, alive: torch.Tensor,
     return det2trk
 
 
+def auction_round_plain(w: torch.Tensor, prices: torch.Tensor,
+                        assigned: torch.Tensor, bidders: torch.Tensor,
+                        eps: float):
+    """One round of the parallel ε-auction over the values ``w``
+    (..., R, C) of R bidders for C columns: every unassigned bidder of
+    ``bidders`` (..., R) bids ``v1 − v2 + ε`` for its best-value column
+    (first index on ties, NaN above every number), where ``v2`` is the
+    maximum after that column's value is set to −1e9; each column goes to
+    its highest bid (first bidder on ties), and a column whose top bid is
+    not above −inf (none, −inf or NaN) changes nothing. → (prices,
+    assigned, best_c, v2, winner, has_bid) after the round."""
+    num_c = w.shape[-1]
+    col_ids = torch.arange(num_c, device=w.device)
+    bid_ids = torch.arange(w.shape[-2], device=w.device)
+    values = w - prices[..., None, :]
+    best_c = values.argmax(dim=-1)
+    v1 = values.max(dim=-1).values
+    rest = values.scatter(-1, best_c[..., None], -1e9)
+    v2 = rest.max(dim=-1).values
+    bidding = (assigned < 0) & bidders
+    incr = v1 - v2 + eps
+    bid_mat = torch.where(
+        bidding[..., :, None] & (best_c[..., :, None] == col_ids),
+        incr[..., :, None], float("-inf"))
+    top_bid = bid_mat.max(dim=-2).values
+    winner = bid_mat.argmax(dim=-2)
+    has_bid = top_bid > float("-inf")
+    prices = torch.where(has_bid, prices + top_bid, prices)
+    own_c = assigned.clamp(0, num_c - 1)
+    evicted = (assigned >= 0) & torch.gather(has_bid, -1, own_c) \
+        & (torch.gather(winner, -1, own_c) != bid_ids)
+    assigned = torch.where(evicted, -1, assigned)
+    won = bidding & torch.gather(has_bid, -1, best_c) \
+        & (torch.gather(winner, -1, best_c) == bid_ids)
+    assigned = torch.where(won, best_c, assigned)
+    return prices, assigned, best_c, v2, winner, has_bid
+
+
+def auction_values_plain(iou: torch.Tensor, alive: torch.Tensor,
+                         dvalid: torch.Tensor) -> torch.Tensor:
+    """The association auction's values (..., D, T + D) of the scores
+    (..., T, D): a detection's score for an alive track where both are
+    valid, else −1e9, then D dummy columns at −1."""
+    num_d = iou.shape[-1]
+    w_real = torch.where(alive[..., :, None] & dvalid[..., None, :], iou,
+                         torch.full_like(iou, -1e9)).transpose(-1, -2)
+    return torch.cat([w_real, torch.full(iou.shape[:-2] + (num_d, num_d),
+                                         -1.0, dtype=torch.float32,
+                                         device=iou.device)], dim=-1)
+
+
 def auction_associate_plain(iou: torch.Tensor, alive: torch.Tensor,
                             dvalid: torch.Tensor, thresh: float,
                             eps: float = 0.01, max_iters: int = 512
                             ) -> torch.Tensor:
     """Optimal-assignment association (``association: hungarian``) by
-    the parallel ε-auction of sort_tpu.py:233-311: every unassigned
-    valid detection bids ``best − second best + ε`` for its best-value
-    column, each column goes to its highest bidder (first index on
-    ties); D dummy columns at −1 let every detection end assigned; pairs
-    on a dummy column or below ``thresh`` are unmatched afterwards.
-    Returns det→track (..., D) int32, -1 unmatched, over any leading
-    problem axes, as :func:`greedy_associate_plain`.
+    the parallel ε-auction of sort_tpu.py:233-311
+    (:func:`auction_round_plain` over detections as bidders); D dummy
+    columns at −1 let every detection end assigned; pairs on a dummy
+    column or below ``thresh`` are unmatched afterwards. Returns
+    det→track (..., D) int32, -1 unmatched, over any leading problem
+    axes, as :func:`greedy_associate_plain`.
 
     JAX runs the rounds as a device ``while_loop`` that stops when no
     valid detection is unassigned or after ``max_iters`` rounds. Here
@@ -266,46 +316,16 @@ def auction_associate_plain(iou: torch.Tensor, alive: torch.Tensor,
     num_t, num_d = iou.shape[-2:]
     dev = iou.device
     lead = iou.shape[:-2]
-    neg = -1e9
-    cols = num_t + num_d
-    col_ids = torch.arange(cols, device=dev)
-    det_ids = torch.arange(num_d, device=dev)
-    w_real = torch.where(alive[..., :, None] & dvalid[..., None, :], iou,
-                         torch.full_like(iou, neg)).transpose(-1, -2)
-    w = torch.cat([w_real, torch.full(lead + (num_d, num_d), -1.0,
-                                      dtype=torch.float32, device=dev)],
-                  dim=-1)
-    prices = torch.zeros(lead + (cols,), dtype=torch.float32, device=dev)
+    w = auction_values_plain(iou, alive, dvalid)
+    prices = torch.zeros(lead + (num_t + num_d,), dtype=torch.float32,
+                         device=dev)
     assigned = torch.full(lead + (num_d,), -1, dtype=torch.int64, device=dev)
-
-    def round_(prices, assigned):
-        values = w - prices[..., None, :]
-        best_c = values.argmax(dim=-1)
-        v1 = values.max(dim=-1).values
-        rest = values.scatter(-1, best_c[..., None], neg)
-        v2 = rest.max(dim=-1).values
-        bidding = (assigned < 0) & dvalid
-        incr = v1 - v2 + eps
-        bid_mat = torch.where(
-            bidding[..., :, None] & (best_c[..., :, None] == col_ids),
-            incr[..., :, None], float("-inf"))
-        top_bid = bid_mat.max(dim=-2).values
-        winner = bid_mat.argmax(dim=-2)
-        has_bid = top_bid > float("-inf")
-        prices = torch.where(has_bid, prices + top_bid, prices)
-        own_c = assigned.clamp(0, cols - 1)
-        evicted = (assigned >= 0) & torch.gather(has_bid, -1, own_c) \
-            & (torch.gather(winner, -1, own_c) != det_ids)
-        assigned = torch.where(evicted, -1, assigned)
-        won = bidding & torch.gather(has_bid, -1, best_c) \
-            & (torch.gather(winner, -1, best_c) == det_ids)
-        assigned = torch.where(won, best_c, assigned)
-        return prices, assigned
 
     it = 0
     while it < max_iters and read_flag((dvalid & (assigned < 0)).any()):
         for _ in range(min(AUCTION_BLOCK, max_iters - it)):
-            prices, assigned = round_(prices, assigned)
+            prices, assigned = auction_round_plain(w, prices, assigned,
+                                                   dvalid, eps)[:2]
         it += AUCTION_BLOCK
 
     real = (assigned >= 0) & (assigned < num_t)
@@ -351,13 +371,6 @@ def greedy_smem_bytes(num_t: int, num_d: int, boxes: bool = False) -> int:
                 + -(-num_t // 32) + -(-num_d // 32))
 
 
-def auction_smem_bytes(num_t: int, num_d: int) -> int:
-    """K5's shared memory for one (T, D) problem (csrc/assoc.cu)."""
-    cols = num_t + num_d
-    return 4 * (cols + num_d) + 4 * (cols + 2 * num_d) + cols + 2 * num_d \
-        + num_t
-
-
 def _check_smem(num_t: int, num_d: int, boxes: bool, what: str) -> None:
     need = greedy_smem_bytes(num_t, num_d, boxes)
     if need > SMEM_LIMIT:
@@ -383,21 +396,38 @@ def _greedy_cuda(iou, alive, dvalid, thresh: float) -> torch.Tensor:
     return out.reshape(lead + (num_d,))
 
 
+# K5's modes (csrc/assoc.cu)
+AUCTION_MATRIX, AUCTION_BOXES, AUCTION_MATCHER = 0, 1, 2
+
+
+def auction_workspace(lib, mode: int, num_t: int, num_r: int, num_p: int,
+                      device):
+    """The device-memory workspace K5 needs for ``num_p`` problems of
+    ``num_t`` bidder-dependent columns and ``num_r`` bidders, where its
+    state outgrows a block's shared memory (some 2,000 tracks and
+    detections); None where it fits."""
+    per = int(lib.rvt_auction_workspace(mode, num_t, num_r))
+    if per == 0:
+        return None
+    return torch.empty(num_p * per, dtype=torch.uint8, device=device)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def _auction_cuda(iou, alive, dvalid, thresh: float, eps: float,
                   max_iters: int) -> torch.Tensor:
     flat, al, dv, lead = _assoc_operands(iou, alive, dvalid,
                                          "auction_associate")
     p, num_t, num_d = flat.shape
-    if auction_smem_bytes(num_t, num_d) > SMEM_LIMIT:
-        raise ValueError(f"auction_associate: a {num_t} x {num_d} problem "
-                         f"needs {auction_smem_bytes(num_t, num_d)} bytes "
-                         f"of shared memory, over one block's {SMEM_LIMIT}")
     out = torch.empty((p, num_d), dtype=torch.int32, device=iou.device)
     lib = _build.load("assoc")
+    ws = auction_workspace(lib, AUCTION_MATRIX, num_t, num_d, p, iou.device)
     with torch.cuda.device(iou.device):
         code = lib.rvt_assoc_auction(
             flat.data_ptr(), al.data_ptr(), dv.data_ptr(), out.data_ptr(),
-            p, num_t, num_d, ctypes.c_float(float(thresh)),
+            _ptr(ws), p, num_t, num_d, ctypes.c_float(float(thresh)),
             ctypes.c_float(float(eps)), int(max_iters),
             _build.stream_ptr(iou))
     _build.launch_counts["assoc_auction"] += 1
@@ -443,16 +473,44 @@ def greedy_associate_boxes_plain(mean: torch.Tensor, boxes: torch.Tensor,
     return det2trk, trk2det_map(det2trk, mean.shape[1])
 
 
+def _check_boxes_shapes(mean, boxes, alive, dvalid, what: str) -> None:
+    if mean.dim() != 3 or mean.shape[-1] != STATE_DIM or boxes.dim() != 3 \
+            or boxes.shape[-1] != MEAS_DIM or boxes.shape[0] != mean.shape[0] \
+            or alive.shape != mean.shape[:2] \
+            or dvalid.shape != boxes.shape[:2]:
+        raise ValueError(f"{what}: expected mean (P, T, 7), boxes (P, D, 4), "
+                         f"alive (P, T), dvalid (P, D), got "
+                         f"{tuple(mean.shape)}, {tuple(boxes.shape)}, "
+                         f"{tuple(alive.shape)}, {tuple(dvalid.shape)}")
+
+
+def _boxes_operands(mean, boxes, alive, dvalid, what: str):
+    """Device and type checks of a boxes mode on the card → (mean, boxes
+    contiguous f32, alive, dvalid u8)."""
+    if mean.device.type != "cuda" or any(
+            t.device != mean.device for t in (boxes, alive, dvalid)):
+        raise ValueError(f"{what}: unsupported devices {mean.device}, "
+                         f"{boxes.device}, {alive.device}, {dvalid.device}")
+    if mean.dtype != torch.float32 or boxes.dtype != torch.float32:
+        raise ValueError(f"{what}: expected float32 means and boxes, got "
+                         f"{mean.dtype}, {boxes.dtype}")
+    num_p, num_t, num_d = mean.shape[0], mean.shape[1], boxes.shape[1]
+    if num_p < 1 or num_t < 1 or num_d < 1 or num_p > 2 ** 31 - 1:
+        raise ValueError(f"{what}: empty or too many problems ({num_p}, "
+                         f"{num_t}, {num_d})")
+    return (mean.contiguous(), boxes.contiguous(),
+            alive.to(torch.bool).contiguous().view(torch.uint8),
+            dvalid.to(torch.bool).contiguous().view(torch.uint8))
+
+
 def _greedy_boxes_cuda(mean, boxes, alive, dvalid, thresh: float):
+    m, b, al, dv = _boxes_operands(mean, boxes, alive, dvalid,
+                                   "greedy_associate_boxes")
     num_p, num_t, num_d = mean.shape[0], mean.shape[1], boxes.shape[1]
     _check_smem(num_t, num_d, True, "greedy_associate_boxes")
     dev = mean.device
     det2trk = torch.empty((num_p, num_d), dtype=torch.int32, device=dev)
     trk2det = torch.empty((num_p, num_t), dtype=torch.int32, device=dev)
-    m = mean.contiguous()
-    b = boxes.contiguous()
-    al = alive.to(torch.bool).contiguous().view(torch.uint8)
-    dv = dvalid.to(torch.bool).contiguous().view(torch.uint8)
     lib = _build.load("assoc")
     with torch.cuda.device(dev):
         code = lib.rvt_assoc_greedy_boxes(
@@ -472,29 +530,10 @@ def greedy_associate_boxes(mean: torch.Tensor, boxes: torch.Tensor,
     f32, ``alive`` (P, T) and ``dvalid`` (P, D). A CPU tensor runs
     :func:`greedy_associate_boxes_plain`; a CUDA tensor launches the
     kernel, IoU included, one block per problem, on the current stream."""
-    if mean.dim() != 3 or mean.shape[-1] != STATE_DIM or boxes.dim() != 3 \
-            or boxes.shape[-1] != MEAS_DIM or boxes.shape[0] != mean.shape[0] \
-            or alive.shape != mean.shape[:2] \
-            or dvalid.shape != boxes.shape[:2]:
-        raise ValueError(f"greedy_associate_boxes: expected mean (P, T, 7), "
-                         f"boxes (P, D, 4), alive (P, T), dvalid (P, D), got "
-                         f"{tuple(mean.shape)}, {tuple(boxes.shape)}, "
-                         f"{tuple(alive.shape)}, {tuple(dvalid.shape)}")
+    _check_boxes_shapes(mean, boxes, alive, dvalid, "greedy_associate_boxes")
     if mean.device.type == "cpu":
         return greedy_associate_boxes_plain(mean, boxes, alive, dvalid,
                                             thresh)
-    if mean.device.type != "cuda" or any(
-            t.device != mean.device for t in (boxes, alive, dvalid)):
-        raise ValueError(f"greedy_associate_boxes: unsupported devices "
-                         f"{mean.device}, {boxes.device}, {alive.device}, "
-                         f"{dvalid.device}")
-    if mean.dtype != torch.float32 or boxes.dtype != torch.float32:
-        raise ValueError(f"greedy_associate_boxes: expected float32 means "
-                         f"and boxes, got {mean.dtype}, {boxes.dtype}")
-    num_p, num_t, num_d = mean.shape[0], mean.shape[1], boxes.shape[1]
-    if num_p < 1 or num_t < 1 or num_d < 1 or num_p > 2 ** 31 - 1:
-        raise ValueError(f"greedy_associate_boxes: empty or too many "
-                         f"problems ({num_p}, {num_t}, {num_d})")
     return _greedy_boxes_cuda(mean, boxes, alive, dvalid, thresh)
 
 
@@ -510,6 +549,56 @@ def auction_associate(iou: torch.Tensor, alive: torch.Tensor,
     if iou.device.type != "cuda":
         raise ValueError(f"unsupported device {iou.device}")
     return _auction_cuda(iou, alive, dvalid, thresh, eps, max_iters)
+
+
+def auction_associate_boxes_plain(mean: torch.Tensor, boxes: torch.Tensor,
+                                  alive: torch.Tensor, dvalid: torch.Tensor,
+                                  thresh: float, eps: float = 0.01,
+                                  max_iters: int = 512):
+    """:func:`greedy_associate_boxes_plain` with the ε-auction: the IoU of
+    ``x_to_bbox(mean)`` (P, T, 7) against ``boxes`` (P, D, 4),
+    :func:`auction_associate_plain` and the inverse map → (det→track
+    (P, D), track→det (P, T)) int32, -1 unmatched."""
+    det2trk = auction_associate_plain(iou_matrix(x_to_bbox(mean), boxes),
+                                      alive, dvalid, thresh, eps, max_iters)
+    return det2trk, trk2det_map(det2trk, mean.shape[1])
+
+
+def _auction_boxes_cuda(mean, boxes, alive, dvalid, thresh: float,
+                        eps: float, max_iters: int):
+    m, b, al, dv = _boxes_operands(mean, boxes, alive, dvalid,
+                                   "auction_associate_boxes")
+    num_p, num_t, num_d = mean.shape[0], mean.shape[1], boxes.shape[1]
+    dev = mean.device
+    det2trk = torch.empty((num_p, num_d), dtype=torch.int32, device=dev)
+    trk2det = torch.empty((num_p, num_t), dtype=torch.int32, device=dev)
+    lib = _build.load("assoc")
+    ws = auction_workspace(lib, AUCTION_BOXES, num_t, num_d, num_p, dev)
+    with torch.cuda.device(dev):
+        code = lib.rvt_assoc_auction_boxes(
+            m.data_ptr(), b.data_ptr(), al.data_ptr(), dv.data_ptr(),
+            det2trk.data_ptr(), trk2det.data_ptr(), _ptr(ws), num_p, num_t,
+            num_d, ctypes.c_float(float(thresh)), ctypes.c_float(float(eps)),
+            int(max_iters), _build.stream_ptr(mean))
+    _build.launch_counts["assoc_auction"] += 1
+    _build.check(code, "assoc_auction")
+    return det2trk, trk2det
+
+
+def auction_associate_boxes(mean: torch.Tensor, boxes: torch.Tensor,
+                            alive: torch.Tensor, dvalid: torch.Tensor,
+                            thresh: float, eps: float = 0.01,
+                            max_iters: int = 512):
+    """K5 in boxes mode, as :func:`greedy_associate_boxes` (the default
+    step's association for ``association: hungarian``): a CPU tensor runs
+    :func:`auction_associate_boxes_plain`; a CUDA tensor launches the
+    kernel, IoU and inverse map included, one block per problem."""
+    _check_boxes_shapes(mean, boxes, alive, dvalid, "auction_associate_boxes")
+    if mean.device.type == "cpu":
+        return auction_associate_boxes_plain(mean, boxes, alive, dvalid,
+                                             thresh, eps, max_iters)
+    return _auction_boxes_cuda(mean, boxes, alive, dvalid, thresh, eps,
+                               max_iters)
 
 
 def _kf_predict(mean, cov, dt):
@@ -660,8 +749,9 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
     each stream as its own step would run it, one association launch
     for all S. Such a step carries ``stackable = True``.
 
-    ``association``: "greedy" (the reference) or "hungarian" (the
-    ε-auction, :func:`auction_associate`). The hooks, as in JAX:
+    ``association``: "greedy" (the reference,
+    :func:`greedy_associate_boxes`) or "hungarian" (the ε-auction,
+    :func:`auction_associate_boxes`). The hooks, as in JAX:
     ``associate_fn(iou (T,D), alive, dvalid, conf, ctx) → det→track``
     with ``ctx = (state, boxes, ts, emb)`` after the predict (replaces
     the association); ``new_track_fn(dvalid, matched_d, conf) → (D,)``
@@ -680,14 +770,12 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
         if association not in ("greedy", "hungarian"):
             raise ValueError(f"unknown association: {association!r} "
                              f"(expected 'greedy' or 'hungarian')")
-        # the default greedy step: K4 computes the IoU and the inverse
-        # map too (boxes mode)
-        boxes_mode = association == "greedy"
-
-        def assoc(iou, alive, dvalid, conf, ctx):
-            return auction_associate(iou, alive, dvalid, thresh)
+        # the default step: K4 (greedy) or K5 (hungarian) computes the IoU
+        # and the inverse map too (boxes mode)
+        assoc_boxes = greedy_associate_boxes if association == "greedy" \
+            else auction_associate_boxes
     else:
-        boxes_mode = False
+        assoc_boxes = None
 
         def assoc(iou, alive, dvalid, conf, ctx):
             state, boxes, ts, emb = ctx
@@ -743,9 +831,9 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             last_predict_ts=torch.where(alive, ts_t, state.last_predict_ts))
 
         # 2. association on IoU of predicted vs detected boxes
-        if boxes_mode:
-            det2trk, trk2det = greedy_associate_boxes(
-                state.mean, boxes, state.alive, dvalid, thresh)
+        if assoc_boxes is not None:
+            det2trk, trk2det = assoc_boxes(state.mean, boxes, state.alive,
+                                           dvalid, thresh)
         else:
             det2trk = assoc(iou_matrix(x_to_bbox(state.mean), boxes),
                             state.alive, dvalid, conf,

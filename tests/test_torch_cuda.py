@@ -901,6 +901,198 @@ def test_association_boxes_mode_bit_equal(dev, name, p, t, d):
         assert bool((want[0] >= 0).any())
 
 
+# K5 in its three modes: matrix (scores), boxes (x_to_bbox and the IoU in
+# the launch) and matcher (RT-DETR training's cost, no dummy columns)
+
+def _auction_case(mode, name, p, t, d):
+    """K5 inputs → (host arrays, keyword arguments): matrix and boxes as
+    the K4 cases above plus ``cap`` (max_iters 3), ``floor`` (a bidder whose
+    alternatives are all below -1e9: its second best is exactly -1e9),
+    ``inf`` (±inf and ±0 scores) and ``global`` (T, D in the thousands: the
+    state outgrows shared memory and lives in the workspace); matcher: t
+    queries, d gts, a random cost with masked gts, and ``floor``, ``cap``,
+    ``nan``."""
+    rng = np.random.RandomState(p * t + d + len(name) + len(mode))
+    kw = {"eps": 0.01, "max_iters": 512}
+    if mode == "matcher":
+        cost = rng.uniform(0, 20, (p, d, t)).astype(np.float32)
+        mask = rng.rand(p, d) < 0.8
+        kw = {"eps": 1e-3, "max_iters": 1024}
+        if name == "floor":
+            # gt 0's runner-up is -1.5e9, gt 1's -3e9: with the floor both
+            # bid 1e9 + eps and gt 0 (first) wins query 0; without it gt 1
+            cost = np.float32([[[0, 1.5e9], [0, 3e9]]]).repeat(p, 0)
+            mask = np.ones((p, 2), bool)
+        elif name == "cap":
+            kw["max_iters"] = 5
+        elif name == "nan":
+            cost[rng.rand(*cost.shape) < 0.02] = np.nan
+            cost[rng.rand(*cost.shape) < 0.01] = np.inf
+        return (cost, mask), kw
+    if mode == "boxes":
+        if name == "global":
+            *host, thresh = _box_assoc_case("road", p, t, d)
+        elif name == "cap":
+            *host, thresh = _box_assoc_case("dense", p, t, d)
+            kw["max_iters"] = 3
+        else:
+            *host, thresh = _box_assoc_case(name, p, t, d)
+        return tuple(host), dict(kw, thresh=thresh)
+    if name == "cap":
+        host = _assoc_case("random", p, t, d, p * t + d)
+        kw["max_iters"] = 3
+    elif name == "floor":
+        # a live track scored -inf and a second bidder: after the first
+        # round's dummy is priced 1e10, the second bidder's runner-up is
+        # below -1e9
+        iou = np.full((p, t, d), -np.inf, np.float32)
+        host = (iou, np.ones((p, t), bool), np.ones((p, d), bool))
+        kw["eps"] = 1e10
+    elif name == "inf":
+        iou = rng.choice(np.float32([np.inf, -np.inf, 0.0, -0.0, 0.5,
+                                     np.nan]), (p, t, d),
+                         p=[0.02, 0.05, 0.3, 0.3, 0.32, 0.01])
+        host = (iou.astype(np.float32), rng.rand(p, t) < 0.8,
+                rng.rand(p, d) < 0.9)
+    elif name == "global":
+        # 150 live tracks, each overlapping one of 150 valid detections
+        # (a few rounds: the plain version's rounds cost seconds here)
+        iou = np.zeros((p, t, d), np.float32)
+        n = np.arange(150)
+        iou[:, n, n] = rng.uniform(0.5, 1, (p, 150))
+        alive = np.zeros((p, t), bool)
+        dvalid = np.zeros((p, d), bool)
+        alive[:, :150] = dvalid[:, :150] = True
+        host = (iou, alive, dvalid)
+    else:
+        host = _assoc_case(name, p, t, d, p * t + d)
+    return host, dict(kw, thresh=0.3)
+
+
+def _auction_fns(mode):
+    """(kernel wrapper, plain version) of a K5 mode; each takes the host
+    arrays' tensors and the case's keyword arguments and gives a tuple."""
+    from roadvision_tpu_torch.models import rtdetr_train as RT
+    from roadvision_tpu_torch.track import sort as tsort
+    if mode == "matcher":
+        return ((lambda *a, **k: (RT.hungarian_match(*a, **k),)),
+                (lambda *a, **k: (RT.hungarian_match_plain(*a, **k),)))
+    if mode == "boxes":
+        return tsort.auction_associate_boxes, \
+            tsort.auction_associate_boxes_plain
+    return ((lambda *a, **k: (tsort.auction_associate(*a, **k),)),
+            (lambda *a, **k: (tsort.auction_associate_plain(*a, **k),)))
+
+
+AUCTION_CASES = [
+    ("matrix", "random", 8, 100, 100), ("matrix", "ties", 4, 100, 100),
+    ("matrix", "chain", 2, 100, 100), ("matrix", "invalid", 3, 100, 100),
+    ("matrix", "nan", 4, 100, 100), ("matrix", "random", 5, 7, 130),
+    ("matrix", "ties", 1, 160, 40), ("matrix", "random", 2, 300, 300),
+    ("matrix", "chain", 1, 300, 300), ("matrix", "cap", 2, 300, 300),
+    ("matrix", "floor", 2, 1, 2), ("matrix", "inf", 3, 64, 80),
+    ("matrix", "global", 1, 4000, 4000),
+    ("boxes", "road", 1, 100, 100), ("boxes", "road", 8, 100, 100),
+    ("boxes", "at threshold 0.5", 2, 100, 100),
+    ("boxes", "ties", 4, 100, 100), ("boxes", "nan", 4, 100, 100),
+    ("boxes", "invalid", 3, 100, 100), ("boxes", "road", 3, 7, 130),
+    ("boxes", "dense", 2, 300, 300), ("boxes", "cap", 2, 300, 300),
+    ("boxes", "road", 1, 1024, 1024), ("boxes", "global", 1, 2500, 2500),
+    ("matcher", "random", 28, 300, 50), ("matcher", "random", 4, 300, 290),
+    ("matcher", "random", 2, 64, 64), ("matcher", "random", 3, 1, 1),
+    ("matcher", "floor", 2, 2, 2), ("matcher", "cap", 4, 300, 50),
+    ("matcher", "nan", 4, 300, 50)]
+
+
+@pytest.mark.parametrize("mode,name,p,t,d", AUCTION_CASES)
+def test_auction_modes_bit_equal(dev, mode, name, p, t, d):
+    """K5 in each mode against its plain version, bit for bit; one launch
+    a call; each problem alone equal to the batch."""
+    host, kw = _auction_case(mode, name, p, t, d)
+    kernel, plain = _auction_fns(mode)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host]
+    before = launch_counts["assoc_auction"]
+    got = kernel(*args, **kw)
+    assert launch_counts["assoc_auction"] == before + 1
+    want = plain(*[torch.from_numpy(np.ascontiguousarray(a)) for a in host],
+                 **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w), (mode, name)
+    for i in range(min(p, 4)):
+        one = kernel(*(a[i:i + 1] for a in args), **kw)
+        for g, w in zip(one, want):
+            assert torch.equal(g.cpu()[0], w[i]), (mode, name, i)
+    if name != "invalid" and (mode, name) != ("matrix", "floor"):
+        assert bool((want[0] >= 0).any())     # (floor: every score -inf)
+
+
+@pytest.mark.parametrize("mode,name,p,t,d", [
+    ("matrix", "random", 8, 100, 100), ("matrix", "random", 2, 300, 300),
+    ("boxes", "road", 1, 100, 100), ("boxes", "dense", 2, 300, 300),
+    ("matcher", "random", 28, 300, 50)])
+def test_auction_modes_replay_in_a_graph(dev, mode, name, p, t, d):
+    """Each mode captured into a CUDA graph replays the eager result; a
+    replay launches once (the count is the wrapper's, at capture)."""
+    host, kw = _auction_case(mode, name, p, t, d)
+    kernel, _ = _auction_fns(mode)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host]
+    eager = [g.clone() for g in kernel(*args, **kw)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts["assoc_auction"]
+    with torch.cuda.graph(graph):
+        outs = kernel(*args, **kw)
+    assert launch_counts["assoc_auction"] == before + 1
+    for o in outs:
+        o.fill_(-7)
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, e in zip(outs, eager):
+        assert torch.equal(o, e), (mode, name)
+
+
+def test_rtdetr_train_step_matches_through_the_kernel(dev, no_tf32,
+                                                      monkeypatch):
+    """An RT-DETR train step on the card matches its B·7 problems in one
+    K5 launch with no host read, and the queries equal the CPU plain
+    version's on the same cost."""
+    from roadvision_tpu_torch.models import rtdetr
+    from roadvision_tpu_torch.models import rtdetr_train as RT
+    seen = []
+    kernel = RT.hungarian_match
+
+    def spy(cost, gt_mask, *a, **k):
+        q = kernel(cost, gt_mask, *a, **k)
+        seen.append((cost.cpu(), gt_mask.cpu(), q.cpu()))
+        return q
+    monkeypatch.setattr(RT, "hungarian_match", spy)
+    rng = np.random.RandomState(3)
+    bs = 2
+    xy = rng.uniform(5, 40, (bs, 3, 2)).astype(np.float32)
+    wh = rng.uniform(8, 20, (bs, 3, 2)).astype(np.float32)
+    batch = [torch.from_numpy(a).to(dev) for a in (
+        rng.rand(bs, 64, 64, 3).astype(np.float32),
+        np.concatenate([xy, xy + wh], -1),
+        rng.randint(0, 7, (bs, 3)).astype(np.int32),
+        np.array([[True, True, False], [True, True, True]]))]
+    model = rtdetr.random_model(7, seed=2).to(dev).train()
+    step = RT.make_train_step_rtdetr(lr=1e-4)
+    opt = step.init(model)
+    RT.reset_host_syncs()
+    before = launch_counts["assoc_auction"]
+    loss, _ = step(model, opt, *batch)
+    assert launch_counts["assoc_auction"] == before + 1
+    assert RT.host_syncs == 0 and bool(torch.isfinite(loss))
+    (cost, mask, q), = seen
+    assert cost.shape[0] == bs * 7 and q.dtype == torch.int64
+    assert torch.equal(q, RT.hungarian_match_plain(cost, mask))
+    assert bool((q[mask] >= 0).all()) and bool((q[~mask] == -1).all())
+
+
 def _box_nms_case(name, b, k):
     """K6 boxes-mode inputs: score-sorted candidates of a road scene (a
     valid prefix, jittered around 18 vehicles), or at threshold (IoU

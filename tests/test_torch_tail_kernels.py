@@ -16,10 +16,22 @@
   ``greedy_associate`` + the inverse map, the route before the boxes
   mode): states and outputs equal, frame by frame.
 
+* ``track/sort.py::auction_associate_boxes_plain`` (what K5's boxes
+  mode computes, the ε-auction in place of the greedy rounds) against
+  ``x_to_bbox`` → ``iou_matrix`` → ``auction_associate`` → the scatter,
+  and the ``association: hungarian`` default step against JAX's step.
+* A model in torch of K5's round as the kernel computes it (the
+  bidder-independent columns' top two merged into the live columns' top
+  two, the second best floored at -1e9, the column decided by the
+  largest 64-bit key) against ``auction_round_plain``'s best column,
+  second best, winner and ``has_bid``, round after round, on adversarial
+  states: NaN, ±inf and ±0 values and bids, dead columns priced above 0,
+  dummies priced above 1e9, ties.
+
 Cases: road scenes, IoU exactly at the threshold (exact in float32),
 equal scores, overlapping boxes of different classes, coordinates near
 the class offsets, NaN and zero-area boxes, nothing valid, and
-T = D = 300 for the association.
+T = D = 300 for the association, and a ``max_iters`` cap for the auction.
 """
 import functools
 import zlib
@@ -213,6 +225,268 @@ def test_default_step_equals_the_step_with_its_association_hooked(seed):
             assert torch.equal(a, b) or torch.allclose(
                 a, b, rtol=0, atol=0, equal_nan=True)
     assert int((outs[0].track_id > 0).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the auction's boxes mode, the hungarian step, the kernel's round
+
+AUCTION_CASES = ASSOC_CASES + ("max_iters cap",)
+
+
+def _auction_case(name):
+    """(mean, boxes, alive, dvalid, thresh, max_iters): the K4 cases with
+    the auction's default cap, and twin tracks and detections cut after
+    2 rounds."""
+    if name == "max_iters cap":
+        return _assoc_case("equal scores")[:4] + (0.1, 2)
+    return _assoc_case(name) + (512,)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_auction_fn(num_t, num_d, thresh, max_iters):
+    def one(mean, boxes, alive, dvalid):
+        iou = jsort.iou_matrix(jsort.x_to_bbox(mean), boxes)
+        det2trk = jsort.auction_associate(iou, alive, dvalid, thresh,
+                                          0.01, max_iters)
+        trk2det = jnp.full((num_t,), -1, jnp.int32).at[
+            jnp.where(det2trk >= 0, det2trk, num_t)
+        ].set(jnp.arange(num_d, dtype=jnp.int32), mode="drop")
+        return det2trk, trk2det
+    return jax.jit(jax.vmap(one))
+
+
+@pytest.mark.parametrize("name", AUCTION_CASES)
+def test_auction_associate_boxes_plain_equals_jax(name):
+    mean, boxes, alive, dvalid, thresh, iters = _auction_case(name)
+    fn = _jax_auction_fn(mean.shape[1], boxes.shape[1], thresh, iters)
+    want = [np.asarray(a) for a in fn(mean, boxes, alive, dvalid)]
+    args = [torch.from_numpy(a) for a in (mean, boxes, alive, dvalid)]
+    got = tsort.auction_associate_boxes_plain(*args, thresh,
+                                              max_iters=iters)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    for g, w in zip(tsort.auction_associate_boxes(*args, thresh,
+                                                  max_iters=iters), got):
+        assert torch.equal(g, w)
+    if name != "nothing valid":
+        assert bool((got[0] >= 0).any())
+    if name == "max_iters cap":
+        # the cap cuts the auction short: the uncapped run matches more
+        full = tsort.auction_associate_boxes_plain(*args, thresh)
+        assert int((full[0] >= 0).sum()) > int((got[0] >= 0).sum())
+
+
+def test_hungarian_default_step_equals_jax():
+    """``association: hungarian`` without hooks (K5's boxes mode on the
+    card, its plain version here) against JAX's step, frame by frame:
+    ids exact, the Kalman state within the tracker tests' rtol 1e-5 /
+    atol 1e-4 (the area rate within 2e-2)."""
+    thresh = 0.35
+    rng = np.random.RandomState(5)
+    num_t, num_d, frames = 16, 10, 10
+    base = rng.uniform(20, 200, (num_d, 2))
+    vel = rng.uniform(-5, 5, (num_d, 2))
+    size = rng.uniform(15, 40, (num_d, 2))
+    jstep = jax.jit(jsort.make_sort_step(thresh, 1.2, 0.8,
+                                         association="hungarian"))
+    tstep = tsort.make_sort_step(thresh, 1.2, 0.8, association="hungarian")
+    js, ts = jsort.init_state(num_t), tsort.init_state(num_t, "cpu")
+    for f in range(frames):
+        xy = base + vel * f + rng.normal(0, 1.5, (num_d, 2))
+        boxes = np.concatenate([xy, xy + size], -1).astype(np.float32)
+        valid = rng.rand(num_d) < 0.8
+        cls = np.full((num_d,), 2, np.int32)
+        conf = np.full((num_d,), 0.9, np.float32)
+        t = np.float32(f / 30.0)
+        args = (boxes, cls, conf, valid, t)
+        js, jo = jstep(js, *map(jnp.asarray, args), None)
+        ts, to = tstep(ts, *(torch.from_numpy(np.asarray(a)) for a in args),
+                       None)
+        np.testing.assert_array_equal(to.track_id.numpy(),
+                                      np.asarray(jo.track_id),
+                                      err_msg=f"frame {f}")
+    for k in tsort.SortState._fields:
+        a, b = getattr(ts, k).numpy(), np.asarray(getattr(js, k))
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=k)
+            continue
+        if k in ("mean", "obs_mean"):
+            # the area rate of a box that keeps its size is the float
+            # noise of its area over 1/30 s (tests/test_torch_raw_step.py)
+            np.testing.assert_allclose(a[..., 6], b[..., 6], rtol=0,
+                                       atol=2e-2, err_msg=k)
+            a, b = a[..., :6], b[..., :6]
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4,
+                                   equal_nan=True, err_msg=k)
+    assert int(np.asarray(js.next_id)) > num_d
+
+
+NEG_INF_BITS = 0x007FFFFF     # the kernel's key bits of a -inf bid
+NAN_BITS = 0xFFFFFFFF         # of every NaN bid
+
+
+def _key_bits(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving 32 bits of float32 bids (int64):
+    ±0 alike, every NaN the top."""
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(x == 0, torch.zeros_like(u), u)
+    k = torch.where(u >= 2 ** 31, (~u) & 0xFFFFFFFF, u | 2 ** 31)
+    return torch.where(torch.isnan(x), torch.full_like(k, NAN_BITS), k)
+
+
+def _top2(vals: torch.Tensor, cols: torch.Tensor):
+    """Each row's top two over the columns ``cols``: the first NaN, else
+    the first maximum (v1 at i1), and the NaN-propagating maximum of the
+    other values (v2, -inf for none); an empty set is (-inf, 2**31, -inf)."""
+    rows = vals.shape[0]
+    if cols.numel() == 0:
+        return (torch.full((rows,), float("-inf")),
+                torch.full((rows,), 2 ** 31, dtype=torch.int64),
+                torch.full((rows,), float("-inf")))
+    k = vals.argmax(dim=-1)
+    v1 = vals.gather(-1, k[:, None])[:, 0]
+    rest = vals.scatter(-1, k[:, None], float("-inf"))
+    return v1, cols[k], rest.max(dim=-1).values
+
+
+def _merge(a, b):
+    """The kernel's top2_merge: b's first replaces a's if it ranks above
+    (NaN, then larger, then lower index)."""
+    a1, ai, a2 = a
+    b1, bi, b2 = b
+    take = torch.where(torch.isnan(a1), torch.isnan(b1) & (bi < ai),
+                       torch.isnan(b1) | (b1 > a1) | ((b1 == a1) & (bi < ai)))
+    return (torch.where(take, b1, a1), torch.where(take, bi, ai),
+            torch.where(take, torch.maximum(a1, b2), torch.maximum(a2, b1)))
+
+
+def _kernel_round(w, prices, assigned, dvalid, alive, eps):
+    """K5's round in torch, for one problem of the association (values
+    ``w`` (D, T + D)): the live tracks' top two per bidder, the dead
+    tracks' and the dummies' once from their prices alone (-1e9 - price,
+    -1 - price), merged; v2 floored at -1e9; each bid as the key
+    (bits << 32 | ~bidder), a column's decision its largest key.
+    → best, v2, winner, has_bid as auction_round_plain gives them."""
+    num_d, num_c = w.shape
+    num_t = num_c - num_d
+    values = w - prices[None]
+    live = torch.nonzero(alive).flatten()
+    shared = torch.cat([torch.nonzero(~alive).flatten(),
+                        torch.arange(num_t, num_c)])
+    base = torch.where(shared < num_t, torch.tensor(-1e9), torch.tensor(-1.0))
+    s1, si, s2 = _top2((base - prices[shared])[None], shared)
+    top = _merge(_top2(values[:, live], live),
+                 (s1.expand(num_d), si.expand(num_d), s2.expand(num_d)))
+    v1, best, second = top
+    v2 = torch.where(torch.isnan(second), second,
+                     torch.maximum(torch.tensor(-1e9), second))
+    incr = v1 - v2 + eps
+    bidding = (assigned < 0) & dvalid
+    d_ids = torch.arange(num_d, dtype=torch.int64)
+    # the uint64 key as an int64 of the same order: top bit flipped
+    key = (_key_bits(incr) - 2 ** 31) * 2 ** 32 + (0xFFFFFFFF - d_ids)
+    top_key = torch.full((num_c,), -2 ** 63, dtype=torch.int64).scatter_reduce(
+        0, best[bidding], key[bidding], reduce="amax")
+    hi = torch.div(top_key, 2 ** 32, rounding_mode="floor") + 2 ** 31
+    has_bid = (top_key > -2 ** 63) & (hi > NEG_INF_BITS) & (hi != NAN_BITS)
+    winner = 0xFFFFFFFF - (top_key - (hi - 2 ** 31) * 2 ** 32)
+    return best, v2, winner, has_bid, bidding
+
+
+def _round_state(name, rng):
+    """(iou (T, D), alive, dvalid, prices, assigned, eps): adversarial
+    states of the association's auction."""
+    num_t, num_d = (6, 5) if name != "wide" else (40, 33)
+    pal = np.float32([np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5, 0.5, 1.0,
+                      -2e9, 3e-8])
+    iou = pal[rng.randint(0, len(pal), (num_t, num_d))]
+    alive = rng.rand(num_t) < 0.6
+    dvalid = rng.rand(num_d) < 0.85
+    prices = np.zeros(num_t + num_d, np.float32)
+    eps = 0.01
+    if name == "floor":
+        # dummies priced above 1e9, dead tracks above 0, live tracks
+        # scored below -1e9: a bidder's runner-up is under -1e9
+        iou[:] = -2e9
+        iou[0] = 0.25
+        alive[:] = False
+        alive[0] = True
+        prices[1:num_t] = 1e3          # -1e9 - 1e3 < -1e9 in float32
+        prices[num_t:] = 4e9
+        dvalid[:] = True
+    elif name == "signed zeros":
+        iou = pal[rng.randint(3, 5, (num_t, num_d))]
+        eps = -0.0
+    elif name == "ties":
+        iou = pal[rng.choice([5, 6, 3], (num_t, num_d))]
+        eps = 0.0
+    elif name == "prices":
+        prices = pal[rng.randint(1, len(pal), num_t + num_d)] * 0.5
+        prices[np.isinf(prices)] = 1e10
+    assigned = np.full(num_d, -1, np.int64)
+    taken = rng.permutation(num_t + num_d)[:num_d]
+    own = rng.rand(num_d) < 0.3
+    assigned[own] = taken[own]
+    return iou, alive, dvalid, prices, assigned, eps
+
+
+@pytest.mark.parametrize("name", ["random", "wide", "floor", "signed zeros",
+                                  "ties", "prices"])
+def test_kernel_round_model_equals_the_plain_round(name):
+    """The CPU evidence for K5's bit-equality: its round, modelled in
+    torch as the kernel computes it, gives auction_round_plain's best
+    column and second best for every bidder that bids, and its winner and
+    ``has_bid`` for every column, round after round (20 rounds from the
+    plain version's own states)."""
+    rng = np.random.RandomState(zlib.crc32(name.encode()))
+    iou, alive, dvalid, prices, assigned, eps = (
+        torch.from_numpy(np.asarray(a)) if not isinstance(a, float) else a
+        for a in _round_state(name, rng))
+    w = tsort.auction_values_plain(iou, alive, dvalid)
+    floor_seen = nan_bids = zero_bids = 0
+    for r in range(20):
+        best, v2, winner, has_bid, bidding = _kernel_round(
+            w, prices, assigned, dvalid, alive, eps)
+        nxt = tsort.auction_round_plain(w, prices, assigned, dvalid, eps)
+        p_best, p_v2, p_winner, p_has = nxt[2:]
+        assert torch.equal(best[bidding], p_best[bidding]), (name, r)
+        torch.testing.assert_close(v2[bidding], p_v2[bidding], rtol=0,
+                                   atol=0, equal_nan=True)
+        assert torch.equal(has_bid, p_has), (name, r)
+        assert torch.equal(winner[has_bid], p_winner[has_bid]), (name, r)
+        incr = (w - prices).max(dim=-1).values - p_v2 + eps
+        floor_seen += int((bidding & (p_v2 == -1e9)).sum())
+        nan_bids += int((bidding & torch.isnan(incr)).sum())
+        zero_bids += int((bidding & (incr == 0)).sum())
+        prices, assigned = nxt[:2]
+    if name == "floor":
+        assert floor_seen > 0
+    if name == "random":
+        assert nan_bids > 0
+    if name in ("signed zeros", "ties"):
+        assert zero_bids > 0
+
+
+def test_bid_keys_order_as_the_plain_column_decision():
+    """The 64-bit key of every pair of bids, NaN, ±inf, ±0 and numbers
+    among them, orders as the plain version's ``max`` / ``argmax`` over
+    the bidders of one column: NaN above all, then larger, then the lower
+    bidder; ±0 one bid."""
+    bids = torch.tensor([float("nan"), float("inf"), 1.0, 0.0, -0.0, -1.0,
+                         float("-inf")], dtype=torch.float32)
+    for i in range(len(bids)):
+        for j in range(len(bids)):
+            pair = torch.stack([bids[i], bids[j]])
+            key = (_key_bits(pair) - 2 ** 31) * 2 ** 32 \
+                + (0xFFFFFFFF - torch.arange(2))
+            top = pair.max()
+            first = int(pair.argmax())
+            assert int(key.argmax()) == first, (float(pair[0]),
+                                                float(pair[1]))
+            hi = int(_key_bits(pair[first:first + 1])[0])
+            assert (hi > NEG_INF_BITS and hi != NAN_BITS) \
+                == bool(top > float("-inf"))
 
 
 # ---------------------------------------------------------------------------
