@@ -44,7 +44,16 @@ Phases, in order; any failure exits non-zero:
      eager calls and as 50 launches in one CUDA graph, warm and with L2
      flushed, beside an empty kernel's launch in a graph (the card's
      launch floor); their bound's operations counted from the rounds and
-     live cells these inputs take;
+     live cells these inputs take; then K7 ``deform_sample`` against
+     ``deform_sample_plain`` (DEFORM_RTOL / DEFORM_ATOL, NaN where the
+     plain version's are, bit-equality reported) on RT-DETR-L's own
+     decoder inputs at 640 x 8 (every layer, 100 and 300 queries, bf16
+     and f32 values), random 8 x 100 / 300 inputs (f32, f32 as bf16,
+     bf16 storage), non-square levels, points on and just outside the
+     edges and a NaN location; timed four ways at the main path's layer
+     beside the plain version (both gather formulations), the
+     ``grid_sample`` composition (the library column: a composition, not
+     one call) and its bound from the value rows the call touches;
   4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
      CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
      PipelineEngine.process_batch: one batch in float32 with TF32 off
@@ -71,7 +80,13 @@ Phases, in order; any failure exits non-zero:
      graph (device-resident, in turns), the device's idle share by
      torch.profiler, the fleet at 1080p x 8 a stream for S = 1, 2, 4, 8
      eager and graph, and multi_stream.yaml's fleet replayed with no host
-     read;
+     read; ``[graph] rtdetr``: RT-DETR-L at 640 behind the chain at
+     1080p x 8, an eager batch under ``set_sync_debug_mode("error")``,
+     replayed batches against eager ones with exact launch counts (K7
+     six a batch), frames/s eager and replayed, idle share and launches
+     a batch, the forward eager by stage and replayed; ``[graph]
+     rtdetr_demo``: configs/rtdetr_demo.yaml as shipped replayed against
+     eager (processed frames too; K3 twice a batch);
   5. drive the serving surface at 1080p x batch 8 with the default chain,
      each path with the launch counters set to 0 just before and read
      just after (on every path K1-K3 once a step, K6 once a step that
@@ -221,7 +236,8 @@ tracker backends, the fleet, the bench lines) and summed into the
 ``kernels`` line everywhere.
 
 Options: ``--kernels-only`` stops after phase 3; ``--graph-only`` runs
-phase 3 and ``[graph]``; ``--train-only`` runs
+phase 3 and the ``[graph]`` phases; ``--rtdetr-only`` runs K7's checks
+and ``[graph] rtdetr`` / ``rtdetr_demo`` alone; ``--train-only`` runs
 only phase 7c (training); ``--parallel-only`` only phase 7d;
 ``--tools-only`` only phase 7e; ``--fleet-cards`` runs
 only the fleet on every visible card against the same fleet on one
@@ -713,12 +729,16 @@ def second_paths(model: str, batches, card: str) -> dict:
 # every path's launches, read just after the path (launches made only to
 # compare a kernel with its plain version are not counted)
 PATH_TOTALS = {"clahe_tile_luts": 0, "clahe_apply": 0, "median_k": 0,
-               "assoc_greedy": 0, "assoc_auction": 0, "nms_keep": 0}
+               "assoc_greedy": 0, "assoc_auction": 0, "nms_keep": 0,
+               "deform_sample": 0}
 # the preprocess kernels (K1-K3), held to one launch a batch on every
-# path, and the tail's loops (K4-K6: NMS, then the association of every
-# tracked frame), held to what each path runs
+# path, and the rest, held to what each path runs: the tail's loops
+# (K4-K6: NMS, then the association of every tracked frame) and
+# RT-DETR's deformable sampling (K7, once a decoder layer of a serving
+# forward)
 PRE_KERNELS = ("clahe_tile_luts", "clahe_apply", "median_k")
-TAIL_KERNELS = ("nms_keep", "assoc_greedy", "assoc_auction")
+TAIL_KERNELS = ("nms_keep", "assoc_greedy", "assoc_auction", "deform_sample")
+RTDETR_LAYERS = 6                  # K7 launches a serving RT-DETR-L forward
 
 
 def warm(captures: int) -> int:
@@ -730,21 +750,23 @@ def warm(captures: int) -> int:
 
 
 def tail_want(batches: int, frames: int, per_frame: int = 1,
-              assoc: str = "assoc_greedy") -> dict:
-    """K4-K6 launches of ``batches`` detector batches whose tracker steps
+              assoc: str = "assoc_greedy", deform: int = 0) -> dict:
+    """K4-K7 launches of ``batches`` detector batches whose tracker steps
     ``frames`` frames (a fleet's stacked step: frames of one stream),
-    ``per_frame`` association launches a frame."""
+    ``per_frame`` association launches a frame, and ``deform`` K7
+    launches in all."""
     return {"nms_keep": batches, "assoc_greedy": 0, "assoc_auction": 0,
-            assoc: frames * per_frame}
+            "deform_sample": deform, assoc: frames * per_frame}
 
 
 def tracked(frames: int = BATCH, per_frame: int = 1,
-            assoc: str = "assoc_greedy", nms: bool = True):
-    """The tail of a path each of whose steps runs NMS (where ``nms``)
-    and then the tracker over ``frames`` frames: → K4-K6 of ``n``
-    steps."""
+            assoc: str = "assoc_greedy", nms: bool = True,
+            deform: int = 0):
+    """The tail of a path each of whose steps runs NMS (where ``nms``),
+    ``deform`` K7 launches (RT-DETR: RTDETR_LAYERS) and then the tracker
+    over ``frames`` frames: → K4-K7 of ``n`` steps."""
     return lambda n: tail_want(n if nms else 0, n * frames, per_frame,
-                               assoc)
+                               assoc, n * deform)
 
 
 NO_TAIL = {k: 0 for k in TAIL_KERNELS}
@@ -789,7 +811,7 @@ class PathLaunches:
 
     def check(self, batches: int, tail, at_least: bool = False) -> dict:
         """``batches`` steps (at least, with ``at_least``), warm-ups of
-        captures included; ``tail``: K4-K6 as a dict, or as a function of
+        captures included; ``tail``: K4-K7 as a dict, or as a function of
         the steps counted."""
         from roadvision_tpu_torch import kernels
         counts = dict(kernels.launch_counts)
@@ -1710,9 +1732,15 @@ def detector_phase(batches, card: str, tmp: Path) -> dict:
         gpu = PipelineEngine(cfg32, device="cuda")
         cpu = PipelineEngine(cfg32, device="cpu")
         nms = not getattr(gpu.detector, "nms_free", False)
+        # RT-DETR: K7 once a decoder layer a forward, and int8's
+        # calibration forward on the first batch
+        deform = 0 if nms else RTDETR_LAYERS
+        calib = deform if int8 and over.get("int8_calibration") else 0
         with PathLaunches(f"[detector] {name}") as pl:
             r_gpu = gpu.process_batch(frames, ts)
-            pl.check(1 + warm(gpu.step_mode == "graph"), tracked(nms=nms))
+            pl.check(1 + warm(gpu.step_mode == "graph"), lambda n: {
+                **tracked(nms=nms, deform=deform)(n),
+                "deform_sample": n * deform + calib})
         r_cpu = cpu.process_batch(frames[:n_cpu], ts[:n_cpu])
         worst = compare_task_results(r_cpu, r_gpu[:n_cpu], name)
         n_dets = sum(len(r.detections) for r in r_cpu)
@@ -1736,7 +1764,8 @@ def detector_phase(batches, card: str, tmp: Path) -> dict:
 
         with PathLaunches(f"[detector] {name} timed") as pl:
             fps = windows_fps(window, DET_WINDOWS, torch.device("cuda"))
-            counts = pl.check(DET_ITERS * DET_WINDOWS, tracked(nms=nms))
+            counts = pl.check(DET_ITERS * DET_WINDOWS,
+                              tracked(nms=nms, deform=deform))
         runs = [stage_ms(timed_eng, *batches[1]) for _ in range(DET_WINDOWS)]
         stages = {k: {"median": float(np.median([r[k] for r in runs])),
                       "min": min(r[k] for r in runs),
@@ -1881,17 +1910,20 @@ def export_phase(batches, tmp: Path, card: str) -> dict:
     return {"detections_last_batch": n}
 
 
-def gated_counts(what: str, batches: int, nms: bool = True) -> dict:
-    """The kernels' launch counts after a gated path with the impulse
-    statistic (eager): K1 and K2 once per batch, K3 twice (the
-    statistic's median on the gray subsample, then the chain); NMS once
-    a batch (``nms``: not for RT-DETR) and SORT's association once a
-    frame."""
+def gated_counts(what: str, batches: int, nms: bool = True,
+                 deform: int = 0) -> dict:
+    """The kernels' launch counts after ``batches`` steps of a gated path
+    with the impulse statistic (a capture's warm-up calls included): K1
+    and K2 once per step, K3 twice (the statistic's median on the gray
+    subsample, then the chain); NMS once a step (``nms``: not for
+    RT-DETR), ``deform`` K7 launches a step (RT-DETR) and SORT's
+    association once a frame."""
     from roadvision_tpu_torch import kernels
     counts = dict(kernels.launch_counts)
     want = {"clahe_tile_luts": batches, "clahe_apply": batches,
             "median_k": 2 * batches,
-            **tail_want(batches * nms, batches * BATCH)}
+            **tail_want(batches * nms, batches * BATCH,
+                        deform=batches * deform)}
     if counts != want or batches < 1:
         launch_mismatch(f"{what}: launches {counts}, expected {want}")
     return add_to_totals(counts)
@@ -1930,7 +1962,8 @@ def weather_phase(card: str) -> dict:
     synth_ms = (time.perf_counter() - t0) * 1e3 / 2
     kernels.reset_launch_counts()
     got = list(gpu.stream(vs, max_frames=2 * BATCH))
-    counts = gated_counts("[weather] stream", 2)
+    # the gated step is captured at the first batch
+    counts = gated_counts("[weather] stream", 2 + warm(1))
     if len(got) != 2 * BATCH:
         fail(f"[weather]: stream gave {len(got)} frames")
     if not all(np.array_equal(got[i].raw, fog_frames[i]) for i in range(2)):
@@ -2001,8 +2034,12 @@ def entry_demo(name: str, tmp: Path) -> dict:
     rc = preview.main(["--config", str(cfg_path), "--max-frames", str(n),
                        "--no-show", "--record", str(avi)])
     elapsed = time.perf_counter() - t0
-    nms = "rtdetr" not in Path(load_config(str(cfg_path))["detect"]["model"]).name
-    counts = gated_counts(f"[entry] {name}", n // BATCH, nms)
+    rtdetr = "rtdetr" in Path(load_config(str(cfg_path))["detect"]
+                              ["model"]).name
+    # one graph captured (its warm-up calls count); RT-DETR: no NMS, K7
+    # once a decoder layer
+    counts = gated_counts(f"[entry] {name}", n // BATCH + warm(1),
+                          not rtdetr, RTDETR_LAYERS * rtdetr)
     if rc != 0:
         fail(f"[entry] {name}: main returned {rc}")
     check_avi(avi, n, (2 * cam["width"] + 4, cam["height"]))
@@ -3241,11 +3278,15 @@ def forward_paths(devices, label: str) -> dict:
                    plain_rt, x_rt, (PAR_RT_BOX_ATOL, PAR_RT_SCORE_ATOL)),
     }
     stages = sorted({2, min(4, len(devices))})
+    deform = 0                      # K7 launches of the RT-DETR forwards
     with torch.inference_mode():
         for kind, (make, plain, x, tol) in kinds.items():
+            is_rt = kind == "rtdetr"
             want = plain(torch.float32)(x)
             plain16 = plain(bf)
             row = {"plain_bf16_ms": call_ms(lambda: plain16(x))}
+            # the float32 forward, then call_ms's warm and timed calls
+            deform += is_rt * RTDETR_LAYERS * (2 + PAR_TIMED)
             for n in stages:
                 err = _out_err(make(n, torch.float32)(x), want)
                 if err[0] > tol[0] or err[1] > tol[1] \
@@ -3253,6 +3294,10 @@ def forward_paths(devices, label: str) -> dict:
                     fail(f"[parallel] {label} {kind} pipeline, {n} stages: "
                          f"max |Δ| boxes {err[0]}, scores {err[1]}")
                 pipe = make(n, bf)
+                # a decoder a microbatch: the float32 call, call_ms's and
+                # count_syncs' calls
+                micro = x.shape[0] // pipe._pick_microbatch(x.shape[0])
+                deform += is_rt * RTDETR_LAYERS * micro * (3 + PAR_TIMED)
                 row[n] = {"max_err": err, "groups": [list(g) for g in
                                                      pipe.groups],
                           "bf16_ms": call_ms(lambda: pipe(x)),
@@ -3288,6 +3333,7 @@ def forward_paths(devices, label: str) -> dict:
                      f"{len(bands.parts)} bands")
             edges[f"{h}x{w}"] = {"bands": len(bands.parts),
                                  "max_err": eerr}
+        out["deform_launches"] = deform
         run16 = make_spatial_forward("n", 80, mesh, dtype=bf)
         plain16 = v8_detect_model(v8, "n", 80, bf).to(home)
         out["spatial"] = {
@@ -3427,6 +3473,11 @@ def parallel_phase(card: str) -> dict:
     want = tail_want(groups * (1 + warm(1) + 2),
                      groups * frames * (1 + warm(1) + 3))
     want["assoc_auction"] = 1 + 2 * mesh.shape["data"]
+    # K7: the serving forwards (training's sampling is the plain version,
+    # K7 has no backward): forward_paths', then the dry run's 4-stage
+    # RT-DETR pipeline over a batch of 2 (two microbatches) and its plain
+    # forward
+    want["deform_sample"] = out["deform_launches"] + RTDETR_LAYERS * (2 + 1)
     counts = exact_launches("[parallel]", want)
     out["launches"] = counts
     print(f"[parallel] dryrun_multicard([cuda:0] x 8) passed; kernels "
@@ -3855,13 +3906,14 @@ def eval_weather_phase(out_dir: Path, card: str) -> dict:
         rc, text = run_main(ew.main, ["--out",
                                       str(out_dir / "eval_weather.json")])
         elapsed = time.perf_counter() - t0
-        # a fresh engine a (level, mode): off and on capture their
-        # graphs, auto (the gate) runs eagerly
-        k = levels * (gated_modes * n_batches + warm(1))
-        steps = levels * (3 * n_batches + warm(2))
+        # a fresh engine a (level, mode): off, on and auto (the gate)
+        # each capture their graph
+        k = levels * (gated_modes * n_batches + warm(gated_modes))
+        steps = levels * (3 * n_batches + warm(3))
         counts = exact_launches("[eval] weather", {
             "clahe_tile_luts": k, "clahe_apply": k,
-            "median_k": k + levels * n_batches,    # auto: impulse stat
+            # auto: the impulse statistic's median too
+            "median_k": k + levels * (n_batches + warm(1)),
             **tail_want(steps, steps * 8)})
     report = json.loads(text)
     if rc != 0 or len(report["levels"]) != levels:
@@ -4063,10 +4115,19 @@ def profile_phases(out_dir: Path, card: str) -> dict:
     out = {}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
+    inner, iters = 8, 2
     out["rtdetr"] = profile_rtdetr.run(Namespace(
-        res=720, batch=BATCH, imgsz=640, dtype="bfloat16", inner=8, iters=2,
-        weights="rtdetr-l.pt", device="cuda"))
-    out["rtdetr"]["launches"] = exact_launches("[profile] rtdetr", {})
+        res=720, batch=BATCH, imgsz=640, dtype="bfloat16", inner=inner,
+        iters=iters, weights="rtdetr-l.pt", device="cuda"))
+    # K7: each timing runs iters x (inner warm + inner timed) calls, each
+    # stage one more for its FLOPs: one layer's attention (1 launch a
+    # call), the decoder and the full forward (RTDETR_LAYERS); then the
+    # decoder on the K7 route (timed, and one profiled call) and one
+    # layer's sampling alone on it; the plain routes launch none
+    timed = iters * 2 * inner
+    out["rtdetr"]["launches"] = exact_launches("[profile] rtdetr", {
+        "deform_sample": (timed + 1) * (1 + 2 * RTDETR_LAYERS)
+        + (timed + 1) * RTDETR_LAYERS + timed})
     out["rtdetr"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
@@ -5211,6 +5272,511 @@ def graph_phase(model: str, card: str) -> dict:
             "multi_stream_syncs": multi_syncs, "torch_iou_calls": iou_calls}
 
 
+# ----------------------------------------------------------------------
+# K7 deform_sample and the RT-DETR-L step replayed from a CUDA graph
+
+RTDETR_NPZ = "rtdetr_l_synthetic_256.npz"
+DEFORM_RTOL, DEFORM_ATOL = 1e-5, 1e-5   # f32 sums of O(1) values
+# scalar operations, as K7 computes them: per channel and point the four
+# corner products and sums and the point's weighting (10); per point its
+# location, corner weights, bounds and rows (~40); per logit the softmax
+# (max, subtract, exp, sum, divide: ~8 with the butterflies)
+DEFORM_OPS_PER_CHANNEL_POINT = 10
+DEFORM_OPS_PER_POINT = 40
+DEFORM_OPS_PER_LOGIT = 8
+RT_GRAPH_BATCHES = 8               # replayed RT-DETR batches held to eager
+RT_FPS_BATCHES = 8                 # batches a timed window
+
+
+def rtdetr_model_path() -> str:
+    return str(Path(__file__).resolve().parent / "assets" / RTDETR_NPZ)
+
+
+def decoder_inputs(nq: int, frames: np.ndarray) -> list:
+    """The deformable sampling's inputs as RT-DETR-L's decoder makes them
+    (the asset at 640, bf16 convs, ``nq`` queries) on ``frames``: one
+    (off, logits, refer, values, shapes) a decoder layer, recorded on
+    their way into ``ops/deform.py::deform_sample`` (the decoder's
+    ``sample``)."""
+    import torch
+    from roadvision_tpu_torch.detect.rtdetr_torch import RTDETRTorch
+    from roadvision_tpu_torch.ops.deform import deform_sample
+    det = RTDETRTorch({"model": rtdetr_model_path(), "imgsz": 640,
+                       "num_queries": nq, "max_det": 100}, device="cuda")
+    m = det.model
+    seen = []
+
+    def record(off, logits, refer, values, shapes, **kw):
+        seen.append((off.clone(), logits.clone(), refer.clone(),
+                     values.clone(), list(shapes)))
+        return deform_sample(off, logits, refer, values, shapes, **kw)
+    with torch.inference_mode():
+        imgs = det.letterbox(torch.from_numpy(frames).cuda())[0]
+        m.dec(m.features(imgs), det.num_queries, det.decoder_layers,
+              sample=record)
+    return seen
+
+
+def deform_cases(rng, shapes, nq: int, edges: bool = False):
+    """Decoder-like K7 inputs on the card: offsets of a few points,
+    logits, boxes in (0.05, 0.95), values. ``edges``: boxes (0.5, 0.5, 1,
+    1) and offsets that put points on and just outside the map edges, and
+    one NaN location."""
+    import torch
+    from roadvision_tpu_torch.models import rtdetr as T
+    rows = sum(h * w for h, w in shapes)
+    off = rng.randn(BATCH, nq, T.NH, T.NL, T.NDP, 2) * 3
+    if edges:
+        for lvl, (hl, wl) in enumerate(shapes):
+            locs = np.array([0.0, 0.5 / wl, (wl - 0.5) / wl, 1.0,
+                             -0.5 / wl, 1.0 + 0.5 / wl, -0.25, 1.25])
+            off[:, :, :, lvl] = (rng.choice(locs, off[:, :, :, lvl].shape)
+                                 - 0.5) * 8.0
+        off[0, 1, 2, 0, 1, 0] = np.nan
+    refer = np.full((BATCH, nq, 4), 0.5) if edges else \
+        rng.uniform(0.05, 0.95, (BATCH, nq, 4))
+    if edges:
+        refer[..., 2:] = 1.0
+    arrays = (off, rng.randn(BATCH, nq, T.NH, T.NL * T.NDP), refer,
+              rng.randn(BATCH, rows, T.NH, T.HD // T.NH))
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays] \
+        + [list(shapes)]
+
+
+def deform_rows_touched(off, refer, values, shapes) -> int:
+    """Distinct value rows (batch, map row, head) the corners of these
+    inputs read, each clamped into its level as K7 reads it."""
+    import torch
+    b, nq, nh, nl, ndp, _ = off.shape
+    loc = refer[:, :, None, None, None, :2] \
+        + off / ndp * refer[:, :, None, None, None, 2:] * 0.5
+    keys, start = [], 0
+    bi = torch.arange(b, device=off.device).view(b, 1, 1, 1)
+    hi = torch.arange(nh, device=off.device).view(1, 1, nh, 1)
+    rows = values.shape[1]
+    for lvl, (hl, wl) in enumerate(shapes):
+        x0 = torch.floor(loc[:, :, :, lvl, :, 0] * wl - 0.5)
+        y0 = torch.floor(loc[:, :, :, lvl, :, 1] * hl - 0.5)
+        for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            r = ((y0 + dy).clamp(0, hl - 1) * wl
+                 + (x0 + dx).clamp(0, wl - 1)).nan_to_num(0.0).long()
+            keys.append(((bi * rows + start + r) * nh + hi).reshape(-1))
+        start += hl * wl
+    return int(torch.unique(torch.cat(keys)).numel())
+
+
+def deform_bound(off, logits, refer, values, shapes) -> dict:
+    """K7's bound on these inputs: offsets, logits and boxes read once,
+    the output written once and the value rows its corners touch read
+    once (in the values' dtype; f32 rows are read whole when K7 rounds
+    them to bf16), against its scalar operations."""
+    b, nq, nh, nl, ndp, _ = off.shape
+    dh = values.shape[-1]
+    rows = deform_rows_touched(off, refer, values, shapes)
+    nbytes = 4 * (off.numel() + logits.numel() + refer.numel()
+                  + b * nq * nh * dh) + rows * dh * values.element_size()
+    warps = b * nq * nh
+    nops = warps * (nl * ndp * (dh * DEFORM_OPS_PER_CHANNEL_POINT
+                                + DEFORM_OPS_PER_POINT
+                                + DEFORM_OPS_PER_LOGIT))
+    return {**bound(nbytes, nops), "rows_touched": rows,
+            "bytes": nbytes, "ops": nops}
+
+
+def grid_sample_composition(off, logits, refer, values, shapes):
+    """The same function by PyTorch calls (the MSDeformAttn reference
+    composition): the softmax, the locations, three ``F.grid_sample``
+    calls (bilinear, zeros, ``align_corners=False``) and the
+    attention-weighted sum. A yardstick, never the port's route."""
+    import torch
+    import torch.nn.functional as F
+    b, nq, nh, nl, ndp, _ = off.shape
+    dh = values.shape[-1]
+    attw = logits.softmax(dim=-1).view(b, nq, nh, nl, ndp)
+    loc = refer[:, :, None, None, None, :2] \
+        + off / ndp * refer[:, :, None, None, None, 2:] * 0.5
+    grids = 2.0 * loc - 1.0
+    out = torch.zeros((b * nh, dh, nq), device=off.device)
+    start = 0
+    for lvl, (hl, wl) in enumerate(shapes):
+        v = values[:, start:start + hl * wl].float().permute(0, 2, 3, 1) \
+            .reshape(b * nh, dh, hl, wl)
+        g = grids[:, :, :, lvl].permute(0, 2, 1, 3, 4) \
+            .reshape(b * nh, nq, ndp, 2)
+        s = F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                          align_corners=False)           # (B·NH, dh, NQ, P)
+        a = attw[:, :, :, lvl].permute(0, 2, 1, 3).reshape(b * nh, 1, nq,
+                                                           ndp)
+        out = out + (s * a).sum(dim=-1)
+        start += hl * wl
+    return out.view(b, nh, dh, nq).permute(0, 3, 1, 2)
+
+
+def k7_compare(got, want, what: str) -> dict:
+    """K7 against its plain version: NaN where it is NaN, the rest within
+    DEFORM_RTOL / DEFORM_ATOL; bit-equal or the largest difference."""
+    import torch
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        fail(f"[kernels] deform_sample {what}: NaN at other places than "
+             f"the plain version's")
+    err = float((got[~nan] - want[~nan]).abs().max()) if (~nan).any() \
+        else 0.0
+    if not torch.allclose(got[~nan], want[~nan], rtol=DEFORM_RTOL,
+                          atol=DEFORM_ATOL):
+        fail(f"[kernels] deform_sample {what}: max |K7 - plain| {err:.3e} "
+             f"over rtol {DEFORM_RTOL}, atol {DEFORM_ATOL}")
+    bits = torch.equal(torch.where(nan, 0.0, got).view(torch.int32),
+                       torch.where(nan, 0.0, want).view(torch.int32))
+    return {"max_abs_err": err, "bit_equal": bool(bits),
+            "nan": int(nan.sum())}
+
+
+def check_deform_kernel(frames: np.ndarray) -> dict:
+    """``[kernels]`` K7 ``deform_sample`` against ``deform_sample_plain``
+    on the card: the decoder's own inputs (RT-DETR-L at 640 on a road
+    batch, every layer, 100 and 300 queries) with f32 values rounded to
+    bf16 (the serving default) and kept f32; random decoder-like inputs
+    at 8 × 100 and 8 × 300 (levels 80², 40², 20²) in f32, f32 as bf16 and
+    bf16 storage; non-square levels; points on and just outside the
+    edges and a NaN location. Timed on layer 0's inputs at 100 queries
+    four ways (:func:`kernel_times`) beside the plain version, the
+    ``grid_sample`` composition and the bound."""
+    import torch
+    from roadvision_tpu_torch.ops import deform as D
+    rng = np.random.RandomState(15)
+    square = [(80, 80), (40, 40), (20, 20)]
+    cases = {}
+    with torch.inference_mode():
+        layers = {nq: decoder_inputs(nq, frames) for nq in (100, 300)}
+        for nq, seen in layers.items():
+            for i, args in enumerate(seen):
+                for bf16 in (True, False):
+                    cases[f"decoder {nq} layer {i}"
+                          f"{' bf16' if bf16 else ' f32'}"] = (args, bf16)
+        for nq in (100, 300):
+            args = deform_cases(rng, square, nq)
+            cases[f"random 8x{nq} f32"] = (args, False)
+            cases[f"random 8x{nq} f32 as bf16"] = (args, True)
+            cases[f"random 8x{nq} bf16"] = (
+                args[:3] + [args[3].to(torch.bfloat16), args[4]], False)
+        cases["ragged 8x100 as bf16"] = (deform_cases(
+            rng, [(48, 80), (24, 40), (12, 20)], 100), True)
+        cases["edges 8x100 f32"] = (deform_cases(rng, square, 100, True),
+                                    False)
+        cases["edges 8x300 as bf16"] = (deform_cases(rng, square, 300, True),
+                                        True)
+        results = {}
+        for name, (args, bf16) in cases.items():
+            got = D.deform_sample(*args, bf16_vals=bf16)
+            want = D.deform_sample_plain(*args, bf16_vals=bf16)
+            torch.cuda.synchronize()
+            results[name] = k7_compare(got, want, name)
+        if results["edges 8x100 f32"]["nan"] != 32:
+            fail("[kernels] deform_sample: the NaN location gave "
+                 f"{results['edges 8x100 f32']['nan']} NaN outputs, not 32")
+        main = layers[100][0]
+        row = kernel_times(lambda: D.deform_sample(*main, bf16_vals=True),
+                           lambda: D.deform_sample_plain(*main,
+                                                         bf16_vals=True))
+        row["library_ms"] = cuda_ms(lambda: grid_sample_composition(*main),
+                                    5, 1)
+        lib = grid_sample_composition(*main)
+        plain32 = D.deform_sample_plain(*main, bf16_vals=False)
+        row["library_max_abs_err_f32"] = float((lib - plain32).abs().max())
+        row["paired_plain_ms"] = cuda_ms(
+            lambda: D.deform_sample_plain(*main, bf16_vals=True, paired=True),
+            5, 1)
+        row["ms_300"] = cuda_ms(lambda: D.deform_sample(
+            *layers[300][0], bf16_vals=True), 50)
+        row.update(deform_bound(*main))
+        row["bound_300"] = deform_bound(*layers[300][0])
+    floor = graph_ms(empty_kernel())["graph_ms"]
+    errs = [r["max_abs_err"] for r in results.values()]
+    row.update(max_abs_err=max(errs), launch_floor_ms=floor,
+               bit_equal=all(r["bit_equal"] for r in results.values()),
+               cases=results, launches_per_forward=RTDETR_LAYERS,
+               library="three F.grid_sample calls + the attention-weighted "
+                       "sum (a composition, not one call)",
+               fleet={})
+    n_bits = sum(r["bit_equal"] for r in results.values())
+    print(f"[kernels] deform_sample: {len(results)} cases against the plain "
+          f"version (decoder inputs of RT-DETR-L at 640 x 8, 100 and 300 "
+          f"queries, every layer, bf16 and f32 values; random 8 x 100 / 300 "
+          f"in f32, f32 as bf16, bf16; non-square levels; edges and a NaN "
+          f"location): {n_bits} bit-equal, max |K7 - plain| "
+          f"{row['max_abs_err']:.3e} (rtol {DEFORM_RTOL}, atol "
+          f"{DEFORM_ATOL}), NaN where the plain version's are", flush=True)
+    print(f"[kernels] deform_sample, layer 0 of RT-DETR-L at 640 x 8, 100 "
+          f"queries, bf16 values: {fmt_times(row)} (12-gather plain; 3-gather "
+          f"plain {row['paired_plain_ms']:.4f} ms); 300 queries "
+          f"{row['ms_300']:.4f} ms warm; grid_sample composition "
+          f"{row['library_ms']:.4f} ms (max |Δ| "
+          f"{row['library_max_abs_err_f32']:.2e} against f32 plain); bound "
+          f"{row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}: {row['bytes'] / 1e6:.2f} MB, "
+          f"{row['rows_touched']} value rows touched); launch floor "
+          f"{floor:.4f} ms; {RTDETR_LAYERS} launches a forward", flush=True)
+    return {"deform_sample": row}
+
+
+def rtdetr_forward_ms(eng, frames) -> dict:
+    """RT-DETR-L's forward on one stretched batch: eager by stage
+    (:func:`rtdetr_stage_ms`'s backbone, encoder, decoder, host clock,
+    synchronised), the decoder's kernel launches a call by torch.profiler
+    and the whole forward and the decoder each captured in a CUDA graph
+    and replayed (CUDA events, 10 replays)."""
+    import torch
+    from roadvision_tpu_torch.runtime.graph import CapturedStep
+    from roadvision_tpu_torch.tools.profile_rtdetr import launches_of
+    det = eng.detector
+    m = det.model
+    x = torch.from_numpy(frames).to(eng.device)
+    out = {"eager": rtdetr_stage_ms(eng, frames, "rtdetr", card_line())}
+    with torch.inference_mode():
+        imgs = det.letterbox(eng.pipeline.apply_batch(x))[0]
+        feats = m.enc(*m.backbone(imgs.permute(0, 3, 1, 2)
+                                  .to(m.compute_dtype)))
+
+        def dec():
+            return m.dec(feats, det.num_queries, det.decoder_layers)
+
+        def fwd(_, a):
+            return m(a, det.num_queries, det.decoder_layers), None
+
+        out["decoder_launches"] = launches_of(dec, eng.device)[
+            "kernel_launches"]
+        graphs = {"forward": (CapturedStep(fwd, None, (imgs,)), (imgs,)),
+                  "decoder": (CapturedStep(lambda _, *f: (dec(), None),
+                                           None, tuple(feats)), tuple(feats))}
+    out["graph"] = {}
+    for name, (g, args) in graphs.items():
+        g(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            g(*args)
+        end.record()
+        end.synchronize()
+        out["graph"][name] = start.elapsed_time(end) / 10
+    return out
+
+
+def rtdetr_graph_phase(card: str) -> dict:
+    """``[graph] rtdetr``: RT-DETR-L (the asset, stretched to 640, bf16,
+    ``num_queries`` at its default) behind the main chain at 1080p x 8 on
+    frames rendered on the card, which must run ``step_mode == "graph"``.
+    One eager batch under ``torch.cuda.set_sync_debug_mode("error")`` (no
+    host read); RT_GRAPH_BATCHES replayed batches against as
+    many eager ones from the same state (ids, classes, counts exact,
+    boxes BOX_TOL, confidences CONF_TOL) with the same launch counts,
+    exact (K1-K3 once a batch, K4 once a frame, K7 RTDETR_LAYERS, no
+    K6); frames/s device-resident eager and replayed in turns; the
+    device's idle share and launches a batch by torch.profiler; the
+    forward eager by stage and replayed, the decoder's launches.
+    ``[graph] rtdetr_demo``: configs/rtdetr_demo.yaml as shipped (256² x
+    8, the impulse-keyed gate, classes_keep, SORT, homography) on road
+    frames, some with impulse noise: graph mode, replayed batches (their
+    processed frames too) against eager ones, K3 twice a batch."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.io_video import DeviceSyntheticSource
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.track import sort as tsort
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    cfg = merge(pipeline_cfg(rtdetr_model_path()),
+                {"detect": {"model": rtdetr_model_path(), "imgsz": 640}})
+    eng = PipelineEngine(cfg, device=GRAPH_DEVICE)
+    if eng.step_mode != "graph":
+        fail(f"[graph] rtdetr: runs {eng.step_mode} ({eng.eager_reason})")
+    render = DeviceSyntheticSource(WIDTH, HEIGHT, num_vehicles=6, seed=0,
+                                   device=eng.device).make_render_fn(BATCH)
+    steps = torch.arange(BATCH, device=eng.device,
+                         dtype=torch.float32) / 30.0
+    rendered = {}
+
+    def inputs(k):
+        if k not in rendered:
+            rendered[k] = render(k * BATCH)
+        return rendered[k], k * BATCH / 30.0 + steps
+
+    out = {"step_mode": eng.step_mode, "eager_reason": eng.eager_reason}
+    with torch.inference_mode():
+        eng.step(*inputs(0), want_proc=False)       # constants, cuDNN
+        probe = inputs(1)
+        out["eager_syncs"] = count_syncs(
+            lambda: eng.step(*probe, want_proc=False))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step(*probe, want_proc=False)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            fail(f"[graph] rtdetr: an eager step reads the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print(f"[graph] rtdetr: an eager batch makes {out['eager_syncs']} host "
+          f"syncs (torch.cuda.set_sync_debug_mode)", flush=True)
+    modes = (("graph", eng.step_batch), ("eager", eng.step))
+    eng.step_batch(*inputs(0), want_proc=False)       # the capture
+    runs, counts = {}, {}
+    per_batch = {"clahe_tile_luts": 1, "clahe_apply": 1, "median_k": 1,
+                 "nms_keep": 0, "assoc_greedy": BATCH, "assoc_auction": 0,
+                 "deform_sample": RTDETR_LAYERS}
+    for mode, fn in modes:
+        eng.reset()
+        kernels.reset_launch_counts()
+        tsort.reset_host_syncs()
+        runs[mode] = resident_run(eng, fn, inputs, 0, RT_GRAPH_BATCHES,
+                                  keep=True)
+        counts[mode] = add_to_totals(dict(kernels.launch_counts))
+        want = {k: RT_GRAPH_BATCHES * v for k, v in per_batch.items()}
+        if counts[mode] != want:
+            launch_mismatch(f"[graph] rtdetr {mode}: launches "
+                            f"{counts[mode]}, expected {want}")
+        if tsort.host_syncs:
+            fail(f"[graph] rtdetr {mode}: {tsort.host_syncs} flag reads")
+    worst = {"box": 0.0, "conf": 0.0, "n": 0}
+    for i, (g, e) in enumerate(zip(runs["graph"], runs["eager"])):
+        r = same_arrays(g, e, f"[graph] rtdetr batch {i} graph vs eager")
+        worst = {"box": max(worst["box"], r["box"]),
+                 "conf": max(worst["conf"], r["conf"]),
+                 "n": worst["n"] + r["n"]}
+    if worst["n"] < RT_GRAPH_BATCHES * BATCH:
+        fail(f"[graph] rtdetr: only {worst['n']} detections compared")
+    syncs = count_syncs(lambda: [eng.step_batch(*inputs(k),
+                                                want_proc=False)
+                                 for k in range(4)]) / 4
+    if syncs:
+        fail(f"[graph] rtdetr: {syncs} host syncs a replayed batch")
+    print(f"[graph] rtdetr step_mode graph: {RT_GRAPH_BATCHES} replayed "
+          f"1080p x {BATCH} bf16 batches (RT-DETR-L at 640, "
+          f"{eng.detector.num_queries} queries) equal "
+          f"{RT_GRAPH_BATCHES} eager ones from the same state "
+          f"({worst['n']} detections; ids, classes, counts exact; boxes "
+          f"{worst['box']:.2e} px, conf {worst['conf']:.2e}); launches a "
+          f"batch " + json.dumps({k: v / RT_GRAPH_BATCHES for k, v in
+                                  counts["graph"].items()})
+          + f" both ways; host syncs a replayed batch {syncs:g}",
+          flush=True)
+    out.update(launches=counts, worst=worst)
+    fps = {m: [] for m, _ in modes}
+    k = RT_GRAPH_BATCHES
+    for mode in ("eager", "graph", "graph", "eager"):
+        fn = eng.step if mode == "eager" else eng.step_batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident_run(eng, fn, inputs, k, RT_FPS_BATCHES)
+        torch.cuda.synchronize()
+        fps[mode].append(RT_FPS_BATCHES * BATCH
+                         / (time.perf_counter() - t0))
+        k += RT_FPS_BATCHES
+    idle = {m: idle_share(eng, f, inputs, k + 1 + i * 10)
+            for i, (m, f) in enumerate(modes)}
+    rendered.clear()
+    frames = render(k * BATCH + 50 * BATCH).cpu().numpy()
+    fwd = rtdetr_forward_ms(eng, frames)
+    med = {m: float(np.median(v)) for m, v in fps.items()}
+    for m, _ in modes:
+        print(f"[graph] rtdetr {m}: device-resident 1080p x {BATCH} "
+              f"frames/s {med[m]:.1f} {[round(v, 1) for v in fps[m]]}; "
+              f"profiler over {idle[m]['batches']} batches: device busy "
+              f"{idle[m]['device_busy_ms']:.2f} ms of {idle[m]['wall_ms']:.2f}"
+              f" ms wall, idle share "
+              + ("not measured" if idle[m]["idle_share"] is None else
+                 f"{idle[m]['idle_share']:.3f}")
+              + f", {idle[m]['kernel_launches'] / idle[m]['batches']:.0f} "
+              f"kernel launches a batch ({card})", flush=True)
+    print(f"[graph] rtdetr forward (8 x 640², bf16): eager "
+          + json.dumps({s: round(v["median"], 3)
+                        for s, v in fwd["eager"].items()})
+          + f" ms (median of 5); replayed forward "
+          f"{fwd['graph']['forward']:.3f} ms, decoder "
+          f"{fwd['graph']['decoder']:.3f} ms; decoder launches a call "
+          f"{fwd['decoder_launches']} ({card})", flush=True)
+    out.update(fps=fps, fps_median=med, idle=idle, forward=fwd,
+               demo=rtdetr_demo_graph(card))
+    out["seconds"] = time.perf_counter() - t_phase
+    del eng
+    return out
+
+
+def rtdetr_demo_graph(card: str) -> dict:
+    """``[graph] rtdetr_demo``: configs/rtdetr_demo.yaml as shipped."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.config import load_config
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    root = Path(__file__).resolve().parent
+    cfg = load_config(str(root / "configs" / "rtdetr_demo.yaml"))
+    cfg["detect"]["model"] = rtdetr_model_path()
+    cam = cfg["camera"]
+    eng = PipelineEngine(cfg, device=GRAPH_DEVICE)
+    if eng.step_mode != "graph":
+        fail(f"[graph] rtdetr_demo: runs {eng.step_mode} "
+             f"({eng.eager_reason})")
+    b = eng.batch_size
+    src = SyntheticRoadSource(cam["width"], cam["height"], num_vehicles=3,
+                              seed=1)
+    rng = np.random.RandomState(2)
+    batches = []
+    for k in range(5):
+        frames = np.stack([src.render(k * b + i) for i in range(b)])
+        for i in range(1, b, 3):             # impulse noise: the chain runs
+            hit = rng.rand(*frames.shape[1:3]) < 0.08
+            frames[i][hit] = rng.choice([0, 255], (int(hit.sum()), 1))
+        batches.append((torch.from_numpy(frames).to(eng.device),
+                        torch.from_numpy(((k * b + np.arange(b)) / 30.0)
+                                         .astype(np.float32))
+                        .to(eng.device)))
+    eng.step_batch(*batches[0])                        # the capture
+    outs, counts = {}, {}
+    for mode, fn in (("graph", eng.step_batch), ("eager", eng.step)):
+        eng.reset()
+        kernels.reset_launch_counts()
+        outs[mode] = []
+        for x, t in batches:
+            proc, arrays = fn(x, t)
+            outs[mode].append((proc.cpu().numpy(),
+                               [a.cpu().numpy() for a in arrays]))
+        counts[mode] = add_to_totals(dict(kernels.launch_counts))
+        n = len(batches)
+        want = {"clahe_tile_luts": n, "clahe_apply": n, "median_k": 2 * n,
+                **tail_want(0, n * b, deform=n * RTDETR_LAYERS)}
+        if counts[mode] != want:
+            launch_mismatch(f"[graph] rtdetr_demo {mode}: launches "
+                            f"{counts[mode]}, expected {want}")
+    worst = {"box": 0.0, "conf": 0.0, "n": 0}
+    ran = 0
+    for i, ((pg, ag), (pe, ae)) in enumerate(zip(outs["graph"],
+                                                 outs["eager"])):
+        if not np.array_equal(pg, pe):
+            fail(f"[graph] rtdetr_demo batch {i}: processed frames differ")
+        ran += sum(not np.array_equal(pg[j], batches[i][0][j].cpu().numpy())
+                   for j in range(b))
+        r = same_arrays(ag, ae, f"[graph] rtdetr_demo batch {i}")
+        worst = {"box": max(worst["box"], r["box"]),
+                 "conf": max(worst["conf"], r["conf"]),
+                 "n": worst["n"] + r["n"]}
+    if worst["n"] == 0 or ran == 0:
+        fail(f"[graph] rtdetr_demo: {worst['n']} detections, the chain ran "
+             f"on {ran} frames")
+    print(f"[graph] rtdetr_demo (configs/rtdetr_demo.yaml as shipped, "
+          f"{cam['width']}x{cam['height']} x {b}): step_mode graph; "
+          f"{len(batches)} replayed batches equal eager ones (processed "
+          f"frames bit-equal, the gate ran the chain on {ran} frames; "
+          f"{worst['n']} detections, boxes {worst['box']:.2e} px, conf "
+          f"{worst['conf']:.2e}); launches a batch "
+          + json.dumps({k: v / len(batches)
+                        for k, v in counts["graph"].items()})
+          + f" both ways ({card})", flush=True)
+    return {"launches": counts, "worst": worst, "chain_frames": ran}
+
+
 def profile_batch(engine, frames, ts) -> dict:
     """torch.profiler over one bf16 batch: device busy share, kernel
     launches, and the top kernels and host ops (full tables to
@@ -5316,9 +5882,21 @@ def main() -> int:
         print(f"[time] chip_smoke.py --train-only ran "
               f"{time.perf_counter() - T_START:.1f} s", flush=True)
         return 0
+    if "--rtdetr-only" in sys.argv[1:]:
+        torch.backends.cudnn.benchmark = True
+        rows = check_deform_kernel(render_batches(1)[0][0])
+        rt = rtdetr_graph_phase(card)
+        Path("chiprun_out").mkdir(exist_ok=True)
+        Path("chiprun_out/rtdetr_graph.json").write_text(json.dumps(
+            {"rtdetr": rt, "kernels": rows}, indent=1, default=str))
+        print(f"[time] chip_smoke.py --rtdetr-only ran "
+              f"{time.perf_counter() - T_START:.1f} s", flush=True)
+        print(card_line(), flush=True)
+        return 0
     batches = render_batches(6)
     rows = check_kernels(batches[0][0])
     rows.update(check_tail_kernels())
+    rows.update(check_deform_kernel(batches[0][0]))
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
@@ -5326,6 +5904,7 @@ def main() -> int:
                 / "yolov8n_synthetic_256.npz")
     if "--graph-only" in sys.argv[1:]:
         graph = graph_phase(model, card)
+        graph["rtdetr"] = rtdetr_graph_phase(card)
         Path("chiprun_out").mkdir(exist_ok=True)
         Path("chiprun_out/graph.json").write_text(json.dumps(
             {"graph": graph, "kernels": rows}, indent=1, default=str))
@@ -5358,8 +5937,10 @@ def main() -> int:
                 fail("non-finite detection")
 
     paths = second_paths(model, batches, card)
-    # the host-free device step: the main path replayed from a CUDA graph
+    # the host-free device step: the main path replayed from a CUDA graph,
+    # then RT-DETR-L and rtdetr_demo.yaml
     graph = graph_phase(model, card)
+    graph["rtdetr"] = rtdetr_graph_phase(card)
 
     # the serving surface, each path with its own launch counts
     out_dir = Path("chiprun_out")
@@ -5480,6 +6061,8 @@ def main() -> int:
                           "roadvision_tpu/track/sort_tpu.py:300"),
         "nms_keep": ("roadvision_tpu_torch/csrc/nms.cu",
                      "roadvision_tpu/ops/nms.py:99"),
+        "deform_sample": ("roadvision_tpu_torch/csrc/deform.cu",
+                          "roadvision_tpu/models/rtdetr.py:422"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -5487,11 +6070,12 @@ def main() -> int:
          "launches_main_path": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None, "flushed_ms": r["flushed_ms"],
+         "library_ms": r.get("library_ms"), "flushed_ms": r["flushed_ms"],
          "fleet": r["fleet"],
          **{k: r[k] for k in ("graph_ms", "graph_flushed_ms",
                               "launch_floor_ms", "matrix_mode", "boxes_mode",
-                              "matcher_mode") if k in r}}
+                              "matcher_mode", "library", "bit_equal",
+                              "launches_per_forward") if k in r}}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
         "second_paths": paths, "graph": graph, "entries": entries,

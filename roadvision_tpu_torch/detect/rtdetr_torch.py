@@ -32,7 +32,7 @@ from ..models import rtdetr
 from ..models.yolo import quant
 from ..ops.letterbox import resize_stretch_u8
 from ..ops.nms import select_topk_batch
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, device_constant, resolve_device
 from .base import Detector
 from .types import COCO_NAMES, Detection, DetectionBatch
 
@@ -130,7 +130,7 @@ class RTDETRTorch(Detector):
         stretch resize: ratio 1 and pad 0, so the engine's rescale is the
         multiplication by (w, h) alone."""
         return (resize_stretch_u8(frames_u8, size=self.imgsz), 1.0,
-                torch.zeros(2, device=frames_u8.device))
+                device_constant([0.0, 0.0], torch.float32, frames_u8.device))
 
     @torch.inference_mode()
     def forward(self, imgs: torch.Tensor):
@@ -195,9 +195,11 @@ class RTDETRTorch(Detector):
         b, c, k, v = select_topk_batch(
             boxes_n, probs, conf_thres=self.conf, max_det=self.max_det,
             classes_keep=self.keep or None)
-        b = b * torch.tensor([w, h, w, h], dtype=torch.float32,
-                             device=b.device)
-        lim = torch.tensor([w, h, w, h], dtype=b.dtype, device=b.device)
+        # (w, h, w, h) uploaded once per frame size: a captured step
+        # uploads nothing
+        lim = device_constant([float(w), float(h), float(w), float(h)],
+                              torch.float32, b.device)
+        b = b * lim
         return torch.minimum(b.clamp(min=0), lim), c, k, v, None
 
     @torch.inference_mode()

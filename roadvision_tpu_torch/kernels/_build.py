@@ -33,19 +33,23 @@ BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # own; the source uses __fmul_rn/__fadd_rn, and --fmad=false keeps any
 # other expression from contracting as well; the auction's prices, and the
 # boxes modes' x_to_bbox and IoU (csrc/box_iou.cuh: cx - 0.5 * w,
-# cls * 7680 + x, area + area - inter), are bit-equal to the plain
-# versions only without contraction too
+# cls * 7680 + x, area + area - inter), and the deformable sampling's
+# locations, corner weights and sums (ctr + off * wh * 0.5, x * W - 0.5,
+# acc + v * w) are bit-equal to the plain versions only without
+# contraction too
 EXTRA_FLAGS: Dict[str, List[str]] = {"clahe": ["--fmad=false"],
                                      "median": [],
                                      "assoc": ["--fmad=false"],
-                                     "nms": ["--fmad=false"]}
+                                     "nms": ["--fmad=false"],
+                                     "deform": ["--fmad=false"]}
 
 # kernel name -> launches since the last reset; each wrapper adds one
 # where it launches its kernel, and nowhere else (a replayed CUDA graph
 # adds the launches captured in it: runtime/graph.py)
 launch_counts: Dict[str, int] = {"clahe_tile_luts": 0, "clahe_apply": 0,
                                  "median_k": 0, "assoc_greedy": 0,
-                                 "assoc_auction": 0, "nms_keep": 0}
+                                 "assoc_auction": 0, "nms_keep": 0,
+                                 "deform_sample": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +68,7 @@ SIGNATURES = {
     ("assoc", "rvt_auction_workspace"): [_I] * 3,
     ("nms", "rvt_nms_keep"): [_P] * 4 + [_I] * 2 + [_P],
     ("nms", "rvt_nms_keep_boxes"): [_P] * 4 + [_I] * 2 + [_F, _P],
+    ("deform", "rvt_deform_sample"): [_P] * 5 + [_I] * 15 + [_P],
 }
 
 # entry points that return something else than a CUDA error code

@@ -27,7 +27,9 @@ Precision as the JAX functions lay it out:
     (on unless ``RVT_RTDETR_BF16_VALS=0`` at import, overridden by the
     argument), ``RVT_RTDETR_PAIRED_GATHERS=1`` gathers the four corners
     of a level at once. Both environment variables are read once, at
-    import, as the JAX module reads them.
+    import, as the JAX module reads them. Serving samples through
+    ``ops/deform.py::deform_sample`` (K7 on the card); training through
+    its plain version, since K7 has no backward yet.
   * The encoder's top-k is a stable descending sort: equal scores keep
     the lower index first, as ``jax.lax.top_k`` does.
 
@@ -48,7 +50,8 @@ from __future__ import annotations
 import math
 import os
 from pathlib import Path
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.activations import gelu
+from ..ops.deform import deform_sample, deform_sample_plain
 from .yolo import weights as yw
 from .yolo.yolov8 import Conv as _YoloConv
 
@@ -265,12 +269,26 @@ class AIFI(nn.Module):
         self.ln1, self.ln2 = _ln(), _ln()
         self.fc1 = nn.Linear(HD, AIFI_FFN)
         self.fc2 = nn.Linear(AIFI_FFN, HD)
+        self._pos: Dict[tuple, torch.Tensor] = {}
+
+    def pos_embed(self, w: int, h: int, c: int, device,
+                  dtype) -> torch.Tensor:
+        """:func:`sincos_pe` for a (w, h) map, built once per shape,
+        device and dtype, outside inference mode (training reads it
+        too)."""
+        key = (w, h, c, str(device), dtype)
+        pos = self._pos.get(key)
+        if pos is None:
+            with torch.inference_mode(False), torch.no_grad():
+                pos = self._pos[key] = sincos_pe(w, h, c, device=device,
+                                                 dtype=dtype)
+        return pos
 
     def forward(self, x):
         b, c, h, w = x.shape
         dt = self.fc1.weight.dtype
         s = x.flatten(2).transpose(1, 2).to(dt)
-        pos = sincos_pe(w, h, c, device=x.device, dtype=dt)
+        pos = self.pos_embed(w, h, c, x.device, dt)
         q = s + pos[None]
         s = self.ln1(s + self.mha(q, q, s))
         s = self.ln2(s + self.fc2(gelu(self.fc1(s))))
@@ -348,70 +366,26 @@ class DeformAttn(nn.Module):
 
 def deform_attn(p: DeformAttn, query: torch.Tensor, refer_sig: torch.Tensor,
                 values, shapes: Sequence[Tuple[int, int]],
-                bf16_vals: Optional[bool] = None) -> torch.Tensor:
+                bf16_vals: Optional[bool] = None,
+                sample: Optional[Callable[..., torch.Tensor]] = None
+                ) -> torch.Tensor:
     """``_deform_attn`` :422. query (B, NQ, HD); refer_sig (B, NQ, 4)
     sigmoid-space cxcywh; values the level-concatenated (B, ΣHl·Wl, NH,
-    dh) value tensor (or a per-level list); shapes [(Hl, Wl)]. Bilinear
-    sampling by 4-corner gathers, zero outside the map (``grid_sample``
-    with ``align_corners=False``), weights and sums in f32."""
+    dh) value tensor (or a per-level list); shapes [(Hl, Wl)]. The
+    offsets and attention-weight linears, the sampling and the output
+    linear. ``sample`` is the sampling, with
+    ``ops/deform.py::deform_sample``'s arguments; by default that
+    wrapper (K7 on the card, the plain 4-corner gathers on the CPU; zero
+    outside the map, weights and sums in f32)."""
+    sample = deform_sample if sample is None else sample
     use_bf16 = _BF16_VALS if bf16_vals is None else bf16_vals
     b, nq, _ = query.shape
-    dh = HD // NH
     off = p.off(query).reshape(b, nq, NH, NL, NDP, 2)
-    attw = p.attw(query).reshape(b, nq, NH, NL * NDP).softmax(dim=-1) \
-        .reshape(b, nq, NH, NL, NDP)
-    ctr = refer_sig[:, :, None, None, None, :2]
-    wh = refer_sig[:, :, None, None, None, 2:]
-    loc = ctr + off / NDP * wh * 0.5
+    logits = p.attw(query).reshape(b, nq, NH, NL * NDP)
     V = torch.cat(list(values), dim=1) \
         if isinstance(values, (list, tuple)) else values
-    offs = [0]
-    for hl, wl in shapes:
-        offs.append(offs[-1] + hl * wl)
-    out = torch.zeros((b, nq, NH, dh), dtype=torch.float32,
-                      device=query.device)
-    for lvl, (hl, wl) in enumerate(shapes):
-        v = V[:, offs[lvl]:offs[lvl + 1]]
-        if use_bf16:
-            v = v.to(torch.bfloat16)
-        lo = loc[:, :, :, lvl]                    # (B, NQ, NH, NDP, 2)
-        x = lo[..., 0] * wl - 0.5
-        y = lo[..., 1] * hl - 0.5
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        fx = x - x0
-        fy = y - y0
-        corners = ((0, 0, (1 - fx) * (1 - fy)),
-                   (1, 0, fx * (1 - fy)),
-                   (0, 1, (1 - fx) * fy),
-                   (1, 1, fx * fy))
-        idxs, wgts = [], []
-        for dx, dy, wgt in corners:
-            xi = x0 + dx
-            yi = y0 + dy
-            inb = (xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)
-            # a NaN location (a non-finite batch in training) reads row 0
-            # with a NaN weight, where the int cast would leave the map
-            idx = (yi.clamp(0, hl - 1) * wl + xi.clamp(0, wl - 1)) \
-                .nan_to_num(0.0).to(torch.int64)
-            # (B, NQ, NH, NDP) → gather rows of the flattened map
-            idxs.append(idx.transpose(2, 3).reshape(b, nq * NDP, NH))
-            wgts.append(wgt * inb)
-        if _PAIRED_GATHERS:
-            idx4 = torch.cat(idxs, dim=1)             # (B, 4·NQ·NDP, NH)
-            g4 = torch.gather(v, 1, idx4[..., None].expand(-1, -1, -1, dh))
-            g4 = g4.reshape(b, 4, nq, NDP, NH, dh) \
-                .permute(1, 0, 2, 4, 3, 5).float()
-            w4 = torch.stack(wgts)                    # (4, B, NQ, NH, NDP)
-            acc = (g4 * w4[..., None]).sum(dim=0)
-        else:
-            acc = torch.zeros((b, nq, NH, NDP, dh), dtype=torch.float32,
-                              device=query.device)
-            for idxt, wgt in zip(idxs, wgts):
-                g = torch.gather(v, 1, idxt[..., None].expand(-1, -1, -1, dh))
-                g = g.reshape(b, nq, NDP, NH, dh).transpose(2, 3).float()
-                acc = acc + g * wgt[..., None]
-        out = out + (acc * attw[:, :, :, lvl, :, None]).sum(dim=3)
+    out = sample(off, logits, refer_sig, V, shapes, bf16_vals=use_bf16,
+                 paired=_PAIRED_GATHERS)
     return p.out(out.reshape(b, nq, HD))
 
 
@@ -481,6 +455,17 @@ class Decoder(nn.Module):
         self.dec_bbox = nn.ModuleList(_bbox_head() for _ in range(NDL))
         self.qpos = nn.ModuleList([nn.Linear(4, 2 * HD),
                                    nn.Linear(2 * HD, HD)])
+        self._anchors: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def anchors(self, shapes: Sequence[Tuple[int, int]], device):
+        """:func:`anchors_for` the level shapes, built once per shapes and
+        device, outside inference mode (training reads them too)."""
+        key = (tuple(shapes), str(device))
+        got = self._anchors.get(key)
+        if got is None:
+            with torch.inference_mode(False), torch.no_grad():
+                got = self._anchors[key] = anchors_for(shapes, device=device)
+        return got
 
     def select(self, feats, num_queries: Optional[int] = None):
         """IoU-aware query selection → (memory (B, ΣHW, HD), level shapes,
@@ -491,7 +476,7 @@ class Decoder(nn.Module):
         memory = torch.cat([proj(f).flatten(2).transpose(1, 2)
                             for proj, f in zip(self.input_proj, feats)],
                            dim=1).float()
-        anchors, valid = anchors_for(shapes, device=memory.device)
+        anchors, valid = self.anchors(shapes, memory.device)
         feats_q = self.enc_output["ln"](
             self.enc_output["lin"](memory * valid[None]))
         scores = self.enc_score(feats_q)
@@ -511,15 +496,16 @@ class Decoder(nn.Module):
             torch.sigmoid(refer_logit)
 
     def refine(self, i: int, memory, shapes, output, refer,
-               bf16_vals: Optional[bool]):
-        """Decoder layer ``i`` → (its output, its refined boxes)."""
+               bf16_vals: Optional[bool], sample=None):
+        """Decoder layer ``i`` → (its output, its refined boxes);
+        ``sample`` as :func:`deform_attn` takes it."""
         lp = self.layers[i]
         values = lp.ca.val(memory).reshape(output.shape[0], -1, NH, HD // NH)
         pos = mlp(refer, self.qpos)
         q = output + pos
         output = lp.ln1(output + lp.sa(q, q, output))
         ca = deform_attn(lp.ca, output + pos, refer, values, shapes,
-                         bf16_vals=bf16_vals)
+                         bf16_vals=bf16_vals, sample=sample)
         output = lp.ln2(output + ca)
         output = lp.ln3(output + lp.ffn2(F.relu(lp.ffn1(output))))
         delta = mlp(output, self.dec_bbox[i])
@@ -527,7 +513,10 @@ class Decoder(nn.Module):
 
     def forward(self, feats, num_queries: Optional[int] = None,
                 decoder_layers: Optional[int] = None,
-                bf16_vals: Optional[bool] = None):
+                bf16_vals: Optional[bool] = None, sample=None):
+        """The serving decoder → (boxes sigmoid cxcywh (B, nq, 4), class
+        logits (B, nq, nc)); ``sample`` as :func:`deform_attn` takes it
+        (default the K7 wrapper)."""
         memory, shapes, _, _, output, refer = self.proposals(feats,
                                                              num_queries)
         n = len(self.layers)
@@ -535,7 +524,7 @@ class Decoder(nn.Module):
             n = max(1, min(int(decoder_layers), n))
         for i in range(n):
             output, refer = self.refine(i, memory, shapes, output, refer,
-                                        bf16_vals)
+                                        bf16_vals, sample)
         return refer, self.dec_score[n - 1](output)
 
     def forward_train(self, feats) -> Dict[str, Any]:
@@ -544,7 +533,9 @@ class Decoder(nn.Module):
         and score logits, and every decoder layer's. The first query
         features and reference boxes are detached, each layer's refined
         box is detached before it feeds the next, and the deformable
-        sampling reads f32 values (``bf16_vals=False``)."""
+        sampling reads f32 values (``bf16_vals=False``). The sampling is
+        :func:`~roadvision_tpu_torch.ops.deform.deform_sample_plain` on
+        every device: K7 has no backward yet."""
         memory, shapes, scores, topk, output, refer_logit = self.select(
             feats)
         aux: Dict[str, Any] = {
@@ -556,7 +547,7 @@ class Decoder(nn.Module):
         refer = torch.sigmoid(refer_logit.detach())
         for i in range(len(self.layers)):
             output, refined = self.refine(i, memory, shapes, output, refer,
-                                          False)
+                                          False, deform_sample_plain)
             aux["boxes"].append(refined)
             aux["scores"].append(self.dec_score[i](output))
             refer = refined.detach()

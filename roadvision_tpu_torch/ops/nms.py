@@ -269,10 +269,8 @@ def select_topk_batch(boxes: torch.Tensor, scores: torch.Tensor,
     cls = scores.argmax(dim=-1).to(torch.int32)
     valid = conf > conf_thres
     if classes_keep:
-        allowed = torch.zeros(scores.shape[-1], dtype=torch.bool,
-                              device=boxes.device)
-        allowed[list(int(c) for c in classes_keep)] = True
-        valid = valid & allowed[cls.long()]
+        valid = valid & _allowed(scores.shape[-1], classes_keep,
+                                 boxes.device)[cls.long()]
     k = min(max_det, n)
     top_conf, top_idx = torch.sort(
         torch.where(valid, conf, torch.full_like(conf, -1.0)), dim=1,

@@ -12,10 +12,13 @@ p99.5 − p0.5 of the stride-4 gray subsample) is below
 ``contrast_thresh``, or, with ``impulse_thresh`` set, whose impulse
 residual (mean |gray − median3x3(gray)| on the stride-4 subsample) is at
 or above it. The gate stays on the device without a host sync: both
-branches are computed and a per-frame ``torch.where`` picks.
+branches are computed and a per-frame ``torch.where`` picks, so a CUDA
+graph captures it, the threshold baked in as a number.
 ``contrast_thresh: "auto"`` is resolved on the host by
 :meth:`PreprocessPipeline.calibrate_gate`, from the first batch unless
-the caller does it earlier.
+the caller does it earlier; every calibration moves
+:attr:`PreprocessPipeline.gate_epoch`, so that a step captured with an
+older threshold is dropped, not replayed.
 
 :func:`host_contrast_stats` and :func:`host_impulse_stats` are the numpy
 mirrors of the gate statistics, copied from the JAX package's
@@ -95,6 +98,9 @@ class PreprocessPipeline:
                              f"(span | pspan)")
         t = self.auto_gate_cfg.get("contrast_thresh", 20.0)
         self._auto_thresh: Optional[float] = None   # resolved "auto" value
+        # moves at every calibration: a captured step holds the threshold
+        # of the epoch it was captured in
+        self.gate_epoch = 0
         if isinstance(t, str) and t != "auto":
             raise ValueError(f"auto_gate.contrast_thresh must be a number "
                              f"or 'auto', got {t!r}")
@@ -151,6 +157,7 @@ class PreprocessPipeline:
         ratio = float(self.auto_gate_cfg.get("auto_ratio", 0.85))
         pct = float(self.auto_gate_cfg.get("auto_pct", 10.0))
         self._auto_thresh = float(ratio * np.percentile(stats, pct))
+        self.gate_epoch += 1
         return self._auto_thresh
 
     def ensure_gate_calibrated(self, frames_u8) -> None:

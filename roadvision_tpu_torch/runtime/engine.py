@@ -11,8 +11,9 @@ batches, in the same tensors: a step, :meth:`PipelineEngine.reset` and
 :meth:`PipelineEngine.build_raw_step` is that step as a pure function,
 as in JAX. On the card it reads nothing back to the host for the
 configurations :attr:`PipelineEngine.step_mode` names ``"graph"`` (the
-main path and the fleet's default, among others): the association and
-NMS loops are CUDA kernels (K4–K6), every constant is uploaded once.
+main path, the fleet's default, RT-DETR and the auto-gated chain, among
+others): the association and NMS loops are CUDA kernels (K4–K6), so is
+RT-DETR's deformable sampling (K7), every constant is uploaded once.
 There :meth:`PipelineEngine.step_batch`, which ``dispatch_batch``,
 ``process_batch``, ``stream`` and the bench's device-resident loop run,
 replays one CUDA graph per (shape, want_proc) (``runtime/graph.py``, the
@@ -322,8 +323,10 @@ class PipelineEngine:
             if self.device.type == "cuda" else None
         self._result_free: Dict[tuple, List[List[torch.Tensor]]] = {}
 
-        # the captured steps, one per (frame shape, want_proc)
+        # the captured steps, one per (frame shape, want_proc), and the
+        # auto-gate's calibration epoch they were captured in
         self._graphs: Dict[tuple, CapturedStep] = {}
+        self._graphs_epoch = self.pipeline.gate_epoch
         self.eager_reason = self._eager_reason()
         self.step_mode = "graph" if self.eager_reason is None else "eager"
 
@@ -338,13 +341,18 @@ class PipelineEngine:
         if self._gate_cfg is not None:
             return ("detect.temporal_gate: the coast decision is read on "
                     "the host")
-        if self.pipeline._gated:
-            return "preprocess.auto_gate: not captured"
         if det is not None:
+            from ..detect.rtdetr_torch import RTDETRTorch
             from ..detect.yolo_torch import YOLOTorch
-            if not isinstance(det, YOLOTorch):
+            if isinstance(det, RTDETRTorch):
+                if det.int8:
+                    return ("the RTDETRTorch detector in int8: its "
+                            "calibration_step keeps host state, not "
+                            "captured")
+            elif not isinstance(det, YOLOTorch):
                 return f"the {type(det).__name__} detector: not captured"
-            if det.task != "detect" or det.tta or det.tile_cfg or det.int8:
+            elif det.task != "detect" or det.tta or det.tile_cfg \
+                    or det.int8:
                 return ("task heads, TTA, tiling and int8 detectors: not "
                         "captured")
         if self.track_enabled and not getattr(self._sort_step, "stackable",
@@ -527,6 +535,9 @@ class PipelineEngine:
         and hold until its next replay), else :meth:`step`."""
         if self.step_mode != "graph":
             return self.step(frames_u8, ts, want_proc)
+        # an "auto" gate threshold is resolved before the capture: the
+        # graph holds it as a number
+        self.pipeline.ensure_gate_calibrated(frames_u8)
         raw = self.build_raw_step(tuple(frames_u8.shape[:3]), want_proc)
 
         def fn(state, frames, stamps):
@@ -542,12 +553,19 @@ class PipelineEngine:
         the graph captured for ``key`` at its first call. A graph writes
         ``state'`` into the tensors of the ``state`` it was captured on,
         which come back as ``state'``; its outputs hold until its next
-        replay."""
+        replay. A recalibrated auto-gate (``pipeline.gate_epoch`` moved)
+        drops every captured graph: each holds its threshold."""
         if self.step_mode != "graph":
             return fn(state, *args)
+        if self.pipeline.gate_epoch != self._graphs_epoch:
+            self._graphs.clear()
+            self._graphs_epoch = self.pipeline.gate_epoch
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = CapturedStep(fn, state, args)
+            # a capture whose warm-up calibrated the gate holds the new
+            # threshold
+            self._graphs_epoch = self.pipeline.gate_epoch
         elif graph.state is not state:
             raise ValueError(f"the graph of {key} was captured on another "
                              f"state")

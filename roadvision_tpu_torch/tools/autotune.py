@@ -23,7 +23,10 @@ winner but never enter the recommendation.
 
 The JAX tool's sweeps of XLA or Pallas choices that the port does not
 have (``hist_dtype``, ``clahe_sweep``, ``median_impl``) stay in the
-report as ``"not_applicable"`` with the reason. ``--quick`` runs small
+report as ``"not_applicable"`` with the reason, and so does
+``rtdetr_gathers`` on the card, where K7 samples whatever the variable
+says (on the CPU the plain version's two formulations are still
+swept). ``--quick`` runs small
 shapes and few iterations: it smokes the harness, its winners do not
 transfer. Nothing is written unless ``--out`` names a file.
 """
@@ -107,6 +110,13 @@ NOT_APPLICABLE = {
                    "one route, K2 (csrc/clahe.cu), with no sweep",
     "median_impl": "XLA or Pallas for the 3x3 median (RVT_PALLAS); the "
                    "port has one route, K3 (csrc/median.cu)",
+}
+# sweeps that the card's route makes moot (on the CPU they still run)
+CARD_NOT_APPLICABLE = {
+    "rtdetr_gathers": "RVT_RTDETR_PAIRED_GATHERS picks one of the plain "
+                      "version's two gather formulations; on the card K7 "
+                      "(csrc/deform.cu) computes their one function in one "
+                      "launch, whatever the variable says",
 }
 INT_KEYS = ("tpu.batch_size", "detect.num_queries", "detect.decoder_layers",
             "detect.temporal_gate.max_skip_batches")
@@ -214,9 +224,11 @@ def recommend(report: dict) -> None:
     report["recommended"] = rec
 
 
-def not_applicable(names) -> Dict[str, dict]:
-    return {n: {"status": "not_applicable", "reason": NOT_APPLICABLE[n]}
-            for n in names if n in NOT_APPLICABLE}
+def not_applicable(names, device: str = "cpu") -> Dict[str, dict]:
+    moot = {**NOT_APPLICABLE,
+            **(CARD_NOT_APPLICABLE if device == "cuda" else {})}
+    return {n: {"status": "not_applicable", "reason": moot[n]}
+            for n in names if n in moot}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -252,7 +264,8 @@ def main(argv: Optional[list] = None) -> int:
         report = {"res": prior.get("res"), "iters": prior.get("iters"),
                   "tie_pct": args.tie_pct, "sweeps": {}}
         for name, entry in prior["sweeps"].items():
-            report["sweeps"][name] = entry if name in NOT_APPLICABLE \
+            report["sweeps"][name] = entry \
+                if entry.get("status") == "not_applicable" \
                 else decide(name, entry["trials"], args.tie_pct)
         recommend(report)
     else:
@@ -266,9 +279,9 @@ def main(argv: Optional[list] = None) -> int:
                                  "bench; its value is the median "
                                  "device-resident (or the mode's) "
                                  "frames/s over the windows",
-                  "sweeps": not_applicable(names)}
+                  "sweeps": not_applicable(names, args.device)}
         for name in names:
-            if name in NOT_APPLICABLE:
+            if name in report["sweeps"]:
                 continue
             sw = SWEEPS[name]
             knob = sw.get("flag") or sw["var"]

@@ -19,10 +19,15 @@ The decoder is split the way a launch-bound stage needs: its kernel
 launches a forward (``torch.profiler``, CUDA activity; on the CPU the
 operators dispatched), the bytes its deformable sampling gathers (the
 value rows each corner reads, counted from the shapes), what those bytes
-take at 3.35 TB/s, and the decoder's time with the gathers in both
-formulations of ``RVT_RTDETR_PAIRED_GATHERS`` (12 gathers a layer, or 3).
-The decoder decodes the detector's ``num_queries`` (its default,
-max(100, max_det)), as the engine does; the JAX tool profiled 300.
+take at 3.35 TB/s, and the decoder's time and launches with the sampling
+on each route: K7 (``ops/deform.py::deform_sample``, the card's route;
+not measured on the CPU, where the wrapper runs the plain version) and
+the plain version in both formulations of ``RVT_RTDETR_PAIRED_GATHERS``
+(12 gathers a layer, or 3), passed to the decoder as its sampling
+(``Decoder.forward(..., sample=)``). One layer's
+sampling alone is timed on the same three routes. The decoder decodes
+the detector's ``num_queries`` (its default, max(100, max_det)), as the
+engine does; the JAX tool profiled 300.
 
 Timing: CUDA events around ``--inner`` chained calls after a warm-up of
 ``--inner`` calls, ``--iters`` times, median (the host clock on the CPU,
@@ -42,6 +47,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..detect.rtdetr_torch import RTDETRTorch
 from ..models import rtdetr
+from ..ops import deform
 from ..ops.letterbox import resize_stretch_u8
 from ..utils.device import resolve_device
 from ..utils.profiler import time_ms
@@ -92,6 +98,25 @@ def gather_bytes(batch: int, nq: int, layers: int, bf16_vals: bool) -> dict:
     index = rows * 8
     return {"rows": rows, "value_bytes": values, "index_bytes": index,
             "ms_at_hbm": (values + index) / HBM_BYTES_PER_S * 1e3}
+
+
+# the sampling's routes: K7 (the wrapper), the plain version's two
+# gather formulations
+ROUTES = ("k7", "plain", "paired")
+
+
+def sampling_of(route: str) -> Callable[..., torch.Tensor]:
+    """The sampling a decoder layer runs on ``route``, with
+    ``deform_attn``'s ``sample`` arguments: "k7" the wrapper (K7 on a
+    card), "plain" and "paired" the plain version in its 12- and
+    3-gather formulations."""
+    if route == "k7":
+        return deform.deform_sample
+
+    def plain(*a, bf16_vals=False, paired=False):
+        return deform.deform_sample_plain(*a, bf16_vals=bf16_vals,
+                                          paired=route == "paired")
+    return plain
 
 
 def run(args) -> dict:
@@ -164,22 +189,41 @@ def run(args) -> dict:
                   f"{rows[name]['tflops_achieved']:7.3f} TFLOP/s",
                   flush=True)
 
-        # the decoder: launches against gather bytes, both formulations
-        dec = stages["decoder (deform layers)"]
+        # the decoder: launches against gather bytes, on each route
+        def dec(route: str) -> Callable[[], tuple]:
+            return lambda: m.dec(feats, nq, det.decoder_layers,
+                                 sample=sampling_of(route))
         split = {"queries": nq, "layers": layers, "batch": b,
                  "bf16_vals": bool(rtdetr._BF16_VALS),
-                 **launches_of(dec, device),
                  **gather_bytes(b, nq, layers, rtdetr._BF16_VALS)}
-        saved = rtdetr._PAIRED_GATHERS
-        try:
-            for paired in (False, True):
-                rtdetr._PAIRED_GATHERS = paired
-                split[f"ms_paired_gathers_{int(paired)}"] = ms_of(dec)
-                split[f"launches_paired_gathers_{int(paired)}"] = \
-                    launches_of(dec, device)["kernel_launches"]
-        finally:
-            rtdetr._PAIRED_GATHERS = saved
-    ms_dec = split[f"ms_paired_gathers_{int(saved)}"]
+        off = ca.off(q).reshape(b, nq, rtdetr.NH, rtdetr.NL, rtdetr.NDP, 2)
+        logits = ca.attw(q).reshape(b, nq, rtdetr.NH,
+                                    rtdetr.NL * rtdetr.NDP)
+        sample = (off, logits, refer, vals, shapes)
+
+        def one_layer(route: str) -> Callable[[], torch.Tensor]:
+            return lambda: sampling_of(route)(*sample,
+                                              bf16_vals=rtdetr._BF16_VALS)
+        default = "k7" if device.type == "cuda" \
+            else ("paired" if rtdetr._PAIRED_GATHERS else "plain")
+        split["sampling_ms"] = {}
+        for route in ROUTES:
+            if route == "k7" and device.type != "cuda":
+                split["ms_k7"] = split["launches_k7"] = None
+                split["sampling_ms"]["k7"] = None
+                continue
+            ms = ms_of(dec(route))
+            got = launches_of(dec(route), device)
+            key = {"k7": "k7", "plain": "paired_gathers_0",
+                   "paired": "paired_gathers_1"}[route]
+            split[f"ms_{key}"] = ms
+            split[f"launches_{key}"] = got["kernel_launches"]
+            split["sampling_ms"][route] = ms_of(one_layer(route))
+            if route == default:
+                split.update(got)
+    ms_dec = split[{"k7": "ms_k7", "plain": "ms_paired_gathers_0",
+                    "paired": "ms_paired_gathers_1"}[default]]
+    split["route"] = default
     split["ms"] = ms_dec
     if split["kernel_launches"]:
         split["us_per_launch"] = ms_dec * 1e3 / split["kernel_launches"]
@@ -190,12 +234,16 @@ def run(args) -> dict:
           f"({split['aten_ops']} aten ops); gathers "
           f"{(split['value_bytes'] + split['index_bytes']) / 1e6:.1f} MB "
           f"= {split['ms_at_hbm']:.4f} ms at 3.35 TB/s "
-          f"({100 * split['gather_share_at_hbm']:.2f} % of the decoder); "
-          f"paired gathers 0 / 1: {split['ms_paired_gathers_0']:.3f} / "
+          f"({100 * split['gather_share_at_hbm']:.2f} % of the decoder, "
+          f"sampling on {default}); decoder with K7 / plain / paired "
+          f"gathers: {_fmt(split['ms_k7'])} / "
+          f"{split['ms_paired_gathers_0']:.3f} / "
           f"{split['ms_paired_gathers_1']:.3f} ms, "
-          f"{split['launches_paired_gathers_0']} / "
-          f"{split['launches_paired_gathers_1']} launches ({card})",
-          flush=True)
+          f"{split['launches_k7']} / {split['launches_paired_gathers_0']} / "
+          f"{split['launches_paired_gathers_1']} launches; one layer's "
+          f"sampling " + " / ".join(
+              _fmt(split["sampling_ms"][r], 4) for r in ROUTES)
+          + f" ms ({card})", flush=True)
 
     total = sum(rows[k]["ms_per_frame"] for k in (
         "stretch resize", "backbone (HGNetv2-L)",
@@ -228,6 +276,10 @@ def run(args) -> dict:
     return {"card": card, "stages": rows, "decoder_split": split,
             "roofline": roofline, "dtype": args.dtype, "res": h,
             "batch": b, "imgsz": args.imgsz}
+
+
+def _fmt(ms, digits: int = 3) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
 def main(argv=None) -> int:

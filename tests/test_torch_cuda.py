@@ -574,7 +574,8 @@ def test_fleet_step_on_the_card_equals_the_cpu_path(dev, no_tf32):
     steps = 2 + WARMUP_CALLS
     assert launch_counts == {"clahe_tile_luts": steps, "clahe_apply": steps,
                              "median_k": steps, "nms_keep": steps,
-                             "assoc_greedy": 2 * steps, "assoc_auction": 0}
+                             "assoc_greedy": 2 * steps, "assoc_auction": 0,
+                             "deform_sample": 0}
     want = [eng["cpu"].process_batch(f, t) for f, t in fleet]
     n = 0
     for g, w in zip(got, want):
@@ -1305,7 +1306,8 @@ def test_fleet_graphs_on_distinct_cards_equal_one_card(dev, no_tf32,
     steps = 2 * (2 + WARMUP_CALLS)
     assert launch_counts == {"clahe_tile_luts": steps, "clahe_apply": steps,
                              "median_k": steps, "nms_keep": steps,
-                             "assoc_greedy": 2 * steps, "assoc_auction": 0}
+                             "assoc_greedy": 2 * steps, "assoc_auction": 0,
+                             "deform_sample": 0}
     for grp in many.groups:
         graphs = grp.engine._graphs
         assert grp.engine.step_mode == "graph" and len(graphs) == 1
@@ -1315,3 +1317,185 @@ def test_fleet_graphs_on_distinct_cards_equal_one_card(dev, no_tf32,
         for gs, ws in zip(g, w):
             assert _ids(gs) == _ids(ws)
     assert any(any(_ids(gs)) for g in got for gs in g)
+
+
+# ----------------------------------------------------------------------
+# K7 deform_sample and the captured RT-DETR step
+
+K7_RTOL, K7_ATOL = 1e-5, 1e-5      # f32 sums of O(1) values, both orders
+
+
+def _k7_inputs(nq, shapes, seed=5, edges=False, b=8):
+    """Decoder-like K7 inputs on the CPU: offsets of a few points, logits,
+    boxes in (0.05, 0.95), values. ``edges``: boxes (0.5, 0.5, 1, 1) and
+    offsets that put points on and just outside the map edges, one NaN
+    location."""
+    from roadvision_tpu_torch.models import rtdetr as T
+    g = torch.Generator().manual_seed(seed)
+    rows = sum(h * w for h, w in shapes)
+    off = torch.randn(b, nq, T.NH, T.NL, T.NDP, 2, generator=g) * 3
+    logits = torch.randn(b, nq, T.NH, T.NL * T.NDP, generator=g)
+    refer = torch.rand(b, nq, 4, generator=g) * 0.9 + 0.05
+    if edges:
+        refer[:] = torch.tensor([0.5, 0.5, 1.0, 1.0])
+        for lvl, (hl, wl) in enumerate(shapes):
+            locs = torch.tensor([0.0, 0.5 / wl, (wl - 0.5) / wl, 1.0,
+                                 -0.5 / wl, 1.0 + 0.5 / wl, -0.25, 1.25])
+            pick = torch.randint(0, len(locs), off[:, :, :, lvl].shape,
+                                 generator=g)
+            off[:, :, :, lvl] = (locs[pick] - 0.5) * 8.0
+        off[0, 1, 2, 0, 1, 0] = float("nan")
+    values = torch.randn(b, rows, T.NH, T.HD // T.NH, generator=g)
+    return off, logits, refer, values
+
+
+def _assert_k7_close(got, want):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.allclose(got[~nan], want[~nan], rtol=K7_RTOL, atol=K7_ATOL)
+
+
+@pytest.mark.parametrize("nq", [100, 300])
+@pytest.mark.parametrize("vals", ["f32", "f32 as bf16", "bf16"])
+@pytest.mark.parametrize("case", ["square", "ragged", "edges"])
+def test_deform_sample_kernel_against_its_plain_version(dev, nq, vals, case):
+    """K7 at the decoder's shapes (8 × nq queries, levels 80², 40², 20²;
+    non-square levels; edges, just outside and a NaN location) against
+    ``deform_sample_plain`` on the card, one launch a call."""
+    from roadvision_tpu_torch.ops import deform as D
+    shapes = [(48, 80), (24, 40), (12, 20)] if case == "ragged" \
+        else [(80, 80), (40, 40), (20, 20)]
+    off, logits, refer, values = (t.to(dev) for t in _k7_inputs(
+        nq, shapes, edges=case == "edges"))
+    bf16 = vals == "f32 as bf16"
+    if vals == "bf16":
+        values = values.to(torch.bfloat16)
+    before = launch_counts["deform_sample"]
+    with torch.no_grad():
+        got = D.deform_sample(off, logits, refer, values, shapes, bf16)
+        want = D.deform_sample_plain(off, logits, refer, values, shapes,
+                                     bf16)
+    torch.cuda.synchronize()
+    assert launch_counts["deform_sample"] == before + 1
+    _assert_k7_close(got, want)
+    if case == "edges":
+        assert torch.isnan(got[0, 1, 2]).all()
+        assert int(torch.isnan(got).sum()) == got.shape[-1]
+
+
+def test_deform_sample_raises_under_autograd_and_training_samples_plain(dev):
+    """K7 has no backward: on the card the wrapper raises where an input
+    needs gradients (no launch counted), launches under no_grad, and
+    RT-DETR's training forward samples through the plain version
+    itself, so its backward runs and K7 is not launched."""
+    from roadvision_tpu_torch.models import rtdetr as T
+    from roadvision_tpu_torch.ops import deform as D
+    shapes = [(20, 20), (10, 10), (5, 5)]
+    off, logits, refer, values = (t.to(dev) for t in _k7_inputs(
+        20, shapes, b=2))
+    off.requires_grad_(True)
+    before = launch_counts["deform_sample"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        D.deform_sample(off, logits, refer, values, shapes)
+    assert launch_counts["deform_sample"] == before
+    with torch.no_grad():
+        D.deform_sample(off, logits, refer, values, shapes)
+    assert launch_counts["deform_sample"] == before + 1
+    model = T.random_model(nc=3, seed=0).to(dev)
+    aux = model.forward_train(torch.rand(1, 64, 64, 3, device=dev))
+    aux["boxes"][-1].sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts["deform_sample"] == before + 1
+    assert model.dec.layers[0].ca.off.weight.grad is not None
+
+
+def _rtdetr_engine_cfg(batch=4):
+    from roadvision_tpu_torch.config import merge
+    return merge(_engine_cfg(batch), {"detect": {
+        "model": "assets/rtdetr_l_synthetic_256.npz", "imgsz": 256,
+        "max_det": 20, "classes_keep": [2], "compute_dtype": "float32"}})
+
+
+def _same_dets(g, e):
+    """Replayed against eager arrays: valid, classes and ids equal, boxes
+    within 0.05 px, confidences within 2e-3 (the smoke's limits for a
+    replayed batch)."""
+    boxes, conf, cls_id, valid, ids = g[:5]
+    assert torch.equal(valid, e[3]) and valid.any()
+    assert torch.equal(cls_id[valid], e[2][valid])
+    assert torch.equal(ids[valid], e[4][valid])
+    assert (boxes[valid] - e[0][valid]).abs().max() <= 0.05
+    assert (conf[valid] - e[1][valid]).abs().max() <= 2e-3
+
+
+def test_rtdetr_graph_replay_equals_the_eager_step(dev, no_tf32):
+    """RT-DETR-L (the asset, 256², float32) replays a captured graph: its
+    batches equal the eager step's from the same state, with the eager
+    path's launch counts (K7 six a batch, one a decoder layer) and no
+    host read."""
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.runtime.graph import WARMUP_CALLS
+    from roadvision_tpu_torch.track import sort as tsort
+    cfg = _rtdetr_engine_cfg()
+    graph, eager = (PipelineEngine(cfg, device=dev) for _ in range(2))
+    assert graph.step_mode == "graph" and graph.eager_reason is None
+    frames, ts = _batches(1)[0]
+    x = torch.from_numpy(frames).to(dev)
+    t = torch.from_numpy((ts - 1000.0).astype(np.float32)).to(dev)
+    launch_counts.update({k: 0 for k in launch_counts})
+    graph.step_batch(x, t, want_proc=False)          # the capture
+    assert launch_counts["deform_sample"] == 6 * (1 + WARMUP_CALLS)
+    counts = []
+    for eng, run in ((graph, graph.step_batch), (eager, eager.step)):
+        eng.reset()
+        launch_counts.update({k: 0 for k in launch_counts})
+        tsort.reset_host_syncs()
+        outs = []
+        for frames, ts in _batches(3):
+            x = torch.from_numpy(frames).to(dev)
+            t = torch.from_numpy((ts - 1000.0).astype(np.float32)).to(dev)
+            _, arrays = run(x, t, want_proc=False)
+            outs.append([a.cpu().clone() for a in arrays])
+        counts.append((dict(launch_counts), tsort.host_syncs))
+        eng.outs = outs
+    assert counts[0] == counts[1] and counts[0][1] == 0
+    assert counts[0][0]["deform_sample"] == 18
+    assert counts[0][0]["nms_keep"] == 0
+    for g, e in zip(graph.outs, eager.outs):
+        _same_dets(g, e)
+
+
+def test_rtdetr_int8_stays_eager(dev):
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    cfg = merge(_rtdetr_engine_cfg(), {"detect": {"compute_dtype": "int8"}})
+    eng = PipelineEngine(cfg, device=dev)
+    assert eng.step_mode == "eager" and "int8" in eng.eager_reason
+
+
+def test_recalibrated_gate_drops_its_graphs(dev):
+    """An "auto" gate: resolved from the first batch before the capture;
+    each ``calibrate_gate`` drops the graphs, and the replay that follows
+    holds the new threshold (0: no frame runs the chain; 1e6: every
+    frame does)."""
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    cfg = merge(_engine_cfg(), {"preprocess": {"auto_gate": {
+        "enable_low_contrast_gate": True, "contrast_thresh": "auto"}}})
+    eng = PipelineEngine(cfg, device=dev)
+    assert eng.step_mode == "graph"
+    frames, ts = _batches(1)[0]
+    x = torch.from_numpy(frames).to(dev)
+    t = torch.zeros(4, device=dev)
+    eng.step_batch(x, t)
+    first = next(iter(eng._graphs.values()))
+    eng.step_batch(x, t)
+    assert next(iter(eng._graphs.values())) is first
+    eng.pipeline.calibrate_gate(stats=np.array([0.0]))
+    proc, _ = eng.step_batch(x, t)
+    assert next(iter(eng._graphs.values())) is not first
+    assert torch.equal(proc, x)
+    eng.pipeline.calibrate_gate(stats=np.array([1e6]))
+    proc, _ = eng.step_batch(x, t)
+    assert len(eng._graphs) == 1 and not torch.equal(proc, x)
+    assert torch.equal(proc, eng.pipeline.apply_batch(x))

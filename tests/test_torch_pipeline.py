@@ -432,4 +432,5 @@ def test_kernel_wrappers_never_fall_back(monkeypatch, tmp_path):
         _build.load("median")
     assert set(_build.launch_counts) == {"clahe_tile_luts", "clahe_apply",
                                          "median_k", "assoc_greedy",
-                                         "assoc_auction", "nms_keep"}
+                                         "assoc_auction", "nms_keep",
+                                         "deform_sample"}

@@ -305,6 +305,19 @@ def test_not_applicable_sweeps_stay_in_the_report(tmp_path, capsys):
     assert again["sweeps"]["hist_dtype"]["status"] == "not_applicable"
 
 
+def test_rtdetr_gathers_is_not_applicable_on_the_card(tmp_path):
+    """On the card K7 computes both gather formulations' function: the
+    sweep is reported with its reason and runs no trial; on the CPU it
+    stays a sweep."""
+    out = tmp_path / "a.json"
+    assert autotune.main(["--sweeps", "rtdetr_gathers", "--out", str(out),
+                          "--device", "cuda"]) == 0
+    entry = json.loads(out.read_text())["sweeps"]["rtdetr_gathers"]
+    assert entry["status"] == "not_applicable" and "K7" in entry["reason"]
+    assert autotune.not_applicable(["rtdetr_gathers"], "cpu") == {}
+    assert "rtdetr_gathers" in autotune.SWEEPS
+
+
 def test_run_trial_runs_the_port_bench():
     sweep = autotune.SWEEPS["clahe_chunk"]
     got = autotune.run_trial(sweep, "16", 64, 1, 1, 300.0, "cpu")
@@ -312,7 +325,7 @@ def test_run_trial_runs_the_port_bench():
     assert got["batches"] == 1
     assert set(got["launches_per_batch"]) == {
         "clahe_tile_luts", "clahe_apply", "median_k", "assoc_greedy",
-        "assoc_auction", "nms_keep"}
+        "assoc_auction", "nms_keep", "deform_sample"}
     bad = autotune.run_trial(sweep, "0", 64, 1, 1, 300.0, "cpu")
     assert bad["fps"] is None and "RVT_CLAHE_CHUNK" in bad["error"]
     late = autotune.run_trial(sweep, "16", 64, 1, 1, 0.01, "cpu")

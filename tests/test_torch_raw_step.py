@@ -24,9 +24,18 @@
   counts, classes and ids equal, boxes within 0.05 px, confidences
   within 2e-3, distances and speeds within rtol 1e-3; the step leaves its
   input state as it was.
+* The same for RT-DETR-L (``assets/rtdetr_l_synthetic_256.npz``) with
+  ``configs/rtdetr_demo.yaml``'s auto-gated chain, ``classes_keep``,
+  SORT and homography, at 2 × 128 × 128 (imgsz 128, two decoder layers,
+  float32, the bf16 gather values off in both packages), one frame of
+  each batch carrying impulse noise so that the gate runs the chain on
+  it: processed frames equal, and the detections and tracks under the
+  same limits.
 * ``step_mode``: the static choice of graph or eager, from the
-  configuration; the engine's state stays in its own tensors through
-  ``step``, ``reset`` and ``load_state``.
+  configuration (RT-DETR and the auto-gate replay a graph, RT-DETR in
+  int8 stays eager); the engine's state stays in its own tensors
+  through ``step``, ``reset`` and ``load_state``; a recalibrated gate
+  drops the captured steps (an eager stand-in for the capture here).
 """
 import numpy as np
 import pytest
@@ -35,12 +44,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from roadvision_tpu.config import load_config as jload_config
 from roadvision_tpu.geometry import build_projector as jbuild_projector
+from roadvision_tpu.models import rtdetr as jrtdetr
 from roadvision_tpu.runtime.engine import PipelineEngine as JEngine
 from roadvision_tpu.track import multi as jmulti
 from roadvision_tpu.track import sort_tpu as jsort
 from roadvision_tpu_torch.config import load_config, merge
 from roadvision_tpu_torch.geometry import build_projector as tbuild_projector
+from roadvision_tpu_torch.io_video import SyntheticRoadSource
+from roadvision_tpu_torch.models import rtdetr as trtdetr
+from roadvision_tpu_torch.ops.color import bgr_to_gray_u8
+from roadvision_tpu_torch.runtime import engine as tengine
 from roadvision_tpu_torch.runtime.engine import PipelineEngine
 from roadvision_tpu_torch.runtime.graph import CapturedStep
 from roadvision_tpu_torch.tools.bench import bench_cfg
@@ -53,7 +68,9 @@ KF_RTOL, KF_ATOL = 1e-5, 1e-4
 AREA_RATE_ATOL = 2e-2
 BOX_TOL, CONF_TOL, METRIC_RTOL = 0.05, 2e-3, 1e-3
 NPZ = "assets/yolov8n_synthetic_256.npz"
+RTDETR_NPZ = "assets/rtdetr_l_synthetic_256.npz"
 SHAPE = (2, 48, 64)
+RT_SHAPE = (2, 128, 128)
 
 
 def _proj_cfg():
@@ -280,6 +297,72 @@ def test_raw_step_matches_jax_raw_step():
     assert n_ids >= 12
 
 
+def _rtdetr_demo_cfg(load):
+    """configs/rtdetr_demo.yaml at 128 × 128, batch 2, imgsz 128, two
+    decoder layers, float32."""
+    cfg = load("configs/rtdetr_demo.yaml")
+    cfg["detect"].update(model=RTDETR_NPZ, imgsz=128, decoder_layers=2,
+                         compute_dtype="float32")
+    cfg["camera"].update(width=RT_SHAPE[2], height=RT_SHAPE[1])
+    cfg["tpu"].update(batch_size=2, compute_dtype="float32")
+    return cfg
+
+
+def _road_batches(n, seed=1):
+    """n batches of two synthetic road frames (impulse statistic 1.8-2.0
+    at 128², under the demo's 2.5), the second of each with impulse noise
+    on 8 % of its pixels (10-12: the gate's chain runs on it)."""
+    src = SyntheticRoadSource(RT_SHAPE[2], RT_SHAPE[1], num_vehicles=3,
+                              seed=seed)
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        frames = np.stack([src.render(2 * i + j) for j in range(2)])
+        hit = rng.rand(*RT_SHAPE[1:]) < 0.08
+        frames[1][hit] = rng.choice([0, 255], (int(hit.sum()), 1))
+        out.append((frames, ((2 * i + np.arange(2)) / 30.0)
+                    .astype(np.float32)))
+    return out
+
+
+def test_rtdetr_raw_step_matches_jax_raw_step(monkeypatch):
+    monkeypatch.setattr(jrtdetr, "_BF16_VALS", False)
+    monkeypatch.setattr(trtdetr, "_BF16_VALS", False)
+    jeng = JEngine(_rtdetr_demo_cfg(jload_config))
+    teng = PipelineEngine(_rtdetr_demo_cfg(load_config), device="cpu")
+    batches = _road_batches(3)
+    # the demo's gate keys on the impulse statistic alone (contrast 0)
+    for frames, _ in batches:
+        stats = teng.pipeline.gate_stats(bgr_to_gray_u8(
+            torch.from_numpy(frames)))[1]
+        assert float(stats[0]) < 2.2 and float(stats[1]) > 8.0
+    jraw = jax.jit(jeng.build_raw_step(RT_SHAPE, want_proc=True))
+    traw = teng.build_raw_step(RT_SHAPE, want_proc=True)
+    jstate, tstate = jeng.sort_state, teng.sort_state
+    n_ids = 0
+    for frames, ts in batches:
+        jproc, jouts, jstate = jraw(jeng.detector.params, jstate,
+                                    jnp.asarray(frames), jnp.asarray(ts))
+        tproc, touts, tstate = traw(tstate, torch.from_numpy(frames),
+                                    torch.from_numpy(ts))
+        np.testing.assert_array_equal(tproc.numpy(), np.asarray(jproc))
+        assert not np.array_equal(tproc.numpy()[1], frames[1])
+        np.testing.assert_array_equal(tproc.numpy()[0], frames[0])
+        jb, jc, jk, jv, jids, jd, js = (np.asarray(a) for a in jouts)
+        tb, tc, tk, tv, tids, td, tsp = (a.numpy() for a in touts)
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(tk[tv], jk[jv])
+        np.testing.assert_array_equal(tids[tv], jids[jv])
+        np.testing.assert_allclose(tb[tv], jb[jv], rtol=0, atol=BOX_TOL)
+        np.testing.assert_allclose(tc[tv], jc[jv], rtol=0, atol=CONF_TOL)
+        for g, w in ((td, jd), (tsp, js)):
+            np.testing.assert_allclose(g[tv], w[jv], rtol=METRIC_RTOL,
+                                       atol=1e-4, equal_nan=True)
+        assert (tk[tv] == 2).all()
+        n_ids += int((tids[tv] > 0).sum())
+    assert n_ids >= 8
+
+
 def _as_on_card(cfg):
     """The engine's static choice, read as it would be on the card."""
     eng = PipelineEngine(cfg, device="cpu")
@@ -302,11 +385,65 @@ def _main_cfg(**over):
     ({"tracking": {"gmc": True}}, False),
     ({"detect": {"tta": True}}, False),
     ({"preprocess": {"auto_gate": {"enable_low_contrast_gate": True}}},
-     False),
+     True),
+    ({"detect": {"model": RTDETR_NPZ}}, True),
+    ({"detect": {"model": RTDETR_NPZ, "compute_dtype": "int8"}}, False),
 ])
 def test_step_mode_is_chosen_from_the_configuration(over, graph):
     reason = _as_on_card(_main_cfg(**over))
     assert (reason is None) == graph, reason
+
+
+def test_rtdetr_demo_config_replays_a_graph():
+    assert _as_on_card(load_config("configs/rtdetr_demo.yaml")) is None
+
+
+def test_rtdetr_int8_names_its_eager_reason():
+    cfg = _main_cfg(detect={"model": RTDETR_NPZ, "compute_dtype": "int8"})
+    assert "RTDETRTorch" in _as_on_card(cfg) and "int8" in _as_on_card(cfg)
+
+
+class _EagerCapture:
+    """An eager stand-in for ``CapturedStep`` (the CPU has no graphs):
+    calls the step on every replay, writing the new state in place."""
+    made = []
+
+    def __init__(self, fn, state, args):
+        self.fn, self.state = fn, state
+        _EagerCapture.made.append(self)
+
+    def __call__(self, *args):
+        outs, new = self.fn(self.state, *args)
+        for dst, src in zip(self.state or (), new or ()):
+            dst.copy_(src)
+        return outs
+
+
+def test_recalibrated_gate_drops_the_captured_steps(monkeypatch):
+    """An "auto" gate resolved from the first batch before its capture;
+    a later ``calibrate_gate`` drops the graph, and the next batch runs
+    a new one with the new threshold."""
+    monkeypatch.setattr(tengine, "CapturedStep", _EagerCapture)
+    monkeypatch.setattr(_EagerCapture, "made", [])
+    cfg = _main_cfg(preprocess={"auto_gate": {
+        "enable_low_contrast_gate": True, "contrast_thresh": "auto"}},
+        detect={"enabled": False}, tracking={"enabled": False})
+    eng = PipelineEngine(cfg, device="cpu")
+    eng.step_mode = "graph"
+    frames = torch.from_numpy(_noise_batches(1)[0][0])
+    ts = torch.zeros(2)
+    eng.step_batch(frames, ts)
+    eng.step_batch(frames, ts)
+    assert eng.pipeline.gate_epoch == 1 and len(_EagerCapture.made) == 1
+    eng.pipeline.calibrate_gate(stats=np.array([0.0]))      # never runs
+    proc, _ = eng.step_batch(frames, ts)
+    assert len(_EagerCapture.made) == 2 and len(eng._graphs) == 1
+    assert torch.equal(proc, frames)
+    eng.pipeline.calibrate_gate(stats=np.array([1e6]))      # always runs
+    proc, _ = eng.step_batch(frames, ts)
+    assert len(_EagerCapture.made) == 3
+    assert torch.equal(proc, eng.pipeline.apply_batch(frames))
+    assert not torch.equal(proc, frames)
 
 
 def test_multi_stream_config_replays_a_graph():
