@@ -1255,15 +1255,60 @@ def compare_tracks(cpu, gpu, worst: dict, what: str) -> int:
     return n
 
 
+def replay_vs_eager(eng, host_batches, what: str, per_frame: tuple
+                    ) -> dict:
+    """The engine's replayed batches (``step_batch``, its graph for the
+    batches' shape, captured beforehand) against its eager ones
+    (``step``), each run from a reset state over the same batches: every
+    output array bit-equal (NaN where NaN), the track state and GMC's
+    carry after the last batch too; launches exact both ways (K1-K3 and
+    K6 once a batch, the association ``per_frame`` a frame); no host read
+    in a replayed batch."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    t0 = float(host_batches[0][1][0])
+    inputs = [(torch.from_numpy(f).to(eng.device),
+               torch.from_numpy((t - t0).astype(np.float32)).to(eng.device))
+              for f, t in host_batches]
+    n = len(inputs)
+    runs, syncs, ends = {}, {}, {}
+    for mode, fn in (("graph", eng.step_batch), ("eager", eng.step)):
+        eng.reset()
+        kernels.reset_launch_counts()
+        kept = []
+        syncs[mode] = count_syncs(lambda: [kept.append(
+            [a.clone() for a in fn(f, t)[1]]) for f, t in inputs])
+        exact_launches(f"{what} {mode}", {
+            **{k: n for k in PRE_KERNELS},
+            **tail_want(n, n * BATCH, *per_frame)})
+        runs[mode] = [[a.cpu().numpy() for a in r] for r in kept]
+        ends[mode] = [t.cpu().numpy() for t in eng.step_state()]
+    if syncs["graph"]:
+        fail(f"{what}: {syncs['graph']} host syncs in {n} replayed batches")
+    n_det = 0
+    for i, (g, e) in enumerate(zip(runs["graph"], runs["eager"])):
+        for j, (a, b) in enumerate(zip(g, e)):
+            if not np.array_equal(a, b, equal_nan=True):
+                fail(f"{what}: batch {i} array {j} replayed differs from "
+                     f"eager")
+        n_det += int(g[3].sum())
+    if not all(np.array_equal(a, b, equal_nan=True)
+               for a, b in zip(ends["graph"], ends["eager"])):
+        fail(f"{what}: the state after the replayed batches differs")
+    return {"batches": n, "detections": n_det, "host_syncs": syncs}
+
+
 def tracker_backends(model: str, batches, card: str, front) -> dict:
-    """``[tracker] <backend>``: three float32 batches on the card against
-    the CPU path (ids equal, distance and speed within TRACK_RTOL, the
-    state carried across), then bfloat16 timed as ``tools/bench.py``
-    times a path (frames/s of DET_WINDOWS windows of DET_ITERS batches,
-    SORT + geometry stage ms of DET_WINDOWS batches), the association's
-    host reads in one batch, launches 1 / 1 / 1 per batch; the default
-    steps (BOXES_MODE_PATHS) call none of the torch IoU helpers on the
-    card."""
+    """``[tracker] <backend>``: every path replays a CUDA graph on the
+    card; three float32 batches on the card against the CPU path (ids
+    equal, distance and speed within TRACK_RTOL, the state carried
+    across), then the same three replayed against eager from a reset
+    state (bit-equal, exact launches, no host read replayed), then
+    bfloat16 timed as ``tools/bench.py`` times a path (frames/s of
+    DET_WINDOWS windows of DET_ITERS batches, SORT + geometry stage ms
+    of DET_WINDOWS batches), the association's host reads in one batch,
+    launches 1 / 1 / 1 per batch; the default steps (BOXES_MODE_PATHS)
+    call none of the torch IoU helpers on the card."""
     import torch
     from roadvision_tpu_torch.config import merge
     from roadvision_tpu_torch.runtime import PipelineEngine
@@ -1278,6 +1323,9 @@ def tracker_backends(model: str, batches, card: str, front) -> dict:
         cfg = merge(pipeline_cfg(model), {"tracking": over})
         cfg32 = merge(cfg, {"tpu": {"compute_dtype": "float32"}})
         gpu = PipelineEngine(cfg32, device="cuda")
+        if gpu.step_mode != "graph":
+            fail(f"[tracker] {name}: runs {gpu.step_mode} "
+                 f"({gpu.eager_reason})")
         cpu = front.attach(PipelineEngine(cfg32, device="cpu"))
         if "reid_weights" in over and gpu._embed_fn.__name__ != "embed":
             fail(f"[tracker] {name}: the learned embedder did not load")
@@ -1295,10 +1343,12 @@ def tracker_backends(model: str, batches, card: str, front) -> dict:
                 n += compare_tracks(cpu.process_batch(frames, ts), r_gpu,
                                     worst, f"[tracker] {name}")
                 ids |= {d.track_id for r in r_gpu for d in r.detections}
-            runs = 3 + warm(gpu.step_mode == "graph")
+            runs = 3 + warm(1)
             pl.check(runs, tracked(BATCH, *ASSOC_PER_FRAME[name]))
         if n == 0 or len(ids - {None}) < 3:
             fail(f"[tracker] {name}: {n} detections, ids {sorted(ids, key=str)}")
+        replay = replay_vs_eager(gpu, batches[:3], f"[tracker] {name}",
+                                 ASSOC_PER_FRAME[name])
         eng = PipelineEngine(cfg, device="cuda")
         eng.process_batch(*batches[3], want_proc=False)       # warm-up
         fed = iter(range(4 * BATCH, 10 ** 9, BATCH))
@@ -1327,12 +1377,17 @@ def tracker_backends(model: str, batches, card: str, front) -> dict:
             "median": float(np.median(sort_ms)), "min": min(sort_ms),
             "max": max(sort_ms)}, "host_syncs_per_batch": syncs,
             "detections": n, "ids": len(ids - {None}), "worst": worst,
-            "launches": counts}
+            "launches": counts, "replay_vs_eager": replay}
         out[name] = row
         print(f"[tracker] {name}: {n} detections of 3 float32 batches match "
               f"the CPU path ({len(ids - {None})} ids; worst "
               + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
-              + f"); bfloat16 frames/s median {fps['median']:.1f} (min "
+              + f"); 3 replayed batches bit-equal to 3 eager ones from "
+              f"a reset state ({replay['detections']} detections, the "
+              f"state after too; host syncs replayed "
+              f"{replay['host_syncs']['graph']}, eager "
+              f"{replay['host_syncs']['eager']}); bfloat16 frames/s "
+              f"median {fps['median']:.1f} (min "
               f"{fps['min']:.1f}, max {fps['max']:.1f}), SORT + geometry "
               f"{row['sort_geometry_ms']['median']:.2f} ms [min "
               f"{min(sort_ms):.2f}, max {max(sort_ms):.2f}], {syncs} host "
@@ -1371,9 +1426,12 @@ def pan_batches(batches, n: int, seed: int = 3):
 
 
 def gmc_phase(model: str, batches, card: str, front) -> dict:
-    """``[gmc]``: a panned source through strongsort (GMC on) in float32:
-    each batch's shifts on the card equal the CPU's and the known pan;
-    ids equal; launches 1 / 1 / 1 per batch."""
+    """``[gmc]``: a panned source through strongsort (GMC on) in float32,
+    replayed from a CUDA graph on the card (GMC's carry in the graph's
+    state): each batch's shifts against the engine's carried thumbnail
+    equal the CPU's and the known pan; ids equal; launches 1 / 1 / 1 per
+    batch; then the pan replayed against eager from a reset state,
+    bit-equal."""
     import torch
     from roadvision_tpu_torch.config import merge
     from roadvision_tpu_torch.runtime import PipelineEngine
@@ -1382,19 +1440,19 @@ def gmc_phase(model: str, batches, card: str, front) -> dict:
         "tracking": {"backend": "strongsort"},
         "tpu": {"compute_dtype": "float32"}})
     gpu = PipelineEngine(cfg, device="cuda")
+    if gpu.step_mode != "graph":
+        fail(f"[gmc]: runs {gpu.step_mode} ({gpu.eager_reason})")
     cpu = front.attach(PipelineEngine(cfg, device="cpu"))
     worst = {"box": 0.0, "distance_m": 0.0, "speed_kmh": 0.0}
     n = 0
+    pan = pan_batches(batches, 3)
     with PathLaunches("[gmc]") as pl:
-        for frames, ts, known in pan_batches(batches, 3):
+        for frames, ts, known in pan:
             got = []
             for eng in (gpu, cpu):
                 g = gray_thumbnail(torch.from_numpy(frames).to(eng.device))
-                prev = eng._gmc_prev if eng._gmc_prev is not None \
-                    else torch.zeros_like(g[0])
                 got.append(batch_shifts(
-                    prev, g, torch.tensor(float(eng._gmc_prev is not None),
-                                          device=eng.device),
+                    eng.gmc_prev, g, eng.gmc_valid,
                     (WIDTH // 128, HEIGHT // 128)).cpu().numpy())
             if not (np.array_equal(got[0], got[1])
                     and np.array_equal(got[0], known)):
@@ -1402,13 +1460,20 @@ def gmc_phase(model: str, batches, card: str, front) -> dict:
                      f"{got[1].tolist()}, known {known.tolist()}")
             n += compare_tracks(cpu.process_batch(frames, ts),
                                 gpu.process_batch(frames, ts), worst, "[gmc]")
-        counts = pl.check(3, tracked(BATCH, *ASSOC_PER_FRAME["strongsort"]))
-    print(f"[gmc] a pan of 24 frames through strongsort: the card's shifts "
-          f"equal the CPU's and the known ones (up to "
+        counts = pl.check(3 + warm(1),
+                          tracked(BATCH, *ASSOC_PER_FRAME["strongsort"]))
+    replay = replay_vs_eager(gpu, [(f, t) for f, t, _ in pan], "[gmc]",
+                             ASSOC_PER_FRAME["strongsort"])
+    print(f"[gmc] a pan of 24 frames through strongsort, replayed: the "
+          f"card's shifts equal the CPU's and the known ones (up to "
           f"{int(np.abs(known).max())} px a frame); {n} detections match "
           f"(worst {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}"
-          f"); launches {counts}", flush=True)
-    return {"detections": n, "worst": worst, "launches": counts}
+          f"); launches {counts}; the pan replayed equals it eager from a "
+          f"reset state, bit for bit ({replay['detections']} detections, "
+          f"the carry after too; host syncs replayed "
+          f"{replay['host_syncs']['graph']})", flush=True)
+    return {"detections": n, "worst": worst, "launches": counts,
+            "replay_vs_eager": replay}
 
 
 class ListSource:
@@ -2431,15 +2496,16 @@ def entry_streams_api(model: str) -> dict:
 def entry_analytics_demo(tmp: Path) -> dict:
     """``[entry] analytics_demo``: configs/analytics_demo.yaml as shipped
     (256², deepsort with the learned re-id, no preprocess chain: no
-    kernel launches) through the preview (60 frames: the summary and the
-    event count); ``tools/analyze.py`` on the card and on the CPU over
-    the same 60 frames in float32 with TF32 off and the wall clock the
-    sources stamp from pinned: the reports equal (counts exact, float
-    statistics within 1e-3 relative); the server: /events non-empty,
+    kernel launches), which replays a CUDA graph, through the preview (60
+    frames: the summary and the event count); ``tools/analyze.py`` on the card
+    and on the CPU over the same 60 frames in float32 with TF32 off and the
+    wall clock the sources stamp from pinned: the reports equal (counts exact,
+    float statistics within 1e-3 relative); the server: /events non-empty,
     ``roadvision_analytics_events_total`` in /metrics."""
     import yaml
     from roadvision_tpu_torch import kernels
     from roadvision_tpu_torch.config import load_config
+    from roadvision_tpu_torch.runtime import PipelineEngine
     from roadvision_tpu_torch.tools import analyze, preview
     root = Path(__file__).resolve().parent
     demo = root / "configs" / "analytics_demo.yaml"
@@ -2457,6 +2523,11 @@ def entry_analytics_demo(tmp: Path) -> dict:
             self.n_events += len(events)
             return events
 
+    eng = PipelineEngine(load_config(str(demo)))
+    if eng.step_mode != "graph":
+        fail(f"[entry] analytics_demo: runs {eng.step_mode} "
+             f"({eng.eager_reason})")
+    del eng
     avi = tmp / "analytics.avi"
     kernels.reset_launch_counts()
     preview.Analytics = Counting
@@ -2467,8 +2538,10 @@ def entry_analytics_demo(tmp: Path) -> dict:
         preview.Analytics = real
     if rc != 0 or len(made) != 1:
         fail(f"[entry] analytics_demo: rc {rc}, {len(made)} aggregates")
-    # no chain; deepsort (eager): NMS a batch, one association a frame
-    exact_launches("[entry] analytics_demo", tail_want(8, 60))
+    # no chain; deepsort replayed: NMS a batch, one association a frame,
+    # and the warm-ups of two captures (batches of 8 and the last one of 4)
+    exact_launches("[entry] analytics_demo",
+                   tail_want(8 + warm(2), 60 + warm(1) * (8 + 4)))
     check_avi(avi, 60, (2 * 256 + 4, 256))
     summary = made[0].summary()
     print(f"[entry] analytics_demo preview: 60 frames, {made[0].n_events} "
@@ -3978,16 +4051,16 @@ def eval_trackers_phase(out_dir: Path, card: str) -> dict:
         rc, text = run_main(et.main, ["--out",
                                       str(out_dir / "eval_trackers.json")])
         elapsed = time.perf_counter() - t0
-        # six backends a scene, sort's graph captured in each; the chain
-        # runs on heavy_fog only
+        # six backends a scene, each backend's graph captured in each;
+        # the chain runs on heavy_fog only
         per_frame = sum(ASSOC_PER_FRAME[b][0] for b in (
             "sort", "bytetrack", "ocsort", "deepsort", "botsort",
             "strongsort"))
-        runs = 6 * n_batches + warm(1)
+        runs = 6 * (n_batches + warm(1))
         counts = exact_launches("[eval] trackers", {
             **{k: runs for k in PRE_KERNELS},
-            **tail_want(2 * runs, 2 * 8 * (per_frame * n_batches
-                                           + warm(1)))})
+            **tail_want(2 * runs, 2 * 8 * per_frame * (n_batches
+                                                       + warm(1)))})
     report = json.loads(text)
     if rc != 0 or any(len(r) != 6 for r in report["scenes"].values()):
         fail(f"[eval] trackers: rc {rc}")
@@ -4000,7 +4073,7 @@ def eval_trackers_phase(out_dir: Path, card: str) -> dict:
                                    0.25, 8, pre))
         with PathLaunches(f"[eval] trackers {backend}"):
             d_g = ew.run_mode(cfg, imgs, "cuda")
-            runs = EVAL_CHECK // 8 + warm(backend == "sort")
+            runs = EVAL_CHECK // 8 + warm(1)
             exact_launches(f"[eval] trackers {backend}", {
                 **{k: runs * pre for k in PRE_KERNELS},
                 **tail_want(runs, runs * 8, *ASSOC_PER_FRAME[backend])})
@@ -5272,6 +5345,257 @@ def graph_phase(model: str, card: str) -> dict:
             "multi_stream_syncs": multi_syncs, "torch_iou_calls": iou_calls}
 
 
+# [graph] trackers: the hooked backends and GMC behind the chain, replayed
+# name → tracking overrides (strongsort turns GMC on by default)
+TRACKER_GRAPH_PATHS = {
+    "bytetrack": {"backend": "bytetrack"},
+    "ocsort": {"backend": "ocsort"},
+    "deepsort": {"backend": "deepsort"},
+    "strongsort": {"backend": "strongsort"},
+    "botsort gmc": {"backend": "botsort", "gmc": True},
+}
+TRACKER_FLEETS = ("deepsort", "botsort gmc")
+TRK_FPS_BATCHES = 8                # batches a timed window
+FLEET_TRK_BATCHES = 3              # fleet batches replayed against eager
+
+
+def _assoc_of(name: str) -> tuple:
+    return ASSOC_PER_FRAME[name.split()[0]]
+
+
+def _same_fleet_results(got, want, what: str) -> int:
+    """Two runs' fleet batches (per-stream lists of FrameResults): every
+    detection equal, boxes, confidences, classes, ids, distance and speed
+    bit for bit. Returns the detections compared."""
+    n = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for si, (gs, ws) in enumerate(zip(g, w)):
+            for fi, (a, b) in enumerate(zip(gs, ws)):
+                if a.detections != b.detections:
+                    fail(f"{what}: batch {i} stream {si} frame {fi} "
+                         f"differs")
+                n += len(a.detections)
+    return n
+
+
+def fleet_tracker_scaling(model: str, name: str, card: str) -> dict:
+    """The camera fleet of a hooked backend as users run it:
+    ``MultiStreamEngine(cfg, S, devices=[GRAPH_DEVICE]).process_batch``
+    at 1080p x 8 a stream, S = 1, 2, 4, 8 (for botsort + GMC the groups'
+    state holds GMC's (S, G, G) carry). Against the same fleet forced to
+    ``step_mode = "eager"``, each after its first batch (the capture, the
+    cuDNN search) and a ``reset()``: FLEET_TRK_BATCHES fleet batches, a
+    ``reset()``, the same batches again. Every detection bit-equal,
+    the second pass equal to the first, the state after equal; launches
+    exact both ways (K1-K3 and K6 once a fleet batch, K4 ``B · k`` for
+    all S streams); no host sync in a replayed fleet batch; the graph
+    kept its state tensors through both resets. Then frames/s in all
+    through ``process_batch``, eager against replayed, in turns."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.io_video import DeviceSyntheticSource
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    from roadvision_tpu_torch.track import sort as tsort
+    cfg = merge(pipeline_cfg(model), {"tracking": TRACKER_GRAPH_PATHS[name]})
+    per_frame = _assoc_of(name)
+    n = FLEET_TRK_BATCHES
+    what = f"[graph] trackers fleet {name}"
+    out = {}
+    for s in FLEET_SIZES:
+        fleets = {m: MultiStreamEngine(cfg, s, devices=[GRAPH_DEVICE])
+                  for m in ("graph", "eager")}
+        if fleets["graph"].step_mode != "graph":
+            fail(f"{what} S={s}: the fleet runs "
+                 f"{fleets['graph'].step_mode} "
+                 f"({fleets['graph'].engine.eager_reason})")
+        fleets["eager"].step_mode = "eager"
+        for grp in fleets["eager"].groups:
+            grp.engine.step_mode = "eager"
+        render = DeviceSyntheticSource(
+            WIDTH, HEIGHT, num_vehicles=6, seed=s,
+            device=fleets["graph"].engine.device).make_render_fn(s * BATCH)
+        clip = [render(k * s * BATCH).reshape(s, BATCH, HEIGHT, WIDTH, 3)
+                .cpu().numpy() for k in range(1 + n)]
+        del render
+
+        def inp(k):
+            return clip[k % len(clip)], 1000.0 + np.repeat(
+                (k * BATCH + np.arange(BATCH))[None] / 30.0, s, axis=0)
+
+        runs, ends, syncs, counts = {}, {}, {}, {}
+        for mode, fleet in fleets.items():
+            fleet.process_batch(*inp(0))       # graph: the capture
+            grp = fleet.groups[0]
+            held = grp.step_state()
+            fleet.reset()
+            kernels.reset_launch_counts()
+            tsort.reset_host_syncs()
+            kept, syncs[mode] = [], 0
+            for rep in range(2):
+                if rep:
+                    fleet.reset()
+                syncs[mode] += count_syncs(lambda: [
+                    kept.append(fleet.process_batch(*inp(k)))
+                    for k in range(1, 1 + n)])
+            counts[mode] = exact_launches(
+                f"{what} S={s} {mode}",
+                {**{k: 2 * n for k in PRE_KERNELS},
+                 **tail_want(2 * n, 2 * n * BATCH, *per_frame)})
+            if mode == "graph":
+                if syncs[mode] or tsort.host_syncs:
+                    fail(f"{what} S={s}: {syncs[mode]} host syncs, "
+                         f"{tsort.host_syncs} flag reads in {2 * n} "
+                         f"replayed fleet batches")
+                if grp.step_state() is not held \
+                        or len(grp.engine._graphs) != 1:
+                    fail(f"{what} S={s}: the graph's state was rebound or "
+                         f"captured again")
+            _same_fleet_results(kept[n:], kept[:n],
+                                f"{what} S={s} {mode} after reset()")
+            runs[mode] = kept[:n]
+            ends[mode] = [t.cpu().numpy() for t in grp.step_state()]
+        n_det = _same_fleet_results(runs["graph"], runs["eager"],
+                                    f"{what} S={s} replayed vs eager")
+        if not n_det:
+            fail(f"{what} S={s}: no detections compared")
+        if not all(np.array_equal(a, b, equal_nan=True)
+                   for a, b in zip(ends["graph"], ends["eager"])):
+            fail(f"{what} S={s}: the state after differs from eager")
+        k_next = iter(range(1 + n, 10 ** 9))
+
+        def window(mode, m=3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(m):
+                fleets[mode].process_batch(*inp(next(k_next)))
+            return m * s * BATCH / (time.perf_counter() - t0)
+
+        fps = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            fps[mode].append(window(mode))
+        out[s] = {"fps": {m: float(np.median(v)) for m, v in fps.items()},
+                  "fps_windows": fps,
+                  "assoc_launches_per_batch":
+                      counts["graph"]["assoc_greedy"] / (2 * n),
+                  "host_syncs": syncs, "detections": n_det}
+        del fleets, clip
+    print(f"{what} at 1080p x 8 a stream through "
+          f"MultiStreamEngine.process_batch: {FLEET_TRK_BATCHES} fleet "
+          f"batches, reset(), the same again, replayed bit-equal to eager "
+          f"each S; K4 launches a fleet batch "
+          + ", ".join(f"S={s} {r['assoc_launches_per_batch']:g}"
+                      for s, r in out.items())
+          + f" (B x k = {BATCH * per_frame[0]}); frames/s in all, eager / "
+          "graph: " + "; ".join(f"S={s} {r['fps']['eager']:.1f} / "
+                                f"{r['fps']['graph']:.1f}"
+                                for s, r in out.items())
+          + f" ({card})", flush=True)
+    return out
+
+
+def graph_trackers_phase(model: str, card: str) -> dict:
+    """``[graph] trackers``: bytetrack, ocsort, deepsort, strongsort (GMC
+    on) and botsort with GMC at 1080p x 8 bf16 behind the chain (K1-K3,
+    K6 and K4 in one graph), frames rendered on the card. Each: SORT +
+    geometry ms eager (``tools/bench.py::stage_ms``, GMC and the
+    descriptors included) against captured (``graph_stage_ms``);
+    device-resident frames/s eager and replayed, in turns, launches
+    exact in every window; the device's idle share by torch.profiler
+    over two batches; launches a batch. Every engine must replay
+    (``step_mode == "graph"``). Then the fleet of TRACKER_FLEETS at S =
+    1, 2, 4, 8 through ``MultiStreamEngine``
+    (:func:`fleet_tracker_scaling`)."""
+    import torch
+    from roadvision_tpu_torch import kernels
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.io_video import DeviceSyntheticSource
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.tools.bench import graph_stage_ms, stage_ms
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    out = {}
+    for name, over in TRACKER_GRAPH_PATHS.items():
+        t0 = time.perf_counter()
+        eng = PipelineEngine(merge(pipeline_cfg(model), {"tracking": over}),
+                             device=GRAPH_DEVICE)
+        if eng.step_mode != "graph":
+            fail(f"[graph] trackers {name}: runs {eng.step_mode} "
+                 f"({eng.eager_reason})")
+        per_frame = _assoc_of(name)
+        render = DeviceSyntheticSource(WIDTH, HEIGHT, num_vehicles=6,
+                                       seed=0, device=eng.device) \
+            .make_render_fn(BATCH)
+        steps = torch.arange(BATCH, device=eng.device,
+                             dtype=torch.float32) / 30.0
+        rendered = {}
+
+        def inputs(k):
+            if k not in rendered:
+                if len(rendered) > 40:
+                    rendered.clear()
+                rendered[k] = render(k * BATCH)
+            return rendered[k], k * BATCH / 30.0 + steps
+
+        # one eager batch first: the process's first one searches
+        # cuDNN's algorithms (cudnn.benchmark), which no window should time
+        eng.step(*inputs(0), want_proc=False)
+        modes = {"eager": eng.step, "graph": eng.step_batch}
+        eng.step_batch(*inputs(0), want_proc=False)   # the capture
+        fps = {m: [] for m in modes}
+        counts = {}
+        k = 1
+        for mode in ("eager", "graph", "graph", "eager"):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            resident_run(eng, modes[mode], inputs, k, TRK_FPS_BATCHES)
+            torch.cuda.synchronize()
+            fps[mode].append(TRK_FPS_BATCHES * BATCH
+                             / (time.perf_counter() - t1))
+            n = TRK_FPS_BATCHES
+            counts[mode] = exact_launches(
+                f"[graph] trackers {name} {mode}",
+                {**{c: n for c in PRE_KERNELS},
+                 **tail_want(n, n * BATCH, *per_frame)})
+            k += TRK_FPS_BATCHES
+        frames_np = render(k * BATCH).cpu().numpy()
+        ts_np = 2000.0 + np.arange(BATCH) / 30.0
+        stages = {"eager": stage_ms(eng, frames_np, ts_np),
+                  "graph": graph_stage_ms(eng, frames_np, ts_np)}
+        idle = {m: idle_share(eng, f, inputs, k + 1 + i * 10, n=2)
+                for i, (m, f) in enumerate(modes.items())}
+        med = {m: float(np.median(v)) for m, v in fps.items()}
+        row = {"step_mode": eng.step_mode, "fps": fps, "fps_median": med,
+               "stage_ms": stages, "idle": idle,
+               "launches_per_batch": {
+                   m: {c: v / TRK_FPS_BATCHES for c, v in cnt.items()}
+                   for m, cnt in counts.items()}}
+        sort_ms = {m: st["sort_geometry"] for m, st in stages.items()}
+        print(f"[graph] trackers {name}: step_mode {eng.step_mode}; SORT + "
+              f"geometry ms " + json.dumps({m: round(v, 3) for m, v in
+                                            sort_ms.items()})
+              + "; frames/s device-resident, 1080p x 8 bf16, "
+              + ", ".join(f"{m} {med[m]:.1f} {[round(v, 1) for v in fps[m]]}"
+                          for m in fps)
+              + "; idle share "
+              + ", ".join(f"{m} " + ("not measured"
+                                     if r["idle_share"] is None else
+                                     f"{r['idle_share']:.3f}")
+                          for m, r in idle.items())
+              + "; launches a batch "
+              + json.dumps(row["launches_per_batch"]["graph"])
+              + f" ({card}); {time.perf_counter() - t0:.1f} s", flush=True)
+        del eng
+        rendered.clear()
+        if name in TRACKER_FLEETS:
+            row["fleet"] = fleet_tracker_scaling(model, name, card)
+        out[name] = row
+    print(f"[graph] trackers: the phase ran "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------------
 # K7 deform_sample and the RT-DETR-L step replayed from a CUDA graph
 
@@ -5893,10 +6217,30 @@ def main() -> int:
               f"{time.perf_counter() - T_START:.1f} s", flush=True)
         print(card_line(), flush=True)
         return 0
+    if "--trackers-only" in sys.argv[1:]:
+        model = str(Path(__file__).resolve().parent / "assets"
+                    / "yolov8n_synthetic_256.npz")
+        line = graph_trackers_phase(model, card)
+        Path("chiprun_out").mkdir(exist_ok=True)
+        Path("chiprun_out/graph_trackers.json").write_text(
+            json.dumps(line, indent=1, default=str))
+        print(f"[time] chip_smoke.py --trackers-only ran "
+              f"{time.perf_counter() - T_START:.1f} s", flush=True)
+        print(card_line(), flush=True)
+        return 0
+    # seconds of each part of the whole run, printed at its end
+    phase_s, last = {}, [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
+
     batches = render_batches(6)
     rows = check_kernels(batches[0][0])
     rows.update(check_tail_kernels())
     rows.update(check_deform_kernel(batches[0][0]))
+    mark("kernels")
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
@@ -5904,6 +6248,7 @@ def main() -> int:
                 / "yolov8n_synthetic_256.npz")
     if "--graph-only" in sys.argv[1:]:
         graph = graph_phase(model, card)
+        graph["trackers"] = graph_trackers_phase(model, card)
         graph["rtdetr"] = rtdetr_graph_phase(card)
         Path("chiprun_out").mkdir(exist_ok=True)
         Path("chiprun_out/graph.json").write_text(json.dumps(
@@ -5937,10 +6282,15 @@ def main() -> int:
                 fail("non-finite detection")
 
     paths = second_paths(model, batches, card)
+    mark("e2e f32, second paths")
     # the host-free device step: the main path replayed from a CUDA graph,
-    # then RT-DETR-L and rtdetr_demo.yaml
+    # the hooked trackers and GMC, then RT-DETR-L and rtdetr_demo.yaml
     graph = graph_phase(model, card)
+    mark("[graph]")
+    graph["trackers"] = graph_trackers_phase(model, card)
+    mark("[graph] trackers")
     graph["rtdetr"] = rtdetr_graph_phase(card)
+    mark("[graph] rtdetr")
 
     # the serving surface, each path with its own launch counts
     out_dir = Path("chiprun_out")
@@ -5957,7 +6307,9 @@ def main() -> int:
             "tracker": tracker_phase(model, batches),
             "track --gt": entry_track_gt(model, Path(tmp)),
         }
+    mark("serving surface")
     entries["bench"] = bench_phase(model, card)
+    mark("[bench]")
     # the tracker family, GMC and the gate: the CPU engines share one
     # preprocess + detector pass per distinct batch
     front = SharedFront()
@@ -5965,13 +6317,16 @@ def main() -> int:
     entries["gmc"] = gmc_phase(model, batches, card, front)
     entries["gate"] = gate_phase(model, batches, card, front)
     front.memo.clear()
+    mark("[tracker], [gmc], [gate]")
     with tempfile.TemporaryDirectory() as tmp:
         detector = detector_phase(batches, card, Path(tmp))
     (out_dir / "detector.json").write_text(json.dumps(detector, indent=1))
+    mark("[detector]")
     entries["weather"] = weather_phase(card)
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("rtdetr_demo", "weather_demo"):
             entries[name] = entry_demo(name, Path(tmp))
+    mark("[weather], demos")
     # the camera fleet and traffic analytics
     fleet = {"streams": streams_phase(model, card),
              "streams gate": streams_gate_phase(model, card)}
@@ -5983,19 +6338,23 @@ def main() -> int:
     fleet["bench streams"] = bench_streams_phase(model, card)
     (out_dir / "streams.json").write_text(json.dumps(fleet, indent=1))
     entries.update(fleet)
+    mark("fleet")
 
     # training: every family, then the train entry points
     with tempfile.TemporaryDirectory() as tmp:
         training = train_phase(card, Path(tmp))
         training["entry"] = entry_train(Path(tmp), card)
     (out_dir / "training.json").write_text(json.dumps(training, indent=1))
+    mark("training")
 
     # multi-card parallelism over lists that repeat cuda:0
     parallel = parallel_phase(card)
     (out_dir / "parallel.json").write_text(json.dumps(parallel, indent=1))
+    mark("[parallel]")
 
     # the offline and auxiliary modules
     tools = tools_phases(model, batches[0][0], card)
+    mark("tools")
 
     # the default bfloat16 path: counters from 0 around the main-path run
     torch.backends.cudnn.benchmark = True
@@ -6084,6 +6443,8 @@ def main() -> int:
             k: v.get("launches") if isinstance(v, dict) else v
             for k, v in tools.items()}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(line, indent=1))
+    mark("bf16 main path")
+    print("[time] seconds by part " + json.dumps(phase_s), flush=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
           f"(the kernels' build included)", flush=True)
     print(json.dumps(line), flush=True)

@@ -6,15 +6,18 @@ shards that axis over the mesh's "data" axis. On one card, stream
 sharding becomes stream batching: the S streams' frames are folded into
 one batch of S·B for the preprocess chain, the letterbox, the detector
 and NMS — so the CLAHE and median kernels launch once per fleet batch,
-not once per stream. The default tracker then scans the batch's frames
-once on the stacked track state, every stream in each step (one
-association launch a frame for all S); a backend with strategy hooks,
-or GMC, runs the tail per stream on that stream's slice
-(``track/multi.py``), with the stream's own re-id descriptors and GMC
-thumbnail. Within a stream the batch axis is time, as in JAX. Several
+not once per stream. The tracker then scans the batch's frames once on
+the stacked track state, every stream in each step, for every backend:
+the strategy hooks take the stream axis, the re-id descriptors are
+computed for all S·B frames at once, and GMC runs one gray thumbnail
+over (S, B) frames and one phase correlation against the (S, G, G)
+thumbnails the streams carry (one flag for all, as JAX's ``in_axes``
+gives it). So one association launch a stage a frame serves all S
+streams. Within a stream the batch axis is time, as in JAX. Several
 cards each run such a step on a contiguous group of streams
 (``runtime/multi_engine.py``), which replays it from a CUDA graph where
-the engine's ``step_mode`` is ``"graph"``.
+the engine's ``step_mode`` is ``"graph"``: every tracking backend, with
+or without GMC.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from ..runtime.engine import _motion_score
 from ..track.gmc import GMC_SIZE
-from ..track.multi import init_multi_state, over_streams
+from ..track.multi import init_multi_state
 from ..track.sort import read_flag
 
 
@@ -36,25 +39,6 @@ def _fold(t: torch.Tensor) -> torch.Tensor:
 def _unfold(t: torch.Tensor, s: int) -> torch.Tensor:
     """(S·B, ...) → (S, B, ...)."""
     return t.reshape(s, t.shape[0] // s, *t.shape[1:])
-
-
-def _stream_tails(engine, states, b: int, dets4, ts, frames, shifts=None):
-    """The tracker tail of every stream: ``dets4`` (boxes, conf, cls,
-    valid), each (S, B, ...) → ((S, B, D) ids, dist, speed), states'. The
-    default tracker (and no tracker) runs one scan on the stacked state;
-    hooks or GMC shifts run per stream on the stream's slice."""
-    if shifts is None and (states is None or getattr(
-            engine._sort_step, "stackable", False)):
-        states, *tails = engine._tail(states, b, *dets4, ts, frames)
-        return tuple(tails), states
-
-    def tail(st, *args):
-        st, *out = engine._tail(st, b, *args)
-        return st, out
-
-    states, tails = over_streams(tail, states, frames.shape[0], *dets4, ts,
-                                 frames, shifts)
-    return tails, states
 
 
 def _init_states(engine, num_streams: int):
@@ -73,10 +57,11 @@ def make_stream_step(engine, shape: Tuple[int, int, int]):
     Returns:
       step(states, frames (S, B, H, W, 3) u8, ts (S, B) f32) → (outs
         stacked over S, states'); with GMC on, ``step(states, frames, ts,
-        gprev)`` with ``gprev`` the (S, G, G) thumbnails of the previous
-        batch (None for the first) → (outs, states', thumbnails). outs
-        are the engine step's 7 arrays (8 with a task head), each
-        (S, B, ...).
+        gprev, gvalid)`` with ``gprev`` the (S, G, G) thumbnails of the
+        previous batch and ``gvalid`` () their flag (0 before the first
+        batch) → (outs, states', thumbnails (S, G, G)). outs are the
+        engine step's 7 arrays (8 with a task head), each (S, B, ...).
+        Nothing it is given is written.
       init_states(num_streams) → stacked SortState (None without a
         tracker).
     """
@@ -84,7 +69,7 @@ def make_stream_step(engine, shape: Tuple[int, int, int]):
     gmc = bool(engine.gmc_enabled)
 
     @torch.inference_mode()
-    def step(states, frames, ts, gprev=None):
+    def step(states, frames, ts, gprev=None, gvalid=None):
         s = frames.shape[0]
         _, dets = engine.front(_fold(frames), want_proc=False)
         if dets is None:
@@ -94,14 +79,9 @@ def make_stream_step(engine, shape: Tuple[int, int, int]):
         dets4 = tuple(_unfold(a, s) for a in dets4)
         shifts = grays = None
         if gmc:
-            pairs = [engine._shifts(frames[i],
-                                    None if gprev is None else gprev[i])
-                     for i in range(s)]
-            shifts = [p[0] for p in pairs]
-            grays = torch.stack([p[1] for p in pairs])
-        tails, states = _stream_tails(engine, states, b, dets4, ts, frames,
-                                      shifts)
-        outs = dets4 + tails
+            shifts, grays = engine._shifts(frames, gprev, gvalid)
+        states, *tails = engine._tail(states, b, *dets4, ts, frames, shifts)
+        outs = dets4 + tuple(tails)
         if extra is not None:
             outs = outs + (_unfold(extra, s),)
         return (outs, states, grays) if gmc else (outs, states)
@@ -176,8 +156,8 @@ class GatedStreamStep:
             dets4 = tuple(_unfold(a, s) for a in (boxes, conf, cls_id, valid))
             gdets = tuple(a[:, -1] for a in dets4)
             skips = 0
-        tails, states = _stream_tails(eng, states, b, dets4, ts, frames)
-        return dets4 + tails, (states, thumbs, 1.0, skips, gdets,
+        states, *tails = eng._tail(states, b, *dets4, ts, frames)
+        return dets4 + tuple(tails), (states, thumbs, 1.0, skips, gdets,
                                gvalid or not coast)
 
     def __call__(self, carry, frames, ts):

@@ -11,9 +11,11 @@ batches, in the same tensors: a step, :meth:`PipelineEngine.reset` and
 :meth:`PipelineEngine.build_raw_step` is that step as a pure function,
 as in JAX. On the card it reads nothing back to the host for the
 configurations :attr:`PipelineEngine.step_mode` names ``"graph"`` (the
-main path, the fleet's default, RT-DETR and the auto-gated chain, among
-others): the association and NMS loops are CUDA kernels (K4–K6), so is
-RT-DETR's deformable sampling (K7), every constant is uploaded once.
+main path and the fleet with every tracking backend, with or without
+GMC, RT-DETR and the auto-gated chain, among others): the association
+and NMS loops are CUDA kernels (K4–K6), so is RT-DETR's deformable
+sampling (K7), every constant is uploaded once, and GMC's carried
+thumbnail and its flag are tensors of the engine's state.
 There :meth:`PipelineEngine.step_batch`, which ``dispatch_batch``,
 ``process_batch``, ``stream`` and the bench's device-resident loop run,
 replays one CUDA graph per (shape, want_proc) (``runtime/graph.py``, the
@@ -66,8 +68,10 @@ computed on the device from the RAW frames: the grid descriptor, or the
 learned embedder when ``tracking.reid_weights`` names a usable file (an
 unusable one is logged and the grid descriptor kept, as in JAX).
 ``tracking.gmc`` (on by default for strongsort) estimates each frame's
-camera shift by phase correlation of gray thumbnails and carries the
-last thumbnail across batches (``gmc_prev`` in the state file).
+camera shift by phase correlation of gray thumbnails inside the step and
+carries the last thumbnail across batches in the engine's own tensors
+(``gmc_prev`` (G, G) and the flag ``gmc_valid`` (), 0 before the first
+batch; ``gmc_prev`` in the state file).
 
 ``detect.temporal_gate`` (plain detect task, no tiling, not with GMC)
 skips the detector on near-static scenes: the motion score of batch i,
@@ -100,7 +104,7 @@ from ..geometry.projector import (HomographyProjector, build_projector,
                                   distance_device, project_boxes_device)
 from ..ops.letterbox import axis_plan, finish_letterbox, letterbox_meta
 from ..preprocess import PreprocessPipeline
-from ..track.gmc import GMC_SIZE, batch_shifts, gray_thumbnail
+from ..track.gmc import GMC_SIZE, batch_shifts, fresh_carry, gray_thumbnail
 from ..track.registry import build_device_step
 from ..track.sort import (SortState, init_state, read_flag, scan_steps,
                           state_from_jax)
@@ -262,10 +266,15 @@ class PipelineEngine:
                                 "the grid descriptor", reid_w, exc)
 
         # camera-motion compensation: the previous batch's last thumbnail
+        # and whether there is one, made once (a captured graph reads and
+        # writes them)
         backend_name = str(track_cfg.get("backend") or "sort").lower()
         self.gmc_enabled = self.track_enabled \
             and bool(track_cfg.get("gmc", backend_name == "strongsort"))
-        self._gmc_prev: Optional[torch.Tensor] = None
+        self.gmc_prev: Optional[torch.Tensor] = None
+        self.gmc_valid: Optional[torch.Tensor] = None
+        if self.gmc_enabled:
+            self.gmc_prev, self.gmc_valid = fresh_carry((), self.device)
 
         # temporal gate: host policy with one batch of lag
         gcfg = (det_cfg.get("temporal_gate") or {}) \
@@ -304,6 +313,11 @@ class PipelineEngine:
 
         self.sort_state = init_state(self.track_slots, self.device) \
             if self.track_enabled else None
+        # what a step reads and writes, bound once (a captured graph's
+        # state is this object)
+        self._step_state = (*self.sort_state, self.gmc_prev,
+                            self.gmc_valid) if self.gmc_enabled \
+            else self.sort_state
         self._t0: Optional[float] = None
         self.timer = StageTimer()
 
@@ -355,24 +369,59 @@ class PipelineEngine:
                     or det.int8:
                 return ("task heads, TTA, tiling and int8 detectors: not "
                         "captured")
-        if self.track_enabled and not getattr(self._sort_step, "stackable",
-                                              False):
-            return (f"tracking backend with strategy hooks: the step runs "
-                    f"per stream, not captured")
-        if self.gmc_enabled:
-            return "tracking.gmc: the first batch has no previous thumbnail"
         return None
 
     def _store_state(self, state: Optional[SortState]) -> None:
         """The track state after a step, copied into the engine's own
-        tensors (a captured graph reads and writes those)."""
-        if self.sort_state is None or state is None:
-            self.sort_state = state
+        tensors (a captured graph reads and writes those); none without
+        a tracker."""
+        if self.sort_state is None:
             return
         with torch.inference_mode():
             for dst, src in zip(self.sort_state, state):
                 if src is not dst:
                     dst.copy_(src)
+
+    def _store_gmc(self, last_gray: Optional[torch.Tensor]) -> None:
+        """GMC's carry after a step (the batch's last thumbnail; the flag
+        set), or before the first batch (None: zeros, flag 0), copied
+        into the engine's own tensors."""
+        with torch.inference_mode():
+            if last_gray is None:
+                self.gmc_prev.zero_()
+                self.gmc_valid.zero_()
+            else:
+                if last_gray is not self.gmc_prev:
+                    self.gmc_prev.copy_(last_gray)
+                self.gmc_valid.fill_(1.0)
+
+    def step_state(self):
+        """The tensors a step of this engine reads and writes: the track
+        state (a ``SortState``, None without a tracker) or, with GMC, its
+        fields followed by ``gmc_prev`` and ``gmc_valid``; the same object
+        on every call."""
+        return self._step_state
+
+    def with_gmc_carry(self, raw):
+        """A raw step ``raw(state, frames, ts, gmc_prev=None,
+        gmc_valid=None)`` (:meth:`build_raw_step`, the fleet's
+        ``make_stream_step``) as ``fn(state, frames, ts) → (outputs,
+        state')`` over :meth:`step_state`'s layout: with GMC the carry is
+        read from the state's last two tensors and written back there (the
+        batch's last thumbnail, the flag set to 1)."""
+        if not self.gmc_enabled:
+            def fn(state, frames, ts):
+                *outs, state = raw(state, frames, ts)
+                return tuple(outs), state
+            return fn
+        n = len(SortState._fields)
+
+        def fn(state, frames, ts):
+            *outs, sort_state, last = raw(SortState(*state[:n]), frames, ts,
+                                          *state[n:])
+            return tuple(outs), (*sort_state, last,
+                                 torch.ones_like(state[-1]))
+        return fn
 
     # ------------------------------------------------------------------
     def _tail(self, state: Optional[SortState], b: int, boxes, conf, cls_id,
@@ -381,9 +430,9 @@ class PipelineEngine:
         """Detections → (state', track ids, distance, speed), (B, max_det)
         each: the tracker step scanned over the batch's frames from
         ``state`` (None without a tracker; ``track/sort.py::scan_steps``).
-        A stacked state (a fleet's S streams, default tracker) takes
-        (S, B, ...) detections and (S, B) stamps and gives (S, B,
-        max_det) arrays. ``frames_u8`` are the RAW frames the re-id
+        A stacked state (a fleet's S streams, any backend) takes (S, B,
+        ...) detections, frames and shifts and (S, B) stamps and gives
+        (S, B, max_det) arrays. ``frames_u8`` are the RAW frames the re-id
         backends' descriptors are computed from; ``shifts`` (B, 2) the GMC
         camera shifts in source px."""
         proj = self.projector.device_params() if self.projector else None
@@ -415,26 +464,18 @@ class PipelineEngine:
         self._store_state(state)
         return ids, dist, speed
 
-    def _shifts(self, frames_u8: torch.Tensor,
-                prev: Optional[torch.Tensor]):
-        """Per-frame camera shifts (B, 2) in source px against the
-        thumbnail ``prev`` (None: no previous frame), and the batch's last
-        thumbnail, to carry on."""
-        h, w = frames_u8.shape[1:3]
+    def _shifts(self, frames_u8: torch.Tensor, prev: torch.Tensor,
+                valid: torch.Tensor):
+        """GMC on the device: per-frame camera shifts (..., B, 2) in
+        source px of (..., B, H, W, 3) frames against the carried
+        thumbnail ``prev`` (..., G, G) (the first frame's forced to 0 where
+        the flag ``valid`` () is 0), and the batch's last thumbnail (...,
+        G, G), to carry on."""
+        h, w = frames_u8.shape[-3:-1]
         grays = gray_thumbnail(frames_u8)
-        valid = torch.tensor(0.0 if prev is None else 1.0,
-                             device=grays.device)
-        if prev is None:
-            prev = torch.zeros((GMC_SIZE, GMC_SIZE), device=grays.device)
         shifts = batch_shifts(prev, grays, valid,
                               (max(1, w // GMC_SIZE), max(1, h // GMC_SIZE)))
-        return shifts, grays[-1]
-
-    def _gmc_shifts(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        """The batch's per-frame camera shifts (B, 2) in source px against
-        the carried thumbnail; the batch's last thumbnail is carried on."""
-        shifts, self._gmc_prev = self._shifts(frames_u8, self._gmc_prev)
-        return shifts
+        return shifts, grays[..., -1, :, :]
 
     def sampled_plans(self, h: int, w: int, want_proc: bool):
         """The letterbox's (stride, offset, count) sample grid per axis
@@ -490,40 +531,52 @@ class PipelineEngine:
         """The pure device step for (B, H, W) batches — the JAX engine's
         ``build_raw_step`` (:374) without ``params`` (the port's detector
         owns its weights): ``step(sort_state, frames_u8 (B, H, W, 3) u8,
-        ts (B,) f32, shifts=None) → (proc, outs, sort_state')``, with
-        outs the 7 arrays (8 with a task head) and ``proc`` None on the
-        sampled preprocess path. Preprocess, the detector's pass with its
-        NMS, then the tracker tail as one scan over the batch's frames
-        (``make_sort_scan``'s loop over the registry's step); ``shifts``
-        (B, 2) are the GMC camera shifts, which JAX computes inside its
-        step from a carried thumbnail. ``sort_state`` is not written."""
+        ts (B,) f32, gmc_prev=None, gmc_valid=None) → (proc, outs,
+        sort_state')``, with outs the 7 arrays (8 with a task head) and
+        ``proc`` None on the sampled preprocess path. Preprocess, the
+        detector's pass with its NMS, then the tracker tail as one scan
+        over the batch's frames (``make_sort_scan``'s loop over the
+        registry's step). With GMC's carry, the thumbnail ``gmc_prev``
+        (G, G) and its flag ``gmc_valid`` () (0: no previous batch), the
+        step computes the camera shifts itself and returns the batch's
+        last thumbnail after the state: → (proc, outs, sort_state',
+        last_gray), as JAX's does. Nothing it is given is written."""
         b = shape[0]
 
-        def step(sort_state, frames_u8, ts, shifts=None):
+        def step(sort_state, frames_u8, ts, gmc_prev=None, gmc_valid=None):
             proc, dets = self.front(frames_u8, want_proc)
             if dets is None:
                 return proc, self.empty_outs(b), sort_state
             boxes, conf, cls_id, valid, extra = dets
+            shifts = last = None
+            if gmc_prev is not None and self.track_enabled:
+                shifts, last = self._shifts(frames_u8, gmc_prev, gmc_valid)
             sort_state, ids, dist, speed = self._tail(
                 sort_state, b, boxes, conf, cls_id, valid, ts, frames_u8,
                 shifts)
             outs = (boxes, conf, cls_id, valid, ids, dist, speed)
-            return proc, outs if extra is None else outs + (extra,), \
-                sort_state
+            if extra is not None:
+                outs = outs + (extra,)
+            if last is not None:
+                return proc, outs, sort_state, last
+            return proc, outs, sort_state
 
         return step
 
     @torch.inference_mode()
     def step(self, frames_u8: torch.Tensor, ts: torch.Tensor,
              want_proc: bool = True):
-        """The eager device step on the engine's track state: (B, H, W, 3)
-        uint8 + (B,) float32 stamps → (proc, (boxes, conf, cls, valid,
-        ids, dist, speed)); ``proc`` is None on the sampled preprocess
-        path."""
-        shifts = self._gmc_shifts(frames_u8) if self.gmc_enabled else None
-        proc, outs, state = self.build_raw_step(
-            tuple(frames_u8.shape[:3]), want_proc)(self.sort_state,
-                                                   frames_u8, ts, shifts)
+        """The eager device step on the engine's track state (and GMC's
+        carry): (B, H, W, 3) uint8 + (B,) float32 stamps → (proc, (boxes,
+        conf, cls, valid, ids, dist, speed)); ``proc`` is None on the
+        sampled preprocess path."""
+        raw = self.build_raw_step(tuple(frames_u8.shape[:3]), want_proc)
+        if self.gmc_enabled:
+            proc, outs, state, last = raw(self.sort_state, frames_u8, ts,
+                                          self.gmc_prev, self.gmc_valid)
+            self._store_gmc(last)
+        else:
+            proc, outs, state = raw(self.sort_state, frames_u8, ts)
         self._store_state(state)
         return proc, outs
 
@@ -532,29 +585,27 @@ class PipelineEngine:
         """The step as the engine runs a batch: with ``step_mode ==
         "graph"`` the replay of the shape's captured graph (captured at
         the shape's first batch; the returned tensors are the graph's
-        and hold until its next replay), else :meth:`step`."""
+        and hold until its next replay; the track state and GMC's carry
+        are the graph's state), else :meth:`step`."""
         if self.step_mode != "graph":
             return self.step(frames_u8, ts, want_proc)
         # an "auto" gate threshold is resolved before the capture: the
         # graph holds it as a number
         self.pipeline.ensure_gate_calibrated(frames_u8)
-        raw = self.build_raw_step(tuple(frames_u8.shape[:3]), want_proc)
-
-        def fn(state, frames, stamps):
-            proc, outs, state = raw(state, frames, stamps)
-            return (proc, outs), state
-
+        fn = self.with_gmc_carry(
+            self.build_raw_step(tuple(frames_u8.shape[:3]), want_proc))
         return self.run_step((tuple(frames_u8.shape), want_proc), fn,
-                             self.sort_state, (frames_u8, ts))[0]
+                             self.step_state(), (frames_u8, ts))[0]
 
     def run_step(self, key, fn, state, args):
         """``fn(state, *args) → (outputs, state')`` as this engine runs
         its steps: called, or with ``step_mode == "graph"`` the replay of
         the graph captured for ``key`` at its first call. A graph writes
-        ``state'`` into the tensors of the ``state`` it was captured on,
-        which come back as ``state'``; its outputs hold until its next
-        replay. A recalibrated auto-gate (``pipeline.gate_epoch`` moved)
-        drops every captured graph: each holds its threshold."""
+        ``state'`` into the tensors of the ``state`` it was captured on
+        (the same object on every call), which come back as ``state'``;
+        its outputs hold until its next replay. A
+        recalibrated auto-gate (``pipeline.gate_epoch`` moved) drops every
+        captured graph: each holds its threshold."""
         if self.step_mode != "graph":
             return fn(state, *args)
         if self.pipeline.gate_epoch != self._graphs_epoch:
@@ -929,7 +980,8 @@ class PipelineEngine:
     def reset(self) -> None:
         if self.track_enabled:
             self._store_state(init_state(self.track_slots, self.device))
-        self._gmc_prev = None
+        if self.gmc_enabled:
+            self._store_gmc(None)
         self._t0 = None
         # a new stream neither coasts on the last stream's detections or
         # score nor counts its coasted frames
@@ -941,11 +993,11 @@ class PipelineEngine:
 
     def save_state(self, path) -> None:
         """Checkpoint the device-resident stream state (the whole
-        ``SortState``, the GMC thumbnail when GMC is on, and the stream's
-        timestamp epoch) as an ``.npz`` with the JAX engine's key names
-        (``sort_<field>`` for all 25 fields, ``gmc_prev``, ``t0``), so a
-        long-running deployment can stop and resume exactly, in this
-        package or in the JAX one. A file saved on the card loads on the
+        ``SortState``, the GMC thumbnail when GMC is on and a batch has
+        set it, and the stream's timestamp epoch) as an ``.npz`` with the JAX
+        engine's key names (``sort_<field>`` for all 25 fields, ``gmc_prev``,
+        ``t0``), so a long-running deployment can stop and resume exactly, in
+        this package or in the JAX one. A file saved on the card loads on the
         CPU path, and the other way round."""
         data = {}
         if self.sort_state is not None:
@@ -953,14 +1005,16 @@ class PipelineEngine:
                 data[f"sort_{k}"] = v.cpu().numpy()
         data["t0"] = np.asarray(
             np.nan if self._t0 is None else self._t0, np.float64)
-        if self._gmc_prev is not None:
-            data["gmc_prev"] = self._gmc_prev.cpu().numpy()
+        if self.gmc_enabled and float(self.gmc_valid) == 1.0:
+            data["gmc_prev"] = self.gmc_prev.cpu().numpy()
         np.savez(path, **data)
 
     def load_state(self, path) -> None:
         """Restore a :meth:`save_state` checkpoint, or one the JAX engine
         saved. The tracker slot count must match the current config; a
-        file that lacks a tracker field is a ``ValueError`` naming it."""
+        file that lacks a tracker field is a ``ValueError`` naming it.
+        Everything is copied into the engine's own tensors; with GMC on, a
+        file's ``gmc_prev`` is a previous batch (flag 1), none is none."""
         with np.load(path) as z:
             if self.sort_state is not None:
                 missing = [k for k in SortState._fields
@@ -980,5 +1034,7 @@ class PipelineEngine:
                     device=self.device))
             t0 = float(z["t0"])
             self._t0 = None if np.isnan(t0) else t0
-            self._gmc_prev = torch.from_numpy(z["gmc_prev"]).to(
-                self.device) if "gmc_prev" in z.files else None
+            if self.gmc_enabled:
+                # a thumbnail in the file is a previous batch (flag 1)
+                self._store_gmc(torch.from_numpy(z["gmc_prev"]).to(
+                    self.device) if "gmc_prev" in z.files else None)

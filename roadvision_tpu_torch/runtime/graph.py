@@ -5,7 +5,8 @@ one graph per (shape, want_proc), launched with one call a batch.
 
 :class:`CapturedStep` takes a pure ``fn(state, *args) → (outputs,
 state')`` whose state is a tuple of tensors (a ``SortState``, stacked or
-not) or None. It owns static buffers for ``args``; the caller's state
+not, its fields followed by GMC's thumbnails and flag where GMC is on)
+or None. It owns static buffers for ``args``; the caller's state
 tensors are the graph's state buffers, which the graph itself
 overwrites with ``state'`` at the end of each replay. Whoever resets or
 restores the state copies into those tensors and never rebinds them. The

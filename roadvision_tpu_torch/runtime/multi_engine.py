@@ -6,12 +6,13 @@ step vmapped over a stream axis and sharded over a device mesh. Here
 the streams are cut into contiguous groups, one group per card; each
 group runs one fleet step (``parallel/inference.py``: the group's frames
 folded into one batch for preprocess and the detector, then one tracker
-scan over the stacked state, or a tail per stream for a hooked backend)
-on its own :class:`PipelineEngine`, which holds that card's copy of the
+scan over the stacked state, for every backend, GMC inside it) on its
+own :class:`PipelineEngine`, which holds that card's copy of the
 weights. Where that engine's ``step_mode`` is ``"graph"`` the fleet step
 is captured once per (group, shape) and replayed every fleet batch
-(``runtime/graph.py``); the groups' stacked states are then the graphs'
-state buffers, reset in place. Reached from the config surface:
+(``runtime/graph.py``); the groups' stacked states and GMC thumbnails
+are then the graphs' state buffers, reset in place. Reached from the config
+surface:
 
     camera:
       sources: [synthetic:road, traffic.mp4, rtsp://...]   # one per stream
@@ -36,6 +37,8 @@ import torch
 
 from ..detect.types import COCO_NAMES
 from ..io_video.capture import VideoSource
+from ..track.gmc import fresh_carry
+from ..track.sort import SortState
 from ..utils.device import DeviceLike, resolve_device, visible_devices
 from ..utils.logging import get_logger
 from .engine import FrameResult, PipelineEngine, unpack_detections
@@ -91,15 +94,55 @@ def devices_from_config(tpu_cfg: Dict[str, Any],
 
 class _Group:
     """A contiguous group of streams on one device, its engine and its
-    carried state (track states, GMC thumbnails or the gate's carry)."""
+    carried state (track states and GMC's (S, G, G) thumbnails with their
+    flag, made at the first batch; or the gate's carry)."""
 
     def __init__(self, engine: PipelineEngine, lo: int, hi: int):
         self.engine = engine
         self.lo, self.hi = lo, hi
         self.steps: Dict[tuple, Any] = {}
-        self.states = None
-        self.gmc_prev: Optional[torch.Tensor] = None
         self.gate_carry = None
+        self.clear()
+
+    def clear(self) -> None:
+        """No state: the next batch makes it anew."""
+        self._step_state = None
+        self.states: Optional[SortState] = None
+        self.gmc_prev: Optional[torch.Tensor] = None
+        self.gmc_valid: Optional[torch.Tensor] = None
+
+    def init_state(self, init_states) -> None:
+        """Fresh track states and GMC carry: made at the first batch,
+        copied into the same tensors after (a captured graph holds
+        them)."""
+        n = self.hi - self.lo
+        fresh = init_states(n)
+        if self.engine.gmc_enabled:
+            fresh = (*fresh, *fresh_carry((n,), self.engine.device))
+        self.store(fresh)
+
+    def step_state(self):
+        """The tensors the fleet step reads and writes, in
+        ``PipelineEngine.step_state``'s layout; the same object on every
+        call once made."""
+        return self._step_state
+
+    def store(self, state) -> None:
+        """Copy a step's (or fresh) state, in :meth:`step_state`'s layout,
+        into the group's tensors; the first call binds them."""
+        if self._step_state is None:
+            self._step_state = state
+            if self.engine.gmc_enabled:
+                n = len(SortState._fields)
+                self.states = SortState(*state[:n])
+                self.gmc_prev, self.gmc_valid = state[n:]
+            else:
+                self.states = state
+            return
+        with torch.inference_mode():
+            for dst, src in zip(self._step_state, state):
+                if src is not dst:
+                    dst.copy_(src)
 
 
 class MultiStreamEngine:
@@ -137,8 +180,8 @@ class MultiStreamEngine:
         # detect.temporal_gate: GLOBAL fleet gating — coast only when ALL
         # streams are static (parallel/inference.py:GatedStreamStep)
         self.fleet_gate = self.engine._gate_cfg is not None
-        # the engine's choice, for the fleet step: the gate and GMC make
-        # the engine eager already
+        # the engine's choice, for the fleet step: the gate makes the
+        # engine eager already
         self.step_mode = self.engine.step_mode
         self.gate_frames_coasted = 0
         self.num_streams = num_streams
@@ -235,14 +278,12 @@ class MultiStreamEngine:
             for grp, up, t in zip(self.groups, ups, ts_dev):
                 step, init_states = self._step_for(grp, (b, h, w))
                 if grp.states is None:
-                    grp.states = init_states(grp.hi - grp.lo)
-                if grp.engine.gmc_enabled:
-                    outs, grp.states, grp.gmc_prev = step(
-                        grp.states, up.frames, t, grp.gmc_prev)
-                else:
-                    outs, grp.states = grp.engine.run_step(
-                        ("fleet", tuple(up.frames.shape)), step, grp.states,
-                        (up.frames, t))
+                    grp.init_state(init_states)
+                (outs,), new = grp.engine.run_step(
+                    ("fleet", tuple(up.frames.shape)),
+                    grp.engine.with_gmc_carry(step), grp.step_state(),
+                    (up.frames, t))
+                grp.store(new)
                 fleet.append(outs)
         handles = []
         for grp, up, outs in zip(self.groups, ups, fleet):
@@ -373,18 +414,17 @@ class MultiStreamEngine:
 
     def reset(self) -> None:
         """A new set of streams: fresh track states, GMC thumbnails, gate
-        carry and time origin; the coasted count back to 0."""
+        carry and time origin; the coasted count back to 0. Where the
+        fleet step replays a graph, the states and thumbnails keep their
+        tensors (the graph's state) and take fresh values; elsewhere the
+        next batch makes them anew."""
         for grp in self.groups:
-            if grp.engine.step_mode == "graph" and grp.states is not None:
-                # the captured graph's state: fresh values, same tensors
+            if grp.engine.step_mode == "graph" \
+                    and grp.step_state() is not None:
                 from ..parallel.inference import _init_states
-                fresh = _init_states(grp.engine, grp.hi - grp.lo)
-                with torch.inference_mode():
-                    for dst, src in zip(grp.states, fresh):
-                        dst.copy_(src)
+                grp.init_state(lambda n, e=grp.engine: _init_states(e, n))
             else:
-                grp.states = None
-            grp.gmc_prev = None
+                grp.clear()
             grp.gate_carry = None
         self._t0 = None
         self.gate_frames_coasted = 0

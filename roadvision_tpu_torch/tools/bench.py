@@ -285,12 +285,19 @@ def stage_ms(engine, frames: np.ndarray, ts: np.ndarray) -> Dict[str, float]:
             raw, ratio, pad, (h, w)))
         # the tracker tail with what it computes beside the steps: the
         # re-id descriptors and the GMC shifts, as the engine runs it, on
-        # the engine's state without writing it (no trace)
+        # the engine's state and carry without writing them (no trace)
         timed("sort_geometry", lambda: engine._tail(
             engine.sort_state, frames.shape[0], b, c, k, v, tsd, x,
-            engine._shifts(x, engine._gmc_prev)[0] if engine.gmc_enabled
-            else None))
+            _gmc_shifts(engine, x)))
     return out
+
+
+def _gmc_shifts(engine, frames: torch.Tensor):
+    """The engine's GMC shifts of a batch against its carry (None with
+    GMC off), the carry left as it is."""
+    if not engine.gmc_enabled:
+        return None
+    return engine._shifts(frames, engine.gmc_prev, engine.gmc_valid)[0]
 
 
 def graph_stage_ms(engine, frames: np.ndarray, ts: np.ndarray,
@@ -338,7 +345,8 @@ def graph_stage_ms(engine, frames: np.ndarray, ts: np.ndarray,
         SortState(*[t.clone() for t in engine.sort_state])
 
     def tail(st, *a):
-        st, *res = engine._tail(st, frames.shape[0], *a)
+        st, *res = engine._tail(st, frames.shape[0], *a,
+                                _gmc_shifts(engine, a[-1]))
         return tuple(res), st
 
     timed("sort_geometry", tail, state, b, c, k, v, tsd, x)
@@ -707,7 +715,7 @@ def fleet_stage_ms(engine, frames: torch.Tensor, ts: torch.Tensor,
     detector's forward and NMS, then every stream's tracker tail on a
     copy of ``states``, the fleet's running state (left as it was, as
     :func:`stage_ms` leaves the engine's)."""
-    from ..parallel.inference import _fold, _stream_tails, _unfold
+    from ..parallel.inference import _fold, _unfold
     from ..track.sort import SortState
     if states is not None:
         states = SortState(*[t.clone() for t in states])
@@ -732,8 +740,8 @@ def fleet_stage_ms(engine, frames: torch.Tensor, ts: torch.Tensor,
         raw, ratio, pad = timed("forward", lambda: det.candidates(proc, lb))
         dets4 = timed("nms", lambda: det.postprocess(raw, ratio, pad, (h, w)))
         dets4 = tuple(_unfold(a, s) for a in dets4[:4])
-        timed("sort_geometry", lambda: _stream_tails(
-            engine, states, frames.shape[1], dets4, ts, frames))
+        timed("sort_geometry", lambda: engine._tail(
+            states, frames.shape[1], *dets4, ts, frames))
     return out
 
 

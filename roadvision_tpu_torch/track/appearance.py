@@ -5,8 +5,8 @@ The descriptor is a fixed G×G bilinear grid sample of the detection's
 box interior (BGR), mean-removed and L2-normalised; the cosine
 similarity of two descriptors is their dot product. The sampler is
 shared with the learned embedder (``reid.py``). Both functions take one
-frame or a batch of frames (a leading batch axis on the frame and the
-boxes).
+frame, a batch of frames or a fleet's (S, B) frames (the same leading
+axes on the frames and the boxes).
 """
 from __future__ import annotations
 
@@ -18,16 +18,20 @@ EMB_DIM = EMB_GRID * EMB_GRID * 3
 
 def sample_box_grid(frame_u8: torch.Tensor, boxes: torch.Tensor,
                     size: int) -> torch.Tensor:
-    """([B,] H, W, 3) uint8 frame + ([B,] D, 4) xyxy source px → ([B,]
+    """(..., H, W, 3) uint8 frames + (..., D, 4) xyxy source px → (...,
     D, size, size, 3) f32 bilinear samples of each box interior (grid
     centres at (i + 0.5)/size of the box extent, clamped to the frame):
-    four gathers, the four taps summed in the JAX order."""
-    if frame_u8.dim() == 3:
-        return sample_box_grid(frame_u8[None], boxes[None], size)[0]
+    four gathers, the four taps summed in the JAX order. More leading
+    axes (a fleet's (S, B, H, W, 3) with (S, B, D, 4)) are folded into
+    the batch axis and unfolded after."""
+    if frame_u8.dim() != 4:
+        lead = frame_u8.shape[:-3]
+        flat = sample_box_grid(frame_u8.reshape(-1, *frame_u8.shape[-3:]),
+                               boxes.reshape(-1, *boxes.shape[-2:]), size)
+        return flat.reshape(lead + flat.shape[1:])
     nb, h, w = frame_u8.shape[:3]
     nd = boxes.shape[1]
     dev = boxes.device
-    img = frame_u8.to(torch.float32)
     u = (torch.arange(size, dtype=torch.float32, device=dev) + 0.5) / size
     x1, y1, x2, y2 = (boxes[..., i] for i in range(4))
     gx = x1[..., None] + u * (x2 - x1)[..., None]          # (B, D, S)
@@ -43,18 +47,20 @@ def sample_box_grid(frame_u8: torch.Tensor, boxes: torch.Tensor,
     x1i = (x0i + 1).clamp(max=w - 1)
     y1i = (y0i + 1).clamp(max=h - 1)
     bi = torch.arange(nb, device=dev)[:, None, None, None]
-    p00 = img[bi, y0i, x0i]
-    p01 = img[bi, y0i, x1i]
-    p10 = img[bi, y1i, x0i]
-    p11 = img[bi, y1i, x1i]
+    # the taps are gathered as uint8 and widened after (the same values
+    # as gathering from a float copy of the frames, without the copy)
+    p00 = frame_u8[bi, y0i, x0i].to(torch.float32)
+    p01 = frame_u8[bi, y0i, x1i].to(torch.float32)
+    p10 = frame_u8[bi, y1i, x0i].to(torch.float32)
+    p11 = frame_u8[bi, y1i, x1i].to(torch.float32)
     return (p00 * (1 - fx) * (1 - fy) + p01 * fx * (1 - fy)
             + p10 * (1 - fx) * fy + p11 * fx * fy)
 
 
 def box_embeddings(frame_u8: torch.Tensor, boxes: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
-    """([B,] H, W, 3) uint8 + ([B,] D, 4) xyxy source px + ([B,] D,) bool
-    → ([B,] D, EMB_DIM) f32, L2-normalised, zero rows for invalid
+    """(..., H, W, 3) uint8 + (..., D, 4) xyxy source px + (..., D) bool
+    → (..., D, EMB_DIM) f32, L2-normalised, zero rows for invalid
     detections."""
     sample = sample_box_grid(frame_u8, boxes, EMB_GRID)
     flat = sample.reshape(*boxes.shape[:-1], EMB_DIM)

@@ -40,7 +40,7 @@ def make_botsort_associate(track_high_thresh: float,
             d2t_hi = greedy_associate(
                 appearance_score(iou, state.app, emb, iou1, w_app, cos_t,
                                  resc), alive, high, 1e-6)
-        taken_t = taken_tracks(d2t_hi, iou.shape[0])
+        taken_t = taken_tracks(d2t_hi, iou.shape[-2])
         d2t_lo = greedy_associate(iou, alive & ~taken_t, low, iou2)
         return torch.where(d2t_hi >= 0, d2t_hi, d2t_lo)
 

@@ -17,10 +17,12 @@ from .sort_tracker import SortTracker, parse_common_cfg
 
 
 def taken_tracks(d2t: torch.Tensor, num_t: int) -> torch.Tensor:
-    """(T,) bool: the tracks a det→track map took."""
-    taken = torch.zeros((num_t + 1,), dtype=torch.bool, device=d2t.device)
-    taken[torch.where(d2t >= 0, d2t, num_t).long()] = True
-    return taken[:num_t]
+    """(..., T) bool: the tracks a det→track map (..., D) took (entry T
+    of each row takes the unmatched detections, then goes away)."""
+    taken = torch.zeros(d2t.shape[:-1] + (num_t + 1,), dtype=torch.bool,
+                        device=d2t.device)
+    taken.scatter_(-1, torch.where(d2t >= 0, d2t, num_t).long(), True)
+    return taken[..., :num_t]
 
 
 def make_byte_associate(track_high_thresh: float, track_low_thresh: float,
@@ -35,7 +37,7 @@ def make_byte_associate(track_high_thresh: float, track_low_thresh: float,
         high = dvalid & (conf >= hi_t)
         low = dvalid & ~high & (conf >= lo_t)
         d2t_hi = greedy_associate(iou, alive, high, iou1)
-        taken_t = taken_tracks(d2t_hi, iou.shape[0])
+        taken_t = taken_tracks(d2t_hi, iou.shape[-2])
         d2t_lo = greedy_associate(iou, alive & ~taken_t, low, iou2)
         return torch.where(d2t_hi >= 0, d2t_hi, d2t_lo)
 

@@ -21,8 +21,10 @@ from .sort_tracker import SortTracker
 def appearance_score(iou: torch.Tensor, app: torch.Tensor,
                      emb: torch.Tensor, iou_t: float, w_app: float,
                      cos_t: float, resc: float) -> torch.Tensor:
-    """(T, D) fused motion + appearance score, 0 outside the gates."""
-    cos = app @ emb.T
+    """(..., T, D) fused motion + appearance score, 0 outside the gates,
+    from the track memory ``app`` (..., T, E) and the descriptors ``emb``
+    (..., D, E)."""
+    cos = app @ emb.transpose(-1, -2)
     gate = (iou >= iou_t) | ((cos >= cos_t) & (iou >= resc))
     affinity = iou + w_app * torch.clamp(cos, min=0.0)
     return torch.where(gate, affinity, torch.zeros_like(affinity))

@@ -20,9 +20,10 @@ MAX_SHIFT_FRAC = 0.25   # clamp |shift| to this fraction of the thumbnail
 
 
 def gray_thumbnail(frame_u8: torch.Tensor) -> torch.Tensor:
-    """([B,] H, W, 3) uint8 BGR → ([B,] G, G) f32 gray thumbnail: the
-    channel mean, then the mean of each (h // G) × (w // G) block; a
-    frame smaller than G along an axis is zero-padded."""
+    """(..., H, W, 3) uint8 BGR → (..., G, G) f32 gray thumbnail (any
+    leading batch and stream axes): the channel mean, then the mean of
+    each (h // G) × (w // G) block; a frame smaller than G along an axis
+    is zero-padded."""
     h, w = frame_u8.shape[-3:-1]
     sy = max(1, h // GMC_SIZE)
     sx = max(1, w // GMC_SIZE)
@@ -60,19 +61,30 @@ def phase_shift(prev_g: torch.Tensor, cur_g: torch.Tensor) -> torch.Tensor:
     return torch.stack([dx.clamp(-lim, lim), dy.clamp(-lim, lim)], dim=-1)
 
 
+def fresh_carry(lead: Sequence[int], device=None):
+    """GMC's carry before the first batch: the thumbnails (*lead, G, G)
+    (``lead`` (S,) for a fleet, () for one stream) and their flag (), 0:
+    no previous batch."""
+    return (torch.zeros((*lead, GMC_SIZE, GMC_SIZE), device=device),
+            torch.zeros((), device=device))
+
+
 def batch_shifts(prev_gray: torch.Tensor, grays: torch.Tensor,
                  prev_valid: torch.Tensor,
                  scale_xy: Sequence[float]) -> torch.Tensor:
     """Per-frame camera shifts of a batch in SOURCE pixels: prev_gray
-    (G, G) the carried thumbnail of the previous batch's last frame,
-    grays (B, G, G), prev_valid () 0.0 on the very first batch (the
-    first shift forced to 0), scale_xy the thumbnail → source factors.
-    Returns (B, 2) f32."""
-    prevs = torch.cat([prev_gray[None], grays[:-1]], dim=0)
+    (..., G, G) the carried thumbnail of the previous batch's last frame,
+    grays (..., B, G, G), prev_valid () 0.0 on the very first batch (the
+    first shift forced to 0; one flag for every leading stream, as JAX's
+    fleet shares it), scale_xy the thumbnail → source factors. Returns
+    (..., B, 2) f32. The factors are numbers in the arithmetic, so a
+    captured step uploads nothing."""
+    prevs = torch.cat([prev_gray[..., None, :, :], grays[..., :-1, :, :]],
+                      dim=-3)
     shifts = phase_shift(prevs, grays)
     first_w = torch.cat([prev_valid.reshape(1).to(torch.float32),
-                         torch.ones((grays.shape[0] - 1,),
+                         torch.ones((grays.shape[-3] - 1,),
                                     device=grays.device)])
     shifts = shifts * first_w[:, None]
-    return shifts * torch.tensor(scale_xy, dtype=torch.float32,
-                                 device=grays.device)[None]
+    sx, sy = (float(v) for v in scale_xy)
+    return torch.stack([shifts[..., 0] * sx, shifts[..., 1] * sy], dim=-1)

@@ -3,13 +3,12 @@ counterpart of ``roadvision_tpu/track/multi.py``.
 
 A fleet of S camera streams keeps one :class:`SortState` whose fields
 carry a leading stream axis. JAX lifts the single-stream step over that
-axis with ``jax.vmap``. Here the default step (SORT without hooks,
-greedy or ε-auction) takes the stacked state itself: the stream axis is
-a batch dimension and one association launch serves all S streams
-(``make_sort_step``). A step with strategy hooks (the other backends)
-is lifted by :func:`over_streams`, which runs it once per stream on that
-stream's slice (:func:`stream_states`) and stacks the results back
-(:func:`stack_states`).
+axis with ``jax.vmap``. Here every step of ``make_sort_step`` takes the
+stacked state itself, the default one and every backend's with its
+strategy hooks (which see the stream axis too): the stream axis is a
+batch dimension and one association launch a stage serves all S streams
+(:func:`make_multi_step`). :func:`stream_states` and
+:func:`stack_states` cut a stacked state into per-stream views and back.
 
 IDs are per stream (each stream carries its own ``next_id``), matching S
 independent trackers exactly.
@@ -20,7 +19,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from .sort import SortOutput, SortState, init_state, make_sort_step
+from .sort import SortState, init_state, make_sort_step
 
 
 def init_multi_state(num_streams: int, num_slots: int,
@@ -47,47 +46,21 @@ def stack_states(states: Sequence[Optional[SortState]]
     return SortState(*[torch.stack(f) for f in zip(*states)])
 
 
-def over_streams(fn: Callable, states: Optional[SortState],
-                 num_streams: int, *args):
-    """Lift a per-stream function over the stream axis: for each stream
-    ``i``, ``fn(state_i, *(a[i] for a in args)) → (state_i', outs_i)``
-    (an argument of None stays None; a None state, no tracker, too) →
-    (stacked states', each of the outs stacked over S). The one lift of
-    the port: JAX's ``jax.vmap``."""
-    per = stream_states(states) if states is not None \
-        else [None] * num_streams
-    new, outs = [], []
-    for i, st in enumerate(per):
-        st, out = fn(st, *(None if a is None else a[i] for a in args))
-        new.append(st)
-        outs.append(out)
-    return stack_states(new), tuple(torch.stack(f) for f in zip(*outs))
-
-
 def make_multi_step(step: Callable, with_projector: bool = False):
     """Lift a single-stream step (``track/registry.py::build_device_step``
     or ``make_sort_step``) over the stream axis: ``multi(states, boxes
     (S,D,4), cls (S,D), conf (S,D), valid (S,D), ts (S,), proj=None,
     emb=None (S,D,E), shift=None (S,2)) → (states', SortOutput stacked
     over S)``. The projector ``proj`` is shared by every stream, and is
-    given exactly when ``with_projector``. A step that takes the stacked
-    state (``stackable``) runs once for all streams; any other once per
-    stream."""
+    given exactly when ``with_projector``. The step runs once for all
+    streams (every step takes a stacked state)."""
     def multi(states, boxes, cls_id, conf, valid, ts, proj=None, emb=None,
               shift=None):
         if (proj is not None) != with_projector:
             raise ValueError(f"the step was built with with_projector="
                              f"{with_projector}")
-        if getattr(step, "stackable", False):
-            return step(states, boxes, cls_id, conf, valid, ts, proj, emb,
-                        shift)
-
-        def one(st, bx, c, cf, v, t, e, sh):
-            return step(st, bx, c, cf, v, t, proj, e, sh)
-
-        states, outs = over_streams(one, states, boxes.shape[0], boxes,
-                                    cls_id, conf, valid, ts, emb, shift)
-        return states, SortOutput(*outs)
+        return step(states, boxes, cls_id, conf, valid, ts, proj, emb,
+                    shift)
 
     return multi
 
@@ -99,7 +72,8 @@ def make_multi_sort_step(iou_threshold: float, max_staleness: float,
     """step(states, boxes (S,D,4), cls (S,D), conf (S,D), valid (S,D),
     ts (S,), proj?) → (states, SortOutput stacked over S), as the JAX
     function: the stacked step, one association launch for all S
-    streams; :func:`make_multi_step` lifts any other backend's step."""
+    streams; :func:`make_multi_step` lifts any other backend's step
+    the same way."""
     return make_multi_step(
         make_sort_step(iou_threshold, max_staleness, speed_window, min_hits,
                        association=association), with_projector)

@@ -22,27 +22,28 @@ import math
 import torch
 
 from .bytetrack import taken_tracks
-from .sort import (_kf_predict, _kf_update, bbox_to_z, greedy_associate,
-                   iou_matrix, make_sort_step, nsa_r_scale)
+from .sort import (_kf_predict, _kf_update, _take, bbox_to_z,
+                   greedy_associate, iou_matrix, make_sort_step, nsa_r_scale)
 from .sort_tracker import SortTracker, parse_common_cfg
 
 
 def ocm_penalty(state, boxes: torch.Tensor,
                 alive: torch.Tensor) -> torch.Tensor:
-    """(T, D) velocity-direction penalty in [0, 1] (0 where a track has
-    no direction yet or a detection sits on its last observation)."""
-    lc = 0.5 * (state.last_obs[:, :2] + state.last_obs[:, 2:])
-    pc = 0.5 * (state.prev_obs[:, :2] + state.prev_obs[:, 2:])
+    """(..., T, D) velocity-direction penalty in [0, 1] (0 where a track
+    has no direction yet or a detection sits on its last observation),
+    over any leading stream axes of the state and ``boxes`` (..., D, 4)."""
+    lc = 0.5 * (state.last_obs[..., :2] + state.last_obs[..., 2:])
+    pc = 0.5 * (state.prev_obs[..., :2] + state.prev_obs[..., 2:])
     v = lc - pc
-    vn = torch.hypot(v[:, 0], v[:, 1])
+    vn = torch.hypot(v[..., 0], v[..., 1])
     has_v = alive & (state.hits >= 2) & (vn > 1e-6)
-    dc = 0.5 * (boxes[:, :2] + boxes[:, 2:])
-    dd = dc[None, :, :] - lc[:, None, :]
+    dc = 0.5 * (boxes[..., :2] + boxes[..., 2:])
+    dd = dc[..., None, :, :] - lc[..., :, None, :]
     dn = torch.hypot(dd[..., 0], dd[..., 1])
-    cos = (v[:, None, 0] * dd[..., 0] + v[:, None, 1] * dd[..., 1]) \
-        / torch.clamp(vn[:, None] * dn, min=1e-6)
+    cos = (v[..., :, None, 0] * dd[..., 0] + v[..., :, None, 1] * dd[..., 1]) \
+        / torch.clamp(vn[..., None] * dn, min=1e-6)
     ang = torch.arccos(cos.clamp(-1.0, 1.0)) / math.pi
-    return torch.where(has_v[:, None] & (dn > 1e-6), ang,
+    return torch.where(has_v[..., None] & (dn > 1e-6), ang,
                        torch.zeros_like(ang))
 
 
@@ -65,7 +66,7 @@ def make_oc_associate(iou_threshold: float, vdc_weight: float,
         d2t = greedy_associate(score, alive, dvalid, 0.0)
         if not use_ocr:
             return d2t
-        taken_t = taken_tracks(d2t, iou.shape[0])
+        taken_t = taken_tracks(d2t, iou.shape[-2])
         rem_d = dvalid & (d2t < 0)
         iou_obs = iou_matrix(state.last_obs, boxes)
         d2t2 = greedy_associate(iou_obs, alive & ~taken_t, rem_d, thr2)
@@ -80,23 +81,23 @@ def make_oru_update(oru_steps: int, nsa: bool = False):
     use_nsa = bool(nsa)
 
     def update(state, boxes, det_idx, matched_t, ts, conf):
-        scale = nsa_r_scale(conf[det_idx]) if use_nsa else None
-        z_new = bbox_to_z(boxes)[det_idx]
+        scale = nsa_r_scale(torch.gather(conf, -1, det_idx)) if use_nsa \
+            else None
+        z_new = _take(bbox_to_z(boxes), det_idx)
         umean, ucov = _kf_update(state.mean, state.cov, z_new, scale)
         if k_steps <= 0:
             return umean, ucov
         reactivated = matched_t & (state.hit_streak == 0)
-        gap = torch.clamp(ts - state.last_obs_ts, min=1e-3)
+        gap = torch.clamp(ts[..., None] - state.last_obs_ts, min=1e-3)
         dt_k = gap / k_steps                              # NOT re-clamped
         z_last = bbox_to_z(state.last_obs)
         mean, cov = state.obs_mean, state.obs_cov
         for k in range(k_steps):
-            frac = torch.tensor((k + 1.0) / k_steps, dtype=torch.float32)
-            zk = z_last + frac.to(z_last.device) * (z_new - z_last)
+            zk = z_last + (k + 1.0) / k_steps * (z_new - z_last)
             pm, pc = _kf_predict(mean, cov, dt_k)
             mean, cov = _kf_update(pm, pc, zk, scale)
-        return (torch.where(reactivated[:, None], mean, umean),
-                torch.where(reactivated[:, None, None], cov, ucov))
+        return (torch.where(reactivated[..., None], mean, umean),
+                torch.where(reactivated[..., None, None], cov, ucov))
 
     return update
 

@@ -96,8 +96,9 @@ def forward_crops(params: ReidParams, crops: torch.Tensor) -> torch.Tensor:
 def reid_embeddings(params: ReidParams, frame_u8: torch.Tensor,
                     boxes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Same contract as ``appearance.box_embeddings`` with learned
-    weights: ([B,] H, W, 3) u8 + ([B,] D, 4) xyxy + ([B,] D,) bool →
-    ([B,] D, EMB_DIM) f32, zero rows for invalid detections."""
+    weights: (..., H, W, 3) u8 + (..., D, 4) xyxy + (..., D) bool →
+    (..., D, EMB_DIM) f32, zero rows for invalid detections; a fleet's
+    (S, B) leading axes go through the network as one batch of crops."""
     crops = sample_box_grid(frame_u8, boxes, REID_CROP)
     emb = forward_crops(params, crops.reshape(-1, *crops.shape[-3:]))
     emb = emb.reshape(*boxes.shape[:-1], EMB_DIM)

@@ -42,11 +42,12 @@ inverse map track → det) in the arithmetic of :func:`x_to_bbox` and
 :func:`iou_matrix`; its plain version is exactly that composition. The
 hooked backends hand K4 (matrix mode) a score matrix of their own.
 
-The default step (no hooks) also takes a stacked state, every field with
+Every step, hooked or not, also takes a stacked state, every field with
 a leading stream axis S, and detections (S, D, ...): JAX's ``vmap`` over
-streams written out as a batch dimension, one association launch for
-all S streams. :func:`make_sort_scan` runs a step over a sequence of
-frames (JAX's ``lax.scan``), :func:`scan_steps` any backend's.
+streams written out as a batch dimension, one association launch (a
+stage) for all S streams; the hooks see the stream axis too.
+:func:`make_sort_scan` runs a step over a sequence of frames (JAX's
+``lax.scan``), :func:`scan_steps` any backend's.
 ``nsa=True`` is the NSA Kalman of StrongSORT: measurement noise scaled
 per track by ``1 − conf`` (:func:`nsa_r_scale`).
 
@@ -720,11 +721,12 @@ def _put_rows(buf: torch.Tensor, index: torch.Tensor, values) -> torch.Tensor:
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` (S, M) of every stream of ``x`` (S, N, ...) →
-    (S, M, ...)."""
-    shape = idx.shape + (1,) * (x.dim() - 2)
-    return torch.gather(x, 1, idx.reshape(shape).expand(idx.shape
-                                                        + x.shape[2:]))
+    """Rows ``idx`` (..., M) of ``x`` (..., N, F...) → (..., M, F...),
+    the leading axes of ``idx`` those of ``x`` (a stream axis, or none)."""
+    lead = idx.dim()
+    shape = idx.shape + (1,) * (x.dim() - lead)
+    return torch.gather(x, lead - 1, idx.reshape(shape).expand(
+        idx.shape + x.shape[lead:]))
 
 
 def _squeeze_state(state: SortState) -> SortState:
@@ -743,29 +745,31 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
     (2,) the camera's translation in source px since the previous frame
     (track/gmc.py), applied to the position memory before the predict.
 
-    Without hooks the step also takes a stacked state (every field with
-    a leading stream axis S, ``init_multi_state``) with detections
-    (S, D, ...), ``ts`` (S,), ``emb`` (S, D, E) and ``shift`` (S, 2):
-    each stream as its own step would run it, one association launch
-    for all S. Such a step carries ``stackable = True``.
+    The step also takes a stacked state (every field with a leading
+    stream axis S, ``init_multi_state``) with detections (S, D, ...),
+    ``ts`` (S,), ``emb`` (S, D, E) and ``shift`` (S, 2): each stream as
+    its own step would run it, one association launch (a stage) for all
+    S.
 
     ``association``: "greedy" (the reference,
     :func:`greedy_associate_boxes`) or "hungarian" (the ε-auction,
-    :func:`auction_associate_boxes`). The hooks, as in JAX:
-    ``associate_fn(iou (T,D), alive, dvalid, conf, ctx) → det→track``
-    with ``ctx = (state, boxes, ts, emb)`` after the predict (replaces
-    the association); ``new_track_fn(dvalid, matched_d, conf) → (D,)``
-    bool (who starts a track); ``update_fn(state, boxes, det_idx (T,),
-    matched_t (T,), ts, conf) → (mean, cov)`` (the measurement update;
-    rows of unmatched tracks are ignored). ``nsa`` turns on the
-    confidence-scaled measurement noise of the default update."""
+    :func:`auction_associate_boxes`). The hooks, as in JAX, with the
+    stream axis leading every argument (S = 1 for a single stream):
+    ``associate_fn(iou (S,T,D), alive (S,T), dvalid (S,D), conf (S,D),
+    ctx) → det→track (S,D)`` with ``ctx = (state, boxes (S,D,4), ts
+    (S,), emb (S,D,E) | None)`` after the predict (replaces the
+    association); ``new_track_fn(dvalid, matched_d, conf) → (S,D)`` bool
+    (who starts a track); ``update_fn(state, boxes, det_idx (S,T),
+    matched_t (S,T), ts, conf) → (mean, cov)`` (the measurement update;
+    rows of unmatched tracks are ignored). Hooks written over ``...``
+    leading axes serve both. ``nsa`` turns on the confidence-scaled
+    measurement noise of the default update."""
     thresh = float(iou_threshold)
     staleness = float(max_staleness)
     window = max(0.05, float(speed_window))
     del min_hits   # tracked by the reference but never gates output
-    hooked = associate_fn is not None or new_track_fn is not None \
-        or update_fn is not None
     use_nsa = bool(nsa)
+    assoc = associate_fn
     if associate_fn is None:
         if association not in ("greedy", "hungarian"):
             raise ValueError(f"unknown association: {association!r} "
@@ -776,30 +780,17 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
             else auction_associate_boxes
     else:
         assoc_boxes = None
-
-        def assoc(iou, alive, dvalid, conf, ctx):
-            state, boxes, ts, emb = ctx
-            return associate_fn(
-                iou[0], alive[0], dvalid[0], conf[0],
-                (_squeeze_state(state), boxes[0], ts[0],
-                 None if emb is None else emb[0]))[None]
+    new_tracks = new_track_fn
     if new_track_fn is None:
         def new_tracks(dvalid, matched_d, conf):
             return dvalid & ~matched_d
-    else:
-        def new_tracks(dvalid, matched_d, conf):
-            return new_track_fn(dvalid[0], matched_d[0], conf[0])[None]
+    update = update_fn
     if update_fn is None:
         def update(state, boxes, det_idx, matched_t, ts, conf):
             return _kf_update(state.mean, state.cov,
                               _take(bbox_to_z(boxes), det_idx),
                               nsa_r_scale(torch.gather(conf, 1, det_idx))
                               if use_nsa else None)
-    else:
-        def update(state, boxes, det_idx, matched_t, ts, conf):
-            mean, cov = update_fn(_squeeze_state(state), boxes[0],
-                                  det_idx[0], matched_t[0], ts[0], conf[0])
-            return mean[None], cov[None]
 
     from ..geometry.projector import project_boxes_device
 
@@ -994,11 +985,10 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
     def step(state: SortState, boxes, cls_id, conf, dvalid, ts, proj=None,
              emb=None, shift=None):
         if state.mean.dim() == 3:
-            if hooked:
-                raise ValueError("a stacked state runs the default "
-                                 "strategies only: this step has hooks "
-                                 "(lift it with track/multi.py::"
-                                 "over_streams)")
+            if boxes.dim() != 3:
+                raise ValueError(f"a stacked state of {state.mean.shape[0]}"
+                                 f" streams takes (S, D, 4) detections, "
+                                 f"got {tuple(boxes.shape)}")
             return stacked(state, boxes, cls_id, conf, dvalid, ts, proj,
                            emb, shift)
         one = stacked(SortState(*[t[None] for t in state]), boxes[None],
@@ -1007,7 +997,6 @@ def make_sort_step(iou_threshold: float, max_staleness: float,
                       None if shift is None else shift[None])
         return _squeeze_state(one[0]), SortOutput(*[t[0] for t in one[1]])
 
-    step.stackable = not hooked
     return step
 
 

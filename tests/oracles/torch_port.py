@@ -22,6 +22,26 @@ def write_npz(params, path) -> str:
     return str(path)
 
 
+def quantize_params_np(tree):
+    """``quant.quantize_params`` of the JAX package, evaluated in numpy
+    float32 as its eager call evaluates it (the eager call takes 10-25 s
+    on this CPU; under ``jax.jit`` XLA computes some ``w_scale`` an ulp
+    apart, which the int8 path then amplifies), with jnp leaves."""
+    import jax.numpy as jnp
+    if isinstance(tree, dict):
+        if "w" in tree and "b" in tree and np.ndim(tree["w"]) == 4:
+            w = np.asarray(tree["w"], np.float32)
+            s = (np.maximum(np.abs(w).max(axis=(0, 1, 2)), np.float32(1e-12))
+                 / np.float32(127.0)).astype(np.float32)
+            return {"w_i8": jnp.asarray(
+                        np.clip(np.round(w / s), -127, 127).astype(np.int8)),
+                    "w_scale": jnp.asarray(s), "b": jnp.asarray(tree["b"])}
+        return {k: quantize_params_np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(quantize_params_np(v) for v in tree)
+    return tree
+
+
 def engine_cfg(model: str, chain: bool = False, tracking: bool = False,
                **detect):
     """A small engine config: ``model`` at imgsz 96 in float32, the

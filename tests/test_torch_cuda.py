@@ -1244,6 +1244,153 @@ def test_graph_replay_equals_the_eager_step(dev, no_tf32):
                                                    equal_nan=True)
 
 
+# the hooked backends and GMC, captured: name → (tracking overrides,
+# association launches a frame)
+HOOKED_GRAPHS = {
+    "bytetrack": ({"backend": "bytetrack"}, 2),
+    "ocsort": ({"backend": "ocsort"}, 2),
+    "deepsort": ({"backend": "deepsort"}, 1),
+    "deepsort_reid": ({"backend": "deepsort",
+                       "reid_weights": "assets/reid_synthetic.npz"}, 1),
+    "strongsort": ({"backend": "strongsort"}, 1),
+    "botsort_gmc": ({"backend": "botsort", "gmc": True}, 2),
+    "sort_gmc": ({"gmc": True}, 1),
+}
+
+
+def _panned(batches):
+    """The batches of :func:`_batches` under a camera pan by whole GMC
+    thumbnail blocks (3 x 2 source px at 480 x 288)."""
+    rng = np.random.RandomState(11)
+    cam, out = np.zeros(2, int), []
+    for frames, ts in batches:
+        rolled = []
+        for f in frames:
+            cam += rng.randint(-3, 4, 2)
+            rolled.append(np.roll(f, (2 * cam[1], 3 * cam[0]), axis=(0, 1)))
+        out.append((np.stack(rolled), ts))
+    return out
+
+
+@pytest.mark.parametrize("name", list(HOOKED_GRAPHS))
+def test_hooked_and_gmc_graph_replay_equals_the_eager_step(dev, no_tf32,
+                                                           name):
+    """Every hooked backend, and GMC, replays a captured graph on a
+    panned source: its batches equal the eager step's from the same
+    reset state bit for bit, the track state and GMC's carry after them
+    too, with the eager path's launch counts (the association ``k``
+    launches a frame) and no host read."""
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.runtime.graph import WARMUP_CALLS
+    from roadvision_tpu_torch.track import sort as tsort
+    over, per_frame = HOOKED_GRAPHS[name]
+    cfg = merge(_engine_cfg(batch=4), {"tracking": over})
+    graph, eager = (PipelineEngine(cfg, device=dev) for _ in range(2))
+    assert graph.step_mode == "graph" and graph.eager_reason is None
+    batches = [(torch.from_numpy(f).to(dev),
+                torch.from_numpy((t - 1000.0).astype(np.float32)).to(dev))
+               for f, t in _panned(_batches(3))]
+    launch_counts.update({k: 0 for k in launch_counts})
+    graph.step_batch(*batches[0], want_proc=False)          # the capture
+    assert launch_counts["assoc_greedy"] \
+        == 4 * per_frame * (1 + WARMUP_CALLS)
+    counts = []
+    for eng, run in ((graph, graph.step_batch), (eager, eager.step)):
+        eng.reset()
+        launch_counts.update({k: 0 for k in launch_counts})
+        tsort.reset_host_syncs()
+        eng.outs = [[a.cpu().clone() for a in run(x, t, want_proc=False)[1]]
+                    for x, t in batches]
+        counts.append((dict(launch_counts), tsort.host_syncs))
+    assert counts[0] == counts[1] and counts[0][1] == 0
+    assert counts[0][0]["assoc_greedy"] == 12 * per_frame
+    assert counts[0][0]["nms_keep"] == 3 and len(graph._graphs) == 1
+    for g, e in zip(graph.outs, eager.outs):
+        for a, b in zip(g, e):
+            assert torch.equal(a, b) or torch.allclose(
+                a, b, rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(graph.step_state(), eager.step_state()):
+        assert torch.equal(a, b) or torch.allclose(a, b, rtol=0, atol=0,
+                                                   equal_nan=True)
+    if graph.gmc_enabled:
+        assert float(graph.gmc_valid) == 1.0 and graph.gmc_prev.any()
+
+
+@pytest.mark.parametrize("name", ["deepsort", "botsort_gmc"])
+def test_hooked_fleet_replays_and_equals_eager(dev, no_tf32, name):
+    """The fleet at S = 4 with a hooked backend (and GMC's (S, G, G)
+    carry) replays one graph a fleet batch: its results equal the same
+    fleet run eagerly, and the association launches once a stage a frame
+    for all four streams (B · k a fleet batch, not S · B · k); a reset()
+    keeps the graph's state tensors."""
+    from roadvision_tpu_torch.config import merge
+    from roadvision_tpu_torch.io_video import SyntheticRoadSource
+    from roadvision_tpu_torch.runtime import MultiStreamEngine
+    over, per_frame = HOOKED_GRAPHS[name]
+    cfg = merge(_engine_cfg(batch=2), {"tracking": over})
+    graph, eager = (MultiStreamEngine(cfg, 4, devices=[dev])
+                    for _ in range(2))
+    assert graph.step_mode == "graph"
+    eager.groups[0].engine.step_mode = "eager"
+    srcs = [SyntheticRoadSource(480, 288, num_vehicles=6, seed=s)
+            for s in range(4)]
+    fleet = [(np.stack([np.stack([np.roll(src.render(2 * k + i),
+                                          3 * (2 * k + i), axis=1)
+                                  for i in range(2)]) for src in srcs]),
+              1000.0 + np.tile((2 * k + np.arange(2)) / 30.0, (4, 1)))
+             for k in range(3)]
+    got = {"graph": [], "eager": []}
+    for k, (frames, ts) in enumerate(fleet):
+        for mode, eng in (("graph", graph), ("eager", eager)):
+            launch_counts.update({c: 0 for c in launch_counts})
+            got[mode].append(eng.process_batch(frames, ts))
+            if k or mode == "eager":       # the capture's warm-ups aside
+                assert launch_counts["assoc_greedy"] == 2 * per_frame
+                assert launch_counts["nms_keep"] == 1
+    assert len(graph.groups[0].engine._graphs) == 1
+    # a reset() copies fresh values into the graph's state; the first
+    # batch then comes out as it did
+    held = graph.groups[0].step_state()
+    for mode, eng in (("graph", graph), ("eager", eager)):
+        eng.reset()
+        got[mode].append(eng.process_batch(*fleet[0]))
+    assert graph.groups[0].step_state() is held
+    assert len(graph.groups[0].engine._graphs) == 1
+    n = 0
+    for g, e in zip(got["graph"], got["eager"]):
+        for gs, es in zip(g, e):
+            for a, b in zip(gs, es):
+                assert a.detections == b.detections
+                n += len(a.detections)
+    assert n > 0
+    for run in got.values():
+        assert [[r.detections for r in st] for st in run[-1]] \
+            == [[r.detections for r in st] for st in run[0]]
+
+
+def test_a_capture_that_uploads_raises(dev):
+    """A step that uploads a host value on every call cannot be captured:
+    the engine raises, and neither keeps a graph nor runs it eagerly."""
+    from roadvision_tpu_torch.runtime import PipelineEngine
+    from roadvision_tpu_torch.runtime.graph import WARMUP_CALLS
+    eng = PipelineEngine(_engine_cfg(batch=4), device=dev)
+    calls = []
+
+    def fn(state, x):
+        calls.append(1)
+        return (x + torch.tensor(1.0).to(x.device),), state
+
+    x = torch.zeros(4, device=dev)
+    with pytest.raises(RuntimeError):
+        eng.run_step(("upload", (4,)), fn, None, (x,))
+    assert not eng._graphs and eng.step_mode == "graph"
+    assert len(calls) == WARMUP_CALLS + 1     # the warm-ups and the capture
+    # the card goes on working
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 4.0
+
+
 def test_reset_and_load_state_reach_the_captured_state(dev, tmp_path):
     from roadvision_tpu_torch.runtime import PipelineEngine
     cfg = _engine_cfg(batch=4)

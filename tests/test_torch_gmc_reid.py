@@ -257,15 +257,16 @@ def test_engine_deepsort_reid_gmc_on_a_pan_matches_jax():
         ts = 100.0 + (4 * bi + np.arange(4)) / 30.0
         # the engine's shifts for this batch are the known ones
         if bi:
+            assert float(teng.gmc_valid) == 1.0
             got_s = tgmc.batch_shifts(
-                teng._gmc_prev, tgmc.gray_thumbnail(torch.from_numpy(fb)),
+                teng.gmc_prev, tgmc.gray_thumbnail(torch.from_numpy(fb)),
                 torch.tensor(1.0), (2, 2)).numpy()
             np.testing.assert_array_equal(got_s, shifts[4 * bi: 4 * bi + 4])
         want = jeng.process_batch(fb, ts)
         got = teng.process_batch(fb, ts)
         n += same_results(got, want, bi)
         ids |= {d.track_id for r in got for d in r.detections}
-        np.testing.assert_allclose(teng._gmc_prev.numpy(),
+        np.testing.assert_allclose(teng.gmc_prev.numpy(),
                                    np.asarray(jeng._gmc_prev), atol=1e-4)
     assert n >= 20 and len(ids - {None}) >= 3
     np.testing.assert_allclose(teng.sort_state.app.numpy(),

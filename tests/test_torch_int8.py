@@ -9,13 +9,17 @@ in f64 and rounded once (so the card and the CPU agree); against
 move an activation across a quantisation step, and a step at a tensor's
 abs-max moves its whole dynamic scale, so the whole forward is held to a
 stated bound on the synthetic road scene the trained yolov8n sees:
-scores within 1e-3 and the boxes of anchors scoring over 0.25 within
-1e-3 px (measured ≤ 1.3e-4 and 1.5e-5), where int8 itself moves them
-0.07-0.10 and 0.24-0.33 px from float32 (the JAX package's own
-int8-vs-float32 bounds are 0.15 and 8 px). Calibration (an observer
-mode on the quantised convs) gives each conv the JAX calibration's
-static scale within 2 % (measured 1.6 %: the two calibrations see
-activations that differ by such steps) and the same detections.
+scores within 5e-5 and the boxes of anchors scoring over 0.25 within
+5e-5 px (measured 4.6e-6 and 7.6e-6, the JAX weights quantised in numpy
+as the eager ``quantize_params`` does: under ``jit`` XLA computes some
+``w_scale`` an ulp apart, which moved them to 1.3e-4 and 1.5e-5), where
+int8 itself moves them 0.07-0.10 and 0.24-0.33 px from float32 (the JAX
+package's own int8-vs-float32 bounds are 0.15 and 8 px). Calibration
+(an observer mode on the quantised convs) gives each conv the JAX
+calibration's static scale within 1 % (measured 0.84 %, 6 of 63 exact:
+the two calibrations see activations that differ by such steps, a gap
+of the implementations that the weights do not cause) and the same
+detections.
 """
 import numpy as np
 import pytest
@@ -34,9 +38,10 @@ from roadvision_tpu_torch.models.yolo.yolov8 import Conv
 from roadvision_tpu_torch.ops.letterbox import letterbox_rect_u8
 
 from tests.oracles import torch_port
+from tests.oracles.torch_port import quantize_params_np
 
 NPZ = "assets/yolov8n_synthetic_256.npz"
-BOX_TOL, SCORE_TOL = 1e-3, 1e-3
+BOX_TOL, SCORE_TOL = 5e-5, 5e-5
 
 
 def _road(n, seed=0):
@@ -119,11 +124,11 @@ def test_int8_conv_exact_where_float32_is_not():
 
 @pytest.fixture(scope="module")
 def v8():
-    """The trained yolov8n: its tree, the tree quantised by the JAX
-    package (under ``jit``) and the jitted JAX forward."""
+    """The trained yolov8n: its tree, the tree quantised as the JAX
+    package's eager ``quantize_params`` does (in numpy) and the jitted JAX
+    forward."""
     tree = tweights.import_npz(NPZ)
-    jt = jax.jit(jq.quantize_params)(jax.tree_util.tree_map(jnp.asarray,
-                                                            tree))
+    jt = quantize_params_np(jax.tree_util.tree_map(jnp.asarray, tree))
     return tree, jt, jax.jit(lambda p, x: j8.forward_raw(p, x, size="n",
                                                          nc=80))
 
@@ -158,8 +163,7 @@ def test_int8_yolo11_forward_matches_jax():
         tweights.random_model("11", "detect", "n", 80, seed=1))
     jt = jax.tree_util.tree_map(jnp.asarray, tree)
     want = np.asarray(jax.jit(lambda p, x: j11.forward_raw_11(
-        p, x, size="n", nc=80))(jax.jit(jq.quantize_params)(jt),
-                                 jnp.asarray(X))[1])
+        p, x, size="n", nc=80))(quantize_params_np(jt), jnp.asarray(X))[1])
     model = tq.quantize_model_(tweights.model_from_params(tree)).eval()
     with torch.no_grad():
         got = model(torch.from_numpy(X))[1].numpy()
@@ -210,8 +214,9 @@ def test_calibration_matches_jax(v8, frames):
     """``YOLOTorch.calibrate_int8`` against the JAX calibration
     (``capture_scales`` per batch under ``jit``, running max, the scales
     baked into the tree as ``assign_scales`` does): every conv's static
-    scale within 2 % (the first exactly), and the calibrated forwards
-    agree as the dynamic ones do."""
+    scale within 1 % (the first exactly), and the calibrated forwards'
+    scores within 0.04 (measured 0.035: each side quantises with its own
+    scales)."""
     tree, jt, f = v8
     det = YOLOTorch({"model": NPZ, "imgsz": 160, "conf_thres": 0.25,
                      "compute_dtype": "int8"}, device="cpu")
@@ -231,15 +236,15 @@ def test_calibration_matches_jax(v8, frames):
     assert sorted(order) == sorted(got)
     assert got[order[0]] == want[0]         # max |first canvas| / 127
     for name, w in zip(order, want):
-        assert got[name] == pytest.approx(float(w), rel=0.02), name
+        assert got[name] == pytest.approx(float(w), rel=0.01), name
     static = jax.tree_util.tree_map(lambda a: a, jt)
     for name, w in zip(order, want):
         _set_leaf(static, name, "a_scale", jnp.float32(w))
     jout = [np.asarray(a) for a in f(static, jnp.asarray(X))]
     with torch.no_grad():
         tout = [t.numpy() for t in det.model(torch.from_numpy(X))]
-    # the scales differ by up to 2 %, so each side quantises with its own
-    assert np.abs(tout[1] - jout[1]).max() < 0.05
+    # the scales differ by up to 1 %, so each side quantises with its own
+    assert np.abs(tout[1] - jout[1]).max() < 0.04
     tq.clear_static_scales(det.model)
     assert not tq.has_static_scales(det.model)
 
@@ -276,14 +281,15 @@ def test_engine_int8_matches_jax_engine(frames):
                                 conf_thres=0.25, imgsz=160)
     ts = 1000.0 + np.arange(2) / 30.0
     # the JAX detector's own int8 set-up (``quantize_params`` of its
-    # tree; float32 around the convs), with the quantisation under jit:
-    # eagerly it takes ~14 s on this CPU
+    # tree; float32 around the convs), quantised in numpy as the eager
+    # call does (eagerly it takes ~14 s on this CPU)
     jeng = JEngine(cfg)
-    jeng.detector.params = jax.jit(jq.quantize_params)(jeng.detector.params)
+    jeng.detector.params = quantize_params_np(jeng.detector.params)
     want = jeng.process_batch(frames[:2], ts)
     cfg["detect"]["compute_dtype"] = "int8"
     got = PipelineEngine(cfg, device="cpu").process_batch(frames[:2], ts)
-    # the chain's frames cross a few quantisation steps differently
-    # (measured 0.10 px at 256 px): boxes within 0.5 px, conf 0.01
-    assert torch_port.assert_same_results(got, want, box_tol=0.5,
-                                          conf_tol=0.01) > 0
+    # with the weights quantised alike: boxes within 1e-4 px, conf 1e-5
+    # (measured 7.6e-6 px and 3.0e-7; 0.10 px with the weights quantised
+    # under jit)
+    assert torch_port.assert_same_results(got, want, box_tol=1e-4,
+                                          conf_tol=1e-5) > 0

@@ -11,8 +11,8 @@ step against JAX's); and each stream's slice bit-equal to the port's
 single-stream step.
 
 ``MultiStreamEngine`` (the fleet step of ``parallel/inference.py``:
-S·B frames folded into one preprocess + detector batch, the tracker tail
-per stream): against S independent port engines on two device groups
+S·B frames folded into one preprocess + detector batch, one tracker tail
+on the stacked state): against S independent port engines on two device groups
 on the CPU (S = 3, padded to 4, the warning logged): counts, classes
 and ids equal, boxes within 1e-4 px and confidences within 1e-5 (the
 detector's batch-fold gap, see ``_fold_close``); against JAX's
@@ -21,8 +21,9 @@ detector's batch-fold gap, see ``_fold_close``); against JAX's
 ``tile_grid`` 4, ``track_slots`` 8, float32: ids, classes and
 counts equal, boxes within 0.05 px, confidences within 2e-3; the fleet
 time origin; the fleet gate's three scenarios of
-``tests/test_multi_engine.py``; per-stream GMC with BoT-SORT (each
-stream's shifts and thumbnails equal the single-stream engine's); the
+``tests/test_multi_engine.py``; per-stream GMC with BoT-SORT in one
+stacked step (each stream's shifts and thumbnails equal the
+single-stream engine's); the
 lockstep ``stream``; and the entry points: ``Pipeline.streams``, the
 multi-camera preview with ``--record``, the multi-camera server's
 ``/stats`` and bench ``--mode streams --device cpu``.
@@ -396,32 +397,43 @@ def test_fleet_gate_full_batches_match_ungated_engine():
 
 
 def test_fleet_gmc_botsort_shifts_equal_single_stream():
-    """Per-stream GMC: each stream carries its own thumbnail; its shifts,
-    thumbnails and tracks equal the single-stream engine's."""
+    """Per-stream GMC in one stacked step: each stream carries its own
+    thumbnail in the fleet's (S, G, G) tensor (one flag for all, kept in
+    the same tensors across batches); the one phase correlation a fleet
+    batch gives each stream the shifts, thumbnail and tracks of the
+    single-stream engine."""
     cfg = _cfg(tracking={"backend": "botsort", "gmc": True},
                tpu={"mesh": {"devices": 1}})
     eng = MultiStreamEngine(cfg, S, devices=["cpu"])
     seen = []
     grp = eng.groups[0].engine
     real = grp._shifts
-    grp._shifts = lambda f, p: seen.append(real(f, p)) or seen[-1]
+    grp._shifts = lambda f, p, v: seen.append(real(f, p, v)) or seen[-1]
     pans = [np.roll(_frames(k), 3 * k, axis=3) for k in range(3)]
     got = [eng.process_batch(p, _stamps(k)) for k, p in enumerate(pans)]
-    assert len(seen) == 3 * S
-    assert eng.groups[0].gmc_prev.shape == (S, GMC_SIZE, GMC_SIZE)
+    assert len(seen) == 3 and seen[0][0].shape == (S, B, 2)
+    carry = eng.groups[0].gmc_prev
+    assert carry.shape == (S, GMC_SIZE, GMC_SIZE)
+    assert float(eng.groups[0].gmc_valid) == 1.0
     for s in range(S):
         single = PipelineEngine(cfg, device="cpu")
         single._t0 = 1000.0
         mine = []
         real1 = single._shifts
-        single._shifts = lambda f, p: mine.append(real1(f, p)) or mine[-1]
+        single._shifts = lambda f, p, v: mine.append(real1(f, p, v)) \
+            or mine[-1]
         for k, p in enumerate(pans):
             ref = single.process_batch(p[s], _stamps(k)[s])
             _fold_close(got[k][s], ref, (s, k))
         for k in range(3):
-            assert torch.equal(seen[k * S + s][0], mine[k][0])
-        assert torch.equal(eng.groups[0].gmc_prev[s], single._gmc_prev)
-    assert any(float(sh[0].abs().max()) > 0 for sh in seen[S:])
+            assert torch.equal(seen[k][0][s], mine[k][0])
+        assert torch.equal(eng.groups[0].gmc_prev[s], single.gmc_prev)
+    assert any(float(sh[0].abs().max()) > 0 for sh in seen[1:])
+    # where the fleet step replays a graph, reset keeps the tensors
+    eng.groups[0].engine.step_mode = "graph"
+    eng.reset()
+    assert eng.groups[0].gmc_prev is carry and not carry.any()
+    assert float(eng.groups[0].gmc_valid) == 0.0
 
 
 class _Src:

@@ -205,14 +205,17 @@ def test_stacked_step_matches_jax_vmap_and_single_streams(
 
 
 def test_hooked_step_refuses_a_stacked_state():
+    """A hooked step takes a stacked state (as every step does) and
+    refuses one only with detections that lack the stream axis."""
     from roadvision_tpu_torch.track import registry
     step = registry.build_device_step({"backend": "bytetrack"})
-    assert not step.stackable
-    assert tsort.make_sort_step(*CFG).stackable
     st = tmulti.init_multi_state(2, T, device="cpu")
     z = torch.zeros((2, D))
+    st2, out = step(st, torch.zeros((2, D, 4)), z.int(), z, z.bool(),
+                    torch.zeros(2))
+    assert out.track_id.shape == (2, D) and st2.mean.shape == (2, T, 7)
     with pytest.raises(ValueError, match="stacked state"):
-        step(st, torch.zeros((2, D, 4)), z.int(), z, z.bool(),
+        step(st, torch.zeros((D, 4)), z[0].int(), z[0], z[0].bool(),
              torch.zeros(2))
 
 
@@ -381,8 +384,13 @@ def _main_cfg(**over):
     ({"tracking": {"enabled": False}}, True),
     ({"tpu": {"sampled_preprocess": True}}, True),
     ({"detect": {"temporal_gate": {"enable": True}}}, False),
-    ({"tracking": {"backend": "ocsort"}}, False),
-    ({"tracking": {"gmc": True}}, False),
+    ({"tracking": {"backend": "ocsort"}}, True),
+    ({"tracking": {"gmc": True}}, True),
+    ({"tracking": {"backend": "bytetrack"}}, True),
+    ({"tracking": {"backend": "deepsort",
+                   "reid_weights": "assets/reid_synthetic.npz"}}, True),
+    ({"tracking": {"backend": "strongsort"}}, True),
+    ({"tracking": {"backend": "botsort", "gmc": True}}, True),
     ({"detect": {"tta": True}}, False),
     ({"preprocess": {"auto_gate": {"enable_low_contrast_gate": True}}},
      True),
@@ -392,6 +400,32 @@ def _main_cfg(**over):
 def test_step_mode_is_chosen_from_the_configuration(over, graph):
     reason = _as_on_card(_main_cfg(**over))
     assert (reason is None) == graph, reason
+
+
+@pytest.mark.parametrize("gmc", [False, True])
+@pytest.mark.parametrize("tracking", [
+    {}, {"association": "hungarian"}, {"backend": "bytetrack"},
+    {"backend": "ocsort"}, {"backend": "deepsort"},
+    {"backend": "deepsort", "reid_weights": "assets/reid_synthetic.npz"},
+    {"backend": "strongsort"}, {"backend": "botsort"}],
+    ids=["sort", "hungarian", "bytetrack", "ocsort", "deepsort",
+         "deepsort_reid", "strongsort", "botsort"])
+def test_every_tracking_backend_replays_a_graph(tracking, gmc):
+    """Every backend, with GMC on and off, and the fleet of it: the only
+    reasons left to run eagerly are the temporal gate, the detector
+    variants and int8."""
+    cfg = _main_cfg(tracking=dict(tracking, gmc=gmc))
+    assert _as_on_card(cfg) is None
+    eng = PipelineEngine(cfg, device="cpu")
+    assert eng.gmc_enabled == gmc
+
+
+def test_analytics_demo_config_replays_a_graph():
+    """configs/analytics_demo.yaml (deepsort with the learned re-id):
+    the last shipped config that ran eagerly."""
+    cfg = load_config("configs/analytics_demo.yaml")
+    assert cfg["tracking"]["backend"] == "deepsort"
+    assert _as_on_card(cfg) is None
 
 
 def test_rtdetr_demo_config_replays_a_graph():

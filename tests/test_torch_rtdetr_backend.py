@@ -48,6 +48,8 @@ from roadvision_tpu_torch.models import rtdetr as T
 from roadvision_tpu_torch.models.yolo import quant
 from roadvision_tpu_torch.runtime import PipelineEngine
 
+from tests.oracles.torch_port import quantize_params_np
+
 ROOT = Path(__file__).resolve().parent.parent
 NPZ = str(ROOT / "assets" / "rtdetr_l_synthetic_256.npz")
 CFG = {"model": NPZ, "imgsz": 128, "conf_thres": 0.25, "max_det": 20,
@@ -187,25 +189,6 @@ def test_num_queries_and_decoder_layers(detector):
     assert torch.equal(want[0], boxes) and torch.equal(want[1], probs)
 
 
-def _quantize_np(tree):
-    """``quant.quantize_params`` of the JAX package, evaluated in numpy
-    float32 as its eager call evaluates it (the eager call takes ~18 s
-    here; under ``jax.jit`` XLA computes some ``w_scale`` an ulp apart,
-    which the int8 path then amplifies to 0.035 px)."""
-    if isinstance(tree, dict):
-        if "w" in tree and "b" in tree and np.ndim(tree["w"]) == 4:
-            w = np.asarray(tree["w"], np.float32)
-            s = (np.maximum(np.abs(w).max(axis=(0, 1, 2)), np.float32(1e-12))
-                 / np.float32(127.0)).astype(np.float32)
-            return {"w_i8": jax.numpy.asarray(
-                        np.clip(np.round(w / s), -127, 127).astype(np.int8)),
-                    "w_scale": jax.numpy.asarray(s), "b": tree["b"]}
-        return {k: _quantize_np(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_quantize_np(v) for v in tree)
-    return tree
-
-
 def _call_order_scales(det, frames):
     order = []
     hooks = [m.register_forward_hook(lambda m, i, o: order.append(m))
@@ -226,12 +209,12 @@ def test_int8_matches_jax_int8():
     jdet = RTDETRJax(dict(cfg, compute_dtype="float32"))
     stem = jdet.params["backbone"]["stem"]
     key = sorted(stem)[0]
-    for k, v in _quantize_np({key: stem[key]})[key].items():
+    for k, v in quantize_params_np({key: stem[key]})[key].items():
         np.testing.assert_array_equal(
             np.asarray(v), np.asarray(jquant.quantize_conv(stem[key])[k]))
     jdet.params = dict(jdet.params,
-                       backbone=_quantize_np(jdet.params["backbone"]),
-                       enc=_quantize_np(jdet.params["enc"]))
+                       backbone=quantize_params_np(jdet.params["backbone"]),
+                       enc=quantize_params_np(jdet.params["enc"]))
     jdet.int8 = True
     jdet._jit_cache.clear()
     want = jdet.infer_batch(frames)

@@ -412,7 +412,7 @@ def test_state_file_crosses_packages_ocsort_gmc(tmp_path):
         np.testing.assert_allclose(getattr(teng.sort_state, k).numpy(),
                                    np.asarray(getattr(j2.sort_state, k)),
                                    rtol=1e-3, atol=1e-3, err_msg=k)
-    np.testing.assert_allclose(t2._gmc_prev.numpy(),
+    np.testing.assert_allclose(t2.gmc_prev.numpy(),
                                np.asarray(jeng._gmc_prev), atol=1e-4)
     with np.load(p_port) as z:
         old = {k: z[k] for k in z.files
