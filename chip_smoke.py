@@ -53,7 +53,17 @@ Phases, in order; any failure exits non-zero:
      edges and a NaN location; timed four ways at the main path's layer
      beside the plain version (both gather formulations), the
      ``grid_sample`` composition (the library column: a composition, not
-     one call) and its bound from the value rows the call touches;
+     one call) and its bound from the value rows the call touches, and
+     at RT-DETR-L's training shape in f32; before K7, K8
+     ``deform_sample_bwd`` against ``deform_sample_backward_plain``
+     (DEFORM_BWD_RTOL / DEFORM_BWD_ATOL times each gradient's largest
+     magnitude, non-finite in the same gradients) on RT-DETR-L's own
+     training inputs and output gradients (one AdamW step at 640 x 4,
+     every layer), random 4 x 300 and 8 x 100 inputs, non-square levels,
+     edges and a NaN location, timed at layer 0 of the training inputs
+     beside the plain backward, the backward of the ``grid_sample``
+     composition and its bound (the value rows touched, the zero-filled
+     value gradient);
   4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
      CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
      PipelineEngine.process_batch: one batch in float32 with TF32 off
@@ -173,8 +183,9 @@ Phases, in order; any failure exits non-zero:
      kernel phase also holds K1, K2 and K3 bit-equal at the fleet's
      folded shapes (32 luma planes and 96 colour planes, 720p and 1080p)
      and times them there;
-  7c. training, with the kernels' counts 0 across it but K5's, once an
-     RT-DETR-L step on the card (its matcher, with no host read):
+  7c. training, with the kernels' counts 0 across it but RT-DETR-L's
+     on the card: K5 once a step (its matcher, with no host read), K7
+     once a decoder layer forward and K8 once a layer backward:
      ``[train] <family>`` for v8n, yolo11n and
      v5n at 640 x 16, v8n-seg / -pose / -obb at 640 x 8, RT-DETR-L at
      640 x 4 and the re-id embedder — one float32 step (TF32 off) from the
@@ -192,8 +203,9 @@ Phases, in order; any failure exits non-zero:
      also in chiprun_out/training.json;
   7d. ``[parallel]``, multi-card parallelism over lists that repeat
      cuda:0, float32 with TF32 off unless timed, the kernels' counts 0
-     throughout but the dry run's fleet's and K5's (once an RT-DETR-L
-     objective): the dp x tp train step ({data: 4, model: 2}) of v8n and
+     throughout but the dry run's fleet's, the serving forwards' K7 and,
+     once an RT-DETR-L objective, K5 and K7 / K8 once a decoder layer:
+     the dp x tp train step ({data: 4, model: 2}) of v8n and
      RT-DETR-L at the JAX dry run's 64² x 8 against one replica (loss
      PAR_LOSS_RTOL, parameters and optimiser state PAR_RTOL / PAR_ATOL,
      replicas identical); v8n, YOLO11n and v5n at 640² x 16 a replica,
@@ -730,14 +742,16 @@ def second_paths(model: str, batches, card: str) -> dict:
 # compare a kernel with its plain version are not counted)
 PATH_TOTALS = {"clahe_tile_luts": 0, "clahe_apply": 0, "median_k": 0,
                "assoc_greedy": 0, "assoc_auction": 0, "nms_keep": 0,
-               "deform_sample": 0}
+               "deform_sample": 0, "deform_sample_bwd": 0}
 # the preprocess kernels (K1-K3), held to one launch a batch on every
 # path, and the rest, held to what each path runs: the tail's loops
 # (K4-K6: NMS, then the association of every tracked frame) and
-# RT-DETR's deformable sampling (K7, once a decoder layer of a serving
-# forward)
+# RT-DETR's deformable sampling (K7, once a decoder layer of a forward;
+# K8, its backward, once a decoder layer of a training step, and never
+# on a serving path)
 PRE_KERNELS = ("clahe_tile_luts", "clahe_apply", "median_k")
-TAIL_KERNELS = ("nms_keep", "assoc_greedy", "assoc_auction", "deform_sample")
+TAIL_KERNELS = ("nms_keep", "assoc_greedy", "assoc_auction", "deform_sample",
+                "deform_sample_bwd")
 RTDETR_LAYERS = 6                  # K7 launches a serving RT-DETR-L forward
 
 
@@ -751,12 +765,13 @@ def warm(captures: int) -> int:
 
 def tail_want(batches: int, frames: int, per_frame: int = 1,
               assoc: str = "assoc_greedy", deform: int = 0) -> dict:
-    """K4-K7 launches of ``batches`` detector batches whose tracker steps
+    """K4-K8 launches of ``batches`` detector batches whose tracker steps
     ``frames`` frames (a fleet's stacked step: frames of one stream),
     ``per_frame`` association launches a frame, and ``deform`` K7
-    launches in all."""
+    launches in all (K8: none, serving takes no gradient)."""
     return {"nms_keep": batches, "assoc_greedy": 0, "assoc_auction": 0,
-            "deform_sample": deform, assoc: frames * per_frame}
+            "deform_sample": deform, "deform_sample_bwd": 0,
+            assoc: frames * per_frame}
 
 
 def tracked(frames: int = BATCH, per_frame: int = 1,
@@ -2750,7 +2765,8 @@ def fleet_cards_phase(model: str, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# training (K1-K4 and K6 launch 0; K5 matches RT-DETR's sets)
+# training (K1-K4 and K6 launch 0; K5 matches RT-DETR's sets, K7 and K8
+# sample its decoder forward and backward)
 
 TRAIN_LOSS_RTOL = 1e-3     # loss, its components, the gradient norm
 TRAIN_PARAM_ATOL = 1e-5    # parameters after one step, card against CPU
@@ -2761,7 +2777,8 @@ TRAIN_MOMENT_RTOL_RTDETR = 5e-2
 TRAIN_STEPS, TRAIN_TIMED, TRAIN_PARTS = 10, 8, 3
 # RT-DETR steps on the card in [train]: the parity step, the fixed-batch
 # steps, the step whose syncs are counted, the timed ones, the parts'; each
-# matches in one launch of K5 (matcher mode)
+# matches in one launch of K5 (matcher mode) and runs a forward and a
+# backward (K7 and K8 once a decoder layer each)
 RTDETR_CARD_STEPS = 1 + TRAIN_STEPS + 1 + TRAIN_TIMED + TRAIN_PARTS
 TRAIN_DEVICE = "cuda"
 TRAIN_ENTRY = ("640", "16")    # [entry] train: imgsz, batch
@@ -3012,8 +3029,9 @@ def train_reid_phase() -> dict:
 def train_phase(card: str, tmp: Path) -> dict:
     """``[train] <family>``: parity, a falling loss and timings for every
     family the trainer serves; the kernels' counts stay 0 throughout but
-    K5's, which RT-DETR-L's matcher launches once a step (and reads
-    nothing back to the host)."""
+    RT-DETR-L's: K5 once a step (its matcher, which reads nothing back to
+    the host), K7 once a decoder layer forward and K8 once a layer
+    backward."""
     import torch
     from roadvision_tpu_torch import kernels
     torch.backends.cudnn.allow_tf32 = False
@@ -3051,7 +3069,12 @@ def train_phase(card: str, tmp: Path) -> dict:
           f"{res['step_ms_max']:.2f}], {res['images_per_s']:.1f} crops/s, "
           f"host syncs a step {res['host_syncs_per_step']} ({card})",
           flush=True)
-    counts = exact_launches("[train]", {"assoc_auction": RTDETR_CARD_STEPS})
+    # RT-DETR-L's card steps: one K5 launch each (its matcher), one K7
+    # launch a decoder layer forward and one K8 launch a layer backward
+    counts = exact_launches("[train]", {
+        "assoc_auction": RTDETR_CARD_STEPS,
+        "deform_sample": RTDETR_LAYERS * RTDETR_CARD_STEPS,
+        "deform_sample_bwd": RTDETR_LAYERS * RTDETR_CARD_STEPS})
     print(f"[train] kernels launched across training: {counts}", flush=True)
     out["launches"] = counts
     return out
@@ -3470,9 +3493,10 @@ def parallel_phase(card: str) -> dict:
     16 a replica, dp 2 against dp 1 (v8n's timed); the pipelines, the row bands and their edge
     cases (``forward_paths``); then ``dryrun_multicard([cuda:0] * 8)``.
     The kernels' counts are the dry run's fleet's (the config defaults,
-    whose preprocess is off, as the JAX dry run's) and K5's, once for
-    each RT-DETR objective: the single step, then a data replica each of
-    the dp × tp step and of the dry run's."""
+    whose preprocess is off, as the JAX dry run's), K7's of the serving
+    forwards and, for each RT-DETR objective (the single step, then a
+    data replica each of the dp × tp step and of the dry run's), K5 once
+    and K7 and K8 once a decoder layer."""
     import torch
     from roadvision_tpu_torch import kernels
     from roadvision_tpu_torch.detect import dataset as ds
@@ -3545,12 +3569,15 @@ def parallel_phase(card: str) -> dict:
     groups, frames = 8, 2
     want = tail_want(groups * (1 + warm(1) + 2),
                      groups * frames * (1 + warm(1) + 3))
-    want["assoc_auction"] = 1 + 2 * mesh.shape["data"]
-    # K7: the serving forwards (training's sampling is the plain version,
-    # K7 has no backward): forward_paths', then the dry run's 4-stage
+    rt_objectives = 1 + 2 * mesh.shape["data"]
+    want["assoc_auction"] = rt_objectives
+    # K7: the serving forwards (forward_paths', then the dry run's 4-stage
     # RT-DETR pipeline over a batch of 2 (two microbatches) and its plain
-    # forward
-    want["deform_sample"] = out["deform_launches"] + RTDETR_LAYERS * (2 + 1)
+    # forward) and every RT-DETR objective's training forward; K8 the
+    # objectives' backward, once a decoder layer each
+    want["deform_sample"] = out["deform_launches"] \
+        + RTDETR_LAYERS * (2 + 1 + rt_objectives)
+    want["deform_sample_bwd"] = RTDETR_LAYERS * rt_objectives
     counts = exact_launches("[parallel]", want)
     out["launches"] = counts
     print(f"[parallel] dryrun_multicard([cuda:0] x 8) passed; kernels "
@@ -5608,6 +5635,19 @@ DEFORM_RTOL, DEFORM_ATOL = 1e-5, 1e-5   # f32 sums of O(1) values
 DEFORM_OPS_PER_CHANNEL_POINT = 10
 DEFORM_OPS_PER_POINT = 40
 DEFORM_OPS_PER_LOGIT = 8
+# K8 against its plain version: the value and box gradients are sums taken
+# by atomics (their order changes from run to run), the others sums over
+# lanes in another order; ATOL is times the gradient's largest magnitude
+DEFORM_BWD_RTOL, DEFORM_BWD_ATOL = 1e-4, 1e-5
+# scalar operations, as K8 computes them: per channel and point the four
+# corners' v·g products, the value-gradient product, compare and atomic,
+# the S / Dx / Dy terms (~12 each corner) and three 5-step butterflies
+# (15); per point K7's ~40 plus the offset and box chain (~20); per logit
+# the softmax and its backward (~16)
+DEFORM_BWD_OPS_PER_CHANNEL_POINT = 63
+DEFORM_BWD_OPS_PER_POINT = 60
+DEFORM_BWD_OPS_PER_LOGIT = 16
+TRAIN_DEFORM = (640, 4)            # RT-DETR-L's training imgsz and batch
 RT_GRAPH_BATCHES = 8               # replayed RT-DETR batches held to eager
 RT_FPS_BATCHES = 8                 # batches a timed window
 
@@ -5736,6 +5776,186 @@ def grid_sample_composition(off, logits, refer, values, shapes):
     return out.view(b, nh, dh, nq).permute(0, 3, 1, 2)
 
 
+def train_decoder_inputs() -> list:
+    """RT-DETR-L's training sampling (the asset, f32, TF32 off, one
+    AdamW step of ``make_train_step_rtdetr`` at TRAIN_DEFORM on a
+    synthetic batch): one (grad_out, off, logits, refer, values, shapes)
+    a decoder layer, the inputs recorded on their way into
+    ``ops/deform.py::deform_sample`` and the output gradient by a hook
+    on its output."""
+    import torch
+    from roadvision_tpu_torch.detect import dataset as ds
+    from roadvision_tpu_torch.models import rtdetr as R
+    from roadvision_tpu_torch.models.yolo import weights as W
+    imgsz, nb = TRAIN_DEFORM
+    model = _model(W.import_npz(Path(rtdetr_model_path())), "cuda")
+    step, init = _train_step("rtdetr", 1e-4)
+    batch = _on(next(ds.synthetic_batches(nb, imgsz=imgsz, seed=2)),
+                torch.device("cuda"))
+    seen, wrapped = [], R.deform_sample
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def record(off, logits, refer, values, shapes, **kw):
+        out = wrapped(off, logits, refer, values, shapes, **kw)
+        entry = [None] + [t.detach().clone()
+                          for t in (off, logits, refer, values)] \
+            + [list(shapes)]
+        seen.append(entry)
+        out.register_hook(lambda g, e=entry: e.__setitem__(
+            0, g.detach().clone()))
+        return out
+    R.deform_sample = record
+    try:
+        step(model, init(model), *batch)
+    finally:
+        R.deform_sample = wrapped
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    torch.cuda.synchronize()
+    if len(seen) != RTDETR_LAYERS or any(e[0] is None for e in seen):
+        fail(f"[kernels] deform_sample_bwd: recorded {len(seen)} training "
+             f"layers, not {RTDETR_LAYERS} with their gradients")
+    return seen
+
+
+def k8_compare(got, want, what: str) -> dict:
+    """K8 against its plain backward, gradient by gradient (off, logits,
+    refer, values): non-finite values in the same tensors, the rest
+    within DEFORM_BWD_RTOL / DEFORM_BWD_ATOL times the gradient's
+    largest magnitude; the largest difference and whether the
+    non-finite places are the same too."""
+    import torch
+    errs, rel, places = [], [], True
+    for name, g, w in zip(("off", "logits", "refer", "values"), got, want):
+        bad_g, bad_w = ~torch.isfinite(g), ~torch.isfinite(w)
+        if bool(bad_g.any()) != bool(bad_w.any()):
+            fail(f"[kernels] deform_sample_bwd {what}: {name} gradient "
+                 f"non-finite {int(bad_g.sum())} times, the plain "
+                 f"backward's {int(bad_w.sum())}")
+        places = places and torch.equal(bad_g, bad_w)
+        ok = ~(bad_g | bad_w)
+        if not ok.any():
+            continue
+        scale = float(w[ok].abs().max())
+        err = float((g[ok] - w[ok]).abs().max())
+        errs.append(err)
+        rel.append(err / scale if scale else 0.0)
+        if not torch.allclose(g[ok], w[ok], rtol=DEFORM_BWD_RTOL,
+                              atol=DEFORM_BWD_ATOL * scale):
+            fail(f"[kernels] deform_sample_bwd {what}: {name} max |K8 - "
+                 f"plain| {err:.3e} over rtol {DEFORM_BWD_RTOL}, atol "
+                 f"{DEFORM_BWD_ATOL} x {scale:.3e}")
+    return {"max_abs_err": max(errs), "max_err_over_scale": max(rel),
+            "nonfinite": int(sum(int((~torch.isfinite(t)).sum())
+                                 for t in want)),
+            "nonfinite_places_equal": bool(places)}
+
+
+def deform_bwd_bound(grad_out, off, logits, refer, values, shapes) -> dict:
+    """K8's bound on these inputs: the output gradient, offsets, logits
+    and boxes read once, the value rows its corners touch read once, the
+    offset, logit and box gradients written once and the whole value
+    gradient written once (the zero fill), against its scalar
+    operations."""
+    b, nq, nh, nl, ndp, _ = off.shape
+    dh = values.shape[-1]
+    rows = deform_rows_touched(off, refer, values, shapes)
+    small = grad_out.numel() + 2 * (off.numel() + logits.numel()
+                                    + refer.numel())
+    nbytes = 4 * (small + values.numel()) + rows * dh * 4
+    nops = b * nq * nh * (nl * ndp * (dh * DEFORM_BWD_OPS_PER_CHANNEL_POINT
+                                      + DEFORM_BWD_OPS_PER_POINT
+                                      + DEFORM_BWD_OPS_PER_LOGIT))
+    return {**bound(nbytes, nops), "rows_touched": rows,
+            "bytes": nbytes, "ops": nops}
+
+
+def backward_of(fn, args, grad_out):
+    """A callable that runs only the backward of ``fn(*args)`` (off,
+    logits, refer, values needing gradients) for ``grad_out``: autograd
+    over a graph built once and kept."""
+    import torch
+    ins = [t.detach().clone().requires_grad_(True) for t in args[:4]]
+    out = fn(*ins, *args[4:])
+    return lambda: torch.autograd.grad(out, ins, grad_out,
+                                       retain_graph=True)
+
+
+def check_deform_backward(rng) -> dict:
+    """``[kernels]`` K8 ``deform_sample_bwd`` against
+    ``deform_sample_backward_plain`` on the card: RT-DETR-L's own
+    training inputs and output gradients (``train_decoder_inputs``,
+    every layer), random decoder-like inputs at 4 × 300 (the training
+    shape) and 8 × 100, non-square levels, and points on and just
+    outside the edges with a NaN location; then timed at layer 0 of the
+    training inputs (the wrapper: its zero fills and K8) beside the
+    plain backward, the backward of the ``grid_sample`` composition and
+    the bound. Returns (K8's row, the training inputs)."""
+    import torch
+    from roadvision_tpu_torch.ops import deform as D
+    square = [(80, 80), (40, 40), (20, 20)]
+    train = train_decoder_inputs()
+    cases = {f"train {TRAIN_DEFORM[1]}x300 layer {i}": e
+             for i, e in enumerate(train)}
+    for b, nq, shapes, edges, name in (
+            (4, 300, square, False, "random 4x300"),
+            (8, 100, square, False, "random 8x100"),
+            (4, 300, [(48, 80), (24, 40), (12, 20)], False, "ragged 4x300"),
+            (4, 300, square, True, "edges 4x300"),
+            (8, 100, square, True, "edges 8x100")):
+        args = [t[:b] for t in deform_cases(rng, shapes, nq, edges)[:4]]
+        go = torch.from_numpy(rng.randn(b, nq, 8, 32).astype(np.float32))
+        cases[name] = [go.cuda()] + args + [list(shapes)]
+    results = {}
+    for name, args in cases.items():
+        got = D._sample_backward_cuda(*args)
+        want = D.deform_sample_backward_plain(*args)
+        torch.cuda.synchronize()
+        results[name] = k8_compare(got, want, name)
+    for name in ("edges 4x300", "edges 8x100"):
+        if results[name]["nonfinite"] == 0:
+            fail(f"[kernels] deform_sample_bwd {name}: the NaN location "
+                 f"gave no non-finite gradient")
+    main = train[0]
+    fwd = main[1:]
+    row = kernel_times(lambda: D._sample_backward_cuda(*main),
+                       backward_of(D.deform_sample_plain, fwd, main[0]))
+    row["library_ms"] = cuda_ms(backward_of(grid_sample_composition, fwd,
+                                            main[0]), 5, 1)
+    row.update(deform_bwd_bound(*main))
+    errs = [r["max_abs_err"] for r in results.values()]
+    row.update(max_abs_err=max(errs),
+               max_err_over_scale=max(r["max_err_over_scale"]
+                                      for r in results.values()),
+               nonfinite_places_equal=all(r["nonfinite_places_equal"]
+                                          for r in results.values()),
+               cases=results, launches_per_step=RTDETR_LAYERS,
+               library="the backward of three F.grid_sample calls + the "
+                       "attention-weighted sum (a composition, not one "
+                       "call)", fleet={})
+    print(f"[kernels] deform_sample_bwd: {len(results)} cases against the "
+          f"plain backward (RT-DETR-L's training inputs and output "
+          f"gradients at {TRAIN_DEFORM[0]} x {TRAIN_DEFORM[1]}, every "
+          f"layer; random 4 x 300 / 8 x 100; non-square levels; edges and "
+          f"a NaN location): max |K8 - plain| {row['max_abs_err']:.3e}, "
+          f"{row['max_err_over_scale']:.2e} of the gradient's largest "
+          f"(rtol {DEFORM_BWD_RTOL}, atol {DEFORM_BWD_ATOL} x it); "
+          f"non-finite in the same tensors, at the same places: "
+          f"{row['nonfinite_places_equal']}", flush=True)
+    print(f"[kernels] deform_sample_bwd, layer 0 of RT-DETR-L training at "
+          f"{TRAIN_DEFORM[0]} x {TRAIN_DEFORM[1]}, 300 queries, f32: "
+          f"{fmt_times(row)} (the plain backward: autograd of the "
+          f"12-gather version); grid_sample composition's backward "
+          f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}: {row['bytes'] / 1e6:.2f} MB, "
+          f"{row['rows_touched']} value rows touched); {RTDETR_LAYERS} "
+          f"launches a train step", flush=True)
+    return row, train
+
+
 def k7_compare(got, want, what: str) -> dict:
     """K7 against its plain version: NaN where it is NaN, the rest within
     DEFORM_RTOL / DEFORM_ATOL; bit-equal or the largest difference."""
@@ -5763,11 +5983,15 @@ def check_deform_kernel(frames: np.ndarray) -> dict:
     bf16 (the serving default) and kept f32; random decoder-like inputs
     at 8 × 100 and 8 × 300 (levels 80², 40², 20²) in f32, f32 as bf16 and
     bf16 storage; non-square levels; points on and just outside the
-    edges and a NaN location. Timed on layer 0's inputs at 100 queries
-    four ways (:func:`kernel_times`) beside the plain version, the
-    ``grid_sample`` composition and the bound."""
+    edges and a NaN location; RT-DETR-L's training inputs at
+    TRAIN_DEFORM (every layer, f32). Timed on layer 0's inputs at 100
+    queries four ways (:func:`kernel_times`) beside the plain version,
+    the ``grid_sample`` composition and the bound, and at the training
+    shape in f32. First K8 (:func:`check_deform_backward`), whose
+    training inputs these are."""
     import torch
     from roadvision_tpu_torch.ops import deform as D
+    row8, train = check_deform_backward(np.random.RandomState(17))
     rng = np.random.RandomState(15)
     square = [(80, 80), (40, 40), (20, 20)]
     cases = {}
@@ -5790,6 +6014,9 @@ def check_deform_kernel(frames: np.ndarray) -> dict:
                                     False)
         cases["edges 8x300 as bf16"] = (deform_cases(rng, square, 300, True),
                                         True)
+        for i, e in enumerate(train):
+            cases[f"train {TRAIN_DEFORM[1]}x300 layer {i} f32"] = (e[1:],
+                                                                False)
         results = {}
         for name, (args, bf16) in cases.items():
             got = D.deform_sample(*args, bf16_vals=bf16)
@@ -5815,6 +6042,14 @@ def check_deform_kernel(frames: np.ndarray) -> dict:
             *layers[300][0], bf16_vals=True), 50)
         row.update(deform_bound(*main))
         row["bound_300"] = deform_bound(*layers[300][0])
+        # the training shape, f32 values (the card's training path)
+        t0 = train[0][1:]
+        row["ms_train"] = cuda_ms(lambda: D.deform_sample(*t0), 50)
+        row["flushed_ms_train"] = cuda_ms_flushed(lambda: D.deform_sample(
+            *t0))
+        row["plain_ms_train"] = cuda_ms(lambda: D.deform_sample_plain(*t0),
+                                        5, 1)
+        row["bound_train"] = deform_bound(*t0)
     floor = graph_ms(empty_kernel())["graph_ms"]
     errs = [r["max_abs_err"] for r in results.values()]
     row.update(max_abs_err=max(errs), launch_floor_ms=floor,
@@ -5841,7 +6076,13 @@ def check_deform_kernel(frames: np.ndarray) -> dict:
           f"({row['bound_by']}: {row['bytes'] / 1e6:.2f} MB, "
           f"{row['rows_touched']} value rows touched); launch floor "
           f"{floor:.4f} ms; {RTDETR_LAYERS} launches a forward", flush=True)
-    return {"deform_sample": row}
+    print(f"[kernels] deform_sample at RT-DETR-L's training shape "
+          f"({TRAIN_DEFORM[1]} x 300 queries, f32 values, layer 0): "
+          f"{row['ms_train']:.4f} ms warm, {row['flushed_ms_train']:.4f} ms "
+          f"flushed; plain {row['plain_ms_train']:.4f} ms; bound "
+          f"{row['bound_train']['bound_ms']:.6f} ms "
+          f"({row['bound_train']['bytes'] / 1e6:.2f} MB)", flush=True)
+    return {"deform_sample": row, "deform_sample_bwd": row8}
 
 
 def rtdetr_forward_ms(eng, frames) -> dict:
@@ -5949,7 +6190,7 @@ def rtdetr_graph_phase(card: str) -> dict:
     runs, counts = {}, {}
     per_batch = {"clahe_tile_luts": 1, "clahe_apply": 1, "median_k": 1,
                  "nms_keep": 0, "assoc_greedy": BATCH, "assoc_auction": 0,
-                 "deform_sample": RTDETR_LAYERS}
+                 "deform_sample": RTDETR_LAYERS, "deform_sample_bwd": 0}
     for mode, fn in modes:
         eng.reset()
         kernels.reset_launch_counts()
@@ -6422,6 +6663,8 @@ def main() -> int:
                      "roadvision_tpu/ops/nms.py:99"),
         "deform_sample": ("roadvision_tpu_torch/csrc/deform.cu",
                           "roadvision_tpu/models/rtdetr.py:422"),
+        "deform_sample_bwd": ("roadvision_tpu_torch/csrc/deform.cu",
+                              "roadvision_tpu/models/rtdetr_train.py:263"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],

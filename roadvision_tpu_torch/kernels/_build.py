@@ -36,7 +36,7 @@ BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # cls * 7680 + x, area + area - inter), and the deformable sampling's
 # locations, corner weights and sums (ctr + off * wh * 0.5, x * W - 0.5,
 # acc + v * w) are bit-equal to the plain versions only without
-# contraction too
+# contraction too (its backward recomputes them the same way)
 EXTRA_FLAGS: Dict[str, List[str]] = {"clahe": ["--fmad=false"],
                                      "median": [],
                                      "assoc": ["--fmad=false"],
@@ -49,7 +49,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {"clahe": ["--fmad=false"],
 launch_counts: Dict[str, int] = {"clahe_tile_luts": 0, "clahe_apply": 0,
                                  "median_k": 0, "assoc_greedy": 0,
                                  "assoc_auction": 0, "nms_keep": 0,
-                                 "deform_sample": 0}
+                                 "deform_sample": 0, "deform_sample_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +69,7 @@ SIGNATURES = {
     ("nms", "rvt_nms_keep"): [_P] * 4 + [_I] * 2 + [_P],
     ("nms", "rvt_nms_keep_boxes"): [_P] * 4 + [_I] * 2 + [_F, _P],
     ("deform", "rvt_deform_sample"): [_P] * 5 + [_I] * 15 + [_P],
+    ("deform", "rvt_deform_sample_backward"): [_P] * 9 + [_I] * 14 + [_P],
 }
 
 # entry points that return something else than a CUDA error code

@@ -27,9 +27,9 @@ Precision as the JAX functions lay it out:
     (on unless ``RVT_RTDETR_BF16_VALS=0`` at import, overridden by the
     argument), ``RVT_RTDETR_PAIRED_GATHERS=1`` gathers the four corners
     of a level at once. Both environment variables are read once, at
-    import, as the JAX module reads them. Serving samples through
-    ``ops/deform.py::deform_sample`` (K7 on the card); training through
-    its plain version, since K7 has no backward yet.
+    import, as the JAX module reads them. Serving and training sample
+    through ``ops/deform.py::deform_sample`` (K7 on the card; under
+    autograd K7 forward and K8 backward, training with f32 values).
   * The encoder's top-k is a stable descending sort: equal scores keep
     the lower index first, as ``jax.lax.top_k`` does.
 
@@ -59,7 +59,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.activations import gelu
-from ..ops.deform import deform_sample, deform_sample_plain
+from ..ops.deform import deform_sample
 from .yolo import weights as yw
 from .yolo.yolov8 import Conv as _YoloConv
 
@@ -533,9 +533,10 @@ class Decoder(nn.Module):
         and score logits, and every decoder layer's. The first query
         features and reference boxes are detached, each layer's refined
         box is detached before it feeds the next, and the deformable
-        sampling reads f32 values (``bf16_vals=False``). The sampling is
-        :func:`~roadvision_tpu_torch.ops.deform.deform_sample_plain` on
-        every device: K7 has no backward yet."""
+        sampling reads f32 values (``bf16_vals=False``) through the
+        wrapper :func:`~roadvision_tpu_torch.ops.deform.deform_sample`:
+        on the card K7 forward and K8 backward, once a decoder layer each;
+        on the CPU the plain version under autograd."""
         memory, shapes, scores, topk, output, refer_logit = self.select(
             feats)
         aux: Dict[str, Any] = {
@@ -547,7 +548,7 @@ class Decoder(nn.Module):
         refer = torch.sigmoid(refer_logit.detach())
         for i in range(len(self.layers)):
             output, refined = self.refine(i, memory, shapes, output, refer,
-                                          False, deform_sample_plain)
+                                          False)
             aux["boxes"].append(refined)
             aux["scores"].append(self.dec_score[i](output))
             refer = refined.detach()

@@ -21,6 +21,11 @@ them). That is exact: a finished problem has no bidder, so further
 rounds change neither its prices nor its assignment, and the round cap
 is the same for all.
 
+The forward is ``RTDETR.forward_train``, whose deformable sampling goes
+through ``ops/deform.py::deform_sample`` with f32 values: on the card one
+K7 launch a decoder layer forward and one K8 launch a layer backward
+(the data-parallel replicas' objective likewise, each replica its own).
+
 :func:`make_train_step_rtdetr` is the JAX step's AdamW (β 0.9 / 0.999,
 ε 1e-8, decoupled weight decay on parameters with ndim ≥ 2 only) with the
 global-norm clip 0.1 and the non-finite guard, which leaves the moments

@@ -1,5 +1,5 @@
-"""Multi-scale deformable-attention sampling: plain PyTorch plus one CUDA
-kernel.
+"""Multi-scale deformable-attention sampling: plain PyTorch plus two CUDA
+kernels, the forward and its backward.
 
 The part of ``roadvision_tpu/models/rtdetr.py::_deform_attn`` (:439-505)
 between the attention-weight / offset linears and the output linear:
@@ -14,18 +14,22 @@ the output linear.
 arithmetic op for op in both of its gather formulations
 (``RVT_RTDETR_PAIRED_GATHERS``: a gather a corner, or the four corners
 of a level in one). K7 (``csrc/deform.cu``) computes the same function
-in one launch. :func:`deform_sample` runs the plain version for a CPU
-tensor and launches K7 for a CUDA tensor. K7 has no backward yet: on the
-card the wrapper raises where gradients are enabled and an input
-requires them, and the RT-DETR training step
-(``models/rtdetr.py::Decoder.forward_train``) calls
-:func:`deform_sample_plain` itself.
+in one launch. Its gradient, what ``jax.value_and_grad`` takes through
+it in ``roadvision_tpu/models/rtdetr_train.py:263``, is K8 (the same
+file); :func:`deform_sample_backward_plain` is K8's plain version,
+autograd through the plain forward. :class:`DeformSample` puts the two
+kernels behind one ``torch.autograd.Function``. :func:`deform_sample`
+runs the plain version for a CPU tensor (autograd takes its gradient);
+for a CUDA tensor it launches K7, through :class:`DeformSample` where
+gradients are enabled and an input requires them, so that the backward
+launches K8. Nothing falls back to the plain version on the card.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..kernels import _build
 
@@ -101,6 +105,24 @@ def deform_sample_plain(off: torch.Tensor, logits: torch.Tensor,
     return out
 
 
+def deform_sample_backward_plain(grad_out: torch.Tensor, off: torch.Tensor,
+                                 logits: torch.Tensor, refer: torch.Tensor,
+                                 values: torch.Tensor,
+                                 shapes: Sequence[Tuple[int, int]]
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """K8's plain version: (g_off, g_logits, g_refer, g_values), the
+    gradients of :func:`deform_sample_plain` (f32 values,
+    ``bf16_vals=False``, a gather a corner) at these inputs for the
+    output gradient ``grad_out`` (B, NQ, NH, dh), as
+    ``torch.autograd.grad`` takes them. Works inside inference mode too
+    (it differentiates copies)."""
+    with torch.inference_mode(False), torch.enable_grad():
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (off, logits, refer, values)]
+        out = deform_sample_plain(*ins, shapes)
+        return tuple(torch.autograd.grad(out, ins, grad_out))
+
+
 def _check(off, logits, refer, values, shapes) -> None:
     if off.dim() != 6 or off.shape[-1] != 2:
         raise ValueError(f"expected off (B, NQ, NH, NL, NDP, 2), got "
@@ -120,13 +142,22 @@ def _check(off, logits, refer, values, shapes) -> None:
                          f"rows, the levels {list(shapes)} {rows}")
 
 
+def _level_args(off, values, shapes, what: str) -> list:
+    """The kernels' level arguments (h0, w0, …, h3, w3), after checking
+    the sizes they take: at most MAX_LEVELS levels, 32 points and
+    HEAD_DIM channels a head."""
+    nl, ndp = off.shape[3], off.shape[4]
+    if nl > MAX_LEVELS or nl * ndp > 32 or values.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{what} takes at most {MAX_LEVELS} levels, 32 "
+                         f"points a head and {HEAD_DIM} channels a head, "
+                         f"got {nl} x {ndp} and {values.shape[-1]}")
+    return [int(v) for s in shapes for v in s] + [0] * 2 * (MAX_LEVELS - nl)
+
+
 def _sample_cuda(off, logits, refer, values, shapes,
                  bf16_vals: bool) -> torch.Tensor:
     b, nq, nh, nl, ndp, _ = off.shape
-    if nl > MAX_LEVELS or nl * ndp > 32 or values.shape[-1] != HEAD_DIM:
-        raise ValueError(f"deform_sample takes at most {MAX_LEVELS} levels, "
-                         f"32 points a head and {HEAD_DIM} channels a head, "
-                         f"got {nl} x {ndp} and {values.shape[-1]}")
+    hw = _level_args(off, values, shapes, "deform_sample")
     mode = MODES.get((values.dtype, bool(bf16_vals)))
     if mode is None or any(t.dtype != torch.float32
                            for t in (off, logits, refer)):
@@ -138,7 +169,6 @@ def _sample_cuda(off, logits, refer, values, shapes,
                                   for t in (off, logits, refer, values))
     out = torch.empty((b, nq, nh, HEAD_DIM), dtype=torch.float32,
                       device=off.device)
-    hw = [int(v) for s in shapes for v in s] + [0] * 2 * (MAX_LEVELS - nl)
     lib = _build.load("deform")
     with torch.cuda.device(off.device):
         code = lib.rvt_deform_sample(
@@ -150,18 +180,76 @@ def _sample_cuda(off, logits, refer, values, shapes,
     return out
 
 
+def _sample_backward_cuda(grad_out, off, logits, refer, values, shapes
+                          ) -> Tuple[torch.Tensor, ...]:
+    """Launch K8 on the current stream: (g_off, g_logits, g_refer,
+    g_values) f32, the value and box gradients summed by atomics into
+    zero-filled tensors."""
+    b, nq, nh, nl, ndp, _ = off.shape
+    hw = _level_args(off, values, shapes, "deform_sample_bwd")
+    if any(t.dtype != torch.float32
+           for t in (grad_out, off, logits, refer, values)):
+        raise ValueError(f"deform_sample_bwd takes float32 gradients, "
+                         f"offsets, logits, boxes and values, got "
+                         f"{grad_out.dtype}, {off.dtype}, {logits.dtype}, "
+                         f"{refer.dtype}, {values.dtype}")
+    if tuple(grad_out.shape) != (b, nq, nh, HEAD_DIM):
+        raise ValueError(f"deform_sample_bwd: grad_out "
+                         f"{tuple(grad_out.shape)} does not fit off "
+                         f"{tuple(off.shape)}")
+    grad_out, off, logits, refer, values = (
+        t.contiguous() for t in (grad_out, off, logits, refer, values))
+    g_off = torch.empty_like(off)
+    g_logits = torch.empty_like(logits)
+    g_refer = torch.zeros_like(refer)
+    g_values = torch.zeros_like(values)
+    lib = _build.load("deform")
+    with torch.cuda.device(off.device):
+        code = lib.rvt_deform_sample_backward(
+            grad_out.data_ptr(), off.data_ptr(), logits.data_ptr(),
+            refer.data_ptr(), values.data_ptr(), g_off.data_ptr(),
+            g_logits.data_ptr(), g_refer.data_ptr(), g_values.data_ptr(),
+            b, nq, nh, values.shape[1], nl, ndp, *hw,
+            _build.stream_ptr(off))
+    _build.launch_counts["deform_sample_bwd"] += 1
+    _build.check(code, "deform_sample_bwd")
+    return g_off, g_logits, g_refer, g_values
+
+
+class DeformSample(torch.autograd.Function):
+    """K7 forward (f32 values, no bf16 rounding), K8 backward. Saves only
+    the four inputs; the backward recomputes the softmax, locations and
+    corner weights from them."""
+
+    @staticmethod
+    def forward(ctx, off, logits, refer, values, shapes):
+        ctx.shapes = [tuple(int(v) for v in s) for s in shapes]
+        ctx.save_for_backward(off, logits, refer, values)
+        return _sample_cuda(off, logits, refer, values, ctx.shapes, False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        grads = _sample_backward_cuda(grad_out, *ctx.saved_tensors,
+                                      ctx.shapes)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
 def deform_sample(off: torch.Tensor, logits: torch.Tensor,
                   refer: torch.Tensor, values: torch.Tensor,
                   shapes: Sequence[Tuple[int, int]], bf16_vals: bool = False,
                   paired: bool = False) -> torch.Tensor:
     """K7 wrapper: the sampled (B, NQ, NH, dh) f32 of
     :func:`deform_sample_plain`. A CPU tensor runs the plain version
-    (``paired`` chooses its gather formulation); a CUDA tensor launches
-    K7 on the current stream (``paired`` does not apply: K7 computes
-    both formulations' function), and raises if the launch fails. K7 has
-    no backward: a CUDA call with gradients enabled and an input that
-    requires them raises (serve under ``torch.inference_mode()`` or
-    ``torch.no_grad()``; train through :func:`deform_sample_plain`)."""
+    (``paired`` chooses its gather formulation; autograd takes its
+    gradient). A CUDA tensor launches K7 on the current stream
+    (``paired`` does not apply: K7 computes both formulations'
+    function), and raises if the launch fails. Where gradients are
+    enabled and an input requires them, the CUDA call goes through
+    :class:`DeformSample`, whose backward launches K8; it takes f32
+    values without bf16 rounding (training pins ``bf16_vals=False``, as
+    JAX's train path does) and raises ``ValueError`` otherwise."""
     _check(off, logits, refer, values, shapes)
     dev = values.device
     if dev.type == "cpu":
@@ -173,8 +261,10 @@ def deform_sample(off: torch.Tensor, logits: torch.Tensor,
                          f"{logits.device}, {refer.device}, {dev}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (off, logits, refer, values)):
-        raise RuntimeError(
-            "deform_sample: K7 has no backward; call it under "
-            "torch.inference_mode() or torch.no_grad(), or take gradients "
-            "through deform_sample_plain")
+        if bf16_vals or values.dtype != torch.float32:
+            raise ValueError(
+                f"deform_sample: gradients through K7 / K8 need float32 "
+                f"values and bf16_vals=False, got {values.dtype} values "
+                f"and bf16_vals={bool(bf16_vals)}")
+        return DeformSample.apply(off, logits, refer, values, shapes)
     return _sample_cuda(off, logits, refer, values, shapes, bf16_vals)

@@ -535,7 +535,7 @@ def test_bench_rehearsal_line_and_modes(capsys, monkeypatch):
     assert {"decode", "device_step", "host_unpack"} <= set(line["timer_ms"])
     assert set(line["launches_per_batch"]) == {
         "clahe_tile_luts", "clahe_apply", "median_k", "assoc_greedy",
-        "assoc_auction", "nms_keep", "deform_sample"}
+        "assoc_auction", "nms_keep", "deform_sample", "deform_sample_bwd"}
     assert (line["batch"], line["iters"], line["dtype"]) == (2, 1, "float32")
     assert not any("baseline" in k or "v5e" in k for k in line)
     for mode, key in (("sort", "sort_tracker_fps"),

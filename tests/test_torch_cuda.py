@@ -11,7 +11,9 @@ The int8 convolution (``torch._int_mm`` on the card) is bit-equal too up
 to its activation (SiLU, ReLU, GELU), which is held within an ulp.
 RT-DETR-L's forward (float32, TF32 off), its deformable sampling and the
 fog synthesizer run float ops in another order on the card: they are
-held to the CPU path within the tolerances stated in each test.
+held to the CPU path within the tolerances stated in each test. The
+sampling's backward (K8) sums with atomics in an order that changes from
+run to run: it is held to its plain version within K8_RTOL / K8_ATOL.
 """
 import numpy as np
 import pytest
@@ -575,7 +577,7 @@ def test_fleet_step_on_the_card_equals_the_cpu_path(dev, no_tf32):
     assert launch_counts == {"clahe_tile_luts": steps, "clahe_apply": steps,
                              "median_k": steps, "nms_keep": steps,
                              "assoc_greedy": 2 * steps, "assoc_auction": 0,
-                             "deform_sample": 0}
+                             "deform_sample": 0, "deform_sample_bwd": 0}
     want = [eng["cpu"].process_batch(f, t) for f, t in fleet]
     n = 0
     for g, w in zip(got, want):
@@ -1454,7 +1456,7 @@ def test_fleet_graphs_on_distinct_cards_equal_one_card(dev, no_tf32,
     assert launch_counts == {"clahe_tile_luts": steps, "clahe_apply": steps,
                              "median_k": steps, "nms_keep": steps,
                              "assoc_greedy": 2 * steps, "assoc_auction": 0,
-                             "deform_sample": 0}
+                             "deform_sample": 0, "deform_sample_bwd": 0}
     for grp in many.groups:
         graphs = grp.engine._graphs
         assert grp.engine.step_mode == "graph" and len(graphs) == 1
@@ -1530,30 +1532,87 @@ def test_deform_sample_kernel_against_its_plain_version(dev, nq, vals, case):
         assert int(torch.isnan(got).sum()) == got.shape[-1]
 
 
-def test_deform_sample_raises_under_autograd_and_training_samples_plain(dev):
-    """K7 has no backward: on the card the wrapper raises where an input
-    needs gradients (no launch counted), launches under no_grad, and
-    RT-DETR's training forward samples through the plain version
-    itself, so its backward runs and K7 is not launched."""
+K8_RTOL, K8_ATOL = 1e-4, 1e-5     # atomics' order; ATOL × the largest |g|
+
+
+def _assert_k8_close(got, want):
+    """K8's gradients against the plain backward's: non-finite values in
+    the same tensors; where both are finite |Δ| ≤ K8_RTOL |want| +
+    K8_ATOL · max |want| (the value and box gradients are sums taken by
+    atomics, the others sums over lanes in another order)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        bad_g, bad_w = ~torch.isfinite(g), ~torch.isfinite(w)
+        assert bool(bad_g.any()) == bool(bad_w.any())
+        ok = ~(bad_g | bad_w)
+        scale = float(w[ok].abs().max()) if ok.any() else 0.0
+        assert torch.allclose(g[ok], w[ok], rtol=K8_RTOL,
+                              atol=K8_ATOL * scale)
+
+
+@pytest.mark.parametrize("b,nq", [(4, 300), (8, 100)])
+@pytest.mark.parametrize("case", ["square", "ragged", "edges"])
+def test_deform_sample_backward_kernel_against_its_plain_version(dev, b, nq,
+                                                                 case):
+    """K8 at the training shape (4 × 300 queries) and the serving one (8 ×
+    100), levels 80², 40², 20²; non-square levels; points on and just
+    outside the edges and a NaN location: against
+    ``deform_sample_backward_plain`` on the card, one launch a call."""
+    from roadvision_tpu_torch.ops import deform as D
+    shapes = [(48, 80), (24, 40), (12, 20)] if case == "ragged" \
+        else [(80, 80), (40, 40), (20, 20)]
+    args = [t.to(dev) for t in _k7_inputs(nq, shapes, seed=9,
+                                          edges=case == "edges", b=b)]
+    grad_out = torch.randn(b, nq, 8, 32, generator=torch.Generator()
+                           .manual_seed(3)).to(dev)
+    before = launch_counts["deform_sample_bwd"]
+    got = D._sample_backward_cuda(grad_out, *args, shapes)
+    want = D.deform_sample_backward_plain(grad_out, *args, shapes)
+    torch.cuda.synchronize()
+    assert launch_counts["deform_sample_bwd"] == before + 1
+    _assert_k8_close(got, want)
+    if case == "edges":
+        # the NaN location's (batch, query, head): its logits' gradient
+        assert torch.isnan(got[1][0, 1, 2]).all()
+
+
+def test_deform_sample_under_autograd_launches_k7_then_k8(dev):
+    """On the card a call that needs gradients launches K7 once and, on
+    ``.backward()``, K8 once, giving the plain version's output and
+    gradients; bf16 values that need a gradient raise; RT-DETR's
+    ``forward_train`` + backward launches each once a decoder layer."""
     from roadvision_tpu_torch.models import rtdetr as T
     from roadvision_tpu_torch.ops import deform as D
     shapes = [(20, 20), (10, 10), (5, 5)]
-    off, logits, refer, values = (t.to(dev) for t in _k7_inputs(
-        20, shapes, b=2))
-    off.requires_grad_(True)
-    before = launch_counts["deform_sample"]
-    with pytest.raises(RuntimeError, match="no backward"):
-        D.deform_sample(off, logits, refer, values, shapes)
-    assert launch_counts["deform_sample"] == before
-    with torch.no_grad():
-        D.deform_sample(off, logits, refer, values, shapes)
-    assert launch_counts["deform_sample"] == before + 1
-    model = T.random_model(nc=3, seed=0).to(dev)
-    aux = model.forward_train(torch.rand(1, 64, 64, 3, device=dev))
-    aux["boxes"][-1].sum().backward()
+    args = [t.to(dev) for t in _k7_inputs(20, shapes, b=2)]
+    ins = [t.clone().requires_grad_(True) for t in args]
+    before = dict(launch_counts)
+    out = D.deform_sample(*ins, shapes)
+    assert launch_counts["deform_sample"] == before["deform_sample"] + 1
+    assert launch_counts["deform_sample_bwd"] == before["deform_sample_bwd"]
+    grad_out = torch.randn_like(out)
+    out.backward(grad_out)
     torch.cuda.synchronize()
-    assert launch_counts["deform_sample"] == before + 1
-    assert model.dec.layers[0].ca.off.weight.grad is not None
+    assert launch_counts["deform_sample_bwd"] \
+        == before["deform_sample_bwd"] + 1
+    _assert_k7_close(out.detach(), D.deform_sample_plain(*args, shapes))
+    _assert_k8_close([t.grad for t in ins], D.deform_sample_backward_plain(
+        grad_out, *args, shapes))
+    bf16 = args[3].to(torch.bfloat16).requires_grad_(True)
+    with pytest.raises(ValueError, match="float32 values"):
+        D.deform_sample(args[0], args[1], args[2], bf16, shapes)
+    with pytest.raises(ValueError, match="bf16_vals"):
+        D.deform_sample(ins[0], *args[1:], shapes, bf16_vals=True)
+    model = T.random_model(nc=3, seed=0).to(dev)
+    launch_counts.update({k: 0 for k in launch_counts})
+    aux = model.forward_train(torch.rand(1, 64, 64, 3, device=dev))
+    assert launch_counts["deform_sample"] == len(model.dec.layers)
+    (aux["boxes"][-1].sum() + aux["scores"][-1].sum()).backward()
+    torch.cuda.synchronize()
+    assert launch_counts["deform_sample_bwd"] == len(model.dec.layers)
+    for lp in model.dec.layers:
+        assert lp.ca.off.weight.grad is not None
+        assert torch.isfinite(lp.ca.val.weight.grad).all()
 
 
 def _rtdetr_engine_cfg(batch=4):

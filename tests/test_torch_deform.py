@@ -19,9 +19,10 @@ the CPU in float32.
   before it runs on a card (where the smoke holds K7 to the plain
   version).
 * The wrapper's refusals; the decoder's ``sample`` argument and the
-  training forward's own choice of the plain version (K7 has no
-  backward: on a card the wrapper raises where gradients are needed);
-  the per-shape caches of the anchors and the sincos embedding (built
+  training forward's sampling through the wrapper (the plain version
+  under autograd on the CPU; K7 and K8 on a card,
+  tests/test_torch_deform_grad.py and the card tests); the per-shape
+  caches of the anchors and the sincos embedding (built
   outside inference mode: a model that served a batch can still train).
 """
 import numpy as np
@@ -237,7 +238,7 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
     want = D.deform_sample_plain(*args, bf16_vals=True, paired=True)
     assert torch.equal(D.deform_sample(*args, bf16_vals=True, paired=True),
                        want)
-    # gradients through the plain version (K7 has no backward yet)
+    # gradients through the plain version's autograd
     off = args[0].clone().requires_grad_(True)
     D.deform_sample(off, *args[1:]).sum().backward()
     assert off.grad is not None and torch.isfinite(off.grad).all()
@@ -255,27 +256,29 @@ def test_wrapper_refuses_what_does_not_fit():
 
 
 def test_training_samples_through_the_plain_version(monkeypatch):
-    """``forward_train`` calls the plain version by name, with f32
-    values, once a decoder layer; the serving forward goes through the
-    wrapper (made to fail here, so that only the choice is tested)."""
+    """``forward_train`` samples through the wrapper ``deform_sample``
+    (on the CPU its plain version, whose autograd takes the gradient; on
+    a card K7 and K8), with f32 values, once a decoder layer; the
+    offset, attention-weight and value linears get gradients."""
     model = T.random_model(nc=3, seed=0)
     x = torch.rand(1, 64, 64, 3)
     calls = []
 
-    def refuse(*a, **kw):
-        raise AssertionError("the wrapper ran")
-
-    def plain(*a, **kw):
-        calls.append(kw["bf16_vals"])
-        return D.deform_sample_plain(*a, **kw)
-    monkeypatch.setattr(T, "deform_sample", refuse)
-    monkeypatch.setattr(T, "deform_sample_plain", plain)
+    def wrapper(*a, **kw):
+        calls.append((kw["bf16_vals"], a[3].dtype, torch.is_grad_enabled()))
+        return D.deform_sample(*a, **kw)
+    monkeypatch.setattr(T, "deform_sample", wrapper)
     aux = model.forward_train(x)
-    aux["boxes"][-1].sum().backward()
-    assert calls == [False] * len(model.dec.layers)
-    assert model.dec.layers[0].ca.off.weight.grad is not None
-    with torch.no_grad(), pytest.raises(AssertionError, match="wrapper"):
+    (aux["boxes"][-1].sum() + aux["scores"][-1].sum()).backward()
+    n = len(model.dec.layers)
+    assert calls == [(False, torch.float32, True)] * n
+    for lp in model.dec.layers:
+        for lin in (lp.ca.off, lp.ca.attw, lp.ca.val):
+            assert lin.weight.grad is not None
+    assert float(model.dec.layers[0].ca.off.weight.grad.abs().sum()) > 0
+    with torch.no_grad():
         model(x, num_queries=8, decoder_layers=1)
+    assert len(calls) == n + 1
 
 
 @pytest.mark.parametrize("route", ["k7", "plain", "paired"])

@@ -433,4 +433,5 @@ def test_kernel_wrappers_never_fall_back(monkeypatch, tmp_path):
     assert set(_build.launch_counts) == {"clahe_tile_luts", "clahe_apply",
                                          "median_k", "assoc_greedy",
                                          "assoc_auction", "nms_keep",
-                                         "deform_sample"}
+                                         "deform_sample",
+                                         "deform_sample_bwd"}

@@ -325,7 +325,7 @@ def test_run_trial_runs_the_port_bench():
     assert got["batches"] == 1
     assert set(got["launches_per_batch"]) == {
         "clahe_tile_luts", "clahe_apply", "median_k", "assoc_greedy",
-        "assoc_auction", "nms_keep", "deform_sample"}
+        "assoc_auction", "nms_keep", "deform_sample", "deform_sample_bwd"}
     bad = autotune.run_trial(sweep, "0", 64, 1, 1, 300.0, "cpu")
     assert bad["fps"] is None and "RVT_CLAHE_CHUNK" in bad["error"]
     late = autotune.run_trial(sweep, "16", 64, 1, 1, 0.01, "cpu")
