@@ -63,7 +63,10 @@ Phases, in order; any failure exits non-zero:
      edges and a NaN location, timed at layer 0 of the training inputs
      beside the plain backward, the backward of the ``grid_sample``
      composition and its bound (the value rows touched, the zero-filled
-     value gradient);
+     value gradient), and its wrapper's parts apart in a graph: the zero
+     fills alone and K8 alone into buffers zero-filled once; the build
+     prints ``nvcc -Xptxas=-v``'s registers, spills and shared memory a
+     kernel;
   4. drive the realtime pipeline (bench.py's 1080p x batch 8 config:
      CLAHE -> median -> YOLOv8n -> NMS -> SORT -> geometry) through
      PipelineEngine.process_batch: one batch in float32 with TF32 off
@@ -5926,6 +5929,17 @@ def check_deform_backward(rng) -> dict:
     row["library_ms"] = cuda_ms(backward_of(grid_sample_composition, fwd,
                                             main[0]), 5, 1)
     row.update(deform_bwd_bound(*main))
+    # the wrapper's two parts apart, 50 launches in a graph each: its zero
+    # fills alone, and K8 alone into buffers zero-filled once (adding up
+    # over the replays)
+    go = D._aligned(main[0])
+    fills = graph_ms(lambda: D._backward_buffers(*fwd[:4]))
+    bufs = D._backward_buffers(*fwd[:4])
+    alone = graph_ms(lambda: D._launch_backward(go, *fwd, bufs))
+    row.update(zero_fill_ms=fills["graph_ms"],
+               zero_fill_flushed_ms=fills["graph_flushed_ms"],
+               kernel_ms=alone["graph_ms"],
+               kernel_flushed_ms=alone["graph_flushed_ms"])
     errs = [r["max_abs_err"] for r in results.values()]
     row.update(max_abs_err=max(errs),
                max_err_over_scale=max(r["max_err_over_scale"]
@@ -5953,6 +5967,11 @@ def check_deform_backward(rng) -> dict:
           f"({row['bound_by']}: {row['bytes'] / 1e6:.2f} MB, "
           f"{row['rows_touched']} value rows touched); {RTDETR_LAYERS} "
           f"launches a train step", flush=True)
+    print(f"[kernels] deform_sample_bwd's wrapper apart, in a graph: its "
+          f"zero fills {row['zero_fill_ms']:.4f} ms warm, "
+          f"{row['zero_fill_flushed_ms']:.4f} ms flushed; K8 alone "
+          f"{row['kernel_ms']:.4f} ms warm, {row['kernel_flushed_ms']:.4f} "
+          f"ms flushed", flush=True)
     return row, train
 
 
@@ -6677,7 +6696,8 @@ def main() -> int:
          **{k: r[k] for k in ("graph_ms", "graph_flushed_ms",
                               "launch_floor_ms", "matrix_mode", "boxes_mode",
                               "matcher_mode", "library", "bit_equal",
-                              "launches_per_forward") if k in r}}
+                              "launches_per_forward", "zero_fill_ms",
+                              "kernel_ms") if k in r}}
         for name, r in rows.items()],
         "pipeline_fps": fps, "batches": n_timed, "stages_ms": stages,
         "second_paths": paths, "graph": graph, "entries": entries,

@@ -154,6 +154,14 @@ def _level_args(off, values, shapes, what: str) -> list:
     return [int(v) for s in shapes for v in s] + [0] * 2 * (MAX_LEVELS - nl)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address: the kernels read
+    value rows and the output gradient 16 bytes a lane (a copy only for
+    a view that starts off the boundary)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _sample_cuda(off, logits, refer, values, shapes,
                  bf16_vals: bool) -> torch.Tensor:
     b, nq, nh, nl, ndp, _ = off.shape
@@ -165,8 +173,8 @@ def _sample_cuda(off, logits, refer, values, shapes,
                          f"boxes and float32 or bfloat16 values, got "
                          f"{off.dtype}, {logits.dtype}, {refer.dtype}, "
                          f"{values.dtype}")
-    off, logits, refer, values = (t.contiguous()
-                                  for t in (off, logits, refer, values))
+    off, logits, refer = (t.contiguous() for t in (off, logits, refer))
+    values = _aligned(values)
     out = torch.empty((b, nq, nh, HEAD_DIM), dtype=torch.float32,
                       device=off.device)
     lib = _build.load("deform")
@@ -180,29 +188,21 @@ def _sample_cuda(off, logits, refer, values, shapes,
     return out
 
 
-def _sample_backward_cuda(grad_out, off, logits, refer, values, shapes
-                          ) -> Tuple[torch.Tensor, ...]:
-    """Launch K8 on the current stream: (g_off, g_logits, g_refer,
-    g_values) f32, the value and box gradients summed by atomics into
-    zero-filled tensors."""
+def _backward_buffers(off, logits, refer, values) -> Tuple[torch.Tensor, ...]:
+    """K8's outputs (g_off, g_logits, g_refer, g_values) for contiguous
+    inputs: the offset and logit gradients uninitialised (K8 writes them
+    whole), the box and value gradients zero-filled (K8 adds into them)."""
+    return (torch.empty_like(off), torch.empty_like(logits),
+            torch.zeros_like(refer), torch.zeros_like(values))
+
+
+def _launch_backward(grad_out, off, logits, refer, values, shapes,
+                     grads) -> None:
+    """Launch K8 on the current stream into ``grads`` (from
+    :func:`_backward_buffers`): one launch, counted."""
     b, nq, nh, nl, ndp, _ = off.shape
     hw = _level_args(off, values, shapes, "deform_sample_bwd")
-    if any(t.dtype != torch.float32
-           for t in (grad_out, off, logits, refer, values)):
-        raise ValueError(f"deform_sample_bwd takes float32 gradients, "
-                         f"offsets, logits, boxes and values, got "
-                         f"{grad_out.dtype}, {off.dtype}, {logits.dtype}, "
-                         f"{refer.dtype}, {values.dtype}")
-    if tuple(grad_out.shape) != (b, nq, nh, HEAD_DIM):
-        raise ValueError(f"deform_sample_bwd: grad_out "
-                         f"{tuple(grad_out.shape)} does not fit off "
-                         f"{tuple(off.shape)}")
-    grad_out, off, logits, refer, values = (
-        t.contiguous() for t in (grad_out, off, logits, refer, values))
-    g_off = torch.empty_like(off)
-    g_logits = torch.empty_like(logits)
-    g_refer = torch.zeros_like(refer)
-    g_values = torch.zeros_like(values)
+    g_off, g_logits, g_refer, g_values = grads
     lib = _build.load("deform")
     with torch.cuda.device(off.device):
         code = lib.rvt_deform_sample_backward(
@@ -213,7 +213,30 @@ def _sample_backward_cuda(grad_out, off, logits, refer, values, shapes
             _build.stream_ptr(off))
     _build.launch_counts["deform_sample_bwd"] += 1
     _build.check(code, "deform_sample_bwd")
-    return g_off, g_logits, g_refer, g_values
+
+
+def _sample_backward_cuda(grad_out, off, logits, refer, values, shapes
+                          ) -> Tuple[torch.Tensor, ...]:
+    """Launch K8 on the current stream: (g_off, g_logits, g_refer,
+    g_values) f32, the value and box gradients summed by atomics into
+    zero-filled tensors."""
+    b, nq, nh = off.shape[:3]
+    _level_args(off, values, shapes, "deform_sample_bwd")
+    if any(t.dtype != torch.float32
+           for t in (grad_out, off, logits, refer, values)):
+        raise ValueError(f"deform_sample_bwd takes float32 gradients, "
+                         f"offsets, logits, boxes and values, got "
+                         f"{grad_out.dtype}, {off.dtype}, {logits.dtype}, "
+                         f"{refer.dtype}, {values.dtype}")
+    if tuple(grad_out.shape) != (b, nq, nh, HEAD_DIM):
+        raise ValueError(f"deform_sample_bwd: grad_out "
+                         f"{tuple(grad_out.shape)} does not fit off "
+                         f"{tuple(off.shape)}")
+    off, logits, refer = (t.contiguous() for t in (off, logits, refer))
+    grad_out, values = _aligned(grad_out), _aligned(values)
+    grads = _backward_buffers(off, logits, refer, values)
+    _launch_backward(grad_out, off, logits, refer, values, shapes, grads)
+    return grads
 
 
 class DeformSample(torch.autograd.Function):

@@ -1615,6 +1615,116 @@ def test_deform_sample_under_autograd_launches_k7_then_k8(dev):
         assert torch.isfinite(lp.ca.val.weight.grad).all()
 
 
+def _points_inputs(nl, ndp, seed=21, b=2, nq=40):
+    """K7 / K8 inputs for NL levels of NDP points a head on small square
+    and non-square maps, some points outside them."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(16, 16), (8, 12), (4, 4), (3, 5)][:nl]
+    rows = sum(h * w for h, w in shapes)
+    off = (torch.rand(b, nq, 8, nl, ndp, 2, generator=g) - 0.5) * 12
+    logits = torch.randn(b, nq, 8, nl * ndp, generator=g)
+    refer = torch.rand(b, nq, 4, generator=g) * 0.8 + 0.1
+    values = torch.randn(b, rows, 8, 32, generator=g)
+    grad_out = torch.randn(b, nq, 8, 32, generator=g)
+    return grad_out, off, logits, refer, values, shapes
+
+
+def _assert_k7_bits(got, want):
+    """Bit-equal where finite, NaN at the same places."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.where(nan, 0.0, got).view(torch.int32),
+                       torch.where(nan, 0.0, want).view(torch.int32))
+
+
+@pytest.mark.parametrize("nl,ndp", [(1, 4), (2, 4), (3, 3), (4, 4), (4, 5),
+                                    (3, 8), (4, 7), (4, 8)])
+@pytest.mark.parametrize("vals", ["f32", "f32 as bf16", "bf16"])
+def test_deform_kernels_at_ragged_point_counts(dev, nl, ndp, vals):
+    """Every count of points a lane group takes, 1 to 8 (the kernels'
+    template argument; at 3 × 3, 4 × 5 and 4 × 7 the last group short):
+    K7 bit-equal to ``deform_sample_plain`` in each value mode, K8 (f32)
+    within K8_RTOL / K8_ATOL of the plain backward."""
+    from roadvision_tpu_torch.ops import deform as D
+    grad_out, *args, shapes = (t.to(dev) if torch.is_tensor(t) else t
+                               for t in _points_inputs(nl, ndp))
+    bf16 = vals == "f32 as bf16"
+    fwd = args[:3] + [args[3].to(torch.bfloat16) if vals == "bf16"
+                      else args[3]]
+    with torch.no_grad():
+        got = D.deform_sample(*fwd, shapes, bf16)
+        want = D.deform_sample_plain(*fwd, shapes, bf16)
+    torch.cuda.synchronize()
+    _assert_k7_bits(got, want)
+    if vals == "f32":
+        _assert_k8_close(D._sample_backward_cuda(grad_out, *args, shapes),
+                         D.deform_sample_backward_plain(grad_out, *args,
+                                                        shapes))
+
+
+def test_deform_backward_nan_gradient_at_zero_weight_corners(dev):
+    """A (batch, query, head) whose points sit on pixel centres (three
+    corners of each weigh exactly 0, some lie outside the map) and whose
+    output gradient holds a NaN: K8 adds 0 · NaN into those corners' rows
+    as the plain backward does (a vector atomic skipped on the weight
+    alone would not), non-finite values at the same places."""
+    from roadvision_tpu_torch.ops import deform as D
+    grad_out, off, logits, refer, values, _ = _points_inputs(3, 4, seed=23)
+    shapes = [(8, 8), (4, 4), (2, 2)]
+    values = torch.randn(2, sum(h * w for h, w in shapes), 8, 32,
+                         generator=torch.Generator().manual_seed(24))
+    b, q, h, c = 1, 2, 3, 5
+    refer[b, q] = torch.tensor([0.5, 0.5, 1.0, 1.0])
+    weighed, start = set(), 0           # the rows of the corners (0, 0)
+    for lvl, (hl, wl) in enumerate(shapes):
+        k = [torch.arange(4) % n for n in (wl, hl)]
+        k[0][0], k[1][0] = wl - 1, hl - 1
+        for ax, n in ((0, wl), (1, hl)):
+            # loc = 0.5 + off / 8 = (k + 0.5) / n: x = loc · n - 0.5 = k
+            off[b, q, h, lvl, :, ax] = ((k[ax] + 0.5) / n - 0.5) * 8.0
+        weighed |= {start + int(y) * wl + int(x) for x, y in zip(*k)}
+        start += hl * wl
+    grad_out[b, q, h, c] = float("nan")
+    args = [t.to(dev) for t in (grad_out, off, logits, refer, values)]
+    got = D._sample_backward_cuda(*args, shapes)
+    want = D.deform_sample_backward_plain(*args, shapes)
+    torch.cuda.synchronize()
+    _assert_k8_close(got, want)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    # NaN in more rows than the weighed corners read
+    assert int(torch.isnan(want[3][b, :, h, c]).sum()) > len(weighed)
+
+
+def test_deform_kernels_replayed_in_a_graph_equal_eager(dev):
+    """K7 (f32 as bf16, the serving mode) and K8 captured in one CUDA
+    graph and replayed: K7's output bit for bit the eager call's, K8's
+    gradients within K8_RTOL / K8_ATOL of the eager call's (atomics)."""
+    from roadvision_tpu_torch.ops import deform as D
+    shapes = [(80, 80), (40, 40), (20, 20)]
+    args = [t.to(dev) for t in _k7_inputs(100, shapes, seed=11, b=4)]
+    grad_out = torch.randn(4, 100, 8, 32, generator=torch.Generator()
+                           .manual_seed(12)).to(dev)
+
+    def step():
+        with torch.no_grad():
+            return (D.deform_sample(*args, shapes, True),
+                    D._sample_backward_cuda(grad_out, *args, shapes))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out7, out8 = step()
+    eager7, eager8 = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_k7_bits(out7, eager7)
+    _assert_k8_close(out8, eager8)
+
+
 def _rtdetr_engine_cfg(batch=4):
     from roadvision_tpu_torch.config import merge
     return merge(_engine_cfg(batch), {"detect": {

@@ -12,12 +12,16 @@ the CPU in float32.
   NaN outputs, every other value within rtol 1e-5, atol 1e-6.
 * A torch model of K7's arithmetic order, per (batch, query, head): the
   softmax's butterfly maximum and sum over 16 lanes, the location as
-  ``ctr + off · (1/NDP) · wh · 0.5``, the corner sum from 0 in corner
-  order, the attention-weighted point sum, the level sum, each product
-  and sum rounded on its own; held to the plain version at the same
-  tolerance on the same cases, so that the kernel's order is checked
-  before it runs on a card (where the smoke holds K7 to the plain
-  version).
+  ``ctr + off · (1/NDP) · wh · 0.5``, the lane groups' points j ≡ g
+  (mod 4), each point's corner sum from 0 in corner order times its
+  weight into a [point][channel] tile, the tile summed per level over
+  the points (in torch's reduction order on the card) and over the
+  levels, each product and sum rounded on its own; bit-equal to the
+  plain version given the CPU's softmax, division by NDP and point sum,
+  and within the same tolerance with the kernel's, on the same cases and on
+  (NL, NDP) = (3, 3), (4, 5), whose last lane group is ragged, so that
+  the kernel's order is checked before it runs on a card (where the
+  smoke holds K7 to the plain version bit for bit).
 * The wrapper's refusals; the decoder's ``sample`` argument and the
   training forward's sampling through the wrapper (the plain version
   under autograd on the CPU; K7 and K8 on a card,
@@ -155,65 +159,159 @@ def _butterfly(x: torch.Tensor, op, width: int) -> torch.Tensor:
     return x
 
 
-def k7_model(off, logits, refer, values, shapes, bf16_vals=False):
-    """K7's arithmetic, one step at a time in its order (csrc/deform.cu),
-    over every (batch, query, head) at once."""
-    b, nq, nh, nl, ndp, _ = off.shape
-    npts = nl * ndp
+def warp_softmax(logits, npts: int):
+    """Lane j's softmax weight as the kernels compute it, torch's warp
+    softmax: logit j in lane j (the lanes past NL·NDP -inf), a butterfly
+    maximum and sum over the next power of two of lanes, exp(x - max) /
+    sum. (B, NQ, NH, P) → (B, NQ, NH, P)."""
     width = 1
     while width < npts:
         width *= 2
-    lanes = torch.full((b, nq, nh, width), -float("inf"))
+    lanes = torch.full(logits.shape[:-1] + (width,), -float("inf"))
     lanes[..., :npts] = logits
     mx = _butterfly(lanes, lambda a, p: torch.where(a < p, p, a), width)
     e = torch.exp(lanes - mx)
     s = _butterfly(torch.zeros(()) + e, torch.add, width)
     attw = torch.where(s == 0, torch.full_like(s, float("nan")), e / s)
-    attw = attw[..., :npts].reshape(b, nq, nh, nl, ndp)
+    return attw[..., :npts]
+
+
+def lane_points(off, refer, shapes, cpu_ops: bool = False):
+    """Lane j's point j as the kernels compute it (``locate`` in
+    csrc/deform.cu): the fractions fx, fy (B, NQ, NH, P), the corners'
+    in-map masks (…, P, 4) as 1.0 / 0.0, their rows of the batch's values
+    (…, P, 4: the level's first row plus the clamped row in it; a NaN
+    location reads the level's row 0) and each point's level width and
+    height (P,). The offsets are scaled by 1/NDP as a product, as torch
+    divides by a scalar on the card; ``cpu_ops`` divides, as it does on
+    the CPU."""
+    b, nq, nh, nl, ndp, _ = off.shape
+    npts = nl * ndp
     inv = torch.tensor(1.0, dtype=torch.float32) / float(ndp)
-    r = refer[:, :, None, None, None, :]
-    lx = r[..., 0] + off[..., 0] * inv * r[..., 2] * 0.5
-    ly = r[..., 1] + off[..., 1] * inv * r[..., 3] * 0.5
+    o = off.reshape(b, nq, nh, npts, 2)
+    r = refer[:, :, None, None, :]
+    lvl = [j // ndp for j in range(npts)]
+    starts = np.cumsum([0] + [h * w for h, w in shapes])
+    wl = torch.tensor([float(shapes[v][1]) for v in lvl])
+    hl = torch.tensor([float(shapes[v][0]) for v in lvl])
+    start = torch.tensor([int(starts[v]) for v in lvl])
+    o = o / ndp if cpu_ops else o * inv
+    lx = r[..., 0] + o[..., 0] * r[..., 2] * 0.5
+    ly = r[..., 1] + o[..., 1] * r[..., 3] * 0.5
+    sx, sy = lx * wl - 0.5, ly * hl - 0.5
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    masks, rows = [], []
+    for k in range(4):
+        xi, yi = x0 + (k & 1), y0 + (k >> 1)
+        masks.append(((xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)).float())
+        row = torch.minimum(yi.clamp(min=0), hl - 1) * wl \
+            + torch.minimum(xi.clamp(min=0), wl - 1)
+        nan = torch.isnan(xi) | torch.isnan(yi)
+        rows.append(start + torch.where(nan, torch.zeros_like(row),
+                                        row).long())
+    return (sx - x0, sy - y0, torch.stack(masks, -1), torch.stack(rows, -1),
+            wl, hl)
+
+
+def corner_weights(fx, fy, masks):
+    """The corners (0,0), (1,0), (0,1), (1,1)'s masked weights (…, 4),
+    recomputed from the fractions and masks a lane group receives."""
+    gx, gy = 1.0 - fx, 1.0 - fy
+    return torch.stack((gx * gy, fx * gy, gx * fy, fx * fy), -1) * masks
+
+
+def k7_model(off, logits, refer, values, shapes, bf16_vals=False,
+             cpu_ops: bool = False):
+    """K7's arithmetic in its order (csrc/deform.cu), over every (batch,
+    query, head) at once: lanes 0 … P-1 compute the points' weights
+    (``warp_softmax``) and geometry (``cpu_ops``: torch's CPU softmax and
+    division by NDP, the plain version's ops on the CPU, where the
+    card's torch runs the kernel's); lane group g (lanes
+    8g … 8g+7, 4 channels a lane; the channel axis here whole) takes the
+    points j ≡ g (mod 4) and writes each one's corner sum, from 0 in
+    corner order, times its weight into the [point][channel] tile; lane =
+    channel then sums the tile per level over the points as torch's
+    reduction kernel does on the card (four accumulators from 0, point p
+    into p % 4, then ((a0 + a1) + a2) + a3; ``cpu_ops``: the points in
+    order, as the CPU sums them), and over the levels from 0."""
+    b, nq, nh, nl, ndp, _ = off.shape
+    npts = nl * ndp
+    ppl = -(-npts // 4)
+    attw = logits.softmax(dim=-1) if cpu_ops \
+        else warp_softmax(logits, npts)
+    fx, fy, masks, rows, _, _ = lane_points(off, refer, shapes, cpu_ops)
+    w = corner_weights(fx, fy, masks)
     if bf16_vals:
         values = values.to(torch.bfloat16)
     values = values.float()
-    out = torch.zeros((b, nq, nh, values.shape[-1]))
-    start = 0
+    dh = values.shape[-1]
     bi = torch.arange(b)[:, None, None]
     hi = torch.arange(nh)[None, None, :]
-    for lvl, (hl, wl) in enumerate(shapes):
-        sx = lx[:, :, :, lvl] * wl - 0.5
-        sy = ly[:, :, :, lvl] * hl - 0.5
-        x0, y0 = torch.floor(sx), torch.floor(sy)
-        fx, fy = sx - x0, sy - y0
-        gx, gy = 1.0 - fx, 1.0 - fy
-        wts = (gx * gy, fx * gy, gx * fy, fx * fy)
-        lsum = torch.zeros_like(out)
-        for pt in range(ndp):
-            acc = torch.zeros_like(out)
+    tile = torch.zeros((b, nq, nh, 4 * ppl, dh))
+    for grp in range(4):
+        for t in range(ppl):
+            j = grp + 4 * t
+            if j >= npts:
+                continue
+            acc = torch.zeros((b, nq, nh, dh))
             for k in range(4):
-                xi = x0[..., pt] + (k & 1)
-                yi = y0[..., pt] + (k >> 1)
-                inb = (xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)
-                w = wts[k][..., pt] * inb.float()
-                nan = torch.isnan(xi) | torch.isnan(yi)
-                row = (yi.clamp(0, hl - 1) * wl + xi.clamp(0, wl - 1))
-                row = torch.where(nan, torch.zeros_like(row), row).long()
-                g = values[bi, start + row, hi]          # (B, NQ, NH, dh)
-                acc = acc + g * w[..., None]
-            lsum = lsum + acc * attw[:, :, :, lvl, pt, None]
+                acc = acc + values[bi, rows[..., j, k], hi] \
+                    * w[..., j, k, None]
+            tile[..., j, :] = acc * attw[..., j, None]
+    out = torch.zeros((b, nq, nh, dh))
+    for lvl in range(nl):
+        pts = [tile[..., lvl * ndp + p, :] for p in range(ndp)]
+        if cpu_ops:                   # the CPU's sum: the points in order
+            lsum = torch.zeros_like(out)
+            for x in pts:
+                lsum = lsum + x
+        else:                         # torch's reduction kernel on the card
+            acc = [torch.zeros_like(out) for _ in range(4)]
+            for p, x in enumerate(pts):
+                acc[p % 4] = acc[p % 4] + x
+            lsum = ((acc[0] + acc[1]) + acc[2]) + acc[3]
         out = out + lsum
-        start += hl * wl
     return out
 
 
-@pytest.mark.parametrize("case", CASES)
+# (NL, NDP) with NL·NDP not a multiple of 4: the last lane group ragged
+POINT_CASES = {"3x3": (3, 3), "4x5": (4, 5)}
+
+
+def points_case(nl: int, ndp: int, seed: int = 4):
+    """(off, logits, refer, values, shapes) f32 for NL levels of NDP
+    points a head, from a numpy seed: square and non-square levels, some
+    points outside the map."""
+    rng = np.random.RandomState(seed)
+    shapes = [(8, 8), (4, 6), (3, 3), (2, 5)][:nl]
+    rows = sum(h * w for h, w in shapes)
+    arrays = (rng.uniform(-6, 6, (2, NQ, T.NH, nl, ndp, 2)),
+              rng.randn(2, NQ, T.NH, nl * ndp),
+              rng.uniform(0.1, 0.9, (2, NQ, 4)),
+              rng.randn(2, rows, T.NH, T.HD // T.NH))
+    return [torch.from_numpy(a.astype(np.float32)) for a in arrays] \
+        + [shapes]
+
+
+def _bits_equal(got, want):
+    """Equal values, NaN at the same places."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("case", CASES + tuple(POINT_CASES))
 @pytest.mark.parametrize("bf16_vals", [False, True])
 def test_k7_order_matches_the_plain_version(case, bf16_vals):
-    args = _sampling_inputs(case)
-    want = D.deform_sample_plain(*args, bf16_vals=bf16_vals).numpy()
+    """With the CPU's softmax, division and point sum (not the card's
+    warp softmax, product with 1/NDP and four-accumulator sum) the model
+    is bit-equal to the plain version; with the kernel's it is within
+    RTOL / ATOL of it."""
+    args = points_case(*POINT_CASES[case]) if case in POINT_CASES \
+        else _sampling_inputs(case)
+    want = D.deform_sample_plain(*args, bf16_vals=bf16_vals)
+    _bits_equal(k7_model(*args, bf16_vals=bf16_vals, cpu_ops=True), want)
     got = k7_model(*args, bf16_vals=bf16_vals).numpy()
-    nan = _assert_close(got, want)
+    nan = _assert_close(got, want.numpy())
     assert nan.any() == (case == "nan")
 
 

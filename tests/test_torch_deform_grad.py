@@ -8,13 +8,17 @@ version, the autograd function around K7 and K8) on the CPU in float32.
   that autograd), within RTOL / ATOL · scale of the paired one.
 * A torch model of K8's arithmetic (``csrc/deform.cu``), per (batch,
   query, head) and point by point in the kernel's order: K7's softmax,
-  the recomputed corner weights, masks and rows, the per-lane products
-  and their butterfly sums S, Dx, Dy, the softmax backward, the offset
-  and box chain, the value rows' sums. Held to the plain backward on the
-  same cases at RTOL / ATOL · scale, with non-finite values in the same
-  gradient tensors; the only check of K8's derivation that runs without
-  a card (where the smoke and the card tests hold K8 to the plain
-  backward).
+  the recomputed corner weights, masks and rows, the lane groups'
+  points, each corner row's dot product with the output gradient over a
+  lane's 4 channels and then its group of 8 lanes, S, Dx, Dy formed from
+  them, the softmax backward, the offset and box chain, the value rows'
+  sums (a lane's four products skipped only where all are 0). Held to
+  the plain backward on the same cases, on (NL, NDP) = (3, 3), (4, 5)
+  (a ragged last lane group) and on a NaN output gradient whose zero-
+  weight corners must still carry the NaN into the value gradient, at
+  RTOL / ATOL · scale, with non-finite values at the same places; the
+  only check of K8's derivation that runs without a card (where the
+  smoke and the card tests hold K8 to the plain backward).
 * ``deform_attn`` with gradients, through the plain version's autograd
   and through ``DeformSample`` with the K8 model in the kernels' place,
   against ``jax.vjp`` of ``roadvision_tpu/models/rtdetr.py::_deform_attn``
@@ -40,7 +44,9 @@ import jax
 from roadvision_tpu.models import rtdetr as J
 from roadvision_tpu_torch.models import rtdetr as T
 from roadvision_tpu_torch.ops import deform as D
-from tests.test_torch_deform import _butterfly, _lins
+from tests.test_torch_deform import (POINT_CASES, _butterfly, _lins,
+                                     corner_weights, lane_points,
+                                     points_case, warp_softmax)
 
 RTOL, ATOL = 1e-5, 5e-6
 SQUARE = [(10, 10), (5, 5), (3, 3)]
@@ -78,6 +84,50 @@ def _grad_case(name: str, seed: int = 11):
         + [shapes]
 
 
+# the point of a (batch, query, head) at pixel centres, with a NaN in its
+# output gradient: NAN_GO = (batch, query, head, channel)
+DYADIC = [(8, 8), (4, 4), (2, 2)]
+NAN_GO = (1, 2, 3, 5)
+
+
+def _nan_grad_case(seed: int = 12):
+    """(grad_out, off, logits, refer, values, shapes): random, except
+    that NAN_GO's (batch, query, head) puts every point on a pixel centre
+    (fx = fy = 0 exactly: the corners (1,0), (0,1), (1,1) weigh 0, and a
+    point in the last column or row has corners outside the map) and its
+    output gradient holds a NaN in one channel. The plain backward adds
+    0 · NaN into those corners' rows."""
+    *args, _ = _grad_case("random", seed)
+    grad_out, off, logits, refer, values = args
+    rng = np.random.RandomState(seed)
+    b, q, h, c = NAN_GO
+    refer[b, q] = torch.tensor([0.5, 0.5, 1.0, 1.0])
+    for lvl, (hl, wl) in enumerate(DYADIC):
+        for ax, n in ((0, wl), (1, hl)):
+            k = rng.randint(0, n, T.NDP)
+            k[0] = n - 1
+            # loc = 0.5 + off / 8 = (k + 0.5) / n: x = loc · n - 0.5 = k
+            off[b, q, h, lvl, :, ax] = torch.from_numpy(
+                (((k + 0.5) / n - 0.5) * 8.0).astype(np.float32))
+    grad_out[b, q, h, c] = float("nan")
+    rows = sum(hh * ww for hh, ww in DYADIC)
+    values = torch.from_numpy(rng.randn(2, rows, T.NH, T.HD // T.NH)
+                              .astype(np.float32))
+    return [grad_out, off, logits, refer, values, DYADIC]
+
+
+def _case_args(case: str):
+    """A case's (grad_out, off, logits, refer, values, shapes)."""
+    if case == "nan_grad":
+        return _nan_grad_case()
+    if case in POINT_CASES:
+        args = points_case(*POINT_CASES[case])
+        b, nq, nh = args[0].shape[:3]
+        go = np.random.RandomState(13).randn(b, nq, nh, T.HD // T.NH)
+        return [torch.from_numpy(go.astype(np.float32))] + args
+    return _grad_case(case)
+
+
 def _autograd(grad_out, off, logits, refer, values, shapes, paired=False):
     ins = [t.clone().requires_grad_(True)
            for t in (off, logits, refer, values)]
@@ -100,99 +150,88 @@ def _close(got, want, what):
 
 
 def k8_model(grad_out, off, logits, refer, values, shapes):
-    """K8's arithmetic (csrc/deform.cu), one step at a time in its order,
-    over every (batch, query, head) at once: the lanes are the last axis
-    (32 channels), ``_butterfly`` the warp's xor sums."""
+    """K8's arithmetic (csrc/deform.cu) in its order, over every (batch,
+    query, head) at once: K7's lane points, then lane group g (lanes 8g …
+    8g+7, 4 channels a lane) takes the points j ≡ g (mod 4); per corner
+    each lane forms the row's dot product with the output gradient over
+    its 4 channels (((c0 + c1) + c2) + c3), the group sums it by xor
+    shuffles over its 8 lanes, and lane j forms point j's S, Dx and Dy
+    from the four sums; the value rows take a lane's four products
+    unless all are exactly 0; the softmax backward and the box sums are
+    butterflies over the next power of two of lanes past NL·NDP."""
     b, nq, nh, nl, ndp, _ = off.shape
     npts = nl * ndp
+    ppl = -(-npts // 4)
     width = 1
     while width < npts:
         width *= 2
-    lanes = torch.full((b, nq, nh, width), -float("inf"))
-    lanes[..., :npts] = logits
-    mx = _butterfly(lanes, lambda a, p: torch.where(a < p, p, a), width)
-    e = torch.exp(lanes - mx)
-    s = _butterfly(torch.zeros(()) + e, torch.add, width)
-    attw = torch.where(s == 0, torch.full_like(s, float("nan")), e / s)
-    attw = attw[..., :npts]                                 # (B, NQ, NH, P)
+    attw = warp_softmax(logits, npts)                       # (B, NQ, NH, P)
+    fx, fy, masks, rows, wl, hl = lane_points(off, refer, shapes)
+    w = corner_weights(fx, fy, masks)
 
-    def warp_sum(x):                      # over the 32 channel lanes
-        return _butterfly(x, torch.add, 32)[..., 0]
+    def group_sum(x):                 # (…, 32) channels → a lane group's
+        lanes = x.reshape(x.shape[:-1] + (8, 4))
+        lanes = ((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2]) \
+            + lanes[..., 3]
+        return _butterfly(lanes, torch.add, 8)[..., 0]
 
-    inv = torch.tensor(1.0, dtype=torch.float32) / float(ndp)
-    r = refer[:, :, None, None, None, :]
-    ox, oy = off[..., 0], off[..., 1]
-    lx = r[..., 0] + ox * inv * r[..., 2] * 0.5
-    ly = r[..., 1] + oy * inv * r[..., 3] * 0.5
+    def lanes_sum(x):                 # (…, P) → over `width` lanes
+        lanes = torch.zeros(x.shape[:-1] + (width,))
+        lanes[..., :npts] = x
+        return _butterfly(lanes, torch.add, width)[..., 0]
+
     g_values = torch.zeros_like(values)
     sums = torch.zeros((3, b, nq, nh, npts))               # S, Dx, Dy
-    sides = torch.zeros((2, b, nq, nh, npts))        # Wl, Hl
     bi = torch.arange(b)[:, None, None]
     hi = torch.arange(nh)[None, None, :]
-    start = 0
-    for lvl, (hl, wl) in enumerate(shapes):
-        sx = lx[:, :, :, lvl] * wl - 0.5
-        sy = ly[:, :, :, lvl] * hl - 0.5
-        x0, y0 = torch.floor(sx), torch.floor(sy)
-        fx, fy = sx - x0, sy - y0
-        gx, gy = 1.0 - fx, 1.0 - fy
-        wts = (gx * gy, fx * gy, gx * fy, fx * fy)
-        for pt in range(ndp):
-            j = lvl * ndp + pt
-            a = attw[..., j]
-            ag = grad_out * a[..., None]
-            vg, wk, mk = [], [], []
+    for grp in range(4):
+        for t in range(ppl):
+            j = grp + 4 * t
+            if j >= npts:
+                continue
+            wk = [w[..., j, k, None] for k in range(4)]
+            # per corner the dot product with the output gradient, over a
+            # lane's 4 channels and then its group of 8 lanes
+            d = [group_sum(values[bi, rows[..., j, k], hi] * grad_out)
+                 for k in range(4)]
+            # lane j's S, Dx, Dy with its corner weights
+            mk = [masks[..., j, k] for k in range(4)]
+            pfx, pfy = fx[..., j], fy[..., j]
+            pgx, pgy = 1.0 - pfx, 1.0 - pfy
+            s_l = torch.zeros_like(d[0])
             for k in range(4):
-                xi = x0[..., pt] + (k & 1)
-                yi = y0[..., pt] + (k >> 1)
-                inb = ((xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)).float()
-                w = wts[k][..., pt] * inb
-                nan = torch.isnan(xi) | torch.isnan(yi)
-                row = (yi.clamp(0, hl - 1) * wl + xi.clamp(0, wl - 1))
-                row = start + torch.where(nan, torch.zeros_like(row),
-                                          row).long()
-                vg.append(values[bi, row, hi] * grad_out)
-                c = ag * w[..., None]
-                keep = c != 0                       # NaN products are added
+                s_l = s_l + w[..., j, k] * d[k]
+            sums[0, ..., j] = s_l
+            sums[1, ..., j] = (mk[0] * -pgy) * d[0] + (mk[1] * pgy) * d[1] \
+                + (mk[2] * -pfy) * d[2] + (mk[3] * pfy) * d[3]
+            sums[2, ..., j] = (mk[0] * -pgx) * d[0] + (mk[1] * -pfx) * d[1] \
+                + (mk[2] * pgx) * d[2] + (mk[3] * pfx) * d[3]
+            ag = grad_out * attw[..., j, None]
+            for k in range(4):
+                c = ag * wk[k]
+                # a lane's vector atomic, skipped only where its four
+                # products are all exactly 0 (a NaN product is added)
+                keep = (c != 0).reshape(b, nq, nh, 8, 4).any(-1) \
+                    .repeat_interleave(4, -1)
+                row = rows[..., j, k]
                 idx = (bi.expand_as(row)[..., None].expand_as(c)[keep],
                        row[..., None].expand_as(c)[keep],
                        hi.expand_as(row)[..., None].expand_as(c)[keep],
                        torch.arange(32).expand_as(c)[keep])
                 g_values.index_put_(idx, c[keep], accumulate=True)
-                wk.append(w[..., None])
-                mk.append(inb[..., None])
-            s_l = torch.zeros_like(grad_out)
-            for k in range(4):
-                s_l = s_l + wk[k] * vg[k]
-            pfx, pfy = fx[..., pt, None], fy[..., pt, None]
-            pgx, pgy = 1.0 - pfx, 1.0 - pfy
-            dx = (mk[0] * -pgy) * vg[0] + (mk[1] * pgy) * vg[1] \
-                + (mk[2] * -pfy) * vg[2] + (mk[3] * pfy) * vg[3]
-            dy = (mk[0] * -pgx) * vg[0] + (mk[1] * -pfx) * vg[1] \
-                + (mk[2] * pgx) * vg[2] + (mk[3] * pfx) * vg[3]
-            for i, v in enumerate((s_l, dx, dy)):
-                sums[i, ..., j] = warp_sum(v)
-            sides[0, ..., j] = float(wl)
-            sides[1, ..., j] = float(hl)
-        start += hl * wl
     s_p, dx_p, dy_p = sums
-    lanes32 = torch.zeros((b, nq, nh, 32))
-    lanes32[..., :npts] = attw * s_p
-    as_ = warp_sum(lanes32)
-    g_logits = attw * (s_p - as_[..., None])
-    glx = (attw * dx_p) * sides[0]
-    gly = (attw * dy_p) * sides[1]
+    g_logits = attw * (s_p - lanes_sum(attw * s_p)[..., None])
+    inv = torch.tensor(1.0, dtype=torch.float32) / float(ndp)
+    glx = (attw * dx_p) * wl
+    gly = (attw * dy_p) * hl
     tx, ty = glx * 0.5, gly * 0.5
     rr = refer[:, :, None, None, :]                        # (B, NQ, 1, 1, 4)
-    oxp = ox.reshape(b, nq, nh, npts)
-    oyp = oy.reshape(b, nq, nh, npts)
+    oxp = off[..., 0].reshape(b, nq, nh, npts)
+    oyp = off[..., 1].reshape(b, nq, nh, npts)
     g_off = torch.stack([(tx * rr[..., 2]) * inv, (ty * rr[..., 3]) * inv],
                         dim=-1).reshape(off.shape)
-    parts = []
-    for v in (glx, gly, tx * (oxp * inv), ty * (oyp * inv)):
-        lane = torch.zeros((b, nq, nh, 32))
-        lane[..., :npts] = v
-        parts.append(warp_sum(lane))                       # (B, NQ, NH)
+    parts = [lanes_sum(v) for v in (glx, gly, tx * (oxp * inv),
+                                    ty * (oyp * inv))]     # (B, NQ, NH)
     g_refer = torch.zeros_like(refer)
     for h in range(nh):                        # the heads' atomics
         g_refer = g_refer + torch.stack([p[:, :, h] for p in parts], -1)
@@ -218,9 +257,9 @@ def test_backward_plain_is_autograd_of_the_plain_version(case):
     assert any(x.any() for x in bad) == (case == "nan")
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + tuple(POINT_CASES) + ("nan_grad",))
 def test_k8_model_matches_the_plain_backward(case):
-    *args, shapes = _grad_case(case)
+    *args, shapes = _case_args(case)
     want = D.deform_sample_backward_plain(*args, shapes)
     got = k8_model(*args, shapes)
     for g, w, n in zip(got, want, NAMES):
@@ -230,7 +269,18 @@ def test_k8_model_matches_the_plain_backward(case):
         # logits, its query's y and size gradients and level 1's row 0
         # of its head
         assert np.array_equal(np.isnan(g.numpy()), bad), n
-        assert bad.any() == (case == "nan"), n
+        assert bad.any() == (case in ("nan", "nan_grad")), n
+    if case == "nan_grad":
+        # the value gradient is NaN in the NaN channel of every corner
+        # row the (batch, query, head) reads, those its zero-weight
+        # corners read among them: a skip on the weight alone misses them
+        b, q, h, c = NAN_GO
+        fx, fy, masks, rows, _, _ = lane_points(args[1], args[3], shapes)
+        w = corner_weights(fx, fy, masks)
+        zero = rows[b, q, h][w[b, q, h] == 0]
+        assert zero.numel() and torch.isnan(got[3][b, zero, h, c]).all()
+        assert int(torch.isnan(got[3]).sum()) == int(
+            torch.unique(rows[b, q, h]).numel())
     if case == "nan":
         g_off, g_logits, g_refer, g_values = (t.numpy() for t in got)
         assert np.isnan(g_off[1, 3, 5, 1, 2, 1]) and np.isnan(g_off).sum() == 1
