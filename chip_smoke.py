@@ -90,14 +90,13 @@ Phases, in order; any failure exits non-zero:
      (``x_to_bbox``, ``iou_matrix``, ``trk2det_map``,
      ``iou_matrix_xyxy``) in an eager batch; stage
      ms eager and graph (each stage captured alone), frames/s eager and
-     graph (device-resident, in turns), the device's idle share by
-     torch.profiler, the fleet at 1080p x 8 a stream for S = 1, 2, 4, 8
+     graph (device-resident, in turns), the fleet at 1080p x 8 a stream for S = 1, 2, 4, 8
      eager and graph, and multi_stream.yaml's fleet replayed with no host
      read; ``[graph] rtdetr``: RT-DETR-L at 640 behind the chain at
      1080p x 8, an eager batch under ``set_sync_debug_mode("error")``,
      replayed batches against eager ones with exact launch counts (K7
-     six a batch), frames/s eager and replayed, idle share and launches
-     a batch, the forward eager by stage and replayed; ``[graph]
+     six a batch), frames/s eager and replayed, the forward eager by
+     stage and replayed; ``[graph]
      rtdetr_demo``: configs/rtdetr_demo.yaml as shipped replayed against
      eager (processed frames too; K3 twice a batch);
   5. drive the serving surface at 1080p x batch 8 with the default chain,
@@ -5108,35 +5107,6 @@ def same_arrays(a, b, what: str) -> dict:
     return {"box": box, "conf": cf, "n": int(valid.sum())}
 
 
-def idle_share(eng, step_fn, inputs, k0: int, n: int = 4) -> dict:
-    """torch.profiler over ``n`` device-resident batches: the card's busy
-    time (its kernels' device time) against the wall time of the same
-    batches unprofiled and profiled."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    resident_run(eng, step_fn, inputs, k0, 2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    resident_run(eng, step_fn, inputs, k0 + 2, n)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        resident_run(eng, step_fn, inputs, k0 + 2 + n, n)
-        torch.cuda.synchronize()
-    wall_prof = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    return {"batches": n, "wall_ms": wall, "profiled_wall_ms": wall_prof,
-            "device_busy_ms": busy,
-            "idle_share": 1.0 - busy / wall if busy else None,
-            "idle_share_profiled": 1.0 - busy / wall_prof if busy else None,
-            "kernel_launches": sum(e.count for e in kern)}
-
-
 def fleet_scaling(eng, card: str) -> dict:
     """The fleet step at 1080p x 8 a stream for S = 1, 2, 4, 8 streams,
     eager (the stacked step called) against its captured graph, frames
@@ -5237,7 +5207,7 @@ def graph_phase(model: str, card: str) -> dict:
     counts, exact, and no host read in the replayed ones; stage ms eager
     (``tools/bench.py::stage_ms``) against each stage captured alone
     (``graph_stage_ms``); frames/s eager against graph (device-resident,
-    in turns); the device's idle share by torch.profiler; then the fleet
+    in turns); then the fleet
     at S = 1, 2, 4, 8 and multi_stream.yaml's fleet."""
     import torch
     from roadvision_tpu_torch import kernels
@@ -5326,9 +5296,6 @@ def graph_phase(model: str, card: str) -> dict:
     ts_np = 2000.0 + np.arange(BATCH) / 30.0
     stages = {"eager": stage_ms(eng, frames_np, ts_np),
               "graph": graph_stage_ms(eng, frames_np, ts_np)}
-    idle = {m: idle_share(eng, f, inputs, k + 1 + i * 10)
-            for i, (m, f) in enumerate((("eager", eng.step),
-                                        ("graph", eng.step_batch)))}
     rendered.clear()
     med = {m: float(np.median(v)) for m, v in fps.items()}
     print(f"[graph] frames/s device-resident, 1080p x {BATCH} bf16: eager "
@@ -5338,14 +5305,7 @@ def graph_phase(model: str, card: str) -> dict:
     for m in ("eager", "graph"):
         print(f"[graph] stage ms {m}: "
               + json.dumps({s: round(v, 3) for s, v in stages[m].items()})
-              + f"; profiler over {idle[m]['batches']} batches: device busy "
-              f"{idle[m]['device_busy_ms']:.2f} ms of {idle[m]['wall_ms']:.2f}"
-              f" ms wall, idle share "
-              + ("not measured" if idle[m]["idle_share"] is None else
-                 f"{idle[m]['idle_share']:.3f} (profiled "
-                 f"{idle[m]['idle_share_profiled']:.3f})")
-              + f", {idle[m]['kernel_launches']} kernel launches ({card})",
-              flush=True)
+              + f" ({card})", flush=True)
     fleet = fleet_scaling(eng, card)
     del eng
     # multi_stream.yaml's fleet replays its graph too, with no host read
@@ -5371,7 +5331,7 @@ def graph_phase(model: str, card: str) -> dict:
                                    for k, v in counts["graph"].items()},
             "graph_vs_eager": worst, "host_syncs_per_batch": syncs,
             "fps": fps, "fps_median": med, "stage_ms": stages,
-            "idle": idle, "fleet_fps": fleet,
+            "fleet_fps": fleet,
             "multi_stream_syncs": multi_syncs, "torch_iou_calls": iou_calls}
 
 
@@ -5531,8 +5491,7 @@ def graph_trackers_phase(model: str, card: str) -> dict:
     geometry ms eager (``tools/bench.py::stage_ms``, GMC and the
     descriptors included) against captured (``graph_stage_ms``);
     device-resident frames/s eager and replayed, in turns, launches
-    exact in every window; the device's idle share by torch.profiler
-    over two batches; launches a batch. Every engine must replay
+    exact in every window; launches a batch. Every engine must replay
     (``step_mode == "graph"``). Then the fleet of TRACKER_FLEETS at S =
     1, 2, 4, 8 through ``MultiStreamEngine``
     (:func:`fleet_tracker_scaling`)."""
@@ -5593,11 +5552,9 @@ def graph_trackers_phase(model: str, card: str) -> dict:
         ts_np = 2000.0 + np.arange(BATCH) / 30.0
         stages = {"eager": stage_ms(eng, frames_np, ts_np),
                   "graph": graph_stage_ms(eng, frames_np, ts_np)}
-        idle = {m: idle_share(eng, f, inputs, k + 1 + i * 10, n=2)
-                for i, (m, f) in enumerate(modes.items())}
         med = {m: float(np.median(v)) for m, v in fps.items()}
         row = {"step_mode": eng.step_mode, "fps": fps, "fps_median": med,
-               "stage_ms": stages, "idle": idle,
+               "stage_ms": stages,
                "launches_per_batch": {
                    m: {c: v / TRK_FPS_BATCHES for c, v in cnt.items()}
                    for m, cnt in counts.items()}}
@@ -5608,11 +5565,6 @@ def graph_trackers_phase(model: str, card: str) -> dict:
               + "; frames/s device-resident, 1080p x 8 bf16, "
               + ", ".join(f"{m} {med[m]:.1f} {[round(v, 1) for v in fps[m]]}"
                           for m in fps)
-              + "; idle share "
-              + ", ".join(f"{m} " + ("not measured"
-                                     if r["idle_share"] is None else
-                                     f"{r['idle_share']:.3f}")
-                          for m, r in idle.items())
               + "; launches a batch "
               + json.dumps(row["launches_per_batch"]["graph"])
               + f" ({card}); {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6157,7 +6109,6 @@ def rtdetr_graph_phase(card: str) -> dict:
     boxes BOX_TOL, confidences CONF_TOL) with the same launch counts,
     exact (K1-K3 once a batch, K4 once a frame, K7 RTDETR_LAYERS, no
     K6); frames/s device-resident eager and replayed in turns; the
-    device's idle share and launches a batch by torch.profiler; the
     forward eager by stage and replayed, the decoder's launches.
     ``[graph] rtdetr_demo``: configs/rtdetr_demo.yaml as shipped (256² x
     8, the impulse-keyed gate, classes_keep, SORT, homography) on road
@@ -6258,22 +6209,14 @@ def rtdetr_graph_phase(card: str) -> dict:
         fps[mode].append(RT_FPS_BATCHES * BATCH
                          / (time.perf_counter() - t0))
         k += RT_FPS_BATCHES
-    idle = {m: idle_share(eng, f, inputs, k + 1 + i * 10)
-            for i, (m, f) in enumerate(modes)}
     rendered.clear()
     frames = render(k * BATCH + 50 * BATCH).cpu().numpy()
     fwd = rtdetr_forward_ms(eng, frames)
     med = {m: float(np.median(v)) for m, v in fps.items()}
     for m, _ in modes:
         print(f"[graph] rtdetr {m}: device-resident 1080p x {BATCH} "
-              f"frames/s {med[m]:.1f} {[round(v, 1) for v in fps[m]]}; "
-              f"profiler over {idle[m]['batches']} batches: device busy "
-              f"{idle[m]['device_busy_ms']:.2f} ms of {idle[m]['wall_ms']:.2f}"
-              f" ms wall, idle share "
-              + ("not measured" if idle[m]["idle_share"] is None else
-                 f"{idle[m]['idle_share']:.3f}")
-              + f", {idle[m]['kernel_launches'] / idle[m]['batches']:.0f} "
-              f"kernel launches a batch ({card})", flush=True)
+              f"frames/s {med[m]:.1f} {[round(v, 1) for v in fps[m]]} "
+              f"({card})", flush=True)
     print(f"[graph] rtdetr forward (8 x 640², bf16): eager "
           + json.dumps({s: round(v["median"], 3)
                         for s, v in fwd["eager"].items()})
@@ -6281,7 +6224,7 @@ def rtdetr_graph_phase(card: str) -> dict:
           f"{fwd['graph']['forward']:.3f} ms, decoder "
           f"{fwd['graph']['decoder']:.3f} ms; decoder launches a call "
           f"{fwd['decoder_launches']} ({card})", flush=True)
-    out.update(fps=fps, fps_median=med, idle=idle, forward=fwd,
+    out.update(fps=fps, fps_median=med, forward=fwd,
                demo=rtdetr_demo_graph(card))
     out["seconds"] = time.perf_counter() - t_phase
     del eng

@@ -41,11 +41,13 @@ EXTRA_FLAGS: Dict[str, List[str]] = {"clahe": ["--fmad=false"],
                                      "median": [],
                                      "assoc": ["--fmad=false"],
                                      "nms": ["--fmad=false"],
-                                     "deform": ["--fmad=false"]}
+                                     "deform": ["--fmad=false"],
+                                     "trace": []}
 
 # kernel name -> launches since the last reset; each wrapper adds one
 # where it launches its kernel, and nowhere else (a replayed CUDA graph
-# adds the launches captured in it: runtime/graph.py)
+# adds the launches captured in it: runtime/graph.py). The step's stage
+# marks (csrc/trace.cu) compute nothing and are not counted: four a step
 launch_counts: Dict[str, int] = {"clahe_tile_luts": 0, "clahe_apply": 0,
                                  "median_k": 0, "assoc_greedy": 0,
                                  "assoc_auction": 0, "nms_keep": 0,
@@ -70,6 +72,7 @@ SIGNATURES = {
     ("nms", "rvt_nms_keep_boxes"): [_P] * 4 + [_I] * 2 + [_F, _P],
     ("deform", "rvt_deform_sample"): [_P] * 5 + [_I] * 15 + [_P],
     ("deform", "rvt_deform_sample_backward"): [_P] * 9 + [_I] * 14 + [_P],
+    ("trace", "rvt_stage_mark"): [_P, _I, _P],
 }
 
 # entry points that return something else than a CUDA error code

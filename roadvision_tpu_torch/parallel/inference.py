@@ -61,7 +61,10 @@ def make_stream_step(engine, shape: Tuple[int, int, int]):
         previous batch and ``gvalid`` () their flag (0 before the first
         batch) → (outs, states', thumbnails (S, G, G)). outs are the
         engine step's 7 arrays (8 with a task head), each (S, B, ...).
-        Nothing it is given is written.
+        Nothing it is given is written; on the card it writes the
+        engine's ``stage_stamps``: the start, preprocess and the
+        detector's pass done (``engine.front``) and the end, after the
+        tracker tail with GMC and geometry.
       init_states(num_streams) → stacked SortState (None without a
         tracker).
     """
@@ -71,9 +74,11 @@ def make_stream_step(engine, shape: Tuple[int, int, int]):
     @torch.inference_mode()
     def step(states, frames, ts, gprev=None, gvalid=None):
         s = frames.shape[0]
+        engine.mark(0)
         _, dets = engine.front(_fold(frames), want_proc=False)
         if dets is None:
             outs = tuple(_unfold(a, s) for a in engine.empty_outs(s * b))
+            engine.mark(3)
             return outs, states
         *dets4, extra = dets
         dets4 = tuple(_unfold(a, s) for a in dets4)
@@ -84,6 +89,7 @@ def make_stream_step(engine, shape: Tuple[int, int, int]):
         outs = dets4 + tuple(tails)
         if extra is not None:
             outs = outs + (_unfold(extra, s),)
+        engine.mark(3)
         return (outs, states, grays) if gmc else (outs, states)
 
     return step, lambda num_streams: _init_states(engine, num_streams)

@@ -36,11 +36,20 @@ next batch's work; ``collect_batch`` copies them out before the buffers
 are used again.
 
 Around the step, as in the JAX engine: ``timer`` (a ``StageTimer`` with
-the stages ``decode``, ``upload``, ``device_step``, ``host_unpack``), a
+the stages ``decode``, ``upload``, ``dispatch`` and inside it ``stamps``,
+``replay``, ``download``, then ``device_step`` (the host's wait for the
+results, not device time) and ``host_unpack``; the spans of one batch
+carry its sequence number), a
 watchdog (``tpu.watchdog_s``: a diagnostic that sets ``watchdog_fired``
 when a warmed-up shape's step runs longer, never an abort),
 :meth:`PipelineEngine.save_state` / :meth:`PipelineEngine.load_state`
-and :meth:`PipelineEngine.lb_meta`.
+and :meth:`PipelineEngine.lb_meta`. On the card the step marks four
+boundaries with the card's own timer (``utils/profiler.py::stage_mark``:
+its start, preprocess done, the detector's pass done, its end) into
+``stage_stamps``, which ride the copy back with the results;
+``collect_batch`` records them as the device stages
+``device.preprocess``, ``device.detector``, ``device.tracker`` and
+``device.step`` of the timer.
 
 With ``tpu.sampled_preprocess`` and ``want_proc=False``, where the
 letterbox resize is an exact odd-stride slice on both axes (1080p → 640
@@ -110,6 +119,7 @@ from ..track.sort import (SortState, init_state, read_flag, scan_steps,
                           state_from_jax)
 from ..utils.device import DeviceLike, device_constant, resolve_device
 from ..utils.logging import get_logger
+from ..utils.profiler import STAGE_MARKS, device_stages, stage_mark
 from ..utils.timing import StageTimer
 from .graph import CapturedStep
 
@@ -320,6 +330,12 @@ class PipelineEngine:
             else self.sort_state
         self._t0: Optional[float] = None
         self.timer = StageTimer()
+        self._batches = 0
+        # the step's stage marks (a captured graph writes them on every
+        # replay; each batch's copy back takes them along)
+        self.stage_stamps = torch.zeros(
+            STAGE_MARKS, dtype=torch.int64, device=self.device) \
+            if self.device.type == "cuda" else None
 
         # device-step watchdog: a step that blocks far beyond the steady
         # rate usually means the card or its runtime stalled. Warn, never
@@ -505,17 +521,26 @@ class PipelineEngine:
                 torch.zeros((b, md), dtype=torch.int32, device=dev),
                 nan, nan.clone())
 
+    def mark(self, slot: int) -> None:
+        """Stage mark ``slot`` of the step into :attr:`stage_stamps` (none
+        on the CPU)."""
+        stage_mark(self.stage_stamps, slot)
+
     def front(self, frames_u8: torch.Tensor, want_proc: bool = True):
         """Preprocess and the detector's whole pass over (N, H, W, 3)
         uint8 frames → (proc, (boxes, conf, cls, valid, extra)); ``proc``
         is None on the sampled preprocess path, the detections None
-        without a detector."""
+        without a detector. Marks 1 and 2 fall after preprocess (the
+        sampled path's letterbox included) and after the detector's
+        pass."""
         n, h, w = frames_u8.shape[:3]
         plans = self.sampled_plans(h, w, want_proc)
         proc = None if plans is not None \
             else self.pipeline.apply_batch(frames_u8)
         det = self.detector
         if det is None:
+            self.mark(1)
+            self.mark(2)
             return proc, None
         lb = None
         if plans is not None:
@@ -523,9 +548,12 @@ class PipelineEngine:
                 self.pipeline.sampled_planes_fn(*plans)(frames_u8), dim=-1)
             lb = finish_letterbox(small, (h, w), size=det.imgsz,
                                   rect=det.rect)
+        self.mark(1)
         # the detector's whole pass: plain, TTA, tiled, or a task head
         # with its side output (masks, keypoints or rboxes) as ``extra``
-        return proc, det.run(frames_u8 if proc is None else proc, lb)
+        dets = det.run(frames_u8 if proc is None else proc, lb)
+        self.mark(2)
+        return proc, dets
 
     def build_raw_step(self, shape, want_proc: bool = True):
         """The pure device step for (B, H, W) batches — the JAX engine's
@@ -540,12 +568,15 @@ class PipelineEngine:
         (G, G) and its flag ``gmc_valid`` () (0: no previous batch), the
         step computes the camera shifts itself and returns the batch's
         last thumbnail after the state: → (proc, outs, sort_state',
-        last_gray), as JAX's does. Nothing it is given is written."""
+        last_gray), as JAX's does. Nothing it is given is written but
+        :attr:`stage_stamps` (its four marks, on the card)."""
         b = shape[0]
 
         def step(sort_state, frames_u8, ts, gmc_prev=None, gmc_valid=None):
+            self.mark(0)
             proc, dets = self.front(frames_u8, want_proc)
             if dets is None:
+                self.mark(3)
                 return proc, self.empty_outs(b), sort_state
             boxes, conf, cls_id, valid, extra = dets
             shifts = last = None
@@ -557,6 +588,7 @@ class PipelineEngine:
             outs = (boxes, conf, cls_id, valid, ids, dist, speed)
             if extra is not None:
                 outs = outs + (extra,)
+            self.mark(3)
             if last is not None:
                 return proc, outs, sort_state, last
             return proc, outs, sort_state
@@ -794,15 +826,48 @@ class PipelineEngine:
         returned for these frames, when a reader thread started the copy
         early. Timestamps are rebased to the stream start in float32, as
         the JAX engine does."""
-        if self._t0 is None:
-            self._t0 = float(timestamps[0])
-        ts_rel = (np.asarray(timestamps) - self._t0).astype(np.float32)
+        seq = self._batches
+        self._batches += 1
+        with self.timer.stage("dispatch", seq):
+            return self._dispatch(seq, frames, timestamps, want_proc,
+                                  device_frames)
+
+    def _dispatch(self, seq, frames, timestamps, want_proc, device_frames):
+        timer = self.timer
         self.pipeline.ensure_gate_calibrated(frames)
         up = device_frames if device_frames is not None \
             else self.upload(frames)
-        ts = torch.from_numpy(ts_rel).to(self.device, non_blocking=True)
+        with timer.stage("stamps", seq):
+            if self._t0 is None:
+                self._t0 = float(timestamps[0])
+            ts_rel = (np.asarray(timestamps) - self._t0).astype(np.float32)
+            ts = torch.from_numpy(ts_rel).to(self.device, non_blocking=True)
         if up.ready is not None:
             torch.cuda.current_stream(self.device).wait_event(up.ready)
+        with timer.stage("replay", seq):
+            proc, arrays, score, coasted = self._run_batch(
+                frames, up, ts, want_proc)
+        # the gate's score and the step's marks ride the copy back, read
+        # at collect time (the gated steps leave no marks)
+        stamps = self.stage_stamps if self._gate_cfg is None else None
+        out = [proc if want_proc else None, *arrays, stamps] \
+            + ([] if score is None else [score])
+        key, done = None, None
+        with timer.stage("download", seq):
+            if self.device.type == "cuda":
+                out, key, done = self.download(out)
+        if up.slot is not None:
+            # after the copy back too: with no preprocessing the
+            # processed frames are the slot's own buffer
+            up.slot.consumed, up.slot.uploaded = done, False
+        shape_key = (tuple(frames.shape[:3]), want_proc, coasted)
+        return (frames, timestamps, out, done, key, shape_key,
+                score is not None, seq)
+
+    def _run_batch(self, frames, up, ts, want_proc):
+        """The batch's step: the gate's coast or full step, or
+        :meth:`step_batch` → (proc, arrays, gate score or None,
+        coasted)."""
         gate = self._gate_cfg
         coasted = gate is not None \
             and self._gate_score is not None \
@@ -834,22 +899,13 @@ class PipelineEngine:
                 self._gate_dets = tuple(a[b - 1] for a in arrays[:4])
         else:
             proc, arrays = self.step_batch(up.frames, ts, want_proc)
-        # the gate's score rides the copy back, read at collect time
-        out = [proc if want_proc else None, *arrays] \
-            + ([] if score is None else [score])
-        key, done = None, None
-        if self.device.type == "cuda":
-            out, key, done = self.download(out)
-        if up.slot is not None:
-            # after the copy back too: with no preprocessing the
-            # processed frames are the slot's own buffer
-            up.slot.consumed, up.slot.uploaded = done, False
-        shape_key = (tuple(frames.shape[:3]), want_proc, coasted)
-        return frames, timestamps, out, done, key, shape_key, score is not None
+        return proc, arrays, score, coasted
 
     def collect_batch(self, inflight) -> List[FrameResult]:
-        """Wait for an in-flight batch and unpack its results."""
-        frames, timestamps, out, done, key, shape_key, has_score = inflight
+        """Wait for an in-flight batch and unpack its results; on the
+        card, record the step's device stages from its marks."""
+        frames, timestamps, out, done, key, shape_key, has_score, seq = \
+            inflight
         dog = None
         if self._watchdog_s > 0 and shape_key in self._warmed:
             def bark():
@@ -863,14 +919,14 @@ class PipelineEngine:
             dog.daemon = True
             dog.start()
         try:
-            with self.timer.stage("device_step"):
+            with self.timer.stage("device_step", seq):
                 if done is not None:
                     done.synchronize()
         finally:
             if dog is not None:
                 dog.cancel()
             self._warmed.add(shape_key)
-        with self.timer.stage("host_unpack"):
+        with self.timer.stage("host_unpack", seq):
             if done is not None:
                 # the pinned buffers go back to the free list: copy out
                 host = [None if t is None else t.numpy().copy() for t in out]
@@ -880,6 +936,7 @@ class PipelineEngine:
             if has_score:
                 # the score of THIS batch gates a later dispatch
                 self._gate_score = float(host.pop())
+            stamps = host.pop()
             proc, arrays = host[0], host[1:]
             b = frames.shape[0]
             if self.detector is not None:
@@ -890,10 +947,14 @@ class PipelineEngine:
             per_frame = unpack_detections(
                 arrays, names, b,
                 extra_field=getattr(self.detector, "extra_field", None))
-            return [FrameResult(frames[i],
-                                proc[i] if proc is not None else frames[i],
-                                per_frame[i], float(timestamps[i]))
-                    for i in range(b)]
+            results = [FrameResult(frames[i],
+                                   proc[i] if proc is not None else frames[i],
+                                   per_frame[i], float(timestamps[i]))
+                       for i in range(b)]
+        if stamps is not None:
+            for name, seconds in device_stages(stamps):
+                self.timer.add(name, seconds, seq)
+        return results
 
     def process_batch(self, frames: np.ndarray, timestamps: np.ndarray,
                       want_proc: bool = True,

@@ -41,6 +41,7 @@ from ..track.gmc import fresh_carry
 from ..track.sort import SortState
 from ..utils.device import DeviceLike, resolve_device, visible_devices
 from ..utils.logging import get_logger
+from ..utils.profiler import device_stages
 from .engine import FrameResult, PipelineEngine, unpack_detections
 
 log = get_logger("roadvision.multi")
@@ -187,6 +188,7 @@ class MultiStreamEngine:
         self.num_streams = num_streams
         self.batch_size = self.engine.batch_size
         self.timer = self.engine.timer
+        self._batches = 0
         self._t0: Optional[float] = None
 
     @property
@@ -235,29 +237,62 @@ class MultiStreamEngine:
         """Queue one fleet batch; ``device_frames`` is what :meth:`upload`
         returned for these frames, when a reader thread started the copy
         early. Stamps are rebased to ONE origin for the whole fleet, the
-        earliest stamp of the first batch."""
-        s, b, h, w = frames.shape[:4]
+        earliest stamp of the first batch. The timer's spans ``dispatch``
+        (the call), ``stamps``, ``replay`` and ``download`` inside it carry
+        the batch's sequence number."""
+        s = frames.shape[0]
         if s != self.num_streams:
             raise ValueError(f"expected {self.num_streams} streams, "
                              f"got {s}")
-        if self._t0 is None:
-            self._t0 = float(np.min(timestamps))
-        ts_rel = (np.asarray(timestamps) - self._t0).astype(np.float32)
-        if self.padded_streams != s:
-            pad = self.padded_streams - s
-            ts_rel = np.concatenate(
-                [ts_rel, np.broadcast_to(ts_rel[:1], (pad, b))])
+        seq = self._batches
+        self._batches += 1
+        with self.timer.stage("dispatch", seq):
+            return self._dispatch(seq, frames, timestamps, device_frames)
+
+    def _dispatch(self, seq, frames, timestamps, device_frames):
+        timer = self.timer
+        s, b, h, w = frames.shape[:4]
         ups = device_frames if device_frames is not None \
             else self.upload(frames)
-        ts_dev, fleet = [], []
-        for grp, up in zip(self.groups, ups):
-            ts_dev.append(torch.from_numpy(
+        with timer.stage("stamps", seq):
+            if self._t0 is None:
+                self._t0 = float(np.min(timestamps))
+            ts_rel = (np.asarray(timestamps) - self._t0).astype(np.float32)
+            if self.padded_streams != s:
+                pad = self.padded_streams - s
+                ts_rel = np.concatenate(
+                    [ts_rel, np.broadcast_to(ts_rel[:1], (pad, b))])
+            ts_dev = [torch.from_numpy(
                 np.ascontiguousarray(ts_rel[grp.lo:grp.hi])).to(
-                    grp.engine.device, non_blocking=True))
+                    grp.engine.device, non_blocking=True)
+                for grp in self.groups]
+        for grp, up in zip(self.groups, ups):
             if up.ready is not None:
                 torch.cuda.current_stream(grp.engine.device) \
                     .wait_event(up.ready)
+        with timer.stage("replay", seq):
+            fleet, coast = self._run_batch(ups, ts_dev, (b, h, w))
+        handles = []
+        with timer.stage("download", seq):
+            for grp, up, outs in zip(self.groups, ups, fleet):
+                # the step's marks ride the copy back (the gated fleet
+                # step leaves none)
+                outs = [*outs, None if self.fleet_gate
+                        else grp.engine.stage_stamps]
+                key = done = None
+                if grp.engine.device.type == "cuda":
+                    outs, key, done = grp.engine.download(outs)
+                if up.slot is not None:
+                    up.slot.consumed, up.slot.uploaded = done, False
+                handles.append((outs, key, done))
+        return frames, timestamps, handles, coast, seq
+
+    def _run_batch(self, ups, ts_dev, shape):
+        """Every group's fleet step on its frames and stamps → (outs a
+        group, the gate's coast decision or None)."""
+        fleet = []
         coast = None
+        b, h, w = shape
         if self.fleet_gate:
             for grp in self.groups:
                 step, init_carry = self._step_for(grp, (b, h, w))
@@ -285,36 +320,34 @@ class MultiStreamEngine:
                     (up.frames, t))
                 grp.store(new)
                 fleet.append(outs)
-        handles = []
-        for grp, up, outs in zip(self.groups, ups, fleet):
-            key = done = None
-            if grp.engine.device.type == "cuda":
-                outs, key, done = grp.engine.download(list(outs))
-            if up.slot is not None:
-                up.slot.consumed, up.slot.uploaded = done, False
-            handles.append((outs, key, done))
-        return frames, timestamps, handles, coast
+        return fleet, coast
 
     def collect_batch(self, inflight) -> List[List[FrameResult]]:
-        """Wait for an in-flight fleet batch and unpack its results."""
-        frames, timestamps, handles, coast = inflight
+        """Wait for an in-flight fleet batch and unpack its results; on
+        the card, record each group's device stages from its step's
+        marks."""
+        frames, timestamps, handles, coast, seq = inflight
         s, b = frames.shape[:2]
-        with self.timer.stage("device_step"):
-            per_group = []
+        with self.timer.stage("device_step", seq):
+            per_group, stamps = [], []
             for grp, (outs, key, done) in zip(self.groups, handles):
                 if done is None:
-                    per_group.append([t.numpy() for t in outs])
+                    per_group.append([t.numpy() for t in outs[:-1]])
                     continue
                 done.synchronize()
-                per_group.append([t.numpy().copy() for t in outs])
+                host = [None if t is None else t.numpy().copy()
+                        for t in outs]
                 grp.engine.recycle(key, outs)
+                per_group.append(host[:-1])
+                if host[-1] is not None:
+                    stamps.append(host[-1])
             arrays = [np.concatenate(a) for a in zip(*per_group)]
         if coast:
             self.gate_frames_coasted += s * b   # the fleet coasted
         names = self._names()
         extra = getattr(self.engine.detector, "extra_field", None)
         results: List[List[FrameResult]] = []
-        with self.timer.stage("host_unpack"):
+        with self.timer.stage("host_unpack", seq):
             for si in range(s):
                 per_frame = unpack_detections([a[si] for a in arrays], names,
                                               b, extra_field=extra)
@@ -322,6 +355,9 @@ class MultiStreamEngine:
                     FrameResult(frames[si, i], frames[si, i], per_frame[i],
                                 float(timestamps[si, i]))
                     for i in range(b)])
+        for group_stamps in stamps:
+            for name, seconds in device_stages(group_stamps):
+                self.timer.add(name, seconds, seq)
         return results
 
     # ------------------------------------------------------------------

@@ -22,8 +22,9 @@ the JAX bench reads them).
     ``DeviceSyntheticSource``; only results cross the bus;
 
 and ``stage_ms`` (one batch, each stage synchronised), ``timer_ms`` (the
-engine's ``StageTimer`` means over the stream windows: decode, upload,
-device_step, host_unpack), ``launches_per_batch`` of the hand-written
+engine's ``StageTimer`` medians over the stream windows: decode, upload,
+dispatch and its parts, device_step, host_unpack and, on the card, the
+device stages from the step's marks), ``launches_per_batch`` of the hand-written
 kernels, batch, iterations, dtype, ``step_mode`` (``"graph"``: every
 measurement above replays the engine's captured step; then
 ``graph_stage_ms`` too, each stage captured alone and timed by CUDA

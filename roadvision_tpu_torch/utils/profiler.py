@@ -10,6 +10,13 @@ the way the port's profiling tools do: after a warm-up, ``iters`` calls
 chained back to back between two CUDA events (the host clock with the
 CPU) behind a few milliseconds of queued fills, so that the card, not
 the host's enqueue, sets the pace where the card is the slower.
+
+:func:`stage_mark` writes the card's nanosecond timer into a slot of a
+(:data:`STAGE_MARKS`,) int64 tensor from inside the device step
+(``csrc/trace.cu``): the engine's step marks its start, the end of
+preprocess, the end of the detector's pass and its end, and
+:func:`device_stages` turns the four stamps into the stages' device
+seconds, which the engine records in its ``StageTimer``.
 """
 from __future__ import annotations
 
@@ -17,12 +24,49 @@ import os
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Callable, Iterator
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 annotate = torch.profiler.record_function  # with annotate("stage"): ...
+
+# the step's boundaries: start, preprocess done, detector done, end
+STAGE_MARKS = 4
+# the stages between consecutive marks, and the whole step
+DEVICE_STAGES = ("device.preprocess", "device.detector", "device.tracker")
+DEVICE_STEP = "device.step"
+
+
+def stage_mark(stamps: Optional[torch.Tensor], slot: int) -> None:
+    """Queue one mark on the current stream: the card's global timer, in
+    ns, into ``stamps[slot]`` once the work queued before it has run
+    (``rvt_stage_mark_kernel<slot>``). Nothing without a buffer (the
+    CPU). Safe inside a CUDA graph's capture: it reads nothing back."""
+    if stamps is None:
+        return
+    if not (stamps.is_cuda and stamps.dtype == torch.int64
+            and stamps.shape == (STAGE_MARKS,) and stamps.is_contiguous()):
+        raise ValueError(f"stage marks need a contiguous ({STAGE_MARKS},) "
+                         f"int64 CUDA tensor")
+    if not 0 <= slot < STAGE_MARKS:
+        raise ValueError(f"stage mark slot {slot} not in [0, {STAGE_MARKS})")
+    from ..kernels import _build
+    lib = _build.load("trace")
+    with torch.cuda.device(stamps.device):
+        code = lib.rvt_stage_mark(stamps.data_ptr(), slot,
+                                  _build.stream_ptr(stamps))
+    _build.check(code, "stage_mark")
+
+
+def device_stages(stamps: Sequence[int]) -> List[Tuple[str, float]]:
+    """Four stamps (ns, as :func:`stage_mark` wrote them) → [(stage,
+    seconds)] for :data:`DEVICE_STAGES` and :data:`DEVICE_STEP`; the
+    three stages add up to the step."""
+    ns = [int(v) for v in stamps]
+    out = [(name, (t1 - t0) * 1e-9)
+           for name, t0, t1 in zip(DEVICE_STAGES, ns, ns[1:])]
+    return out + [(DEVICE_STEP, (ns[-1] - ns[0]) * 1e-9)]
 
 
 @contextmanager
